@@ -1,0 +1,42 @@
+"""Shared fixtures for the yolosomi_tpu_torch parity tests: the JAX flagship
+at a small size with randomized variables, as nested dicts of numpy arrays
+for the port's weight bridge."""
+
+from __future__ import annotations
+
+import numpy as np
+
+import jax
+import jax.numpy as jnp
+
+from tests.test_torch_parity import _randomized_state_dict
+from yolosomi_tpu.models.yolo import build_model as jax_build_model
+from yolosomi_tpu.utils.config import find_config, load_model_cfg
+from yolosomi_tpu.utils.torch_convert import convert_state_dict
+from yolosomi_tpu.utils.torch_mirror import build_torch_mirror
+
+WIDTH, DEPTH, IMGSZ, NC = 0.25, 0.33, 64, 3
+
+
+def small_flagship_cfg() -> dict:
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    cfg["width_multiple"], cfg["depth_multiple"] = WIDTH, DEPTH
+    return cfg
+
+
+def jax_flagship(cfg: dict, nc: int = NC):
+    """(flax model, meta, variables as numpy dicts). Variables are randomized
+    as tests/test_onnx_export.py does (random torch-mirror state_dict with
+    non-trivial BN stats, carried over by convert_state_dict); the variable
+    tree's shapes come from eval_shape, so nothing is compiled here."""
+    model, meta = jax_build_model(cfg, nc=nc)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, IMGSZ, IMGSZ, 3)), train=False))
+    sd = _randomized_state_dict(build_torch_mirror(cfg, meta, imgsz=IMGSZ, decode=False))
+    variables = convert_state_dict(sd, shapes, strict=True)
+    return model, meta, jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
+
+
+def layer_variables(variables: dict, i: int) -> dict:
+    """The variables of flax submodule layers_<i>."""
+    key = f"layers_{i}"
+    return {c: variables[c][key] for c in ("params", "batch_stats") if key in variables.get(c, {})}

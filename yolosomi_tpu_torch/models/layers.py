@@ -1,0 +1,336 @@
+"""The flagship's blocks (counterparts of yolosomi_tpu/models/layers.py).
+
+Modules are NCHW and run in `torch.channels_last` memory format, so a
+tensor's memory is NHWC like the JAX package's arrays. Submodule names
+follow the reference checkpoints' state_dict keys, which the weight bridge
+(utils/weights.py) maps flax paths onto.
+
+Numerical conventions kept from the JAX package:
+- Conv's BatchNorm has eps 1e-3 (layers.py:39-40); the ODConv attention
+  trunk's BatchNorm has eps 1e-5 (layers.py:842). The momentum
+  conventions (flax 0.97 == torch 0.03, flax 0.9 == torch 0.1) matter only
+  for training.
+- SEAM's GELU is exact erf in float32 and the tanh form in bfloat16
+  (layers.py:631-632).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from yolosomi_tpu_torch.ops.odconv import per_sample_conv
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
+
+
+def autopad(k: int, p: Optional[int] = None) -> int:
+    return k // 2 if p is None else p
+
+
+class Conv(nn.Module):
+    """Conv2d (no bias) + BatchNorm(eps 1e-3) + SiLU."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1,
+                 act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.SiLU() if act else nn.Identity()
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+# ---------------------------------------------------------------------------
+# CBAM family
+# ---------------------------------------------------------------------------
+
+
+class ChannelAttentionModule(nn.Module):
+    """CBAM channel gate: shared MLP over avg- and max-pooled stats, sigmoid.
+    Returns the (B, C, 1, 1) gate."""
+
+    def __init__(self, c1: int, reduction: int = 16):
+        super().__init__()
+        mid = max(c1 // reduction, 1)
+        self.shared_MLP = nn.Sequential(nn.Linear(c1, mid), nn.ReLU(), nn.Linear(mid, c1))
+
+    def forward(self, x):
+        gate = torch.sigmoid(self.shared_MLP(x.mean((2, 3))) + self.shared_MLP(x.amax((2, 3))))
+        return gate[:, :, None, None]
+
+
+class SpatialAttentionModule(nn.Module):
+    """CBAM spatial gate: k x k conv over the [mean_c, max_c] maps, sigmoid.
+    Returns the (B, 1, H, W) gate."""
+
+    def __init__(self, kernel_size: int = 7):
+        super().__init__()
+        self.cv1 = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2)
+
+    def forward(self, x):
+        stats = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
+        return torch.sigmoid(self.cv1(stats))
+
+
+class CBAM(nn.Module):
+    """Channel gate then spatial gate."""
+
+    def __init__(self, c1: int, reduction: int = 16, kernel_size: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttentionModule(c1, reduction)
+        self.spatial_attention = SpatialAttentionModule(kernel_size)
+
+    def forward(self, x):
+        x = self.channel_attention(x) * x
+        return self.spatial_attention(x) * x
+
+
+class CBAMBottleneck(CBAM):
+    """Conv, CBAM on the mid features, Conv, optional residual."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 1.0, k=(3, 3), ratio: int = 8,
+                 kernel_size: int = 3):
+        c_ = int(c2 * e)
+        super().__init__(c_, ratio, kernel_size)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(super().forward(self.cv1(x)))
+        return x + y if self.add else y
+
+
+class C2fCBAM(nn.Module):
+    """C2f whose bottlenecks carry CBAM (ratio 16, 7x7 spatial gate)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5,
+                 kernel_size: int = 7):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            CBAMBottleneck(self.c, self.c, shortcut, e=1.0, ratio=16, kernel_size=kernel_size) for _ in range(n)
+        )
+
+    def forward(self, x):
+        ys = list(self.cv1(x).split(self.c, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+# ---------------------------------------------------------------------------
+# SEAM and the EMA-CBAM bottleneck
+# ---------------------------------------------------------------------------
+
+
+class _Residual(nn.Module):
+    """x + fn(x); the attribute name `fn` is the reference's key."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return x + self.fn(x)
+
+
+class SEAM(nn.Module):
+    """Spatially-enhanced attention: a depthwise-residual conv stack, global
+    pool, SE-style MLP, and an exp-of-sigmoid channel gate. `approx_gelu`
+    selects the tanh GELU, which the JAX package uses under bfloat16."""
+
+    def __init__(self, c1: int, n: int = 1, reduction: int = 16, approx_gelu: bool = False):
+        super().__init__()
+        c = c1
+        gelu = lambda: nn.GELU(approximate="tanh" if approx_gelu else "none")  # noqa: E731
+        bn = lambda: nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)  # noqa: E731
+        self.DCovN = nn.Sequential(
+            nn.Conv2d(c, c, 3, 1, 1, groups=c), gelu(), bn(),
+            *[
+                nn.Sequential(
+                    _Residual(nn.Sequential(nn.Conv2d(c, c, 3, 1, 1, groups=c), gelu(), bn())),
+                    nn.Conv2d(c, c, 1), gelu(), bn(),
+                )
+                for _ in range(n)
+            ],
+        )
+        mid = max(c // reduction, 1)
+        self.fc = nn.Sequential(nn.Linear(c, mid, bias=False), nn.ReLU(), nn.Linear(mid, c, bias=False))
+
+    def forward(self, x):
+        v = self.fc(self.DCovN(x).mean((2, 3)))
+        return x * torch.exp(torch.sigmoid(v))[:, :, None, None]
+
+
+class EMACBAMBottleneck(nn.Module):
+    """Two plain convs, a CBAM-style channel gate, an EMA-style per-group
+    spatial gate from h- and w-pooled profiles, then per-channel GroupNorm.
+    No residual."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5, factor: int = 8):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.factor = factor
+        gch = max(c2 // factor, 1)
+        self.cv1 = nn.Conv2d(c1, c_, 3, 1, 1)
+        self.cv2 = nn.Conv2d(c_, c2, 3, 1, 1)
+        self.fc = nn.Sequential(nn.Conv2d(c2, gch, 1, bias=False), nn.ReLU(), nn.Conv2d(gch, c2, 1, bias=False))
+        self.conv_spatial = nn.Conv2d(gch, 1, (7, 1), padding=(3, 0), bias=False)
+        self.gn = nn.GroupNorm(c2, c2, eps=1e-5)
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        b, c, h, w = y.shape
+        g = self.factor
+        gch = c // g
+        gate_c = torch.sigmoid(self.fc(y.mean((2, 3), keepdim=True)) + self.fc(y.amax((2, 3), keepdim=True)))
+        y = y * gate_c
+        gy = y.reshape(b, g, gch, h, w)
+        profile = torch.cat([gy.mean(4), gy.mean(3)], 3)  # (b, g, gch, h + w)
+        gate_s = self.conv_spatial(profile.reshape(b * g, gch, h + w, 1))
+        gate_s = torch.sigmoid(gate_s.reshape(b, g, 1, h + w))
+        gate_h = gate_s[..., :h].reshape(b, g, 1, h, 1)
+        gate_w = gate_s[..., h:].reshape(b, g, 1, 1, w)
+        gy = (gy * gate_h * gate_w).reshape(b, c, h, w)
+        return self.gn(gy)
+
+
+class C2fEMACBAM(nn.Module):
+    """C2f with EMA-CBAM bottlenecks (the YAML's `C2fEACBAM` rows alias it)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(EMACBAMBottleneck(self.c, self.c, e=0.5, factor=8) for _ in range(n))
+
+    def forward(self, x):
+        ys = list(self.cv1(x).split(self.c, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+# ---------------------------------------------------------------------------
+# Pooling, resampling, fusion
+# ---------------------------------------------------------------------------
+
+
+class SPPF(nn.Module):
+    """Fast SPP: three chained k-pools."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * 4, c2, 1, 1)
+        self.k = k
+
+    def forward(self, x):
+        y = self.cv1(x)
+        pool = lambda t: F.max_pool2d(t, self.k, 1, self.k // 2)  # noqa: E731
+        y1 = pool(y)
+        y2 = pool(y1)
+        return self.cv2(torch.cat([y, y1, y2, pool(y2)], 1))
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour upsampling by an integer factor."""
+
+    def __init__(self, scale_factor: int = 2):
+        super().__init__()
+        self.scale_factor = int(scale_factor)
+
+    def forward(self, x):
+        return F.interpolate(x, scale_factor=self.scale_factor, mode="nearest")
+
+
+class BiFPN(nn.Module):
+    """Learned-weight fusion of N equal-shaped inputs:
+    w_i / (sum(swish(w)) + eps), weighted sum. The weights are normalised in
+    float32, then cast to the inputs' dtype, as the JAX package does."""
+
+    def __init__(self, length: int, epsilon: float = 1e-4):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(length))
+        self.epsilon = epsilon
+
+    def forward(self, xs: List[torch.Tensor]):
+        w = self.weight.float()
+        wn = (w / (torch.sum(w * torch.sigmoid(w)) + self.epsilon)).to(xs[0].dtype)
+        out = wn[0] * xs[0]
+        for i in range(1, len(xs)):
+            out = out + wn[i] * xs[i]
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Dynamic convolution (ODConv)
+# ---------------------------------------------------------------------------
+
+
+class ODConv2d(nn.Module):
+    """Omni-dimensional dynamic conv: K candidate kernels mixed per sample by
+    four attention factors (kernel-wise softmax, spatial, in-channel and
+    out-channel sigmoids). The per-sample 3x3 stride-2 conv is
+    ops.odconv.odconv_s2 (a CUDA kernel on the GPU); the trunk and the mix
+    are small tensor ops left to PyTorch, as the JAX package left them to XLA.
+
+    `weight` is the (K, Cout, Cin, k, k) candidate bank and `bias` the
+    (K, Cout) bias bank, as in the reference checkpoints."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, K: int = 4, r: float = 1.0 / 16.0):
+        super().__init__()
+        if (k, s) != (3, 2):
+            raise NotImplementedError(f"ODConv is ported for k=3 s=2 (every flagship site), got k={k} s={s}")
+        self.k, self.c1, self.c2, self.K = k, c1, c2, K
+        hidden = max(int(c1 * r), 16)
+        self.weight = nn.Parameter(torch.zeros(K, c2, c1, k, k))
+        self.bias = nn.Parameter(torch.zeros(K, c2))
+        self.fc = nn.Linear(c1, hidden, bias=False)
+        self.bn = nn.BatchNorm1d(hidden, eps=1e-5, momentum=0.1)
+        self.fc_f = nn.Linear(hidden, c2)
+        self.fc_s = nn.Linear(hidden, k * k)
+        self.fc_c = nn.Linear(hidden, c1)
+        self.fc_w = nn.Linear(hidden, K)
+
+    def forward(self, x):
+        b = x.shape[0]
+        k = self.k
+        # attention trunk: GAP -> fc -> BN -> ReLU -> four factors
+        v = torch.relu(self.bn(self.fc(x.mean((2, 3)))))
+        attn_f = torch.sigmoid(self.fc_f(v))  # (B, Cout)
+        attn_s = torch.sigmoid(self.fc_s(v)).reshape(b, k, k)
+        attn_c = torch.sigmoid(self.fc_c(v))  # (B, Cin)
+        attn_w = torch.softmax(self.fc_w(v), -1)  # (B, K)
+        # mix over K once, then the separable factors -> (B, 3, 3, Cin, Cout)
+        wmix = torch.einsum("bk,koihw->bhwio", attn_w, self.weight)
+        wmix = wmix * attn_s[:, :, :, None, None] * attn_c[:, None, None, :, None] * attn_f[:, None, None, None, :]
+        x_nhwc = x.permute(0, 2, 3, 1).contiguous()  # free for a channels_last x
+        out = per_sample_conv(x_nhwc, wmix.to(x.dtype).contiguous())
+        out = out + (attn_w.float() @ self.bias.float()).to(x.dtype)[:, None, None, :]
+        return out.permute(0, 3, 1, 2)
+
+
+class ODConv(nn.Module):
+    """ODConv2d + BatchNorm(eps 1e-3) + SiLU, the YAML-visible module
+    (`ODConv_3rd`)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, kerNums: int = 4):
+        super().__init__()
+        self.conv = ODConv2d(c1, c2, k, s, K=kerNums)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.SiLU()
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
