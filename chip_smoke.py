@@ -4,17 +4,22 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
  1. device: needs CUDA; prints the card's name and power limit; TF32 off
- 2. build: compiles every CUDA kernel of the serving path from csrc/
+ 2. build: compiles every CUDA source of the serving paths from csrc/,
+    one nvcc per source, all started together
  3. kernels: each kernel against its plain PyTorch version at the shapes
-    the serving path gives it (f32 and bf16), with kernel, plain-version,
-    library-call and bound times
- 4. serving: the full-width yolo-somi flagship (640 px, bf16, random
-    weights from seed 0) answers batches of 8 uint8 images through
-    Runner; every kernel must have launched on this path
- 5. parity: the same model in f32 through the kernel is as close to the
+    the serving paths give it (f32 and bf16), with kernel, plain-version,
+    library-call and bound times: odconv_s2 at the four ODConv sites,
+    dcnv2_im2col at rows 6 and 8 and dcnv3_core at row 10 of
+    yolo-somi-dcn
+ 4. serving: the full-width yolo-somi flagship, then the full-width
+    yolo-somi-dcn (640 px, bf16, random weights from seed 0; the DCN
+    offset/mask heads randomised from seed 0) answer batches of 8 uint8
+    images through Runner; each path's kernels must have launched their
+    count per batch, with every count set to 0 just before the path
+ 5. parity: each model in f32 through the kernels is as close to its
     plain version in f64 as the plain version in f32 is, on a batch of 2
-The last two lines are the kernel summary and the device JSON. Longer
-tables (the profiler's kernel breakdown) go to chiprun_out/.
+The last three lines are the card, the kernel summary and the device JSON.
+Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -32,8 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from yolosomi_tpu_torch.engine.runner import Runner
+from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
 from yolosomi_tpu_torch.models.yolo import parse_model
 from yolosomi_tpu_torch.ops import build
+from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
 from yolosomi_tpu_torch.ops.nms import fused_postprocess
 from yolosomi_tpu_torch.ops.odconv import odconv_s2, odconv_s2_reference, plain_version
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
@@ -45,6 +53,13 @@ N_REQUESTS = 10
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 OUT = Path("chiprun_out")
+SOURCES = ("odconv_s2.cu", "dcn.cu")
+KERNELS = (odconv_s2, dcnv2_im2col, dcnv3_core)
+# launches per served batch on each path
+PER_BATCH = {
+    "yolo-somi": {"odconv_s2": 4},
+    "yolo-somi-dcn": {"odconv_s2": 4, "dcnv2_im2col": 9, "dcnv3_core": 1},
+}
 
 
 def gpu_line() -> str:
@@ -88,15 +103,32 @@ def bound_ms(x: torch.Tensor, wmix: torch.Tensor) -> tuple:
     cout = wmix.shape[-1]
     m = (H // 2) * (W // 2)
     nbytes = (x.numel() + wmix.numel() + B * m * cout) * x.element_size()
-    flops = 2.0 * B * m * cout * 9 * C
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[x.dtype] * 1e3
+    return roofline(nbytes, 2.0 * B * m * cout * 9 * C, PEAK_FLOPS[x.dtype])
+
+
+def roofline(nbytes: float, flops: float, peak_flops: float) -> tuple:
+    """(bound ms, what bounds it, bytes ms, operations ms)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
+
+
+def new_summary() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
+            "max_abs_err": 0.0}
+
+
+def add_site(summary: dict, count: int, kernel_ms, plain_ms, library_ms, bound, err) -> None:
+    """Add one site's bf16 numbers, times its launches per served batch."""
+    b_ms, _, t_bytes, t_ops = bound
+    for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", b_ms),
+                   ("t_bytes", t_bytes), ("t_ops", t_ops)):
+        summary[key] += count * v
+    summary["max_abs_err"] = max(summary["max_abs_err"], err)
 
 
 def check_kernel(sites, gen: torch.Generator) -> dict:
     """odconv_s2 against odconv_s2_reference at every site, f32 and bf16."""
-    summary = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
-               "max_abs_err": 0.0}
+    summary = new_summary()
     for row, xs, ws in sites:
         x32 = torch.randn(xs, device="cuda", generator=gen)
         w32 = torch.randn(ws, device="cuda", generator=gen) * (2.0 / (9 * xs[-1])) ** 0.5
@@ -116,32 +148,193 @@ def check_kernel(sites, gen: torch.Generator) -> dict:
             xg = x.permute(0, 3, 1, 2).reshape(1, B * C, H, W).contiguous()
             wg = w.permute(0, 4, 3, 1, 2).reshape(B * cout, C, 3, 3).contiguous()
             library_ms = time_ms(lambda: F.conv2d(xg, wg, stride=2, padding=1, groups=B))
-            b_ms, b_by, t_bytes, t_ops = bound_ms(x, w)
+            bound = bound_ms(x, w)
             print(f"odconv_s2 row {row} x{tuple(xs)} cout {ws[-1]} {str(dtype)[6:]}: kernel_ms {kernel_ms:.4f} "
-                  f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
+                  f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound[0]:.4f} ({bound[1]}) "
                   f"max_abs_err {err:.3e}")
             if dtype == torch.bfloat16:  # the serving path's dtype
-                summary["ms"] += kernel_ms
-                summary["plain_ms"] += plain_ms
-                summary["library_ms"] += library_ms
-                summary["bound_ms"] += b_ms
-                summary["t_bytes"] += t_bytes
-                summary["t_ops"] += t_ops
-                summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                add_site(summary, 1, kernel_ms, plain_ms, library_ms, bound, err)
     return summary
 
 
-def serve(gpu: str) -> int:
-    runner = Runner("yolo-somi", nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+# ---------------------------------------------------------------------------
+# the deformable sampling kernels
+# ---------------------------------------------------------------------------
+
+# f32: the kernels' closed-form coordinates differ from the plain versions'
+# (and grid_sample's) in the last bits; the sampling is continuous, so that
+# costs ~ulp(px) times the map's slope, well under 1e-4. bf16: the same
+# bf16 inputs on both sides, f32 interpolation, one rounding of outputs of
+# a few units (2**-9 relative).
+DCN_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+def dcn_sites(cfg_name: str, batch: int, imgsz: int):
+    """The DCNv2 sites (row, launches per batch, x shape, k, s, p) and the
+    DCNv3 sites (row, 1, input shape, G, k, s, pad, dil) of a graph, read
+    from its modules (built on the meta device, so nothing is allocated)."""
+    with torch.device("meta"):
+        modules, meta = parse_model(load_model_cfg(find_config(cfg_name)))
+    v2, v3 = [], []
+    for spec, mod in zip(meta.specs, modules):
+        if not isinstance(spec.f, int) or spec.i + spec.f < 0:  # fusion rows, the image
+            continue
+        src = meta.specs[spec.i + spec.f if spec.f < 0 else spec.f]
+        hw = int(imgsz / src.stride)
+        convs = [m for m in mod.modules() if isinstance(m, DCNv2)]
+        if convs:
+            geometry = {(m.conv_offset_mask.in_channels, m.k, m.s, m.p) for m in convs}
+            assert len(geometry) == 1, geometry
+            c, k, s, p = geometry.pop()
+            v2.append((spec.i, len(convs), (batch, hw, hw, c), k, s, p))
+        if isinstance(mod, DCNv3):
+            v3.append((spec.i, 1, (batch, hw, hw, src.c2), mod.group, mod.k, mod.stride, mod.pad, mod.dilation))
+    return v2, v3
+
+
+def valid_corners(px: torch.Tensor, py: torch.Tensor, H: int, W: int) -> int:
+    """Bilinear corners of these points that lie on the H x W map: the taps
+    the kernels load and multiply (the others count zero)."""
+    x0, y0 = px.floor(), py.floor()
+    n = 0
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        n += ((x0 + dx >= 0) & (x0 + dx <= W - 1) & (y0 + dy >= 0) & (y0 + dy <= H - 1)).sum().item()
+    return n
+
+
+def grid_of(px: torch.Tensor, py: torch.Tensor, H: int, W: int, dtype) -> torch.Tensor:
+    """Pixel coordinates -> grid_sample's normalised ones (align_corners=False)."""
+    return torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1], -1).to(dtype)
+
+
+def check_dcnv2(sites, gen: torch.Generator) -> dict:
+    """dcnv2_im2col against dcnv2_im2col_reference at every DCNv2 site, f32
+    and bf16, offsets up to +-4 px (fractional, some off the map)."""
+    summary = new_summary()
+    for row, count, xs, k, s, p in sites:
+        N, H, W, C = xs
+        Ho, Wo, P = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1, k * k
+        x32 = torch.randn(xs, device="cuda", generator=gen)
+        oy32, ox32 = ((torch.rand((2, N, Ho, Wo, P), device="cuda", generator=gen) - 0.5) * 8).unbind(0)
+        m32 = torch.sigmoid(torch.randn((N, Ho, Wo, P), device="cuda", generator=gen))
+        kk = torch.arange(k, device="cuda")
+        py = (torch.arange(Ho, device="cuda") * s - p)[None, :, None, None] + kk.repeat_interleave(k) + oy32
+        px = (torch.arange(Wo, device="cuda") * s - p)[None, None, :, None] + kk.repeat(k) + ox32
+        flops = 2.0 * C * valid_corners(px, py, H, W)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, oy, ox, m = (t.to(dtype).contiguous() for t in (x32, oy32, ox32, m32))
+            got = dcnv2_im2col(x, oy, ox, m, k, s, p)
+            torch.cuda.synchronize()
+            ref = dcnv2_im2col_reference(x.float(), oy.float(), ox.float(), m.float(), k, s, p)
+            err = (got.float() - ref).abs().max().item()
+            torch.testing.assert_close(got.float(), ref, **DCN_TOL[dtype])
+            # the nearest single library call: grid_sample over the same
+            # points, sampling only (no mask product, no column layout)
+            xin = x.permute(0, 3, 1, 2).contiguous()
+            grid = grid_of(px, py, H, W, dtype).reshape(N, Ho * Wo, P, 2)
+            library = lambda: F.grid_sample(xin, grid, mode="bilinear", padding_mode="zeros",  # noqa: E731
+                                            align_corners=False)
+            if dtype == torch.float32:  # an independent check of the sampling points
+                alt = (library() * m.reshape(N, 1, Ho * Wo, P)).permute(0, 2, 3, 1).reshape(N, Ho * Wo, P * C)
+                torch.testing.assert_close(got, alt, **DCN_TOL[dtype])
+            kernel_ms = time_ms(lambda: dcnv2_im2col(x, oy, ox, m, k, s, p))
+            plain_ms = time_ms(lambda: dcnv2_im2col_reference(x, oy, ox, m, k, s, p))
+            library_ms = time_ms(library)
+            nbytes = (x.numel() + 3 * oy.numel() + got.numel()) * x.element_size()
+            bound = roofline(nbytes, flops, PEAK_FLOPS[torch.float32])  # f32 FMAs in every dtype
+            print(f"dcnv2_im2col row {row} x{tuple(xs)} cols {tuple(got.shape)} x{count}/batch {str(dtype)[6:]}: "
+                  f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                  f"(grid_sample, sampling only, no mask product) bound_ms {bound[0]:.4f} ({bound[1]}; "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) max_abs_err {err:.3e}")
+            if dtype == torch.bfloat16:
+                add_site(summary, count, kernel_ms, plain_ms, library_ms, bound, err)
+    return summary
+
+
+def check_dcnv3(sites, gen: torch.Generator) -> dict:
+    """dcnv3_core against dcnv3_core_reference at every DCNv3 site, f32 and
+    bf16, offsets up to +-4 px and softmax masks."""
+    summary = new_summary()
+    for row, count, xs, G, k, s, pad, dil in sites:
+        N, H, W, C = xs
+        Cg, P = C // G, k * k
+        Ho = (H + 2 * pad - (dil * (k - 1) + 1)) // s + 1
+        Wo = (W + 2 * pad - (dil * (k - 1) + 1)) // s + 1
+        v32 = torch.randn(xs, device="cuda", generator=gen)
+        o32 = (torch.rand((N, Ho, Wo, G * P * 2), device="cuda", generator=gen) - 0.5) * 8
+        m32 = torch.softmax(torch.randn((N, Ho, Wo, G, P), device="cuda", generator=gen) * 2, -1)
+        m32 = m32.reshape(N, Ho, Wo, G * P)
+        # the points in the kernel's closed form: p = ix*k + iy
+        half = (dil * (k - 1)) // 2
+        pp = torch.arange(P, device="cuda")
+        off = o32.reshape(N, Ho, Wo, G, P, 2)
+        px = (half + torch.arange(Wo, device="cuda") * s - pad)[None, None, :, None, None] + (pp // k) * dil - half
+        py = (half + torch.arange(Ho, device="cuda") * s - pad)[None, :, None, None, None] + (pp % k) * dil - half
+        px, py = px + off[..., 0], py + off[..., 1]  # (N, Ho, Wo, G, P)
+        flops = 2.0 * Cg * valid_corners(px, py, H, W)
+        args = (k, k, s, s, pad, pad, dil, dil, G, Cg)
+        for dtype in (torch.float32, torch.bfloat16):
+            v, o, m = (t.to(dtype).contiguous() for t in (v32, o32, m32))
+            got = dcnv3_core(v, o, m, *args)
+            torch.cuda.synchronize()
+            ref = dcnv3_core_reference(v.float(), o.float(), m.float(), *args)
+            err = (got.float() - ref).abs().max().item()
+            torch.testing.assert_close(got.float(), ref, **DCN_TOL[dtype])
+            vin = v.reshape(N, H, W, G, Cg).permute(0, 3, 4, 1, 2).reshape(N * G, Cg, H, W).contiguous()
+            grid = grid_of(px, py, H, W, dtype).permute(0, 3, 1, 2, 4, 5).reshape(N * G, Ho * Wo, P, 2)
+            library = lambda: F.grid_sample(vin, grid, mode="bilinear", padding_mode="zeros",  # noqa: E731
+                                            align_corners=False)
+            if dtype == torch.float32:  # an independent check of the sampling points and their order
+                mg = m.reshape(N, Ho * Wo, G, P).permute(0, 2, 1, 3).reshape(N * G, 1, Ho * Wo, P)
+                alt = (library() * mg).sum(-1).reshape(N, G, Cg, Ho, Wo).permute(0, 3, 4, 1, 2).reshape(got.shape)
+                torch.testing.assert_close(got, alt, **DCN_TOL[dtype])
+            kernel_ms = time_ms(lambda: dcnv3_core(v, o, m, *args))
+            plain_ms = time_ms(lambda: dcnv3_core_reference(v, o, m, *args))
+            library_ms = time_ms(library)
+            nbytes = (v.numel() + o.numel() + m.numel() + got.numel()) * v.element_size()
+            bound = roofline(nbytes, flops, PEAK_FLOPS[torch.float32])
+            print(f"dcnv3_core row {row} x{tuple(xs)} G {G} P {P} x{count}/batch {str(dtype)[6:]}: "
+                  f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                  f"(grid_sample, sampling only, no mask product) bound_ms {bound[0]:.4f} ({bound[1]}; "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) max_abs_err {err:.3e}")
+            if dtype == torch.bfloat16:
+                add_site(summary, count, kernel_ms, plain_ms, library_ms, bound, err)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# serving and parity
+# ---------------------------------------------------------------------------
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def serve(gpu: str, cfg_name: str) -> dict:
+    """Serve N_REQUESTS batches; returns this path's launch counts."""
+    runner = Runner(cfg_name, nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    randomize_offset_heads(runner.model, seed=0)
     cfg = runner.meta.yaml
     assert (cfg["width_multiple"], cfg["depth_multiple"]) == (1.0, 1.0), cfg
     n_params = sum(p.numel() for p in runner.model.parameters())
+    per_batch = PER_BATCH[cfg_name]
+    # the graph's own count of kernel sites agrees with the expected launches
+    sites = {"odconv_s2": len(odconv_sites(runner.meta, BATCH, IMGSZ)),
+             "dcnv2_im2col": sum(isinstance(m, DCNv2) for m in runner.model.modules()),
+             "dcnv3_core": sum(isinstance(m, DCNv3) for m in runner.model.modules())}
+    assert sites == {name: per_batch.get(name, 0) for name in sites}, (sites, per_batch)
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
     runner(batches[0])  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
-    odconv_s2.launches = 0
+    reset_counts()
     lat = []
     for images in batches[1:]:
         t0 = time.perf_counter()
@@ -150,14 +343,14 @@ def serve(gpu: str) -> int:
         assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), out.shape
         valid = out[..., 4] > 0
         assert (out[~valid] == 0).all()
-    launches = odconv_s2.launches
-    n_sites = len(odconv_sites(runner.meta, BATCH, IMGSZ))
-    assert n_sites == 4 and launches == n_sites * N_REQUESTS, (n_sites, launches)
+    launches = launch_counts()
+    assert launches == {name: per_batch.get(name, 0) * N_REQUESTS for name in launches}, launches
     med = statistics.median(lat)
-    print(f"serving yolo-somi full width ({n_params / 1e6:.2f} M params) 640 px bf16 b{BATCH}, "
+    per = ", ".join(f"{name} {n // N_REQUESTS}/batch" for name, n in launches.items() if n)
+    print(f"serving {cfg_name} full width ({n_params / 1e6:.2f} M params) 640 px bf16 b{BATCH}, "
           f"{N_REQUESTS} requests on {gpu}: latency median {med * 1e3:.2f} ms/batch "
           f"(min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), {BATCH / med:.1f} img/s, "
-          f"detections/img {valid.sum(1).mean():.1f}, odconv_s2 launches {launches} ({launches // N_REQUESTS}/batch)")
+          f"detections/img {valid.sum(1).mean():.1f}, launches {per}")
 
     # the batch split by layer: upload + model, then postprocess (NMS)
     fwd, post = [], []
@@ -170,7 +363,7 @@ def serve(gpu: str) -> int:
         fused_postprocess(preds, runner.meta.anchors_px, runner.meta.strides).cpu()
         fwd.append(t1 - t0)
         post.append(time.perf_counter() - t1)
-    print(f"split: upload+model median {statistics.median(fwd) * 1e3:.2f} ms/batch, "
+    print(f"split {cfg_name}: upload+model median {statistics.median(fwd) * 1e3:.2f} ms/batch, "
           f"postprocess median {statistics.median(post) * 1e3:.2f} ms/batch")
 
     # where the device time goes, one batch under the profiler
@@ -183,43 +376,79 @@ def serve(gpu: str) -> int:
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ours_ms = sum(e.self_device_time_total for e in kernels if "odconv_s2" in e.key) / 1e3
+    ours = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 for name in per_batch}
     table = events.table(sort_by="self_device_time_total", row_limit=40)
-    (OUT / "chip_smoke_profile.txt").write_text(f"{gpu}\n{table}\n")
-    print(f"profile (one batch, profiler on): wall {wall_ms:.2f} ms, device kernels {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% busy), odconv_s2 kernels {ours_ms:.3f} ms "
-          f"({100 * ours_ms / max(busy_ms, 1e-9):.1f}% of device time); table in {OUT / 'chip_smoke_profile.txt'}")
+    path = OUT / f"chip_smoke_profile_{cfg_name}.txt"
+    path.write_text(f"{gpu}\n{table}\n")
+    shares = ", ".join(f"{name} kernels {ms:.3f} ms ({100 * ms / max(busy_ms, 1e-9):.1f}%)"
+                       for name, ms in ours.items())
+    print(f"profile {cfg_name} (one batch, profiler on): wall {wall_ms:.2f} ms, device kernels {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% busy), {shares} of device time; table in {path}")
     return launches
 
 
-def parity() -> None:
-    """The full-width model in f32 through the kernel and through its plain
-    version, on one batch of 2, each held against the plain version in f64.
+def parity(cfg_name: str) -> None:
+    """The full-width model in f32 through the kernels and through their
+    plain versions, on one batch of 2, each held against the plain version
+    in f64 (DCN offset/mask heads randomised).
 
     A fixed atol cannot hold here: head outputs reach ~170 and 36 random
     layers amplify f32 rounding, so the plain f32 model itself misses f64
-    by ~1e-2. The kernel
-    passes when its f32 model is no further from f64 than twice the plain
+    by ~1e-2. The kernels
+    pass when their f32 model is no further from f64 than twice the plain
     f32 model is."""
-    runner = Runner("yolo-somi", nc=10, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+    runner = Runner(cfg_name, nc=10, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+    randomize_offset_heads(runner.model, seed=0)
     images = np.random.default_rng(1).integers(0, 256, (2, IMGSZ, IMGSZ, 3), dtype=np.uint8)
-    before = odconv_s2.launches
+    before = launch_counts()
     raw = runner.forward(images)
-    assert odconv_s2.launches == before + 4
+    per_forward = {name: n - before[name] for name, n in launch_counts().items()}
+    assert per_forward == {name: PER_BATCH[cfg_name].get(name, 0) for name in per_forward}, per_forward
     with plain_version():
         ref = runner.forward(images)
         with torch.inference_mode():
             x64 = torch.from_numpy(images).cuda().permute(0, 3, 1, 2).double() / 255.0
             ref64 = copy.deepcopy(runner.model).double()(x64)
-    assert odconv_s2.launches == before + 4
+    assert launch_counts() == {name: before[name] + per_forward[name] for name in before}
     for i, (a, b, c) in enumerate(zip(raw, ref, ref64)):
         assert a.shape == b.shape == c.shape and torch.isfinite(a).all()
         k_err = (a.double() - c).abs().max().item()
         p_err = (b.double() - c).abs().max().item()
         diff = (a - b).abs().max().item()
-        print(f"parity level {i}: max |out| {c.abs().max().item():.3e}, kernel-vs-plain {diff:.3e}, "
+        print(f"parity {cfg_name} level {i}: max |out| {c.abs().max().item():.3e}, kernel-vs-plain {diff:.3e}, "
               f"vs f64: kernel {k_err:.3e} plain {p_err:.3e}")
-        assert k_err <= 2 * p_err + 1e-6, (i, k_err, p_err)
+        assert k_err <= 2 * p_err + 1e-6, (cfg_name, i, k_err, p_err)
+
+
+def build_all() -> None:
+    """One nvcc per source, all started together."""
+    def one(source):
+        t0 = time.perf_counter()
+        lib = build.build(source)
+        return source, lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for source, lib, secs in pool.map(one, SOURCES):
+            print(f"build: {lib.name} in {secs:.1f} s")
+            for line in build.BUILD_LOG.get(source, "").splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"  ptxas: {line.strip()}")
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"yolosomi_tpu_torch/ops/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": summary["max_abs_err"],
+        "ms": summary["ms"],
+        "plain_ms": summary["plain_ms"],
+        "bound_ms": summary["bound_ms"],
+        "bound_by": "bytes" if summary["t_bytes"] >= summary["t_ops"] else "operations",
+        "library_ms": summary["library_ms"],
+    }
 
 
 def main() -> int:
@@ -234,34 +463,32 @@ def main() -> int:
     print("TF32 off for matmul and cuDNN: f32 comparisons run in full f32")
 
     t0 = time.perf_counter()
-    lib = build.build("odconv_s2.cu")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in build.BUILD_LOG.get("odconv_s2.cu", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all()
+    print(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
     _, meta = parse_model(load_model_cfg(find_config("yolo-somi")))
-    sites = odconv_sites(meta, BATCH, IMGSZ)
-    summary = check_kernel(sites, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    odconv_summary = check_kernel(odconv_sites(meta, BATCH, IMGSZ), gen)
+    v2_sites, v3_sites = dcn_sites("yolo-somi-dcn", BATCH, IMGSZ)
+    v2_summary = check_dcnv2(v2_sites, gen)
+    v3_summary = check_dcnv3(v3_sites, gen)
+    print(f"per served batch (bf16, sites times launches): dcnv2_im2col kernel_ms {v2_summary['ms']:.4f} "
+          f"bound_ms {v2_summary['bound_ms']:.4f}; dcnv3_core kernel_ms {v3_summary['ms']:.4f} "
+          f"bound_ms {v3_summary['bound_ms']:.4f}")
 
-    launches = serve(gpu)
-    parity()
+    flagship = serve(gpu, "yolo-somi")
+    dcn = serve(gpu, "yolo-somi-dcn")
+    parity("yolo-somi")
+    parity("yolo-somi-dcn")
 
-    kernel = {
-        "name": "odconv_s2",
-        "route": "cuda",
-        "source": "yolosomi_tpu_torch/ops/csrc/odconv_s2.cu",
-        "replaces": "yolosomi_tpu/ops/odconv_pallas.py:111",
-        "launches": launches,
-        "max_abs_err": summary["max_abs_err"],
-        "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"],
-        "bound_ms": summary["bound_ms"],
-        "bound_by": "bytes" if summary["t_bytes"] >= summary["t_ops"] else "operations",
-        "library_ms": summary["library_ms"],
-    }
+    kernels = [
+        kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111", flagship["odconv_s2"],
+                     odconv_summary),
+        kernel_entry("dcnv2_im2col", "dcn.cu", "tools/probe_pallas_gather.py:27", dcn["dcnv2_im2col"], v2_summary),
+        kernel_entry("dcnv3_core", "dcn.cu", "tools/probe_pallas_gather.py:27", dcn["dcnv3_core"], v3_summary),
+    ]
     print(gpu)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

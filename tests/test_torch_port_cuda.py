@@ -10,13 +10,14 @@ PyTorch (tests/conftest.py imports jax, hence --noconftest):
 import pytest
 import torch
 
+from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
 from yolosomi_tpu_torch.ops.odconv import odconv_s2, odconv_s2_reference
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the plain version in full f32
     yield torch.Generator(device="cuda").manual_seed(0)
@@ -54,3 +55,77 @@ def test_odconv_s2_kernel_rejects_what_it_does_not_take(cuda):
         odconv_s2(x.permute(0, 2, 1, 3), wmix)
     with pytest.raises(ValueError, match="one CUDA device"):
         odconv_s2(x, wmix.cpu())
+
+
+def _dcnv3_case(gen, n, h, w, g, cg, s, dil, dtype):
+    ho = (h + 2 - (2 * dil + 1)) // s + 1
+    wo = (w + 2 - (2 * dil + 1)) // s + 1
+    value = torch.randn(n, h, w, g * cg, device="cuda", generator=gen)
+    # offsets of several pixels: fractional points, some off the map
+    offset = (torch.rand(n, ho, wo, g * 9 * 2, device="cuda", generator=gen) - 0.5) * 8
+    logits = torch.randn(n, ho, wo, g, 9, device="cuda", generator=gen) * 2
+    mask = torch.softmax(logits, -1).reshape(n, ho, wo, g * 9)
+    return [t.to(dtype) for t in (value, offset, mask)], (3, 3, s, s, 1, 1, dil, dil, g, cg)
+
+
+# f32: the kernel's closed-form coordinates differ from the plain version's
+# normalised round trip in the last bits; the sampling is continuous, so
+# that costs ~ulp(px) times the map's slope, well under 1e-4. bf16: the
+# same bf16 inputs on both sides, interpolation in f32, one rounding of
+# outputs of a few units (2**-9 relative).
+_DCN_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 9, 11, 4, 5, 1, 1), (1, 13, 7, 8, 16, 2, 2), (3, 6, 6, 1, 33, 1, 1)])
+def test_dcnv3_core_kernel_matches_plain_version(cuda, dtype, case):
+    """Odd sizes: channels not a multiple of a warp, ragged last block."""
+    (value, offset, mask), args = _dcnv3_case(cuda, *case, dtype)
+    before = dcnv3_core.launches
+    got = dcnv3_core(value, offset, mask, *args)
+    torch.cuda.synchronize()
+    assert dcnv3_core.launches == before + 1
+    assert got.dtype == dtype and got.shape == offset.shape[:3] + (value.shape[-1],)
+    ref = dcnv3_core_reference(value.float(), offset.float(), mask.float(), *args)
+    torch.testing.assert_close(got.float(), ref, **_DCN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 9, 11, 5, 1), (1, 13, 7, 40, 2), (3, 6, 6, 1, 1)])
+def test_dcnv2_im2col_kernel_matches_plain_version(cuda, dtype, case):
+    n, h, w, c, s = case
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    x = torch.randn(n, h, w, c, device="cuda", generator=cuda)
+    oy, ox = ((torch.rand(2, n, ho, wo, 9, device="cuda", generator=cuda) - 0.5) * 8).unbind(0)
+    mask = torch.sigmoid(torch.randn(n, ho, wo, 9, device="cuda", generator=cuda))
+    x, oy, ox, mask = (t.to(dtype) for t in (x, oy, ox, mask))
+    before = dcnv2_im2col.launches
+    got = dcnv2_im2col(x, oy, ox, mask, 3, s, 1)
+    torch.cuda.synchronize()
+    assert dcnv2_im2col.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, ho * wo, 9 * c)
+    ref = dcnv2_im2col_reference(x.float(), oy.float(), ox.float(), mask.float(), 3, s, 1)
+    torch.testing.assert_close(got.float(), ref, **_DCN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_dcn_kernels_reject_what_they_do_not_take(cuda):
+    (value, offset, mask), args = _dcnv3_case(cuda, 1, 6, 6, 2, 4, 1, 1, torch.float32)
+    with pytest.raises(TypeError):
+        dcnv3_core(value.half(), offset.half(), mask.half(), *args)
+    with pytest.raises(TypeError):
+        dcnv3_core(value, offset.bfloat16(), mask, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        dcnv3_core(value.transpose(1, 2), offset, mask, *args)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        dcnv3_core(value, offset.cpu(), mask, *args)
+    x = torch.randn(1, 6, 6, 3, device="cuda", generator=cuda)
+    o = torch.zeros(1, 6, 6, 9, device="cuda")
+    with pytest.raises(TypeError):
+        dcnv2_im2col(x.double(), o.double(), o.double(), o.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        dcnv2_im2col(x, o.transpose(1, 2), o, o)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        dcnv2_im2col(x, o, o, o.cpu())

@@ -4,8 +4,9 @@
 The same `[from, repeats, module, args]` rows compile into torch modules
 through an explicit registry, with the JAX package's channel, repeat and
 analytic stride propagation. The registry holds the modules of the
-flagship graph (configs/models/yolo-somi.yaml); a row outside it raises
-KeyError.
+flagship graph (configs/models/yolo-somi.yaml) and the deformable family
+of its DCN variant (configs/models/yolo-somi-dcn.yaml); a row outside it
+raises KeyError.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from yolosomi_tpu_torch.models import dcn as D
 from yolosomi_tpu_torch.models import heads as H
 from yolosomi_tpu_torch.models import layers as L
 from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_device
@@ -28,6 +30,7 @@ from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_dev
 #   seam    : channel-preserving (c2 forced to c1)
 #   upsample: [size, scale, mode]
 #   fuse    : equal-shape fusion; c2 = channels of the first input
+#   dcnv3   : channel-preserving (c2 = channels of the input), cls(c2, *args[1:])
 #   head    : detection head
 _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "Conv": (L.Conv, "conv"),
@@ -41,12 +44,18 @@ _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "nn.Upsample": (L.Upsample, "upsample"),
     "Upsample": (L.Upsample, "upsample"),
     "BiFPN": (L.BiFPN, "fuse"),
+    "DCNv2": (D.DCNv2, "conv"),
+    "DCNV3": (D.DCNv3, "dcnv3"),
+    "DCNv3": (D.DCNv3, "dcnv3"),
+    "C3_DCN": (D.C3_DCN, "csp"),
+    "C2f_DCN": (D.C2f_DCN, "csp"),
     "DecoupledDetect": (H.DecoupledDetect, "head"),
     "DecoupledDetect1": (H.DecoupledDetect, "head"),
     "Decoupled_Detect": (H.DecoupledDetect, "head"),
 }
 
-# positional index of the stride arg (after c2) of conv-kind modules
+# positional index of the stride arg (after c2) of conv-kind modules; DCNv2
+# is left out, as in the JAX package, so its stride never reaches the graph
 _STRIDE_ARG_POS = {"Conv": 2, "ODConv": 2, "ODConv_3rd": 2}
 
 # default pixel anchors for `anchors: <int>`: nl=4 is the SOMI VisDrone set,
@@ -172,6 +181,9 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         elif kind == "fuse":
             c2 = in_ch(f[0])
             mod = cls(len(f))
+        elif kind == "dcnv3":
+            c2 = in_ch(f)
+            mod = cls(c2, *args[1:])
         else:  # head
             head_from = tuple(x if x >= 0 else len(chans) + x for x in f)
             na_head = _resolve_anchors(args[1] if len(args) > 1 else anchors, len(f)).shape[1]
@@ -249,8 +261,9 @@ def _trunc_normal(t: torch.Tensor, fan: int, scale: float, g: torch.Generator):
 def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
     """Random init from `seed`, in the JAX package's scheme (conv kernels
     variance_scaling(2, fan_out), dense kernels lecun_normal, zero biases,
-    unit norms), then its detection-prior biases (obj log(8/(640/s)^2),
-    cls log(0.6/(nc-0.99999)))."""
+    unit norms; the deformable blocks' own init in
+    models/dcn.py:init_dcn_heads), then its detection-prior biases
+    (obj log(8/(640/s)^2), cls log(0.6/(nc-0.99999)))."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
@@ -264,6 +277,8 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
             m.bias.zero_()
         if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
+    for m in model.modules():  # after the generic pass, which also reached their children
+        D.init_dcn_heads(m, g)
     head = model.model[-1]
     nc, na = meta.nc, meta.na
     cls_prior = math.log(0.6 / (nc - 0.99999)) if nc > 1 else 0.0

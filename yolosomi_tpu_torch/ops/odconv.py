@@ -8,20 +8,15 @@ fallback: on CUDA it launches the kernel or raises.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from yolosomi_tpu_torch.ops import build
+from yolosomi_tpu_torch.ops import build, plain_active, plain_version  # noqa: F401  (plain_version re-exported)
 
 _SOURCE = "odconv_s2.cu"
 _ENTRY = {torch.float32: "odconv_s2_f32", torch.bfloat16: "odconv_s2_bf16"}
-
-# Set only by `plain_version()` (tests and the smoke run's comparison of the
-# whole model against its plain form); the Runner never touches it.
-_USE_PLAIN = [False]
 
 
 def _entry(dtype: torch.dtype):
@@ -89,17 +84,4 @@ odconv_s2.launches = 0
 def per_sample_conv(x: torch.Tensor, wmix: torch.Tensor) -> torch.Tensor:
     """What ODConv calls: `odconv_s2`, or its plain version inside
     `plain_version()`."""
-    return odconv_s2_reference(x, wmix) if _USE_PLAIN[0] else odconv_s2(x, wmix)
-
-
-@contextlib.contextmanager
-def plain_version():
-    """Run ODConv's per-sample conv through `odconv_s2_reference` inside the
-    block, to compare the whole model against its plain form. Not thread-safe
-    and not for serving."""
-    prev = _USE_PLAIN[0]
-    _USE_PLAIN[0] = True
-    try:
-        yield
-    finally:
-        _USE_PLAIN[0] = prev
+    return odconv_s2_reference(x, wmix) if plain_active() else odconv_s2(x, wmix)

@@ -5,8 +5,11 @@ as nested dicts of numpy arrays (the caller does the device_get; this
 module never imports jax). Each flax leaf path maps to the reference
 checkpoint key that the port's modules are named after
 (counterpart of yolosomi_tpu/utils/torch_convert.py:39-175, for the rules
-the flagship needs), and each value is transposed to torch layout
-(counterpart of yolosomi_tpu/utils/onnx_export.py:35-51).
+the flagship and yolo-somi-dcn need), and each value is transposed to
+torch layout (counterpart of yolosomi_tpu/utils/onnx_export.py:35-51).
+DCNv3's Dense layers, depthwise conv and LayerNorm map by name; DCNv2's
+3-D (P, C, c2) weight keeps its flax layout in the port (models/dcn.py),
+so it passes through untransposed.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def _path_to_key(path: List[str], collection: str) -> str:
     key = re.sub(r"\.pw\.(\d+)", lambda m: f".DCovN.{3 + int(m.group(1))}.1", key)
 
     if collection == "batch_stats":
-        return f"{key}.{ {'mean': 'running_mean', 'var': 'running_var'}[leaf] }"
+        return _join(key, {"mean": "running_mean", "var": "running_var"}[leaf])
     if leaf in ("kernel", "bias"):
         name = "weight" if leaf == "kernel" else "bias"
         # Conv wraps ConvRaw 'cv' holding nn.Conv 'conv' (X.conv.weight); a
@@ -54,10 +57,16 @@ def _path_to_key(path: List[str], collection: str) -> str:
             return key[: -len(".cv.conv")] + f".conv.{name}"
         if key.endswith(".conv"):
             return key[: -len(".conv")] + f".{name}"
-        return f"{key}.{name}"
+        return _join(key, name)
     if leaf == "scale":  # norm gamma
-        return key + ".weight"
-    return f"{key}.{leaf}"
+        return _join(key, "weight")
+    return _join(key, leaf)
+
+
+def _join(key: str, name: str) -> str:
+    """`key.name`, or `name` for a leaf of the root module (a DCNv2's own
+    weight and bias when the module is loaded on its own)."""
+    return f"{key}.{name}" if key else name
 
 
 def _key_candidates(path: List[str], collection: str) -> List[str]:
@@ -76,7 +85,8 @@ def _key_candidates(path: List[str], collection: str) -> List[str]:
 
 def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...]) -> np.ndarray:
     """Flax layout -> torch layout: ODConv bank (K,kh,kw,I,O) -> (K,O,I,kh,kw),
-    HWIO -> OIHW, a Dense kernel -> a 1x1 Conv2d or a Linear weight."""
+    HWIO -> OIHW, a Dense kernel -> a 1x1 Conv2d or a Linear weight; a 3-D
+    DCNv2 weight (P, C, c2) and 1-D leaves pass through."""
     v = np.asarray(v, np.float32)
     if v.ndim == 5:
         v = v.transpose(0, 4, 3, 1, 2)
