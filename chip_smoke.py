@@ -8,9 +8,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     one nvcc per source, all started together
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the serving paths give it (f32 and bf16), with kernel, plain-version,
-    library-call and bound times: odconv_s2 at the four ODConv sites,
-    dcnv2_im2col at rows 6 and 8 and dcnv3_core at row 10 of
-    yolo-somi-dcn
+    library-call and bound times and the kernel's multiple of its bound:
+    odconv_s2 at the four ODConv sites (with its launch plan, and the same
+    bits from two bf16 calls), dcnv2_im2col at rows 6 and 8 and dcnv3_core
+    at row 10 of yolo-somi-dcn. Every timed call starts with a cold L2: a
+    256 MB buffer is zeroed before it, outside the timed events, behind a
+    spin that keeps host launch time out of them
  4. serving: the full-width yolo-somi flagship, then the full-width
     yolo-somi-dcn (640 px, bf16, random weights from seed 0; the DCN
     offset/mask heads randomised from seed 0) answer batches of 8 uint8
@@ -43,7 +46,7 @@ from yolosomi_tpu_torch.models.yolo import parse_model
 from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
 from yolosomi_tpu_torch.ops.nms import fused_postprocess
-from yolosomi_tpu_torch.ops.odconv import odconv_s2, odconv_s2_reference, plain_version
+from yolosomi_tpu_torch.ops.odconv import _plan, odconv_s2, odconv_s2_reference, plain_version
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 
 IMGSZ = 640
@@ -69,14 +72,27 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+_FLUSH = []
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
+    """Median CUDA-event time of one call, after warm-up. Before each timed
+    call, outside its events, a 256 MB buffer (5x the H100's 50 MB L2) is
+    zeroed, so every call reads its inputs from HBM as the serving path's
+    first touch does. Ahead of the flush the card spins for ~2 ms, so the
+    host has queued the whole call before the start event runs: the host's
+    launch overhead, which varies from machine to machine, stays outside
+    the events."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1 << 22)
+        _FLUSH[0].zero_()
         start.record()
         fn()
         end.record()
@@ -140,6 +156,10 @@ def check_kernel(sites, gen: torch.Generator) -> dict:
             err = (got.float() - ref).abs().max().item()
             tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=0.15, rtol=0.03)
             torch.testing.assert_close(got.float(), ref, **tol)
+            plan = ""
+            if dtype == torch.bfloat16:
+                assert torch.equal(odconv_s2(x, w), got), f"row {row}: two calls disagree"
+                plan = " plan (tiles {}, split {})".format(*_plan(*xs, ws[-1]))
             kernel_ms = time_ms(lambda: odconv_s2(x, w))
             plain_ms = time_ms(lambda: odconv_s2_reference(x, w))
             # the library call alone: one grouped conv on inputs already in its layout
@@ -149,9 +169,9 @@ def check_kernel(sites, gen: torch.Generator) -> dict:
             wg = w.permute(0, 4, 3, 1, 2).reshape(B * cout, C, 3, 3).contiguous()
             library_ms = time_ms(lambda: F.conv2d(xg, wg, stride=2, padding=1, groups=B))
             bound = bound_ms(x, w)
-            print(f"odconv_s2 row {row} x{tuple(xs)} cout {ws[-1]} {str(dtype)[6:]}: kernel_ms {kernel_ms:.4f} "
+            print(f"odconv_s2 row {row} x{tuple(xs)} cout {ws[-1]} {str(dtype)[6:]}{plan}: kernel_ms {kernel_ms:.4f} "
                   f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound[0]:.4f} ({bound[1]}) "
-                  f"max_abs_err {err:.3e}")
+                  f"x bound {kernel_ms / bound[0]:.1f} max_abs_err {err:.3e}")
             if dtype == torch.bfloat16:  # the serving path's dtype
                 add_site(summary, 1, kernel_ms, plain_ms, library_ms, bound, err)
     return summary
@@ -245,7 +265,8 @@ def check_dcnv2(sites, gen: torch.Generator) -> dict:
             print(f"dcnv2_im2col row {row} x{tuple(xs)} cols {tuple(got.shape)} x{count}/batch {str(dtype)[6:]}: "
                   f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
                   f"(grid_sample, sampling only, no mask product) bound_ms {bound[0]:.4f} ({bound[1]}; "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) max_abs_err {err:.3e}")
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) x bound {kernel_ms / bound[0]:.1f} "
+                  f"max_abs_err {err:.3e}")
             if dtype == torch.bfloat16:
                 add_site(summary, count, kernel_ms, plain_ms, library_ms, bound, err)
     return summary
@@ -296,7 +317,8 @@ def check_dcnv3(sites, gen: torch.Generator) -> dict:
             print(f"dcnv3_core row {row} x{tuple(xs)} G {G} P {P} x{count}/batch {str(dtype)[6:]}: "
                   f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
                   f"(grid_sample, sampling only, no mask product) bound_ms {bound[0]:.4f} ({bound[1]}; "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) max_abs_err {err:.3e}")
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) x bound {kernel_ms / bound[0]:.1f} "
+                  f"max_abs_err {err:.3e}")
             if dtype == torch.bfloat16:
                 add_site(summary, count, kernel_ms, plain_ms, library_ms, bound, err)
     return summary
@@ -472,9 +494,10 @@ def main() -> int:
     v2_sites, v3_sites = dcn_sites("yolo-somi-dcn", BATCH, IMGSZ)
     v2_summary = check_dcnv2(v2_sites, gen)
     v3_summary = check_dcnv3(v3_sites, gen)
-    print(f"per served batch (bf16, sites times launches): dcnv2_im2col kernel_ms {v2_summary['ms']:.4f} "
-          f"bound_ms {v2_summary['bound_ms']:.4f}; dcnv3_core kernel_ms {v3_summary['ms']:.4f} "
-          f"bound_ms {v3_summary['bound_ms']:.4f}")
+    print("per served batch (bf16, sites times launches): " + "; ".join(
+        f"{name} kernel_ms {sm['ms']:.4f} library_ms {sm['library_ms']:.4f} bound_ms {sm['bound_ms']:.4f} "
+        f"x bound {sm['ms'] / sm['bound_ms']:.1f}"
+        for name, sm in (("odconv_s2", odconv_summary), ("dcnv2_im2col", v2_summary), ("dcnv3_core", v3_summary))))
 
     flagship = serve(gpu, "yolo-somi")
     dcn = serve(gpu, "yolo-somi-dcn")

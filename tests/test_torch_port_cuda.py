@@ -10,8 +10,9 @@ PyTorch (tests/conftest.py imports jax, hence --noconftest):
 import pytest
 import torch
 
+from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
-from yolosomi_tpu_torch.ops.odconv import odconv_s2, odconv_s2_reference
+from yolosomi_tpu_torch.ops.odconv import _TILES, _plan, _smem_bytes, odconv_s2, odconv_s2_reference
 
 
 @pytest.fixture
@@ -44,6 +45,32 @@ def test_odconv_s2_kernel_matches_plain_version(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 40, 40, 512, 256), (1, 64, 64, 64, 128), (2, 32, 32, 256, 256),
+                                   (8, 160, 160, 64, 128), (8, 80, 80, 256, 256)])
+def test_odconv_s2_bf16_plans_match_plain_version_and_repeat_bitwise(cuda, shape):
+    """Serving-like widths reaching every launch plan: both tile
+    configurations with and without split-K (tests/test_torch_port_odconv.py
+    pins which shape gets which). Split-K sums its parts in a fixed order,
+    so two calls give the same bits."""
+    b, h, w, cin, cout = shape
+    x = torch.randn(b, h, w, cin, device="cuda", generator=cuda).bfloat16()
+    wmix = (torch.randn(b, 3, 3, cin, cout, device="cuda", generator=cuda) * (2.0 / (9 * cin)) ** 0.5).bfloat16()
+    got = odconv_s2(x, wmix)
+    again = odconv_s2(x, wmix)
+    torch.cuda.synchronize()
+    ref = odconv_s2_reference(x.float(), wmix.float())
+    torch.testing.assert_close(got.float(), ref, atol=0.15, rtol=0.03)
+    assert torch.equal(got, again), _plan(*shape)
+
+
+@pytest.mark.cuda
+def test_odconv_s2_tile_table_matches_the_kernel(cuda):
+    lib = build.load("odconv_s2.cu")
+    assert [lib.odconv_s2_bf16_smem(cfg) for cfg in sorted(_TILES)] == [_smem_bytes(cfg) for cfg in sorted(_TILES)]
+    assert lib.odconv_s2_bf16_smem(len(_TILES)) == -1
+
+
+@pytest.mark.cuda
 def test_odconv_s2_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.randn(2, 8, 8, 16, device="cuda", generator=cuda)
     wmix = torch.randn(2, 3, 3, 16, 32, device="cuda", generator=cuda)
@@ -55,6 +82,11 @@ def test_odconv_s2_kernel_rejects_what_it_does_not_take(cuda):
         odconv_s2(x.permute(0, 2, 1, 3), wmix)
     with pytest.raises(ValueError, match="one CUDA device"):
         odconv_s2(x, wmix.cpu())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        odconv_s2(x[..., :12].contiguous().bfloat16(), wmix[:, :, :, :12].contiguous().bfloat16())
+    flat = torch.empty(x.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        odconv_s2(flat[1:].view(x.shape), wmix.bfloat16())
 
 
 def _dcnv3_case(gen, n, h, w, g, cg, s, dil, dtype):
@@ -93,14 +125,20 @@ def test_dcnv3_core_kernel_matches_plain_version(cuda, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [(2, 9, 11, 5, 1), (1, 13, 7, 40, 2), (3, 6, 6, 1, 1)])
+@pytest.mark.parametrize("case", [(2, 9, 11, 5, 1), (1, 13, 7, 40, 2), (3, 6, 6, 1, 1), (2, 12, 10, 256, 1),
+                                  (1, 9, 7, 512, 2), (1, 8, 6, 256, 1, "misaligned")])
 def test_dcnv2_im2col_kernel_matches_plain_version(cuda, dtype, case):
-    n, h, w, c, s = case
+    """Odd C runs one channel a lane; C = 256 / 512 (the serving widths)
+    16-byte vectors; an x that is not 16-byte aligned one channel a lane."""
+    n, h, w, c, s = case[:5]
     ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
     x = torch.randn(n, h, w, c, device="cuda", generator=cuda)
     oy, ox = ((torch.rand(2, n, ho, wo, 9, device="cuda", generator=cuda) - 0.5) * 8).unbind(0)
     mask = torch.sigmoid(torch.randn(n, ho, wo, 9, device="cuda", generator=cuda))
     x, oy, ox, mask = (t.to(dtype) for t in (x, oy, ox, mask))
+    if len(case) > 5:
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(n, h, w, c)
+        assert x.is_contiguous() and x.data_ptr() % 16
     before = dcnv2_im2col.launches
     got = dcnv2_im2col(x, oy, ox, mask, 3, s, 1)
     torch.cuda.synchronize()

@@ -3,7 +3,8 @@ sampling functions' plain versions against `yolosomi_tpu.ops.dcn` and a
 float64 loop oracle of the CUDA kernels' closed-form coordinates, the
 deformable blocks against flax, the whole yolo-somi-dcn graph at width
 0.25 / depth 0.33 / 64 px, the weight bridge at full width, the serving
-Runner on the CPU and the `plain_version()` switch. The CUDA kernels
+Runner on the CPU, the `plain_version()` switch and dcnv2_im2col's launch
+geometry. The CUDA kernels
 themselves are checked on a GPU by tests/test_torch_port_cuda.py and
 chip_smoke.py.
 
@@ -225,6 +226,33 @@ def test_dcnv2_im2col_reference_matches_kernel_closed_form(s):
     before = dcnv2_im2col.launches
     assert torch.equal(dcnv2_im2col(*(torch.from_numpy(a) for a in (x, oy, ox, mask)), 3, s, 1), got)
     assert dcnv2_im2col.launches == before
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("elem_size", [4, 2])
+@pytest.mark.parametrize("C", [1, 5, 40, 256, 512])
+def test_dcnv2_launch_geometry_covers_every_column_once(C, elem_size, aligned):
+    """The kernel's thread -> (group, lane) -> pairs -> vectors map, as
+    _v2_geometry sets it up: the blocks' threads and VEC cover
+    N*Ho*Wo*P*C exactly once."""
+    N, Ho, Wo, P = 2, 3, 5, 9
+    pairs = N * Ho * Wo * P
+    vec, lanes, per_group = ops_dcn._v2_geometry(C, elem_size, aligned)
+    assert C % vec == 0 and lanes in (1, 2, 4, 8, 16, 32) and 1 <= per_group <= min(lanes, 4)
+    assert vec == (16 // elem_size if aligned and C % (16 // elem_size) == 0 else 1)
+    assert lanes >= C // vec or lanes == 32  # a pair's vectors take one round, or a whole warp
+    threads = -(-pairs // per_group) * lanes
+    t = np.arange(-(-threads // ops_dcn._V2_THREADS) * ops_dcn._V2_THREADS)
+    lane, first = t % lanes, t // lanes * per_group
+    cover = np.zeros(pairs * C, np.int32)
+    for j in range(per_group):  # the group's pairs, one after the other
+        q = first + j
+        for v0 in range(0, C, lanes * vec):  # a lane's vectors of pair q
+            v = v0 + lane * vec
+            live = (q < pairs) & (v < C)
+            for e in range(vec):
+                np.add.at(cover, q[live] * C + v[live] + e, 1)
+    assert (cover == 1).all()
 
 
 def test_wrappers_check_shapes_and_refuse_non_cuda_devices():

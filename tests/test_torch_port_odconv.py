@@ -1,8 +1,9 @@
 """yolosomi_tpu_torch ODConv against the JAX package: the per-sample conv's
 plain version against the Pallas kernel (interpret mode), and the whole
 ODConv module against the flax ODConv at the flagship's row 1 and row 26
-sites. The CUDA kernel itself is checked on a GPU by
-tests/test_torch_port_cuda.py and chip_smoke.py."""
+sites; and the bf16 kernel's launch plan, which is pure Python. The CUDA
+kernel itself is checked on a GPU by tests/test_torch_port_cuda.py and
+chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -13,8 +14,10 @@ import jax.numpy as jnp
 
 from tests._torch_port_common import IMGSZ, jax_flagship, layer_variables, small_flagship_cfg
 from yolosomi_tpu.ops.odconv_pallas import odconv_s2_pallas
-from yolosomi_tpu_torch.models.yolo import build_model
-from yolosomi_tpu_torch.ops.odconv import odconv_s2, odconv_s2_reference, plain_version
+from yolosomi_tpu_torch.models.yolo import build_model, parse_model
+from yolosomi_tpu_torch.ops.odconv import (_BK, _BM, _TILES, _k_splits, _plan, _smem_bytes, odconv_s2,
+                                           odconv_s2_reference, plain_version)
+from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.weights import load_jax_variables
 
 
@@ -74,3 +77,89 @@ def test_odconv_module_matches_flax(flagship, row):
     assert got.shape == ref.shape == (2, hw // 2, hw // 2, spec.c2)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
     np.testing.assert_array_equal(got, same)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's launch plan (pure Python: what the CUDA kernel is told)
+# ---------------------------------------------------------------------------
+
+
+def _odconv_sites(width: float, depth: float, imgsz: int, batch: int) -> list:
+    """(B, H, W, Cin, Cout) of every ODConv row of the flagship at this size,
+    read from the graph built on the meta device."""
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    cfg["width_multiple"], cfg["depth_multiple"] = width, depth
+    with torch.device("meta"):
+        _, meta = parse_model(cfg)
+    sites = []
+    for spec in meta.specs:
+        if spec.name in ("ODConv", "ODConv_3rd"):
+            src = meta.specs[spec.i + spec.f if spec.f < 0 else spec.f]
+            hw = int(imgsz / src.stride)
+            sites.append((batch, hw, hw, src.c2, spec.c2))
+    return sites
+
+
+# rows 1, 26, 29, 32 of yolo-somi at 640 px, batch 8, and at the tests'
+# width 0.25 / depth 0.33 / 64 px, batch 2
+SERVING_SITES = [(8, 320, 320, 64, 128), (8, 160, 160, 256, 256), (8, 80, 80, 256, 256), (8, 40, 40, 512, 256)]
+SMALL_SITES = [(2, 32, 32, 16, 32), (2, 16, 16, 64, 64), (2, 8, 8, 64, 64), (2, 4, 4, 128, 64)]
+# tests/test_torch_port_cuda.py's shapes: the odd ones, then the serving-like
+# bf16 cases with the plan each must reach
+CARD_ODD = [(3, 22, 38, 24, 72), (2, 16, 16, 8, 128), (1, 12, 20, 128, 256)]
+CARD_PLANS = {(2, 40, 40, 512, 256): (1, 8), (1, 64, 64, 64, 128): (0, 5), (2, 32, 32, 256, 256): (1, 8),
+              (8, 160, 160, 64, 128): (0, 1), (8, 80, 80, 256, 256): (1, 1)}
+
+
+def test_site_lists_match_the_graph():
+    assert _odconv_sites(1.0, 1.0, 640, 8) == SERVING_SITES
+    assert _odconv_sites(0.25, 0.33, 64, 2) == SMALL_SITES
+
+
+@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + CARD_ODD + list(CARD_PLANS))
+def test_plan_tiles_cover_the_output_once_and_splits_partition_k(shape):
+    B, H, W, cin, cout = shape
+    M, K = (H // 2) * (W // 2), 9 * cin
+    cfg, split = _plan(*shape)
+    bn, _, per_sm = _TILES[cfg]
+    bm = _BM
+    # the grid (ceil(M/BM), ceil(Cout/BN), B*split); each block writes the
+    # in-range part of its BM x BN tile
+    cover = np.zeros((M, cout), np.int32)
+    for bx in range(-(-M // bm)):
+        for by in range(-(-cout // bn)):
+            cover[bx * bm:(bx + 1) * bm, by * bn:(by + 1) * bn] += 1
+    assert (cover == 1).all()
+    parts = _k_splits(cin, split)
+    assert len(parts) == split and parts[0][0] == 0 and parts[-1][1] == K
+    assert all(a < b for a, b in parts)  # none empty
+    assert all(parts[i][1] == parts[i + 1][0] for i in range(split - 1))
+    assert all(a % 8 == 0 and b % 8 == 0 for a, b in parts)  # whole 8-channel vectors
+    assert all(a % _BK == 0 for a, _ in parts)  # whole K steps
+    # a block's shared memory fits; per_sm blocks fit one SM's 228 KB
+    assert _smem_bytes(cfg) <= 227 * 1024 and per_sm * (_smem_bytes(cfg) + 1024) <= 228 * 1024
+    if shape in SERVING_SITES:  # fills at least 3/4 of a wave of resident blocks
+        assert -(-M // bm) * -(-cout // bn) * B * split >= 0.75 * per_sm * 132
+
+
+def test_plans_of_the_serving_sites_and_the_card_cases():
+    """Row 1 takes 128x128 tiles, rows 26, 29 and 32 128x256, row 32 with K
+    split in 4; the card tests reach each configuration with and without
+    split-K."""
+    assert [_plan(*s) for s in SERVING_SITES] == [(0, 1), (1, 1), (1, 1), (1, 4)]
+    assert {s: _plan(*s) for s in CARD_PLANS} == CARD_PLANS
+    reached = {(cfg, split > 1) for cfg, split in CARD_PLANS.values()}
+    assert reached == {(0, False), (0, True), (1, False), (1, True)}
+
+
+@pytest.mark.parametrize("cin,cout", [(12, 16), (16, 20), (4, 4)])
+def test_bf16_needs_channels_in_multiples_of_8_before_any_launch(cin, cout):
+    x = torch.empty(2, 8, 8, cin, dtype=torch.bfloat16, device="meta")
+    wmix = torch.empty(2, 3, 3, cin, cout, dtype=torch.bfloat16, device="meta")
+    before = odconv_s2.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        odconv_s2(x, wmix)
+    assert odconv_s2.launches == before
+    # f32 takes any width; off the CPU and the card it still refuses the device
+    with pytest.raises(ValueError, match="CUDA"):
+        odconv_s2(x.float(), wmix.float())

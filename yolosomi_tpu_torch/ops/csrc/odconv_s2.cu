@@ -8,24 +8,15 @@
 // kernel). Its plain PyTorch version is odconv_s2_reference in
 // yolosomi_tpu_torch/ops/odconv.py.
 //
-// Design: a per-sample implicit GEMM. For sample b, M = oh*ow output
+// Both paths are a per-sample implicit GEMM. For sample b, M = oh*ow output
 // pixels, N = Cout, K = 9*Cin. A[m, k] is gathered from x on the fly
 // (iy = 2*oy + ky - 1, ix = 2*ox + kx - 1, zero outside the image), so the
 // patch matrix never exists in device memory; B is wmix[b] viewed as
-// (9*Cin, Cout), row-major as stored. The TPU kernel's parity planes,
-// double-buffered row band and 2-plane channel packing were answers to
-// VMEM tiling and 128-lane alignment; on Hopper the stride-2 gather is
-// address arithmetic, and the kernel masks ragged edges itself, so any
-// Cin and Cout are taken.
-//
-// The batch is a grid axis, grid = (ceil(M/64), ceil(Cout/64), B): every
-// sample has its own B matrix, so nothing is shared across samples and a
-// block never needs another sample's weights.
-//
-// Two paths: f32 with FMA in registers (a 4x4 micro-tile per thread), and
-// bf16 on the tensor cores through nvcuda::wmma (16x16x16 fragments, f32
-// accumulators). Both stage 64x32 A and 32x64 B tiles in shared memory.
-// No TMA, wgmma or persistent schedule yet.
+// (9*Cin, Cout), row-major as stored. Every sample has its own B matrix, so
+// the batch is a grid axis and nothing is shared across samples. The TPU
+// kernel's parity planes, double-buffered row band and 2-plane channel
+// packing were answers to VMEM tiling and 128-lane alignment; on Hopper the
+// stride-2 gather is address arithmetic.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM), per image
 // in bf16, bytes = x + out + w read/written once:
@@ -36,31 +27,74 @@
 //   row 32  0.94 GFLOP   1.0 us         4.2 MB   1.3 us         bytes
 // (rows of configs/models/yolo-somi.yaml at 640 px: Cin 64/256/256/512,
 // Cout 128/256/256/256, input 320/160/80/40 px square).
+//
+// bf16 (the serving path): a wgmma GEMM fed by an asynchronous ring.
+// - A is copied into shared memory 16 bytes (8 channels) at a time with
+//   cp.async; Cin % 8 == 0 keeps each vector inside one tap. A thread's
+//   vectors always sit in one column of the tile, so it carries (tap,
+//   channel) from K step to K step by addition, with no division; the
+//   output pixel of each of its rows is decoded once. Padding, ragged M and
+//   the end of K use cp.async's zero-fill form (src-size 0), not branches.
+// - B tiles are plain row-major boxes of wmix[b] (N-major for wgmma),
+//   through the same ring.
+// - Shared memory holds both in wgmma's 128-byte-swizzled layout, K step
+//   64 (one 128-byte swizzle atom a row); each warpgroup multiplies its 64
+//   rows with wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators in
+//   registers), operands read through shared-memory descriptors.
+// - A ring of STAGES stages, DIST of them loaded ahead: a stage's loads are
+//   in flight while earlier stages are multiplied; one barrier per K step;
+//   fence.proxy.async hands cp.async's writes to wgmma.
+// - Two tile configurations, chosen per call by ops/odconv.py::_plan:
+//   128x128 (2 warpgroups, 3 stages, 2 blocks an SM) where Cout <= 128,
+//   128x256 (4 stages, one wgmma group left in flight) where Cout > 128.
+//   Where the tiles leave the card under-filled (row 32: 32 tiles), K is
+//   split; the parts write f32 partial sums to a workspace that
+//   odconv_s2_splitk_reduce adds in a fixed order: no atomics, the same
+//   bits every run.
+// - The epilogue rounds the accumulators to bf16 in registers, swaps them
+//   within each lane quad so that every lane holds 8 consecutive channels
+//   of one row, and writes 16-byte vectors straight to `out`.
+// No TMA (the A gather is not a box) and no persistent schedule yet.
+//
+// f32 (the parity check's path): FMA in registers, a 4x4 micro-tile per
+// thread over 64x32 and 32x64 shared tiles, scalar gathers; any Cin, Cout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
-
-constexpr int BM = 64;  // output pixels per block
-constexpr int BN = 64;  // output channels per block
-constexpr int BK = 32;  // reduction chunk staged through shared memory
 
 struct Shape {
   int H, W, Cin, Cout, OW, M, K;
 };
 
-__device__ __forceinline__ float zero_of(float) { return 0.0f; }
-__device__ __forceinline__ __nv_bfloat16 zero_of(__nv_bfloat16) { return __float2bfloat16(0.0f); }
+Shape make_shape(int H, int W, int Cin, int Cout) {
+  Shape s;
+  s.H = H;
+  s.W = W;
+  s.Cin = Cin;
+  s.Cout = Cout;
+  s.OW = W / 2;
+  s.M = (H / 2) * (W / 2);
+  s.K = 9 * Cin;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// f32
+// ---------------------------------------------------------------------------
+
+constexpr int F_BM = 64;  // output pixels per block
+constexpr int F_BN = 64;  // output channels per block
+constexpr int F_BK = 32;  // reduction chunk staged through shared memory
 
 // A[m, k] of one sample: the input value under tap (ky, kx) = (k / Cin) of
 // output pixel m, channel k % Cin; zero in the padding and past the edges.
-template <typename T>
-__device__ __forceinline__ T load_a(const T* __restrict__ xb, const Shape& s, int m, int k) {
-  if (m >= s.M || k >= s.K) return zero_of(T());
+__device__ __forceinline__ float load_a(const float* __restrict__ xb, const Shape& s, int m, int k) {
+  if (m >= s.M || k >= s.K) return 0.0f;
   const int tap = k / s.Cin;
   const int ci = k - tap * s.Cin;
   const int ky = tap / 3;
@@ -69,25 +103,24 @@ __device__ __forceinline__ T load_a(const T* __restrict__ xb, const Shape& s, in
   const int ox = m - oy * s.OW;
   const int iy = 2 * oy + ky - 1;
   const int ix = 2 * ox + kx - 1;
-  if (iy < 0 || iy >= s.H || ix < 0 || ix >= s.W) return zero_of(T());
+  if (iy < 0 || iy >= s.H || ix < 0 || ix >= s.W) return 0.0f;
   return xb[(static_cast<size_t>(iy) * s.W + ix) * s.Cin + ci];
 }
 
-template <typename T>
-__device__ __forceinline__ T load_b(const T* __restrict__ wb, const Shape& s, int k, int n) {
-  if (k >= s.K || n >= s.Cout) return zero_of(T());
+__device__ __forceinline__ float load_b(const float* __restrict__ wb, const Shape& s, int k, int n) {
+  if (k >= s.K || n >= s.Cout) return 0.0f;
   return wb[static_cast<size_t>(k) * s.Cout + n];
 }
 
-// f32: 256 threads, each owns rows ty + 16*i and columns tx + 16*j.
+// 256 threads, each owns rows ty + 16*i and columns tx + 16*j.
 __global__ void __launch_bounds__(256)
 odconv_s2_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
                      Shape s) {
-  __shared__ float As[BK][BM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[BK][BN + 4];
+  __shared__ float As[F_BK][F_BM + 4];  // transposed: As[k][m]
+  __shared__ float Bs[F_BK][F_BN + 4];
   const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * F_BM;
+  const int n0 = blockIdx.y * F_BN;
   const float* xb = x + static_cast<size_t>(b) * s.H * s.W * s.Cin;
   const float* wb = w + static_cast<size_t>(b) * s.K * s.Cout;
   const int tid = threadIdx.x;
@@ -100,19 +133,19 @@ odconv_s2_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, f
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < s.K; k0 += BK) {
+  for (int k0 = 0; k0 < s.K; k0 += F_BK) {
     // k fastest across threads: consecutive threads read consecutive channels
-    for (int i = tid; i < BM * BK; i += 256) {
-      const int mm = i / BK, kk = i % BK;
+    for (int i = tid; i < F_BM * F_BK; i += 256) {
+      const int mm = i / F_BK, kk = i % F_BK;
       As[kk][mm] = load_a(xb, s, m0 + mm, k0 + kk);
     }
-    for (int i = tid; i < BK * BN; i += 256) {
-      const int kk = i / BN, nn = i % BN;
+    for (int i = tid; i < F_BK * F_BN; i += 256) {
+      const int kk = i / F_BN, nn = i % F_BN;
       Bs[kk][nn] = load_b(wb, s, k0 + kk, n0 + nn);
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < F_BK; ++kk) {
       float a[4], bv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
@@ -138,89 +171,364 @@ odconv_s2_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, f
   }
 }
 
-// bf16: 128 threads = 4 warps in a 2x2 layout, each warp a 32x32 sub-tile
-// of 2x2 wmma fragments. Row pads keep fragment pointers 32-byte aligned.
-constexpr int A_LD = BK + 8;
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;
+// ---------------------------------------------------------------------------
+// bf16: cp.async ring + wgmma
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(128)
-odconv_s2_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                      __nv_bfloat16* __restrict__ out, Shape s) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ __align__(128) __nv_bfloat16 As[BM][A_LD];  // As[m][k]
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK][B_LD];  // Bs[k][n]
-  __shared__ __align__(128) float Cs[BM][C_LD];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const __nv_bfloat16* xb = x + static_cast<size_t>(b) * s.H * s.W * s.Cin;
-  const __nv_bfloat16* wb = w + static_cast<size_t>(b) * s.K * s.Cout;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;
-  const int wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < s.K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += 128) {
-      const int mm = i / BK, kk = i % BK;
-      As[mm][kk] = load_a(xb, s, m0 + mm, k0 + kk);
-    }
-    for (int i = tid; i < BK * BN; i += 128) {
-      const int kk = i / BN, nn = i % BN;
-      Bs[kk][nn] = load_b(wb, s, k0 + kk, n0 + nn);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], &Bs[kk][wn * 32 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], bf[j], c[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16], c[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-
-  __nv_bfloat16* ob = out + static_cast<size_t>(b) * s.M * s.Cout;
-  for (int i = tid; i < BM * BN; i += 128) {
-    const int mm = i / BN, nn = i % BN;
-    const int m = m0 + mm, n = n0 + nn;
-    if (m < s.M && n < s.Cout) ob[static_cast<size_t>(m) * s.Cout + n] = __float2bfloat16(Cs[mm][nn]);
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-Shape make_shape(int H, int W, int Cin, int Cout) {
+// 16 bytes global -> shared, or 16 zero bytes when !ok (src-size 0: nothing
+// is read, so `src` only has to be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a[i] for a runtime i < 4, by selects (no local-memory array)
+__device__ __forceinline__ uint32_t pick4(const uint32_t* a, int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// 128-byte swizzle (the wgmma operand layout): 16-byte chunk c of the
+// 128-byte row r of a 1024-byte-aligned panel sits at chunk c ^ (r % 8).
+// Element offset in a panel of rows of 64 bf16.
+__device__ __forceinline__ int swizzled(int r, int c) { return r * 64 + ((c ^ (r & 7)) << 3); }
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, 128-byte swizzle
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return ((smem_addr(p) & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// d (the warpgroup's 64xN f32 fragment) += A (64x16, K-major) * B (16xN,
+// N-major), both read from swizzled shared memory through descriptors
+template <int N>
+__device__ __forceinline__ void wgmma_k16(float* d, uint64_t desc_a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_k16<128>(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_k16<256>(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async's shared-memory writes, made visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+struct GemmArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;
+  __nv_bfloat16* out;
+  float* ws;  // split-K partial sums (split, B, M, Cout); unused when split == 1
   Shape s;
-  s.H = H;
-  s.W = W;
-  s.Cin = Cin;
-  s.Cout = Cout;
-  s.OW = W / 2;
-  s.M = (H / 2) * (W / 2);
-  s.K = 9 * Cin;
-  return s;
+  int B;
+  int split;
+  int kt_per_split;  // K steps per split
+};
+
+// A warp's 16-row strip of the accumulators, rows row0 .. row0+15 and
+// columns col0 + 8j .. col0 + 8j + 7 for acc[j] (wgmma's fragment: lane
+// 4g + q holds rows g and g+8, columns 2q and 2q+1), to out in bf16 (split
+// == 1) or to the split's f32 partial sums.
+template <int NJ>
+__device__ __forceinline__ void store_strip(const float (*acc)[4], const GemmArgs& a, int b, int split, int row0,
+                                            int col0) {
+  const Shape& s = a.s;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int q = lane % 4;
+  if (a.split == 1) {
+    __nv_bfloat16* ob = a.out + static_cast<size_t>(b) * s.M * s.Cout;
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      // this lane's four bf16 pairs: (row g | g+8) x (tile j | j+1)
+      const uint32_t v[4] = {pack_bf16(acc[j][0], acc[j][1]), pack_bf16(acc[j][2], acc[j][3]),
+                             pack_bf16(acc[j + 1][0], acc[j + 1][1]), pack_bf16(acc[j + 1][2], acc[j + 1][3])};
+      // quad transpose: lane q gathers pair q of every lane of its quad,
+      // i.e. all 8 columns of (row g + 8*(q&1), tile j + (q>>1))
+      uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int src = (q + r) & 3;
+        const uint32_t got = __shfl_sync(0xffffffffu, pick4(v, (q - r) & 3), (lane & ~3) | src);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) o[t] = src == t ? got : o[t];
+      }
+      const int m = row0 + g + 8 * (q & 1);
+      const int n = col0 + (j + (q >> 1)) * 8;
+      if (m < s.M && n < s.Cout)
+        *reinterpret_cast<uint4*>(ob + static_cast<size_t>(m) * s.Cout + n) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+    float* wsb = a.ws + (static_cast<size_t>(split) * a.B + b) * s.M * s.Cout;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = col0 + j * 8 + 2 * q;
+      if (n >= s.Cout) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row0 + g + 8 * h;
+        if (m < s.M)
+          *reinterpret_cast<float2*>(wsb + static_cast<size_t>(m) * s.Cout + n) =
+              make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      }
+    }
+  }
 }
 
-dim3 make_grid(const Shape& s, int B) { return dim3((s.M + BM - 1) / BM, (s.Cout + BN - 1) / BN, B); }
+// Block tile 128 x BN (two warpgroups, 64 rows each), K step 64: one
+// 128-byte swizzle atom per row of A (K-major) and per 64 columns of B
+// (N-major, as wmix is stored). DIST = 2 stages are loaded ahead; the wgmma
+// of STAGES - DIST - 1 earlier stages may still run while a stage loads.
+template <int BN_, int STAGES_>
+struct Tile {
+  static constexpr int BM = 128, BN = BN_, BK = 64, STAGES = STAGES_, DIST = 2, THREADS = 256;
+  // A stage: [BM][64] swizzled; B stage: BN/64 panels [64 k][64 n] swizzled
+  static constexpr int A_STAGE = BM * BK, B_STAGE = BK * BN;            // elements, multiples of 512
+  static constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) * 2 + 1024;  // + room to align to 1024
+  static constexpr int A_ITERS = BM * 8 / THREADS, B_ITERS = BK * BN / 8 / THREADS;
+  static constexpr int A_ROW_STEP = THREADS / 8, B_VPR = BN / 8, B_ROW_STEP = THREADS / B_VPR;
+  static_assert(BN % 64 == 0 && BK * BN / 8 % THREADS == 0 && THREADS % B_VPR == 0, "loader shape");
+  static_assert(STAGES > DIST, "ring depth");
+};
+
+// The configurations ops/odconv.py::_plan chooses from (keep the two in
+// step: the card tests compare _smem_bytes with odconv_s2_bf16_smem).
+// 128x128 where Cout <= 128 (two blocks fit an SM, so one block's loads and
+// barrier overlap the other's products); 128x256 where Cout > 128 (A is
+// gathered once for 256 output channels; one block an SM, so a deeper ring
+// and one wgmma group kept in flight instead).
+using Tile0 = Tile<128, 3>;
+using Tile1 = Tile<256, 4>;
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+odconv_s2_bf16_wgmma_kernel(GemmArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw + (((raw + 1023u) & ~1023u) - raw));
+  __nv_bfloat16* Bs = As + T::STAGES * T::A_STAGE;
+  const Shape& s = a.s;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int m0 = blockIdx.x * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  const int b = blockIdx.z % a.B;
+  const int split = blockIdx.z / a.B;
+  const int nk_total = (s.K + T::BK - 1) / T::BK;
+  const int kt0 = split * a.kt_per_split;
+  const int nk = min(nk_total, kt0 + a.kt_per_split) - kt0;
+  const __nv_bfloat16* xb = a.x + static_cast<size_t>(b) * s.H * s.W * s.Cin;
+  const __nv_bfloat16* wb = a.w + static_cast<size_t>(b) * s.K * s.Cout;
+
+  // A loader: this thread's rows and their input-pixel origins, decoded
+  // once; a fixed column of 16-byte vectors, (tap, ci) carried from stage
+  // to stage
+  const int a_vc = tid % 8;
+  const int a_row = tid / 8;
+  int a_iy0[T::A_ITERS], a_ix0[T::A_ITERS];
+  bool a_ok[T::A_ITERS];
+#pragma unroll
+  for (int i = 0; i < T::A_ITERS; ++i) {
+    const int m = m0 + a_row + i * T::A_ROW_STEP;
+    const int oy = m / s.OW;
+    a_ok[i] = m < s.M;
+    a_iy0[i] = 2 * oy - 1;
+    a_ix0[i] = 2 * (m - oy * s.OW) - 1;
+  }
+  int a_k = kt0 * T::BK + a_vc * 8;  // the k of this thread's vector in the next stage to load
+  int tap = a_k / s.Cin;
+  int ci = a_k - tap * s.Cin;
+  // B loader: a fixed 8-channel column of the tile
+  const int b_vc = tid % T::B_VPR;
+  const int b_row = tid / T::B_VPR;
+  const bool b_nok = n0 + b_vc * 8 < s.Cout;
+
+  auto load_stage = [&](int slot, int kt) {
+    __nv_bfloat16* as = As + slot * T::A_STAGE;
+    __nv_bfloat16* bs = Bs + slot * T::B_STAGE;
+    const bool k_ok = a_k < s.K;
+    const int ky = tap >= 6 ? 2 : (tap >= 3 ? 1 : 0);
+    const int kx = tap - 3 * ky;
+#pragma unroll
+    for (int i = 0; i < T::A_ITERS; ++i) {
+      const int r = a_row + i * T::A_ROW_STEP;
+      const int iy = a_iy0[i] + ky;
+      const int ix = a_ix0[i] + kx;
+      const bool ok = k_ok && a_ok[i] && static_cast<unsigned>(iy) < static_cast<unsigned>(s.H) &&
+                      static_cast<unsigned>(ix) < static_cast<unsigned>(s.W);
+      const __nv_bfloat16* src = ok ? xb + (static_cast<size_t>(iy) * s.W + ix) * s.Cin + ci : xb;
+      cp_async16(as + swizzled(r, a_vc), src, ok);
+    }
+    a_k += T::BK;
+    ci += T::BK;
+    while (ci >= s.Cin) {
+      ci -= s.Cin;
+      ++tap;
+    }
+#pragma unroll
+    for (int i = 0; i < T::B_ITERS; ++i) {
+      const int r = b_row + i * T::B_ROW_STEP;
+      const int k = kt * T::BK + r;
+      const bool ok = b_nok && k < s.K;
+      const __nv_bfloat16* src = ok ? wb + static_cast<size_t>(k) * s.Cout + n0 + b_vc * 8 : wb;
+      cp_async16(bs + (b_vc / 8) * (T::BK * 64) + swizzled(r, b_vc % 8), src, ok);
+    }
+  };
+
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int r = 0; r < T::BN / 2; ++r) acc[r] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < T::DIST; ++st) {
+    if (st < nk) load_stage(st, kt0 + st);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<T::DIST - 1>();
+    fence_proxy_async();
+    // stage `it` is in shared memory; the wgmma that read the slot loaded
+    // next (stage it + DIST - STAGES) has finished in every warpgroup
+    __syncthreads();
+    const int next = it + T::DIST;
+    if (next < nk) load_stage(next % T::STAGES, kt0 + next);
+    cp_async_commit();
+
+    const __nv_bfloat16* as = As + (it % T::STAGES) * T::A_STAGE + wg * 64 * T::BK;
+    const __nv_bfloat16* bs = Bs + (it % T::STAGES) * T::B_STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::BK / 16; ++kk) {
+      // A: 8-row groups 1024 bytes apart, k16 step = 32 bytes inside the
+      // atom; B: 8-k-row groups 1024 bytes apart, the second 64 columns
+      // one panel (BK*128 bytes) on, k16 step = two groups
+      wgmma_k16<T::BN>(acc, gmma_desc(as + kk * 16, 16, 1024), gmma_desc(bs + kk * 16 * 64, T::BK * 128, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<T::STAGES - T::DIST - 1>();
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+
+  // warp w of the warpgroup holds rows 16w .. 16w+15 of its 64, as BN/8
+  // fragments of 4 registers
+  store_strip<T::BN / 8>(reinterpret_cast<const float(*)[4]>(acc), a, b, split, m0 + wg * 64 + (tid % 128) / 32 * 16,
+                         n0);
+}
+
+// out = sum over the splits of ws (split, total), in split order; 8
+// elements a thread, 16-byte bf16 stores. total % 8 == 0.
+__global__ void __launch_bounds__(256)
+odconv_s2_splitk_reduce(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int split, size_t total) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 8;
+  if (i >= total) return;
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int sp = 0; sp < split; ++sp) {
+    const float4* p = reinterpret_cast<const float4*>(ws + sp * total + i);
+    const float4 lo = __ldg(p), hi = __ldg(p + 1);
+    acc[0] += lo.x;
+    acc[1] += lo.y;
+    acc[2] += lo.z;
+    acc[3] += lo.w;
+    acc[4] += hi.x;
+    acc[5] += hi.y;
+    acc[6] += hi.z;
+    acc[7] += hi.w;
+  }
+  *reinterpret_cast<uint4*>(out + i) = make_uint4(pack_bf16(acc[0], acc[1]), pack_bf16(acc[2], acc[3]),
+                                                  pack_bf16(acc[4], acc[5]), pack_bf16(acc[6], acc[7]));
+}
+
+template <class T, class Kernel>
+int launch(Kernel kernel, GemmArgs a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nk = (a.s.K + T::BK - 1) / T::BK;
+  a.kt_per_split = (nk + a.split - 1) / a.split;
+  const dim3 grid((a.s.M + T::BM - 1) / T::BM, (a.s.Cout + T::BN - 1) / T::BN, a.B * a.split);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_cfg(int cfg, const GemmArgs& a, cudaStream_t st) {
+  switch (cfg) {
+    case 0: return launch<Tile0>(odconv_s2_bf16_wgmma_kernel<Tile0>, a, st);
+    case 1: return launch<Tile1>(odconv_s2_bf16_wgmma_kernel<Tile1>, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
@@ -230,16 +538,39 @@ dim3 make_grid(const Shape& s, int B) { return dim3((s.M + BM - 1) / BM, (s.Cout
 extern "C" int odconv_s2_f32(const void* x, const void* w, void* out, int B, int H, int W, int Cin, int Cout,
                              void* stream) {
   const Shape s = make_shape(H, W, Cin, Cout);
-  odconv_s2_f32_kernel<<<make_grid(s, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((s.M + F_BM - 1) / F_BM, (s.Cout + F_BN - 1) / F_BN, B);
+  odconv_s2_f32_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), s);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int odconv_s2_bf16(const void* x, const void* w, void* out, int B, int H, int W, int Cin, int Cout,
-                              void* stream) {
+// Shared memory of tile configuration `cfg` in bytes, or -1 if there is none.
+extern "C" int odconv_s2_bf16_smem(int cfg) {
+  switch (cfg) {
+    case 0: return Tile0::SMEM;
+    case 1: return Tile1::SMEM;
+    default: return -1;
+  }
+}
+
+// bf16 with the launch plan of ops/odconv.py::_plan: tile configuration
+// `cfg`, K cut into `split` parts of ceil(ceil(K/64)/split) K steps each.
+// Needs Cin % 8 == 0, Cout % 8 == 0 and 16-byte-aligned pointers; for
+// split > 1, `ws` holds split*B*(H/2)*(W/2)*Cout floats.
+extern "C" int odconv_s2_bf16(const void* x, const void* w, void* out, void* ws, int B, int H, int W, int Cin,
+                              int Cout, int cfg, int split, void* stream) {
   const Shape s = make_shape(H, W, Cin, Cout);
-  odconv_s2_bf16_kernel<<<make_grid(s, B), 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(out), s);
+  if (Cin % 8 != 0 || Cout % 8 != 0 || split < 1 || (split > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || s.M == 0 || Cout == 0) return 0;
+  const GemmArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+                  static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), s, B, split, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = launch_cfg(cfg, a, st);
+  if (rc != 0 || split == 1) return rc;
+  const size_t total = static_cast<size_t>(B) * s.M * Cout;
+  const unsigned blocks = static_cast<unsigned>((total / 8 + 255) / 256);
+  odconv_s2_splitk_reduce<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                                  static_cast<__nv_bfloat16*>(out), split, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,14 +22,17 @@ from yolosomi_tpu_torch.ops import build, plain_active
 
 _SOURCE = "dcn.cu"
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the kernels stage PIX=4 pixels x points x 4 corners x (int + float) in
-# shared memory and launch with at most 48 KB of it
+# dcnv3_core stages PIX=4 pixels x points x 4 corners x (int + float) in
+# shared memory and launches with at most 48 KB of it
 _MAX_POINTS = 384
+# dcnv2_im2col's threads per block and most pairs a lane group writes
+# (csrc/dcn.cu V2_THREADS, V2_PAIRS)
+_V2_THREADS, _V2_PAIRS = 256, 4
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures (csrc/dcn.cu), without the trailing stream pointer
 _ARGTYPES = {
     "dcnv3_core": [_PTR] * 4 + [_INT] * 15 + [ctypes.c_float],
-    "dcnv2_im2col": [_PTR] * 5 + [_INT] * 9,
+    "dcnv2_im2col": [_PTR] * 5 + [_INT] * 11,
 }
 
 
@@ -210,6 +213,21 @@ def _check_v2(x, offset_y, offset_x, mask, k):
                          f"{tuple(mask.shape)} must all be (N, Ho, Wo, {k * k}) for x {tuple(x.shape)}")
 
 
+def _v2_geometry(C: int, elem_size: int, aligned: bool = True) -> tuple:
+    """(VEC, LANES, PAIRS) of dcnv2_im2col for C channels of `elem_size`
+    bytes: each lane moves VEC channels at a time, 16 bytes where C allows
+    it and the tensors are 16-byte aligned, else 1; a group of LANES
+    threads (a power of two, at most a warp) writes the columns of PAIRS
+    consecutive (pixel, point) pairs, one after the other, lane l taking
+    the vectors l, l + LANES, ... of each. Group g (threads g*LANES ..) has
+    the pairs from g*PAIRS on; the wrapper launches enough groups, in blocks
+    of _V2_THREADS threads, for all pairs."""
+    full = 16 // elem_size
+    vec = full if aligned and C % full == 0 else 1
+    lanes = min(32, 1 << max(C // vec - 1, 0).bit_length())
+    return vec, lanes, min(lanes, _V2_PAIRS)
+
+
 def dcnv2_im2col_reference(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: int = 1) -> torch.Tensor:
     """Plain version of `dcnv2_im2col`: the JAX arithmetic (dcn.py:220-233)."""
     _check_v2(x, offset_y, offset_x, mask, k)
@@ -246,15 +264,14 @@ def dcnv2_im2col(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: 
     if x.device.type == "cpu":
         return dcnv2_im2col_reference(x, offset_y, offset_x, mask, k, stride, pad)
     _check_cuda("dcnv2_im2col", (x, offset_y, offset_x, mask))
-    if k * k > _MAX_POINTS:
-        raise ValueError(f"dcnv2_im2col takes k*k <= {_MAX_POINTS}")
     N, H, W, C = x.shape
     _, Ho, Wo, P = offset_y.shape
     if N * Ho * Wo * P * C >= 2**31:
         raise ValueError("dcnv2_im2col: the columns would have 2**31 elements or more")
     cols = torch.empty((N, Ho * Wo, P * C), device=x.device, dtype=x.dtype)
+    vec, lanes, _ = _v2_geometry(C, x.element_size(), x.data_ptr() % 16 == 0 and cols.data_ptr() % 16 == 0)
     fn = _entry("dcnv2_im2col", x.dtype)
-    _launch("dcnv2_im2col", fn, (x, offset_y, offset_x, mask, cols), (N, H, W, C, Ho, Wo, k, stride, pad))
+    _launch("dcnv2_im2col", fn, (x, offset_y, offset_x, mask, cols), (N, H, W, C, Ho, Wo, k, stride, pad, vec, lanes))
     dcnv2_im2col.launches += 1
     return cols
 

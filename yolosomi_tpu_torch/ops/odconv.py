@@ -3,12 +3,14 @@ yolosomi_tpu/ops/odconv_pallas.py::odconv_s2_pallas).
 
 `odconv_s2` launches the hand-written CUDA kernel (csrc/odconv_s2.cu) for
 a CUDA tensor and runs the plain version for a CPU tensor. There is no
-fallback: on CUDA it launches the kernel or raises.
+fallback: on CUDA it launches the kernel or raises. The bf16 kernel's
+launch plan (tile configuration and split-K) is chosen here, by `_plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -16,13 +18,63 @@ import torch.nn.functional as F
 from yolosomi_tpu_torch.ops import build, plain_active, plain_version  # noqa: F401  (plain_version re-exported)
 
 _SOURCE = "odconv_s2.cu"
-_ENTRY = {torch.float32: "odconv_s2_f32", torch.bfloat16: "odconv_s2_bf16"}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C entry point and signature, without the trailing stream pointer
+_ENTRY = {
+    torch.float32: ("odconv_s2_f32", [_PTR] * 3 + [_INT] * 5),
+    torch.bfloat16: ("odconv_s2_bf16", [_PTR] * 4 + [_INT] * 7),
+}
+
+# The bf16 kernel's tile configurations (csrc/odconv_s2.cu, Tile0 and
+# Tile1): id -> (BN output channels, STAGES, blocks that fit on one SM).
+# Both tiles take BM = 128 output pixels and step K by BK = 64 through
+# STAGES shared-memory stages of BM x BK and BK x BN bf16.
+_TILES = {0: (128, 3, 2), 1: (256, 4, 1)}
+_BM, _BK = 128, 64
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_MAX_SPLIT = 8
+
+
+def _smem_bytes(cfg: int) -> int:
+    """Shared memory of tile configuration `cfg` (the kernel's Tile::SMEM:
+    the stages and 1 KB to align them to the 128-byte swizzle's 1 KB)."""
+    bn, stages, _ = _TILES[cfg]
+    return stages * (_BM + bn) * _BK * 2 + 1024
+
+
+def _k_splits(cin: int, split: int) -> list:
+    """The [start, end) ranges of K = 9*cin that the kernel's `split` parts
+    cover: ceil(ceil(K/BK)/split) whole K steps each, the last cut at K."""
+    K = 9 * cin
+    per = math.ceil(math.ceil(K / _BK) / split) * _BK
+    return [(i * per, min(K, (i + 1) * per)) for i in range(split)]
+
+
+def _plan(B: int, H: int, W: int, cin: int, cout: int) -> tuple:
+    """(tile configuration, split_k) for the bf16 kernel at this shape.
+
+    128x256 tiles where Cout > 128, so x is gathered once for 256 output
+    channels; else 128x128. K is split only where the tiles fill less than
+    one wave of resident blocks, into as many parts as that wave holds (at
+    most _MAX_SPLIT, none empty). At 640 px, batch 8: rows 1, 26 and 29 run
+    1600, 400 and 104 tiles unsplit; row 32 has 32 tiles and splits K in 4.
+    A second wave costs more than the idle SMs of a partial one (row 29 ran
+    slower split in 2 on an H100)."""
+    M = (H // 2) * (W // 2)
+    cfg = 1 if cout > 128 else 0
+    bn, _, per_sm = _TILES[cfg]
+    tiles = math.ceil(M / _BM) * math.ceil(cout / bn) * B
+    split = min(_MAX_SPLIT, max(1, per_sm * _SMS // max(tiles, 1)), max(1, math.ceil(9 * cin / _BK)))
+    while split > 1 and _k_splits(cin, split)[-1][0] >= 9 * cin:  # an empty last part
+        split -= 1
+    return cfg, split
 
 
 def _entry(dtype: torch.dtype):
     """The C entry point for `dtype`, built and loaded on first use."""
-    fn = getattr(build.load(_SOURCE), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    name, argtypes = _ENTRY[dtype]
+    fn = getattr(build.load(_SOURCE), name)
+    fn.argtypes = argtypes + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
@@ -55,23 +107,35 @@ def odconv_s2(x: torch.Tensor, wmix: torch.Tensor) -> torch.Tensor:
     (B, 3, 3, Cin, Cout) in the same dtype. Returns (B, H/2, W/2, Cout) in
     x.dtype. A CPU tensor runs `odconv_s2_reference`; a CUDA tensor
     launches the kernel on the current stream and counts the launch in
-    `odconv_s2.launches`."""
+    `odconv_s2.launches` (one per call, split-K's reduction included).
+    bfloat16 needs Cin and Cout multiples of 8 and 16-byte-aligned x and
+    wmix (16-byte vectors of channels)."""
     _check(x, wmix)
     if x.device.type == "cpu":
         return odconv_s2_reference(x, wmix)
+    B, H, W, C = x.shape
+    cout = wmix.shape[-1]
+    if x.dtype == torch.bfloat16 and (C % 8 or cout % 8):
+        raise ValueError(f"odconv_s2 in bfloat16 needs Cin and Cout multiples of 8, got {C} and {cout}")
     if x.device.type != "cuda" or wmix.device != x.device:
         raise ValueError(f"x and wmix must be on one CUDA device, got {x.device} and {wmix.device}")
     if x.dtype not in _ENTRY or wmix.dtype != x.dtype:
         raise TypeError(f"odconv_s2 takes float32 or bfloat16 of one dtype, got {x.dtype} and {wmix.dtype}")
     if not (x.is_contiguous() and wmix.is_contiguous()):
         raise ValueError("odconv_s2 needs contiguous x and wmix")
-    B, H, W, C = x.shape
-    cout = wmix.shape[-1]
     out = torch.empty((B, H // 2, W // 2, cout), device=x.device, dtype=x.dtype)
     fn = _entry(x.dtype)
+    args = [x.data_ptr(), wmix.data_ptr(), out.data_ptr()]
+    if x.dtype == torch.bfloat16:
+        if x.data_ptr() % 16 or wmix.data_ptr() % 16:
+            raise ValueError("odconv_s2 in bfloat16 needs 16-byte-aligned x and wmix")
+        cfg, split = _plan(B, H, W, C, cout)
+        ws = torch.empty((split, B, H // 2, W // 2, cout), device=x.device, dtype=torch.float32) if split > 1 else None
+        args += [ws.data_ptr() if ws is not None else None, B, H, W, C, cout, cfg, split]
+    else:
+        args += [B, H, W, C, cout]
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), wmix.data_ptr(), out.data_ptr(), B, H, W, C, cout, stream)
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"odconv_s2 kernel launch failed: CUDA error {rc}")
     odconv_s2.launches += 1
