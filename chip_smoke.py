@@ -11,9 +11,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     library-call and bound times and the kernel's multiple of its bound:
     odconv_s2 at the four ODConv sites (with its launch plan, and the same
     bits from two bf16 calls), dcnv2_im2col at rows 6 and 8 and dcnv3_core
-    at row 10 of yolo-somi-dcn. Every timed call starts with a cold L2: a
-    256 MB buffer is zeroed before it, outside the timed events, behind a
-    spin that keeps host launch time out of them
+    at row 10 of yolo-somi-dcn (with the corner bytes it reads). Every
+    timed call starts with a cold L2: a 256 MB buffer is zeroed before it,
+    outside the timed events, behind a spin that keeps host launch time
+    out of them
  4. serving: the full-width yolo-somi flagship, then the full-width
     yolo-somi-dcn (640 px, bf16, random weights from seed 0; the DCN
     offset/mask heads randomised from seed 0) answer batches of 8 uint8
@@ -272,30 +273,42 @@ def check_dcnv2(sites, gen: torch.Generator) -> dict:
     return summary
 
 
+def dcnv3_site(site, gen: torch.Generator) -> dict:
+    """f32 inputs of one DCNv3 site, offsets up to +-4 px and softmax masks,
+    and the kernel's sampling points: bx, by the offset-free pixel
+    coordinates of every (pixel, group, point) in the kernel's closed form
+    (p = ix*k + iy), px, py the sampled ones."""
+    _, _, xs, G, k, s, pad, dil = site
+    N, H, W, C = xs
+    P = k * k
+    Ho = (H + 2 * pad - (dil * (k - 1) + 1)) // s + 1
+    Wo = (W + 2 * pad - (dil * (k - 1) + 1)) // s + 1
+    v32 = torch.randn(xs, device="cuda", generator=gen)
+    o32 = (torch.rand((N, Ho, Wo, G * P * 2), device="cuda", generator=gen) - 0.5) * 8
+    m32 = torch.softmax(torch.randn((N, Ho, Wo, G, P), device="cuda", generator=gen) * 2, -1)
+    half = (dil * (k - 1)) // 2
+    pp = torch.arange(P, device="cuda")
+    off = o32.reshape(N, Ho, Wo, G, P, 2)
+    bx = (half + torch.arange(Wo, device="cuda") * s - pad)[None, None, :, None, None] + (pp // k) * dil - half
+    by = (half + torch.arange(Ho, device="cuda") * s - pad)[None, :, None, None, None] + (pp % k) * dil - half
+    return dict(v32=v32, o32=o32, m32=m32.reshape(N, Ho, Wo, G * P), bx=bx, by=by, px=bx + off[..., 0],
+                py=by + off[..., 1], shape=(N, H, W, G, C // G, Ho, Wo, P),
+                args=(k, k, s, s, pad, pad, dil, dil, G, C // G))
+
+
 def check_dcnv3(sites, gen: torch.Generator) -> dict:
     """dcnv3_core against dcnv3_core_reference at every DCNv3 site, f32 and
     bf16, offsets up to +-4 px and softmax masks."""
     summary = new_summary()
-    for row, count, xs, G, k, s, pad, dil in sites:
-        N, H, W, C = xs
-        Cg, P = C // G, k * k
-        Ho = (H + 2 * pad - (dil * (k - 1) + 1)) // s + 1
-        Wo = (W + 2 * pad - (dil * (k - 1) + 1)) // s + 1
-        v32 = torch.randn(xs, device="cuda", generator=gen)
-        o32 = (torch.rand((N, Ho, Wo, G * P * 2), device="cuda", generator=gen) - 0.5) * 8
-        m32 = torch.softmax(torch.randn((N, Ho, Wo, G, P), device="cuda", generator=gen) * 2, -1)
-        m32 = m32.reshape(N, Ho, Wo, G * P)
-        # the points in the kernel's closed form: p = ix*k + iy
-        half = (dil * (k - 1)) // 2
-        pp = torch.arange(P, device="cuda")
-        off = o32.reshape(N, Ho, Wo, G, P, 2)
-        px = (half + torch.arange(Wo, device="cuda") * s - pad)[None, None, :, None, None] + (pp // k) * dil - half
-        py = (half + torch.arange(Ho, device="cuda") * s - pad)[None, :, None, None, None] + (pp % k) * dil - half
-        px, py = px + off[..., 0], py + off[..., 1]  # (N, Ho, Wo, G, P)
-        flops = 2.0 * Cg * valid_corners(px, py, H, W)
-        args = (k, k, s, s, pad, pad, dil, dil, G, Cg)
+    for site in sites:
+        row, count, xs = site[:3]
+        d = dcnv3_site(site, gen)
+        N, H, W, G, Cg, Ho, Wo, P = d["shape"]
+        px, py, args = d["px"], d["py"], d["args"]
+        corners = valid_corners(px, py, H, W)
+        flops = 2.0 * Cg * corners
         for dtype in (torch.float32, torch.bfloat16):
-            v, o, m = (t.to(dtype).contiguous() for t in (v32, o32, m32))
+            v, o, m = (d[key].to(dtype).contiguous() for key in ("v32", "o32", "m32"))
             got = dcnv3_core(v, o, m, *args)
             torch.cuda.synchronize()
             ref = dcnv3_core_reference(v.float(), o.float(), m.float(), *args)
@@ -314,10 +327,13 @@ def check_dcnv3(sites, gen: torch.Generator) -> dict:
             library_ms = time_ms(library)
             nbytes = (v.numel() + o.numel() + m.numel() + got.numel()) * v.element_size()
             bound = roofline(nbytes, flops, PEAK_FLOPS[torch.float32])
+            # what the kernel reads from L1/L2: Cg channels of every valid corner
+            corner_bytes = corners * Cg * v.element_size()
             print(f"dcnv3_core row {row} x{tuple(xs)} G {G} P {P} x{count}/batch {str(dtype)[6:]}: "
-                  f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-                  f"(grid_sample, sampling only, no mask product) bound_ms {bound[0]:.4f} ({bound[1]}; "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) x bound {kernel_ms / bound[0]:.1f} "
+                  f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms {library_ms:.4f} (grid_sample, sampling only, no mask product) "
+                  f"bound_ms {bound[0]:.4f} ({bound[1]}; {nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) "
+                  f"corner reads {corner_bytes / 1e6:.1f} MB x bound {kernel_ms / bound[0]:.1f} "
                   f"max_abs_err {err:.3e}")
             if dtype == torch.bfloat16:
                 add_site(summary, count, kernel_ms, plain_ms, library_ms, bound, err)

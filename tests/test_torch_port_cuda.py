@@ -89,15 +89,26 @@ def test_odconv_s2_kernel_rejects_what_it_does_not_take(cuda):
         odconv_s2(flat[1:].view(x.shape), wmix.bfloat16())
 
 
-def _dcnv3_case(gen, n, h, w, g, cg, s, dil, dtype):
-    ho = (h + 2 - (2 * dil + 1)) // s + 1
-    wo = (w + 2 - (2 * dil + 1)) // s + 1
+def _dcnv3_case(gen, dtype, n, h, w, g, cg, s, dil, k=3, shifted=None):
+    """Inputs of a k x k DCNv3 sampling with pad k // 2; `shifted` ("value"
+    or "offset") puts that tensor one element past an aligned address:
+    value then misses 16-byte alignment, and offset the alignment of its
+    (x, y) pairs."""
+    pad, P = k // 2, k * k
+    ho = (h + 2 * pad - (dil * (k - 1) + 1)) // s + 1
+    wo = (w + 2 * pad - (dil * (k - 1) + 1)) // s + 1
     value = torch.randn(n, h, w, g * cg, device="cuda", generator=gen)
     # offsets of several pixels: fractional points, some off the map
-    offset = (torch.rand(n, ho, wo, g * 9 * 2, device="cuda", generator=gen) - 0.5) * 8
-    logits = torch.randn(n, ho, wo, g, 9, device="cuda", generator=gen) * 2
-    mask = torch.softmax(logits, -1).reshape(n, ho, wo, g * 9)
-    return [t.to(dtype) for t in (value, offset, mask)], (3, 3, s, s, 1, 1, dil, dil, g, cg)
+    offset = (torch.rand(n, ho, wo, g * P * 2, device="cuda", generator=gen) - 0.5) * 8
+    logits = torch.randn(n, ho, wo, g, P, device="cuda", generator=gen) * 2
+    mask = torch.softmax(logits, -1).reshape(n, ho, wo, g * P)
+    inputs = {"value": value.to(dtype), "offset": offset.to(dtype), "mask": mask.to(dtype)}
+    if shifted:
+        t = inputs[shifted]
+        t = torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+        assert t.is_contiguous() and t.data_ptr() % (16 if shifted == "value" else 2 * t.element_size())
+        inputs[shifted] = t
+    return list(inputs.values()), (k, k, s, s, pad, pad, dil, dil, g, cg)
 
 
 # f32: the kernel's closed-form coordinates differ from the plain version's
@@ -110,10 +121,17 @@ _DCN_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [(2, 9, 11, 4, 5, 1, 1), (1, 13, 7, 8, 16, 2, 2), (3, 6, 6, 1, 33, 1, 1)])
+@pytest.mark.parametrize("case", [(2, 9, 11, 4, 5, 1, 1), (1, 13, 7, 8, 16, 2, 2), (3, 6, 6, 1, 33, 1, 1),
+                                  (2, 20, 20, 8, 128, 1, 1), (1, 9, 7, 3, 2, 1, 1), (1, 10, 9, 16, 8, 1, 1, 5),
+                                  (1, 8, 6, 2, 16, 1, 1, 3, "value"), (1, 8, 6, 2, 16, 1, 1, 3, "offset")])
 def test_dcnv3_core_kernel_matches_plain_version(cuda, dtype, case):
-    """Odd sizes: channels not a multiple of a warp, ragged last block."""
-    (value, offset, mask), args = _dcnv3_case(cuda, *case, dtype)
+    """Odd sizes: Cg 5 and 33 one channel a lane, Cg 16 16-byte vectors on
+    2 (bf16) or 4 (f32) lanes, a ragged last block; Cg 128 (the serving
+    width: 16 lanes of 8 bf16, 32 of 4 f32); Cg 2, 9 points on 2 lanes in
+    rounds; k 5 with G 16 (G*P = 400 points a pixel); a value tensor off
+    16-byte alignment (one channel a lane); an offset tensor whose (x, y)
+    pairs are off their alignment (each pair in two loads)."""
+    (value, offset, mask), args = _dcnv3_case(cuda, dtype, *case)
     before = dcnv3_core.launches
     got = dcnv3_core(value, offset, mask, *args)
     torch.cuda.synchronize()
@@ -150,7 +168,7 @@ def test_dcnv2_im2col_kernel_matches_plain_version(cuda, dtype, case):
 
 @pytest.mark.cuda
 def test_dcn_kernels_reject_what_they_do_not_take(cuda):
-    (value, offset, mask), args = _dcnv3_case(cuda, 1, 6, 6, 2, 4, 1, 1, torch.float32)
+    (value, offset, mask), args = _dcnv3_case(cuda, torch.float32, 1, 6, 6, 2, 4, 1, 1)
     with pytest.raises(TypeError):
         dcnv3_core(value.half(), offset.half(), mask.half(), *args)
     with pytest.raises(TypeError):

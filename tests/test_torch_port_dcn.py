@@ -3,7 +3,7 @@ sampling functions' plain versions against `yolosomi_tpu.ops.dcn` and a
 float64 loop oracle of the CUDA kernels' closed-form coordinates, the
 deformable blocks against flax, the whole yolo-somi-dcn graph at width
 0.25 / depth 0.33 / 64 px, the weight bridge at full width, the serving
-Runner on the CPU, the `plain_version()` switch and dcnv2_im2col's launch
+Runner on the CPU, the `plain_version()` switch and both kernels' launch
 geometry. The CUDA kernels
 themselves are checked on a GPU by tests/test_torch_port_cuda.py and
 chip_smoke.py.
@@ -198,6 +198,29 @@ def test_dcnv3_core_reference_in_f64_matches_kernel_closed_form(s, dil, g):
     assert 0 < err32 < 1e-5
 
 
+# (stride, dilation, group) at kernel 5, pad 2: P = 25 points, more than a
+# lane group of the kernel holds at once
+V3_K5_CASES = [(1, 1, 2), (2, 1, 4)]
+
+
+@pytest.mark.parametrize("s,dil,g", V3_K5_CASES)
+def test_dcnv3_core_reference_matches_jax_at_kernel_5(s, dil, g):
+    rng = np.random.default_rng(40 + 10 * s + dil + g)
+    value, offset, mask = (a.astype(np.float32) for a in _dcnv3_inputs(rng, 2, 10, 9, g, 3, 5, s, 2, dil))
+    args = (5, 5, s, s, 2, 2, dil, dil, g, 3)
+    ref = np.asarray(jdcn.dcnv3_core(jnp.asarray(value), jnp.asarray(offset), jnp.asarray(mask), *args))
+    got = dcnv3_core_reference(*(torch.from_numpy(a) for a in (value, offset, mask)), *args)
+    assert tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_dcnv3_core_reference_in_f64_matches_kernel_closed_form_at_kernel_5():
+    rng = np.random.default_rng(50)
+    value, offset, mask = _dcnv3_inputs(rng, 1, 7, 8, 2, 2, 5, 1, 2, 1)
+    got = dcnv3_core_reference(*(torch.from_numpy(a) for a in (value, offset, mask)), 5, 5, 1, 1, 2, 2, 1, 1, 2, 2)
+    np.testing.assert_allclose(got.numpy(), _oracle_dcnv3(value, offset, mask, 5, 1, 2, 1, 2), atol=1e-12, rtol=0)
+
+
 def test_dcnv3_point_order_is_kernel_y_fastest():
     """A single nonzero mask point at p = 1 = ix*3 + iy (ix 0, iy 1) samples
     the tap left of the centre (dx -1, dy 0), not the one above it that a
@@ -252,6 +275,34 @@ def test_dcnv2_launch_geometry_covers_every_column_once(C, elem_size, aligned):
             live = (q < pairs) & (v < C)
             for e in range(vec):
                 np.add.at(cover, q[live] * C + v[live] + e, 1)
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("elem_size", [4, 2])
+@pytest.mark.parametrize("Cg", [1, 2, 5, 33, 128, 256])
+def test_dcnv3_launch_geometry_covers_every_output_once(Cg, elem_size, aligned):
+    """The kernel's thread -> (pixel, group) item -> lane -> vectors map, as
+    _v3_geometry and the wrapper set it up (block b: V3_THREADS / LANES
+    consecutive pixels, from tile b // G on, of group b % G): the threads
+    and VEC cover N*Ho*Wo*G*Cg exactly once."""
+    npix, G = 2 * 3 * 5, 3
+    vec, lanes = ops_dcn._v3_geometry(Cg, elem_size, aligned)
+    assert lanes in (1, 2, 4, 8, 16, 32) and (vec == 1 or Cg % vec == 0)
+    assert vec == (16 // elem_size if aligned and Cg % (16 // elem_size) == 0 else 1)
+    assert lanes >= -(-Cg // vec) or lanes == 32  # an item's vectors take one round, or a whole warp
+    per_block = ops_dcn._V3_THREADS // lanes
+    threads = np.arange(-(-npix // per_block) * G * ops_dcn._V3_THREADS)
+    block, tid = threads // ops_dcn._V3_THREADS, threads % ops_dcn._V3_THREADS
+    lane, tile = tid % lanes, block // G
+    g, pix = block - tile * G, tile * per_block + tid // lanes
+    live = pix < npix
+    cover = np.zeros(npix * G * Cg, np.int32)
+    for c0 in range(0, Cg, lanes * vec):  # the lane's vectors, one chunk at a time
+        v = c0 + lane * vec
+        ok = live & (v < Cg)
+        for e in range(vec):
+            np.add.at(cover, (pix[ok] * G + g[ok]) * Cg + v[ok] + e, 1)
     assert (cover == 1).all()
 
 

@@ -28,51 +28,65 @@
 //   p), p = ky*k + kx, py = oy*s - pad + ky + dy. The product with the
 //   (P*C, c2) weight is a plain large matmul left to torch.matmul.
 //
-// Both kernels are bound by bytes on an H100: per output value they read
-// 4 corners per point and do 2 flops per corner, far below the card's
-// operations-per-byte balance. At the serving shapes (640 px, batch 8,
-// bf16) the least traffic is:
+// By their arithmetic both kernels are bound by bytes on an H100: per
+// output value they read 4 corners per point and do 2 flops per corner,
+// far below the card's operations-per-byte balance. At the serving shapes
+// (640 px, batch 8, bf16) the least traffic is:
 //   dcnv3_core row 10, (8,20,20,1024), G 8, P 9: 14.5 MB in + out
 //   dcnv2_im2col row 6, x (8,40,40,256): 6.6 MB in, 59.0 MB of columns
 //   dcnv2_im2col row 8, x (8,20,20,512): 3.3 MB in, 29.5 MB of columns
 //
-// dcnv3_core: one block per PIX output pixels. Phase 1 computes each
-// sampling point's four corner indices and weights once (the mask folded
-// into the weights) into shared memory. Phase 2 runs the threads along the
-// channels, so the NHWC corner reads and the output writes of a warp are
-// consecutive addresses; every thread accumulates in f32 and rounds once
-// to the output dtype. What it leaves on the table: scalar loads, corner
-// reads that reach L2 once per point, an integer division per element.
+// Both kernels share one design: a lane group (a power of two of threads,
+// at most a warp) per unit of output, the unit's sampling points decoded
+// once each, by one lane, in registers, and broadcast to the group by
+// __shfl_sync: no shared memory, no barrier, no division per element. Each
+// lane reads VEC channels (16 bytes: 8 bf16 or 4 f32) from each corner and
+// accumulates in f32; where the channel count is not a multiple of VEC or
+// a tensor is not 16-byte aligned the same kernel runs with VEC = 1.
+//
+// dcnv3_core: a group of LANES threads per (pixel, group) item writes its
+// Cg channels (at row 10, Cg 128: 16 lanes in bf16, 32 in f32, one 16-byte
+// store each). Lane l decodes the item's points l, l + LANES, ... (rounds
+// of LANES points where P > LANES): the (x, y) offset pair in one load, the
+// mask, the four corners and the mask-folded weights. The group walks the
+// points in order, so each channel sums point-major and corner-minor as
+// the plain loop does, and rounds once. A block holds consecutive output
+// pixels of one group, whose sampling windows overlap (faster than the
+// groups of one pixel, most in f32). Corners off the map load nothing and
+// add 0 * 0, so the FMAs run without branches. The output is stored
+// plainly: the next layer (output_proj) reads it from L2. What remains: at
+// row 10 the sampling loop is bound by its instructions, not by bytes --
+// per lane and point 8 shuffles, 4 addresses, 4 loads, and per bf16 corner
+// 8 unpacks and 8 FMAs -- so with every corner read an L1 hit it runs
+// within ~15% of its time, though the valid corners read 189 MB (bf16),
+// 13x the bytes the HBM bound counts (PERF.md).
 //
 // dcnv2_im2col: a group of LANES threads (a warp where C/VEC >= 32, fewer
 // for narrow maps) writes the columns of up to V2_PAIRS = 4 (pixel, point)
 // pairs, one pair after the other. Lane j decodes pair j's (n, oy, ox, p)
 // from its index, loads its offsets and mask (coalesced) and computes its
-// four corner rows and mask-weighted bilinear weights in registers, which
-// __shfl_sync then broadcasts to the group: no shared memory, no barrier,
-// no division per element. (A group per pair would decode 32 times over;
-// a group per 32 pairs left 113 blocks for the card at row 8.) Each lane
-// reads VEC channels (16 bytes: 8 bf16 or 4 f32) from each of the four
-// corners, accumulates in f32 and writes 16 bytes of the columns with a
-// streaming store (st.global.cs: the 59 MB of columns at row 6 exceed the
-// 50 MB L2 and are read once, by the matmul). A warp's stores are 512
-// consecutive bytes. Where C % VEC != 0 or x is not 16-byte aligned the
-// same kernel runs with VEC = 1. What remains: the corner reads hit L2
-// four times per column value (x fits in L2), and the column matrix itself
-// is written to HBM and read back by the matmul instead of being fed
-// straight to the tensor cores.
+// four corner rows and mask-weighted bilinear weights, which the group
+// shares by shuffle. (A group per pair would decode 32 times over; a group
+// per 32 pairs left 113 blocks for the card at row 8.) Each lane writes 16
+// bytes of the columns with a streaming store (st.global.cs: the 59 MB of
+// columns at row 6 exceed the 50 MB L2 and are read once, by the matmul).
+// A warp's stores are 512 consecutive bytes. What remains: the corner
+// reads hit L2 four times per column value (x fits in L2), and the column
+// matrix itself is written to HBM and read back by the matmul instead of
+// being fed straight to the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int PIX = 4;           // dcnv3_core: output pixels per block
-constexpr int THREADS = 256;     // dcnv3_core: threads per block
+constexpr int V3_THREADS = 256;  // dcnv3_core: threads per block (ops/dcn.py::_V3_THREADS)
 constexpr int V2_THREADS = 256;  // dcnv2_im2col: threads per block (ops/dcn.py::_V2_THREADS)
 constexpr int V2_PAIRS = 4;      // dcnv2_im2col: most pairs a group writes (ops/dcn.py::_V2_PAIRS)
+constexpr unsigned FULL_WARP = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -104,118 +118,163 @@ __device__ __forceinline__ void bilinear_taps(float px, float py, int H, int W, 
   }
 }
 
-struct V3Shape {
-  int N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw;
-  float offset_scale;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dcnv3_core_kernel(const T* __restrict__ value, const T* __restrict__ offset, const T* __restrict__ mask,
-                  T* __restrict__ out, V3Shape s) {
-  extern __shared__ int smem_v3[];
-  const int P = s.kh * s.kw;
-  const int GP = s.G * P;
-  const int C = s.G * s.Cg;
-  const int npix = s.N * s.Ho * s.Wo;
-  const int pix0 = blockIdx.x * PIX;
-  int* sidx = smem_v3;                                         // [PIX][GP][4]
-  float* sw = reinterpret_cast<float*>(smem_v3 + PIX * GP * 4);  // [PIX][GP][4]
-
-  const int half_x = (s.dw * (s.kw - 1)) / 2;
-  const int half_y = (s.dh * (s.kh - 1)) / 2;
-  for (int t = threadIdx.x; t < PIX * GP; t += blockDim.x) {
-    const int pix = pix0 + t / GP;
-    if (pix >= npix) continue;
-    const int gp = t - (t / GP) * GP;
-    const int p = gp % P;
-    const int ix = p / s.kh;  // p = ix*kh + iy
-    const int iy = p - ix * s.kh;
-    const int ox = pix % s.Wo;
-    const int oy = (pix / s.Wo) % s.Ho;
-    const size_t base = static_cast<size_t>(pix) * GP + gp;
-    const float off_x = to_f32(offset[2 * base]);
-    const float off_y = to_f32(offset[2 * base + 1]);
-    const float m = to_f32(mask[base]);
-    const float px = static_cast<float>(half_x + ox * s.sw - s.pw) +
-                     (static_cast<float>(ix * s.dw - half_x) + off_x) * s.offset_scale;
-    const float py = static_cast<float>(half_y + oy * s.sh - s.ph) +
-                     (static_cast<float>(iy * s.dh - half_y) + off_y) * s.offset_scale;
-    bilinear_taps(px, py, s.H, s.W, m, sidx + 4 * t, sw + 4 * t);
-  }
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < PIX * C; t += blockDim.x) {
-    const int pp = t / C;
-    const int pix = pix0 + pp;
-    if (pix >= npix) continue;
-    const int c = t - pp * C;
-    const int g = c / s.Cg;
-    const int n = pix / (s.Ho * s.Wo);
-    const T* img = value + static_cast<size_t>(n) * s.H * s.W * C + c;
-    const int* idx = sidx + 4 * (pp * GP + g * P);
-    const float* w = sw + 4 * (pp * GP + g * P);
-    float acc = 0.0f;
-    for (int q = 0; q < 4 * P; ++q) {
-      const int i = idx[q];
-      if (i >= 0) acc = fmaf(w[q], to_f32(img[static_cast<size_t>(i) * C]), acc);
-    }
-    store(out + static_cast<size_t>(pix) * C + c, acc);
-  }
-}
-
 struct V2Shape {
   int N, H, W, C, Ho, Wo, k, stride, pad;
 };
 
-// VEC channels of one corner, or of one column run, as f32
+// VEC channels of one corner, or of one output run: `load` reads them
+// (through the read-only path), `fma` adds w times them to VEC f32 sums.
+// `stream` stores with st.global.cs (data read once, later, from HBM);
+// VEC = 1 stores plainly either way.
 template <typename T, int VEC>
 struct Vec;
 
 template <typename T>
 struct Vec<T, 1> {
-  __device__ __forceinline__ static void fma(float* acc, float w, const T* p) {
-    acc[0] = fmaf(w, to_f32(__ldg(p)), acc[0]);
-  }
-  __device__ __forceinline__ static void store(T* p, const float* v) { ::store(p, v[0]); }
+  using Raw = T;
+  __device__ __forceinline__ static Raw load(const T* p) { return __ldg(p); }
+  __device__ __forceinline__ static void fma(float* acc, float w, Raw r) { acc[0] = fmaf(w, to_f32(r), acc[0]); }
+  __device__ __forceinline__ static void store(T* p, const float* v, bool) { ::store(p, v[0]); }
 };
 
 template <>
 struct Vec<float, 4> {
-  __device__ __forceinline__ static void fma(float* acc, float w, const float* p) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  using Raw = float4;
+  __device__ __forceinline__ static Raw load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+  __device__ __forceinline__ static void fma(float* acc, float w, Raw v) {
     acc[0] = fmaf(w, v.x, acc[0]);
     acc[1] = fmaf(w, v.y, acc[1]);
     acc[2] = fmaf(w, v.z, acc[2]);
     acc[3] = fmaf(w, v.w, acc[3]);
   }
-  __device__ __forceinline__ static void store(float* p, const float* v) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  __device__ __forceinline__ static void store(float* p, const float* v, bool stream) {
+    const float4 f = make_float4(v[0], v[1], v[2], v[3]);
+    if (stream)
+      __stcs(reinterpret_cast<float4*>(p), f);
+    else
+      *reinterpret_cast<float4*>(p) = f;
   }
 };
 
 template <>
 struct Vec<__nv_bfloat16, 8> {
-  __device__ __forceinline__ static void fma(float* acc, float w, const __nv_bfloat16* p) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  using Raw = uint4;
+  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static void fma(float* acc, float w, Raw u) {
     const unsigned words[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+      // bf16 -> f32 is the top half of the f32 word: one shift or mask each
+      const float2 f = make_float2(__uint_as_float(words[i] << 16), __uint_as_float(words[i] & 0xffff0000u));
       acc[2 * i] = fmaf(w, f.x, acc[2 * i]);
       acc[2 * i + 1] = fmaf(w, f.y, acc[2 * i + 1]);
     }
   }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* v) {
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* v, bool stream) {
     unsigned words[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
       words[i] = *reinterpret_cast<const unsigned*>(&h);
     }
-    __stcs(reinterpret_cast<uint4*>(p), make_uint4(words[0], words[1], words[2], words[3]));
+    const uint4 u = make_uint4(words[0], words[1], words[2], words[3]);
+    if (stream)
+      __stcs(reinterpret_cast<uint4*>(p), u);
+    else
+      *reinterpret_cast<uint4*>(p) = u;
   }
 };
+
+// dcnv3_core's (x, y) offset pair of one point as f32: one load where the
+// pair is aligned to its size (`pair`), else two
+__device__ __forceinline__ float2 load_pair(const float* p, bool pair) {
+  return pair ? __ldg(reinterpret_cast<const float2*>(p)) : make_float2(__ldg(p), __ldg(p + 1));
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p, bool pair) {
+  return pair ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)))
+              : make_float2(to_f32(__ldg(p)), to_f32(__ldg(p + 1)));
+}
+
+struct V3Shape {
+  int N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw;
+  float offset_scale;
+};
+
+// A group of `lanes` threads writes the Cg channels of one (pixel, group)
+// item; lane l covers the VEC-vectors l, l + lanes, ... of them. Block b
+// holds V3_THREADS / lanes consecutive pixels, from tile b / G on, of
+// group b % G. For each round of `lanes` points, lane l decodes point
+// r0 + l (p = ix*kh + iy): its corners as element offsets into the item's
+// image (row * C, -1 off the map; launch_v3 bounds H*W*C below 2**31) and
+// its weights, the mask folded in. The group then walks the round's points
+// in order, point j's corners shuffled from lane j. Every lane of the warp
+// joins every shuffle: the loop counts depend only on P, Cg and lanes, and
+// a lane with no item (past the last pixel) or no channels only skips its
+// loads and its store.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(V3_THREADS)
+dcnv3_core_kernel(const T* __restrict__ value, const T* __restrict__ offset, const T* __restrict__ mask,
+                  T* __restrict__ out, V3Shape s, int lanes, bool pair) {
+  const int P = s.kh * s.kw;
+  const int C = s.G * s.Cg;
+  const int npix = s.N * s.Ho * s.Wo;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int tile = blockIdx.x / s.G;
+  const int g = blockIdx.x - tile * s.G;
+  const int pix = tile * (V3_THREADS / lanes) + threadIdx.x / lanes;
+  const bool live = pix < npix;
+  const int ox = pix % s.Wo;
+  const int oy = (pix / s.Wo) % s.Ho;
+  const int n = pix / (s.Wo * s.Ho);
+  const int half_x = (s.dw * (s.kw - 1)) / 2;
+  const int half_y = (s.dh * (s.kh - 1)) / 2;
+  const float cx = static_cast<float>(half_x + ox * s.sw - s.pw);
+  const float cy = static_cast<float>(half_y + oy * s.sh - s.ph);
+  const size_t q0 = (static_cast<size_t>(pix) * s.G + g) * P;  // the item's first point
+  const T* img = value + static_cast<size_t>(n) * s.H * s.W * C + g * s.Cg;
+  for (int c0 = 0; c0 < s.Cg; c0 += lanes * VEC) {
+    const int v = c0 + lane * VEC;
+    const bool on = live && v < s.Cg;
+    const T* src = img + v;  // this lane's channels of the item's image
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+    for (int r0 = 0; r0 < P; r0 += lanes) {
+      int idx[4] = {-1, -1, -1, -1};
+      float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const int p = r0 + lane;
+      if (live && p < P) {
+        const int ix = p / s.kh;
+        const int iy = p - ix * s.kh;
+        const float2 o = load_pair(offset + 2 * (q0 + p), pair);
+        const float px = cx + (static_cast<float>(ix * s.dw - half_x) + o.x) * s.offset_scale;
+        const float py = cy + (static_cast<float>(iy * s.dh - half_y) + o.y) * s.offset_scale;
+        bilinear_taps(px, py, s.H, s.W, to_f32(__ldg(mask + q0 + p)), idx, w);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (idx[k] >= 0) idx[k] *= C;
+      }
+      const int points = min(lanes, P - r0);
+      for (int j = 0; j < points; ++j) {
+        // a corner off the map has weight 0 and reads nothing: its FMA adds
+        // 0 * 0, so every lane runs the same FMAs without a branch
+        typename Vec<T, VEC>::Raw raw[4] = {};
+        float wj[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int ij = __shfl_sync(FULL_WARP, idx[k], j, lanes);
+          wj[k] = __shfl_sync(FULL_WARP, w[k], j, lanes);
+          if (on && ij >= 0) raw[k] = Vec<T, VEC>::load(src + ij);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) Vec<T, VEC>::fma(acc, wj[k], raw[k]);
+      }
+    }
+    if (on) Vec<T, VEC>::store(out + static_cast<size_t>(pix) * C + g * s.Cg + v, acc, false);
+  }
+}
 
 // A group of LANES threads writes the columns of PAIRS = min(LANES,
 // V2_PAIRS) consecutive (pixel, point) pairs, first = group * PAIRS on.
@@ -259,8 +318,8 @@ dcnv2_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset_y, con
     float wj[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      rj[c] = LANES == 1 ? row[c] : __shfl_sync(0xffffffffu, row[c], j, LANES);
-      wj[c] = LANES == 1 ? w[c] : __shfl_sync(0xffffffffu, w[c], j, LANES);
+      rj[c] = LANES == 1 ? row[c] : __shfl_sync(FULL_WARP, row[c], j, LANES);
+      wj[c] = LANES == 1 ? w[c] : __shfl_sync(FULL_WARP, w[c], j, LANES);
     }
     if (first + j >= pairs) continue;  // the same for the whole group, after its shuffles
     T* dst = cols + static_cast<size_t>(first + j) * s.C;
@@ -270,22 +329,38 @@ dcnv2_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset_y, con
       for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (rj[c] >= 0) Vec<T, VEC>::fma(acc, wj[c], x + static_cast<size_t>(rj[c]) * s.C + v);
-      Vec<T, VEC>::store(dst + v, acc);
+        if (rj[c] >= 0) Vec<T, VEC>::fma(acc, wj[c], Vec<T, VEC>::load(x + static_cast<size_t>(rj[c]) * s.C + v));
+      Vec<T, VEC>::store(dst + v, acc, true);
     }
   }
 }
 
-int blocks_for(int npix) { return (npix + PIX - 1) / PIX; }
-
+// `vec` is 1 or 16 / sizeof(T) (then Cg % vec == 0 and value, out 16-byte
+// aligned); `lanes` a power of two up to 32: ops/dcn.py::_v3_geometry.
 template <typename T>
-int launch_v3(const void* value, const void* offset, const void* mask, void* out, V3Shape s, void* stream) {
-  const int npix = s.N * s.Ho * s.Wo;
-  const size_t smem = static_cast<size_t>(PIX) * s.G * s.kh * s.kw * 4 * (sizeof(int) + sizeof(float));
-  if (npix > 0)
-    dcnv3_core_kernel<T><<<blocks_for(npix), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(value), static_cast<const T*>(offset), static_cast<const T*>(mask),
-        static_cast<T*>(out), s);
+int launch_v3(const void* value, const void* offset, const void* mask, void* out, V3Shape s, int vec, int lanes,
+              void* stream) {
+  constexpr int FULL = 16 / sizeof(T);
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the kernel's corner offsets (row * C) and block count are 32-bit
+  const int per_block = V3_THREADS / lanes;
+  const long long tiles = (static_cast<long long>(s.N) * s.Ho * s.Wo + per_block - 1) / per_block;
+  if (static_cast<long long>(s.H) * s.W * s.G * s.Cg >= (1LL << 31) || tiles * s.G >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles * s.G == 0 || s.Cg == 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = static_cast<int>(tiles * s.G);
+  const bool pair = reinterpret_cast<uintptr_t>(offset) % (2 * sizeof(T)) == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* v = static_cast<const T*>(value);
+  const T* o = static_cast<const T*>(offset);
+  const T* m = static_cast<const T*>(mask);
+  T* y = static_cast<T*>(out);
+  if (vec == 1)
+    dcnv3_core_kernel<T, 1><<<blocks, V3_THREADS, 0, st>>>(v, o, m, y, s, lanes, pair);
+  else if (vec == FULL && s.Cg % FULL == 0)
+    dcnv3_core_kernel<T, FULL><<<blocks, V3_THREADS, 0, st>>>(v, o, m, y, s, lanes, pair);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,21 +416,21 @@ V3Shape v3_shape(int N, int H, int W, int G, int Cg, int Ho, int Wo, int kh, int
 
 // Plain C entry points for ctypes. Pointers are device pointers of
 // contiguous tensors; `stream` is a cudaStream_t. Each returns
-// cudaGetLastError() after the launch (0 on success). The caller keeps
-// dcnv3_core's shared memory, PIX * G * kh * kw * 32 bytes, under 48 KB.
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int dcnv3_core_f32(const void* value, const void* offset, const void* mask, void* out, int N, int H,
                               int W, int G, int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
-                              int dh, int dw, float offset_scale, void* stream) {
+                              int dh, int dw, float offset_scale, int vec, int lanes, void* stream) {
   return launch_v3<float>(value, offset, mask, out,
-                          v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale), stream);
+                          v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale), vec, lanes,
+                          stream);
 }
 
 extern "C" int dcnv3_core_bf16(const void* value, const void* offset, const void* mask, void* out, int N, int H,
                                int W, int G, int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
-                               int dh, int dw, float offset_scale, void* stream) {
+                               int dh, int dw, float offset_scale, int vec, int lanes, void* stream) {
   return launch_v3<__nv_bfloat16>(value, offset, mask, out,
-                                  v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale),
-                                  stream);
+                                  v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale), vec,
+                                  lanes, stream);
 }
 
 extern "C" int dcnv2_im2col_f32(const void* x, const void* offset_y, const void* offset_x, const void* mask,

@@ -22,16 +22,15 @@ from yolosomi_tpu_torch.ops import build, plain_active
 
 _SOURCE = "dcn.cu"
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# dcnv3_core stages PIX=4 pixels x points x 4 corners x (int + float) in
-# shared memory and launches with at most 48 KB of it
-_MAX_POINTS = 384
-# dcnv2_im2col's threads per block and most pairs a lane group writes
-# (csrc/dcn.cu V2_THREADS, V2_PAIRS)
+# threads per block of dcnv3_core and dcnv2_im2col, and the most pairs a
+# dcnv2_im2col lane group writes (csrc/dcn.cu V3_THREADS, V2_THREADS,
+# V2_PAIRS)
+_V3_THREADS = 256
 _V2_THREADS, _V2_PAIRS = 256, 4
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures (csrc/dcn.cu), without the trailing stream pointer
 _ARGTYPES = {
-    "dcnv3_core": [_PTR] * 4 + [_INT] * 15 + [ctypes.c_float],
+    "dcnv3_core": [_PTR] * 4 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 2,
     "dcnv2_im2col": [_PTR] * 5 + [_INT] * 11,
 }
 
@@ -159,6 +158,17 @@ def dcnv3_core_reference(input, offset, mask, kernel_h: int, kernel_w: int, stri
     return out.reshape(N, Hout, Wout, G * Cg).to(input.dtype)
 
 
+def _v3_geometry(Cg: int, elem_size: int, aligned: bool = True) -> tuple:
+    """(VEC, LANES) of dcnv3_core for Cg channels a group of `elem_size`
+    bytes: a group of LANES threads (a power of two, at most a warp) writes
+    the Cg channels of one (pixel, group), lane l the VEC-vectors l,
+    l + LANES, ... of them; VEC is 16 bytes where Cg allows it and value
+    and out are 16-byte aligned, else 1."""
+    full = 16 // elem_size
+    vec = full if aligned and Cg % full == 0 else 1
+    return vec, min(32, 1 << max(Cg // vec - 1, 0).bit_length())
+
+
 def dcnv3_core(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int, pad_h: int,
                pad_w: int, dilation_h: int, dilation_w: int, group: int, group_channels: int,
                offset_scale: float = 1.0) -> torch.Tensor:
@@ -169,22 +179,21 @@ def dcnv3_core(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int,
     input (N, H, W, G*Cg), offset (N, Ho, Wo, G*P*2) with (x, y)
     interleaved per (g, p), mask (N, Ho, Wo, G*P) -> (N, Ho, Wo, G*Cg) in
     input.dtype. A CPU tensor runs `dcnv3_core_reference`; CUDA tensors
-    (float32 or bfloat16, one dtype, contiguous) launch the kernel on the
-    current stream and count the launch in `dcnv3_core.launches`."""
+    (float32 or bfloat16, one dtype, contiguous; any kernel size and group
+    count) launch the kernel on the current stream and count the launch in
+    `dcnv3_core.launches`."""
     args = (kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w, dilation_h, dilation_w, group, group_channels)
     _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
     if input.device.type == "cpu":
         return dcnv3_core_reference(input, offset, mask, *args, offset_scale=offset_scale)
     _check_cuda("dcnv3_core", (input, offset, mask))
-    if group * kernel_h * kernel_w > _MAX_POINTS:
-        raise ValueError(f"dcnv3_core takes group*kernel_h*kernel_w <= {_MAX_POINTS}")
     N, H, W, C = input.shape
     _, Ho, Wo, _ = offset.shape
     out = torch.empty((N, Ho, Wo, C), device=input.device, dtype=input.dtype)
-    fn = _entry("dcnv3_core", input.dtype)
-    _launch("dcnv3_core", fn, (input, offset, mask, out),
-            (N, H, W, group, group_channels, Ho, Wo, kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w,
-             dilation_h, dilation_w), (float(offset_scale),))
+    vec, lanes = _v3_geometry(group_channels, input.element_size(),
+                              input.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    _launch("dcnv3_core", _entry("dcnv3_core", input.dtype), (input, offset, mask, out),
+            (N, H, W, group, group_channels, Ho, Wo, *args[:8]), (float(offset_scale), vec, lanes))
     dcnv3_core.launches += 1
     return out
 
@@ -215,16 +224,13 @@ def _check_v2(x, offset_y, offset_x, mask, k):
 
 def _v2_geometry(C: int, elem_size: int, aligned: bool = True) -> tuple:
     """(VEC, LANES, PAIRS) of dcnv2_im2col for C channels of `elem_size`
-    bytes: each lane moves VEC channels at a time, 16 bytes where C allows
-    it and the tensors are 16-byte aligned, else 1; a group of LANES
-    threads (a power of two, at most a warp) writes the columns of PAIRS
-    consecutive (pixel, point) pairs, one after the other, lane l taking
-    the vectors l, l + LANES, ... of each. Group g (threads g*LANES ..) has
-    the pairs from g*PAIRS on; the wrapper launches enough groups, in blocks
-    of _V2_THREADS threads, for all pairs."""
-    full = 16 // elem_size
-    vec = full if aligned and C % full == 0 else 1
-    lanes = min(32, 1 << max(C // vec - 1, 0).bit_length())
+    bytes: VEC and LANES as `_v3_geometry` sets them for C channels; a
+    group of LANES threads writes the columns of PAIRS consecutive (pixel,
+    point) pairs, one after the other, lane l taking the vectors l,
+    l + LANES, ... of each. Group g (threads g*LANES ..) has the pairs from
+    g*PAIRS on; the wrapper launches enough groups, in blocks of
+    _V2_THREADS threads, for all pairs."""
+    vec, lanes = _v3_geometry(C, elem_size, aligned)
     return vec, lanes, min(lanes, _V2_PAIRS)
 
 
