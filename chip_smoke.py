@@ -22,6 +22,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     count per batch, with every count set to 0 just before the path
  5. parity: each model in f32 through the kernels is as close to its
     plain version in f64 as the plain version in f32 is, on a batch of 2
+ 6. eval: val.run of the full-width flagship (nc 10, 640 px, b8, random
+    weights from seed 0) on a self-labelled set. The set is 60 synthetic
+    640x480 JPEGs from numpy seed 0 (noise with rectangles and discs drawn
+    by numpy masks; 60 = 7 x 8 + 4, so the last batch wraps, and the long
+    side is already 640, so the loader pads and never resizes), labelled
+    with the top 10 single-label detections (conf > 0.25) of the same
+    model in f32 under plain_version(), mapped back to original-image
+    normalized xywh. Random weights saturate the head (hundreds of scores
+    per image are exactly 1.0, a tie with no ranking), so the head's two
+    output convs are scaled by HEAD_TEMPER first. val.run in f32 through
+    the kernels must match val.run in f32 under plain_version() (mAP@.5
+    within 0.01, mAP@.5:.95 within 0.02, the plain path's mAP@.5 above
+    0.5), with odconv_s2 launched 4 times per batch in the kernel run and
+    never in the plain one; then val.run in bf16 through the kernels is
+    timed (eval line, Speed split, img/s), beside bf16 under
+    plain_version() and a split of a bf16 batch into model and NMS
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -33,21 +49,28 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
+from yolosomi_tpu_torch import val
+from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset
 from yolosomi_tpu_torch.engine.runner import Runner
 from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
+from yolosomi_tpu_torch.models.heads import decode
 from yolosomi_tpu_torch.models.yolo import parse_model
 from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
-from yolosomi_tpu_torch.ops.nms import fused_postprocess
+from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
 from yolosomi_tpu_torch.ops.odconv import _plan, odconv_s2, odconv_s2_reference, plain_version
+from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 
 IMGSZ = 640
@@ -64,6 +87,10 @@ PER_BATCH = {
     "yolo-somi": {"odconv_s2": 4},
     "yolo-somi-dcn": {"odconv_s2": 4, "dcnv2_im2col": 9, "dcnv3_core": 1},
 }
+EVAL_IMAGES = 60  # 7 batches of 8 and a last one that wraps 4
+EVAL_TOP = 10  # labels per image
+HEAD_TEMPER = 0.1
+EVAL_NMS = dict(conf_thres=0.001, iou_thres=0.6, max_nms=30000, multi_label=True)  # val.run's protocol
 
 
 def gpu_line() -> str:
@@ -458,6 +485,147 @@ def parity(cfg_name: str) -> None:
         assert k_err <= 2 * p_err + 1e-6, (cfg_name, i, k_err, p_err)
 
 
+# ---------------------------------------------------------------------------
+# eval
+# ---------------------------------------------------------------------------
+
+
+def synthetic_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """Noise with 2-7 bright rectangles and discs drawn by numpy masks."""
+    im = (rng.integers(0, 80, (h, w, 3)) + rng.integers(0, 40)).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for _ in range(rng.integers(2, 8)):
+        s = int(rng.integers(20, 120))
+        cx, cy = int(rng.integers(s, w - s)), int(rng.integers(s, h - s))
+        if rng.random() < 0.5:
+            mask = (np.abs(xx - cx) < s // 2) & (np.abs(yy - cy) < s // 3)
+        else:
+            mask = (xx - cx) ** 2 + (yy - cy) ** 2 < (s // 2) ** 2
+        im[mask] = rng.integers(120, 256, 3)
+    return im
+
+
+@torch.no_grad()
+def temper_head(model: torch.nn.Module, factor: float) -> None:
+    """Scale the weights of the head's output convs (each level's box/obj
+    conv b3 and class conv c3), so that random logits stay below sigmoid's
+    saturation and the scores rank the boxes."""
+    for level in model.model[-1].m:
+        level.b3.weight.mul_(factor)
+        level.c3.weight.mul_(factor)
+
+
+def self_label(runner: Runner, root: Path) -> int:
+    """Label every image of root/images with the top EVAL_TOP single-label
+    detections (conf > 0.25) of `runner` under plain_version(), mapped back
+    to original-image normalized xywh. Returns the number of labels."""
+    n = 0
+    loader = DataLoader(DetectionDataset(str(root / "images"), img_size=IMGSZ), BATCH)
+    with plain_version():
+        for images, _, paths, shapes in loader:
+            out = runner(images, conf_thres=0.25)
+            for det, path, ((h0, w0), ratio_pad) in zip(out, paths, shapes):
+                label = root / "labels" / (Path(path).stem + ".txt")
+                if label.exists():  # the wrapped tail of the last batch
+                    continue
+                det = det[det[:, 4] > 0][:EVAL_TOP]
+                xywhn = xyxy2xywhn(scale_coords(images.shape[1:3], det[:, :4], (h0, w0), ratio_pad), w=w0, h=h0)
+                rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in b) for c, b in zip(det[:, 5], xywhn)
+                        if (b[2:] > 0).all()]
+                label.write_text("".join(r + "\n" for r in rows))
+                n += len(rows)
+    return n
+
+
+def eval_split(name: str, runner: Runner, loader: DataLoader) -> None:
+    """The eval batches split by layer: upload + model, then decode, NMS
+    and the copy to the host."""
+    fwd, post = [], []
+    for images, *_ in loader:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = runner.forward(images)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        non_max_suppression(decode(preds, runner.meta.anchors_px, runner.meta.strides), **EVAL_NMS).cpu()
+        fwd.append(t1 - t0)
+        post.append(time.perf_counter() - t1)
+    print(f"eval split {name}: upload+model median {statistics.median(fwd) * 1e3:.2f} ms/batch, decode+NMS "
+          f"median {statistics.median(post) * 1e3:.2f} ms/batch ({len(fwd)} batches)")
+
+
+def evaluate(gpu: str) -> None:
+    """val.run of the full-width flagship on a self-labelled set: f32
+    through the kernels against f32 under plain_version(), then bf16
+    through the kernels, timed."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "ds"  # the loader's label cache lands in tmp, beside ds
+        (root / "images").mkdir(parents=True)
+        (root / "labels").mkdir()
+        rng = np.random.default_rng(0)
+        for i in range(EVAL_IMAGES):
+            assert cv2.imwrite(str(root / "images" / f"im{i:03d}.jpg"), synthetic_image(rng, 480, 640))
+        data = root / "data.yaml"
+        data.write_text(yaml.safe_dump({"path": str(root), "train": "images", "val": "images", "nc": 10,
+                                        "names": [f"class{i}" for i in range(10)]}))
+
+        runner = Runner("yolo-somi", nc=10, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+        with plain_version():  # why the head is tempered: its scores before
+            images = next(iter(DataLoader(DetectionDataset(str(root / "images"), img_size=IMGSZ), BATCH)))[0]
+            conf = runner(images, conf_thres=0.25)[..., 4]
+        print(f"eval: untempered head, {(conf == 1.0).sum() / BATCH:.1f} of {(conf > 0).sum() / BATCH:.1f} "
+              f"detections (conf > 0.25) per image have conf exactly 1.0")
+        temper_head(runner.model, HEAD_TEMPER)
+        n_labels = self_label(runner, root)
+        loader = DataLoader(DetectionDataset(str(root / "images"), img_size=IMGSZ), BATCH)
+        kw = dict(data=str(data), batch_size=BATCH, imgsz=IMGSZ, project=str(Path(tmp) / "runs"), exist_ok=True,
+                  dataloader=loader)
+
+        def run(name: str, r: Runner):
+            t0 = time.perf_counter()
+            results, _, speed = val.run(runner=r, name=name, **kw)
+            wall = time.perf_counter() - t0
+            seen = json.loads((Path(tmp) / "runs" / name / "metrics.json").read_text())["images"]
+            print(f"eval {name}: P {results[0]:.5f} R {results[1]:.5f} mAP@.5 {results[2]:.5f} "
+                  f"mAP@.5:.95 {results[3]:.5f} images {seen}; Speed {speed[0]:.2f} ms pre, {speed[1]:.2f} ms "
+                  f"inference+NMS, {speed[2]:.2f} ms post per image; {seen / wall:.1f} img/s ({wall:.2f} s)")
+            assert seen == EVAL_IMAGES, seen
+            return results
+
+        reset_counts()
+        kernels = run("f32-kernels", runner)
+        launches = launch_counts()
+        reset_counts()
+        with plain_version():
+            plain = run("f32-plain", runner)
+        plain_launches = launch_counts()
+        print(f"eval launches: kernels {launches}, plain_version() {plain_launches}; {n_labels} labels")
+        n_batches = -(-EVAL_IMAGES // BATCH)
+        assert launches == {"odconv_s2": 4 * n_batches, "dcnv2_im2col": 0, "dcnv3_core": 0}, launches
+        assert not any(plain_launches.values()), plain_launches
+        assert plain[2] > 0.5, f"plain mAP@.5 {plain[2]}: the self-labelled check would be vacuous"
+        assert abs(kernels[2] - plain[2]) <= 0.01, (kernels[2], plain[2])
+        assert abs(kernels[3] - plain[3]) <= 0.02, (kernels[3], plain[3])
+
+        eval_split("f32", runner, loader)
+
+        del runner
+        runner = Runner("yolo-somi", nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+        temper_head(runner.model, HEAD_TEMPER)
+        runner(next(iter(loader))[0], **EVAL_NMS)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        run("bf16-kernels", runner)
+        assert launch_counts() == launches, launch_counts()
+        reset_counts()
+        with plain_version():  # what bf16 itself costs against the f32 labels
+            run("bf16-plain", runner)
+        assert not any(launch_counts().values()), launch_counts()
+        eval_split("bf16", runner, loader)
+    print(f"eval on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     def one(source):
@@ -519,6 +687,7 @@ def main() -> int:
     dcn = serve(gpu, "yolo-somi-dcn")
     parity("yolo-somi")
     parity("yolo-somi-dcn")
+    evaluate(gpu)
 
     kernels = [
         kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111", flagship["odconv_s2"],

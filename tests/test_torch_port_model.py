@@ -140,8 +140,8 @@ def test_runner_on_cpu_serves_its_own_postprocess(flagship, tmp_path):
     np.testing.assert_array_equal(out, ref)
     valid = out[..., 4] > 0
     assert valid.any() and (out[~valid] == 0).all()
-    with pytest.raises(NotImplementedError):
-        runner(images, multi_label=True)
+    with pytest.raises(NotImplementedError, match="TTA"):
+        runner(images, augment=True)
     with pytest.raises(TypeError):
         runner(images.astype(np.float32))
 

@@ -1,0 +1,291 @@
+"""The eval dataset and its loader (counterparts of
+yolosomi_tpu/data/datasets.py:40-240, :295-350, :486-630 and
+yolosomi_tpu/losses.py:365 pad_targets).
+
+Images decode and resize with cv2, exactly as the JAX loader does.
+Batches collate to fixed shapes: images (B, H, W, 3) uint8 BGR NHWC and
+targets (B, MAX_LABELS, 5) [cls, xc, yc, w, h] normalized, padded with
+cls = -1. The loader is ordered and pads the last batch by wrapping to the
+start of the dataset.
+
+The label cache is the port's own file, `<dir>.somi-torch.cache.json`
+beside the image directory (or list file): JSON, so loading it runs no
+unpickler, and under a name the JAX loader's `.somi.cache.npy` never
+collides with. Mosaic, mixup, the perspective warp and rect batches are
+training features (ROADMAP queue A item 5) and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import glob
+import hashlib
+import json
+import math
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import List
+
+import cv2
+import numpy as np
+
+from yolosomi_tpu_torch.data.augment import letterbox
+from yolosomi_tpu_torch.utils.boxes import xywhn2xyxy, xyxy2xywhn
+from yolosomi_tpu_torch.utils.general import LOGGER
+
+IMG_FORMATS = ("bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp")
+CACHE_VERSION = "yolosomi-tpu-torch-0.1"
+CACHE_SUFFIX = ".somi-torch.cache.json"
+MAX_LABELS = 300  # target rows per image in a batch
+PREFETCH = 2  # batches the loader keeps ready
+TRAINING_ONLY = "is a training feature, not ported yet (ROADMAP queue A item 5)"
+_END = object()  # the prefetch queue's end marker
+
+
+def img2label_paths(img_paths: List[str]) -> List[str]:
+    """images/ -> labels/, *.jpg -> *.txt."""
+    sa, sb = os.sep + "images" + os.sep, os.sep + "labels" + os.sep
+    return [sb.join(x.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt" for x in img_paths]
+
+
+def get_hash(paths: List[str]) -> str:
+    """md5 of the path names and the total size of the files that exist."""
+    size = sum(os.path.getsize(p) for p in paths if os.path.exists(p))
+    h = hashlib.md5(str(size).encode())
+    h.update("".join(paths).encode())
+    return h.hexdigest()
+
+
+def list_images(path) -> List[str]:
+    """Expand a directory, a .txt list of files or a glob (or a list of
+    these) into a sorted list of image files."""
+    files: List[str] = []
+    for p in path if isinstance(path, list) else [path]:
+        p = Path(p)
+        if p.is_dir():
+            files += glob.glob(str(p / "**" / "*.*"), recursive=True)
+        elif p.is_file() and p.suffix == ".txt":
+            parent = str(p.parent) + os.sep
+            with open(p) as f:
+                lines = f.read().strip().splitlines()
+            files += [x.replace("./", parent) if x.startswith("./") else x for x in lines]
+        elif p.is_file():
+            files.append(str(p))
+        else:
+            files += glob.glob(str(p), recursive=True)
+    imgs = sorted(x for x in files if x.rsplit(".", 1)[-1].lower() in IMG_FORMATS)
+    if not imgs:
+        raise FileNotFoundError(f"no images found in {path}")
+    return imgs
+
+
+def verify_image_label(im_file: str, lb_file: str):
+    """Validate one image/label pair. Returns (im_file, labels (n, 5),
+    shape (w, h), missing, found, empty, corrupt, message); a corrupt pair
+    returns None for the first three. Duplicate label rows are dropped."""
+    nm = nf = ne = nc = 0
+    msg = ""
+    try:
+        im = cv2.imread(im_file)
+        if im is None:
+            raise ValueError("unreadable image")
+        shape = (im.shape[1], im.shape[0])  # (w, h)
+        assert shape[0] > 9 and shape[1] > 9, f"image size {shape} <10 pixels"
+        if os.path.isfile(lb_file):
+            nf = 1
+            with open(lb_file) as f:
+                rows = [x.split() for x in f.read().strip().splitlines() if len(x)]
+            lb = np.array(rows, dtype=np.float32) if rows else np.zeros((0, 5), np.float32)
+            if len(lb):
+                assert lb.shape[1] == 5, f"labels require 5 columns, got {lb.shape[1]}"
+                assert (lb >= 0).all(), "negative label values"
+                assert (lb[:, 1:] <= 1).all(), "non-normalized coordinates"
+                _, idx = np.unique(lb, axis=0, return_index=True)
+                if len(idx) < len(lb):
+                    lb = lb[idx]
+                    msg = f"{im_file}: removed {len(rows) - len(idx)} duplicate labels"
+            else:
+                ne = 1
+        else:
+            nm = 1
+            lb = np.zeros((0, 5), np.float32)
+        return im_file, lb, shape, nm, nf, ne, nc, msg
+    except Exception as e:  # a bad file is reported and skipped, as the JAX loader does
+        nc = 1
+        return None, None, None, nm, nf, ne, nc, f"{im_file}: ignoring corrupt image/label: {e}"
+
+
+class DetectionDataset:
+    """The val dataset: an image list, its validated labels, and
+    letterboxed samples at `img_size` (the non-augmenting branch of the
+    JAX DetectionDataset)."""
+
+    def __init__(self, path, img_size: int = 640, augment: bool = False, rect: bool = False):
+        if augment:
+            raise NotImplementedError(f"augment (mosaic, mixup, perspective) {TRAINING_ONLY}")
+        if rect:
+            raise NotImplementedError(f"rect batches {TRAINING_ONLY}")
+        self.img_size = img_size
+        self.img_files = list_images(path)
+        self.label_files = img2label_paths(self.img_files)
+        cache = self._load_or_build_cache(path)
+        self.labels = [cache[f][0] for f in self.img_files]
+        self.shapes = np.array([cache[f][1] for f in self.img_files], np.float64)  # (n, 2) (w, h)
+        self.n = len(self.img_files)
+
+    # -- caching --------------------------------------------------------
+
+    @staticmethod
+    def _cache_path(path) -> Path:
+        p = Path(path if isinstance(path, str) else path[0])
+        return (p if p.is_file() else p.parent).with_suffix(CACHE_SUFFIX)
+
+    def _load_or_build_cache(self, path) -> dict:
+        """{image file: (labels (n, 5) float32, (w, h))} of the valid pairs,
+        read from the cache file when its version and hash match."""
+        cache_path = self._cache_path(path)
+        h = get_hash(self.label_files + self.img_files)
+        if cache_path.exists():
+            try:
+                stored = json.loads(cache_path.read_text())
+            except (OSError, ValueError):
+                stored = {}
+            if stored.get("version") == CACHE_VERSION and stored.get("hash") == h:
+                # corrupt pairs were left out when the cache was built
+                self.img_files = [f for f in self.img_files if f in stored["files"]]
+                self.label_files = img2label_paths(self.img_files)
+                return {f: (np.array(lb, np.float32).reshape(-1, 5), tuple(shape))
+                        for f, (lb, shape) in stored["files"].items()}
+        cache = {}
+        nm = nf = ne = nc = 0
+        keep_imgs, keep_lbls = [], []
+        for im_file, lb_file in zip(self.img_files, self.label_files):
+            f, lb, shape, m, fo, e, c, msg = verify_image_label(im_file, lb_file)
+            nm, nf, ne, nc = nm + m, nf + fo, ne + e, nc + c
+            if msg:
+                LOGGER.warning(msg)
+            if f is not None:
+                cache[f] = (lb, shape)
+                keep_imgs.append(im_file)
+                keep_lbls.append(lb_file)
+        self.img_files, self.label_files = keep_imgs, keep_lbls
+        LOGGER.info(f"dataset: {nf} labels found, {nm} missing, {ne} empty, {nc} corrupt")
+        stored = {"version": CACHE_VERSION, "hash": h,
+                  "files": {f: (lb.tolist(), list(shape)) for f, (lb, shape) in cache.items()}}
+        try:
+            cache_path.write_text(json.dumps(stored))
+        except OSError as e:  # a read-only dataset directory: run without a cache
+            LOGGER.warning(f"cache not written to {cache_path}: {e}")
+        return cache
+
+    # -- samples ----------------------------------------------------------
+
+    def load_image(self, i: int):
+        """Image i as loaded, its long side resized to img_size (INTER_AREA
+        when shrinking). Returns (image, (h0, w0), (h, w))."""
+        im = cv2.imread(self.img_files[i])
+        if im is None:
+            raise FileNotFoundError(f"image not found {self.img_files[i]}")
+        h0, w0 = im.shape[:2]
+        r = self.img_size / max(h0, w0)
+        if r != 1:
+            interp = cv2.INTER_AREA if r < 1 else cv2.INTER_LINEAR
+            im = cv2.resize(im, (int(w0 * r), int(h0 * r)), interpolation=interp)
+        return im, (h0, w0), im.shape[:2]
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, index: int):
+        """(image HWC uint8 BGR, labels (n, 5) [cls, xc, yc, w, h]
+        normalized to the letterboxed image, path, shapes), where shapes is
+        ((h0, w0), ((h / h0, w / w0), (padw, padh))) for scale_coords."""
+        img, (h0, w0), (h, w) = self.load_image(index)
+        img, ratio, pad = letterbox(img, self.img_size, auto=False, scaleup=False)
+        shapes = (h0, w0), ((h / h0, w / w0), pad)
+        labels = self.labels[index].copy()
+        if labels.size:
+            labels[:, 1:] = xywhn2xyxy(labels[:, 1:], ratio[0] * w, ratio[1] * h, padw=pad[0], padh=pad[1])
+            labels[:, 1:5] = xyxy2xywhn(labels[:, 1:5], w=img.shape[1], h=img.shape[0], clip=True, eps=1e-3)
+        return np.ascontiguousarray(img), labels.astype(np.float32), self.img_files[index], shapes
+
+
+def pad_targets(label_list, max_labels: int = MAX_LABELS) -> np.ndarray:
+    """Per-image (n, 5) [cls, x, y, w, h] arrays -> (B, max_labels, 5),
+    padded with rows of cls = -1 and zero boxes."""
+    out = np.full((len(label_list), max_labels, 5), -1.0, np.float32)
+    out[:, :, 1:] = 0.0
+    for i, lab in enumerate(label_list):
+        n = min(len(lab), max_labels)
+        if n:
+            out[i, :n] = lab[:n, :5]
+    return out
+
+
+def collate_batch(samples):
+    """Samples -> (images (B, H, W, 3) uint8, targets (B, MAX_LABELS, 5),
+    paths, shapes)."""
+    imgs, labels, paths, shapes = zip(*samples)
+    return np.stack(imgs, 0), pad_targets(list(labels)), list(paths), list(shapes)
+
+
+class DataLoader:
+    """Ordered batches of a DetectionDataset. Items load on a pool of up to
+    8 threads (cv2 releases the GIL while it decodes and resizes) and a
+    prefetch thread keeps PREFETCH batches ready. The last batch is filled
+    up by wrapping to the start, so every batch has `batch_size` images."""
+
+    def __init__(self, dataset: DetectionDataset, batch_size: int):
+        self.dataset = dataset
+        self.batch_size = batch_size
+
+    def __len__(self):
+        return math.ceil(len(self.dataset) / self.batch_size)
+
+    def _batches(self):
+        idx = np.arange(len(self.dataset))
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+            for b in range(len(self)):
+                sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                if len(sel) < self.batch_size:
+                    sel = np.concatenate([sel, idx[: self.batch_size - len(sel)]])
+                items = list(pool.map(self.dataset.__getitem__, [int(i) for i in sel]))
+                yield collate_batch(items)
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        closed = threading.Event()  # set when the consumer is done, early or not
+
+        def put(item) -> None:
+            while not closed.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
+
+        def worker():
+            try:
+                for b in self._batches():
+                    put(b)
+                    if closed.is_set():
+                        return
+                put(_END)
+            except Exception as e:  # handed to the consumer, which raises it
+                put(e)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            closed.set()
+            t.join()

@@ -1,10 +1,16 @@
-"""Serving postprocess: fused score -> top-k -> decode-k -> exact tiled NMS
-(counterpart of yolosomi_tpu/ops/nms.py:84-175 and :306-383).
+"""Postprocess: the serving path's fused score -> top-k -> decode-k ->
+exact tiled NMS, and the eval path's NMS over decoded rows with its
+multi-label mode (counterparts of yolosomi_tpu/ops/nms.py:84-260 and
+:306-383).
 
 The keep-set is the JAX package's: greedy NMS in score order with a
 strict `>` on both the confidence and the IoU threshold, per-class by the
-class-offset trick (+cls * MAX_WH). JAX's while_loops become Python loops
-over tensors on the device; their conditions sync with the host.
+class-offset trick (+cls * MAX_WH). Candidates are chosen by `_top_k`, a
+stable descending sort: of two equal scores the lower index comes first,
+as in jax.lax.top_k, so exact ties (a saturated sigmoid gives many scores
+of exactly 1.0) order as in the JAX package and the same on every run.
+JAX's while_loops become Python loops over tensors on the device; their
+conditions sync with the host.
 
 Outputs are padded to (max_det, 6) rows [x1, y1, x2, y2, conf, cls]; padded
 rows are all zeros, so a row is valid iff conf > 0.
@@ -17,9 +23,16 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from yolosomi_tpu_torch.utils.boxes import box_iou
+from yolosomi_tpu_torch.utils.boxes import box_iou, xywh2xyxy
 
 MAX_WH = 4096.0  # class-offset multiplier: boxes of different classes never overlap
+
+
+def _top_k(scores: torch.Tensor, k: int):
+    """The k largest scores along the last axis and their indices, in
+    descending order; equal scores keep their index order."""
+    values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 def _self_suppress(E: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
@@ -116,7 +129,7 @@ def fused_postprocess(
 
     scores = torch.where(scores > conf_thres, scores, torch.zeros_like(scores))
     k = min(max_nms, scores.shape[1])
-    top_scores, idx = torch.topk(scores, k, dim=1)  # sorted descending
+    top_scores, idx = _top_k(scores, k)
 
     t = torch.gather(traw, 1, idx[..., None].expand(b, k, 4)).float()
     y = torch.sigmoid(t)
@@ -135,4 +148,62 @@ def fused_postprocess(
         out[i, :n, :4] = boxes[i, kept]
         out[i, :n, 4] = top_scores[i, kept]
         out[i, :n, 5] = cls_k[i, kept]
+    return out
+
+
+def non_max_suppression(
+    prediction: torch.Tensor,  # (B, N, 5 + nc) decoded rows [xc, yc, w, h, obj, cls...]
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    classes: Optional[torch.Tensor] = None,  # (nc,) bool mask of allowed classes
+    multi_label: bool = False,
+    agnostic: bool = False,
+    max_det: int = 300,
+    max_nms: int = 4096,
+    exact: bool = False,
+) -> torch.Tensor:
+    """NMS over decoded rows -> (B, max_det, 6) float32 [x1, y1, x2, y2,
+    conf, cls], padded with zeros; a row is valid iff conf > 0.
+
+    Scores are cls * obj. Single-label keeps each row's best class;
+    multi-label flattens the (N * nc) scores, so one box can survive once
+    per class. Either way scores at or below `conf_thres` become 0 and the
+    top min(max_nms, candidates) go to the tiled exact NMS. `exact` is
+    accepted for the JAX signature and changes nothing: JAX's inexact
+    selection (approx_max_k) is a TPU device feature, and `_top_k` here is
+    exact on every device."""
+    del exact
+    b, n, no = prediction.shape
+    nc = no - 5
+    dev = prediction.device
+    pred = prediction.float()
+    boxes = xywh2xyxy(pred[..., :4])  # (B, N, 4)
+    cls_scores = pred[..., 5:] * pred[..., 4:5]  # (B, N, nc)
+    if classes is not None:
+        allowed = torch.as_tensor(classes, dtype=torch.bool, device=dev)
+        cls_scores = torch.where(allowed, cls_scores, torch.zeros_like(cls_scores))
+
+    if multi_label:
+        flat = cls_scores.reshape(b, n * nc)
+        flat = torch.where(flat > conf_thres, flat, torch.zeros_like(flat))
+        scores, idx = _top_k(flat, min(max_nms, n * nc))
+        box_idx = torch.div(idx, nc, rounding_mode="floor")
+        cls_idx = (idx % nc).float()
+    else:
+        best, best_cls = cls_scores.max(-1)
+        best = torch.where(best > conf_thres, best, torch.zeros_like(best))
+        scores, box_idx = _top_k(best, min(max_nms, n))
+        cls_idx = torch.gather(best_cls, 1, box_idx).float()
+    cand = torch.gather(boxes, 1, box_idx[..., None].expand(*box_idx.shape, 4))
+    offset = torch.zeros_like(cls_idx) if agnostic else cls_idx * MAX_WH
+    offset_boxes = cand + offset[..., None]
+
+    out = torch.zeros((b, max_det, 6), dtype=torch.float32, device=dev)
+    for i in range(b):
+        keep_idx, keep_valid = _nms_single_tiled(offset_boxes[i], scores[i], iou_thres, max_det)
+        kept = keep_idx[keep_valid]
+        m = kept.numel()
+        out[i, :m, :4] = cand[i, kept]
+        out[i, :m, 4] = scores[i, kept]
+        out[i, :m, 5] = cls_idx[i, kept]
     return out

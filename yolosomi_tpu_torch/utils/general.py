@@ -1,9 +1,12 @@
-"""General helpers: logger, channel rounding, device resolution."""
+"""General helpers: logger, channel rounding, image-size check, run
+directories, device resolution (counterparts of
+yolosomi_tpu/utils/general.py:23-97)."""
 
 from __future__ import annotations
 
 import logging
 import math
+from pathlib import Path
 
 import torch
 
@@ -26,6 +29,29 @@ def make_divisible(x, divisor: int = 8) -> int:
     """Round a channel count up to a multiple of `divisor` (the YAML
     compiler's width_multiple scaling)."""
     return int(math.ceil(x / divisor) * divisor)
+
+
+def check_img_size(imgsz: int, s: int = 32) -> int:
+    """Round an image size up to a multiple of the model's largest stride
+    `s`, warning when it changes."""
+    new_size = make_divisible(imgsz, int(s))
+    if new_size != imgsz:
+        LOGGER.warning(f"WARNING: --img-size {imgsz} must be multiple of max stride {s}, updating to {new_size}")
+    return new_size
+
+
+def increment_path(path, exist_ok: bool = False, mkdir: bool = False) -> Path:
+    """The run directory `path`, or, when it exists and not `exist_ok`, the
+    first free one of path2, path3, ...; `mkdir` creates it."""
+    path = Path(path)
+    if path.exists() and not exist_ok:
+        for n in range(2, 9999):
+            if not Path(f"{path}{n}").exists():
+                path = Path(f"{path}{n}")
+                break
+    if mkdir:
+        path.mkdir(parents=True, exist_ok=True)
+    return path
 
 
 def resolve_device(device=None) -> torch.device:
