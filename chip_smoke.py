@@ -38,6 +38,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     never in the plain one; then val.run in bf16 through the kernels is
     timed (eval line, Speed split, img/s), beside bf16 under
     plain_version() and a split of a bf16 batch into model and NMS
+ 7. checkpoints and entry points, at full width (640 px, nc 10, bf16):
+    the flagship from seed 0 (f32) is exported through the inverse weight
+    bridge to a weights file with anchors 1.25 x the config's (~268 MB)
+    and stripped to a bf16 copy; Runner(weights=...) must carry those
+    anchors, answer a b8 batch with the bits of a seed-0 Runner built with
+    them in its config (and other rows than with the config's anchors),
+    and the bf16 copy must load to the same parameters. detect.run on 16
+    synthetic JPEGs (8 drone frames of 1920x1080, 8 of 640x480; --save-txt
+    --save-conf) launches odconv_s2 4 times per image and writes the rows
+    the Runner gives on the same letterboxed images, to the printed
+    digits. attempt_load([a, a]) answers a b8 batch with the single
+    Runner's rows (head tempered, fewer candidates than max_nms / 2) and
+    attempt_load([a, b]) launches odconv_s2 8 times per forward. Then
+    yolo-somi-dcn, saved with randomised offset heads, is loaded by
+    hubconf.yolo_somi_dcn and served by serve.DetectionServer on
+    127.0.0.1: 4 JPEGs posted raw and 4 as multipart must get the records
+    AutoShape gives directly, with 4 / 9 / 1 launches per forward
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -46,11 +63,14 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -60,18 +80,23 @@ import torch
 import torch.nn.functional as F
 import yaml
 
-from yolosomi_tpu_torch import val
-from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset
-from yolosomi_tpu_torch.engine.runner import Runner
+from yolosomi_tpu_torch import detect, hubconf, val
+from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset, LoadImages
+from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
+from yolosomi_tpu_torch.engine.runner import EnsembleRunner, Runner, attempt_load
 from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
 from yolosomi_tpu_torch.models.heads import decode
-from yolosomi_tpu_torch.models.yolo import parse_model
+from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
 from yolosomi_tpu_torch.ops.odconv import _plan, odconv_s2, odconv_s2_reference, plain_version
+from yolosomi_tpu_torch.serve import DetectionServer
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
+from yolosomi_tpu_torch.utils.general import LOGGER
+from yolosomi_tpu_torch.utils.msgpack import msgpack_restore
+from yolosomi_tpu_torch.utils.weights import export_jax_variables
 
 IMGSZ = 640
 BATCH = 8
@@ -91,6 +116,10 @@ EVAL_IMAGES = 60  # 7 batches of 8 and a last one that wraps 4
 EVAL_TOP = 10  # labels per image
 HEAD_TEMPER = 0.1
 EVAL_NMS = dict(conf_thres=0.001, iou_thres=0.6, max_nms=30000, multi_label=True)  # val.run's protocol
+ANCHOR_SCALE = 1.25  # the checkpoint's anchors against the config's
+DETECT_IMAGES = ((8, 1080, 1920), (8, 480, 640))  # (count, h, w): drone frames, then VGA
+N_POSTS = 4  # images posted to the server, each raw and as multipart
+ENSEMBLE_CONF = 0.1  # the twin-ensemble check's threshold
 
 
 def gpu_line() -> str:
@@ -626,6 +655,235 @@ def evaluate(gpu: str) -> None:
     print(f"eval on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# checkpoints and entry points
+# ---------------------------------------------------------------------------
+
+
+def save_model(path: Path, cfg_name: str, seed: int, anchor_scale: float = 1.0, dcn: bool = False):
+    """Build `cfg_name` at full width (nc 10, f32, weights from `seed`; DCN
+    offset heads randomised when `dcn`) and write it as a weights file with
+    its anchors times `anchor_scale`. Returns (anchors, seconds to build,
+    seconds to export and write)."""
+    t0 = time.perf_counter()
+    model, meta = build_model(load_model_cfg(find_config(cfg_name)), nc=10, device="cuda", dtype=torch.float32,
+                              seed=seed)
+    if dcn:
+        randomize_offset_heads(model, seed=seed)
+    t1 = time.perf_counter()
+    anchors = (meta.anchors_px * anchor_scale).astype(np.float32)
+    save_variables(path, export_jax_variables(model), anchors=anchors)
+    return anchors, t1 - t0, time.perf_counter() - t1
+
+
+def drop_twins(rows: np.ndarray):
+    """(B, max_det, 6) rows with each valid row that repeats an earlier one
+    of its image removed (the rest moved up, zeros after), and the count
+    removed. An ensemble of twins pools every box twice; the NMS drops the
+    second copy for its IoU of 1 with the first, except for a box of zero
+    area, whose IoU with its twin is 0."""
+    out, n = np.zeros_like(rows), 0
+    for b, r in enumerate(rows):
+        r = r[r[:, 4] > 0]
+        keep = np.sort(np.unique(r, axis=0, return_index=True)[1])
+        out[b, :len(keep)] = r[keep]
+        n += len(r) - len(keep)
+    return out, n
+
+
+class Lines(logging.Handler):
+    """Collects the package logger's lines (detect's per-image and Speed lines)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def post(url: str, body: bytes, ctype: str = None):
+    """(records, seconds) of one request."""
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype} if ctype else {}, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        records = json.loads(r.read())
+    return records, time.perf_counter() - t0
+
+
+def multipart(payload: bytes, boundary: bytes = b"somi-smoke-boundary"):
+    body = (b"--" + boundary + b'\r\nContent-Disposition: form-data; name="image"; filename="frame.jpg"\r\n'
+            + b"Content-Type: image/jpeg\r\n\r\n" + payload + b"\r\n--" + boundary + b"--\r\n")
+    return body, "multipart/form-data; boundary=" + boundary.decode()
+
+
+def entry_points(gpu: str) -> None:
+    """Phase 7: weights files, Runner(weights=...), detect, the ensemble and
+    the REST server, at full width."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- the flagship's round trip through a weights file ---------------
+        f32_path, bf16_path = tmp / "somi-f32.msgpack", tmp / "somi-bf16.msgpack"
+        anchors, t_build, t_save = save_model(f32_path, "yolo-somi", seed=0, anchor_scale=ANCHOR_SCALE)
+        t0 = time.perf_counter()
+        strip_checkpoint(f32_path, bf16_path)
+        t_strip = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blob = f32_path.read_bytes()
+        t1 = time.perf_counter()
+        msgpack_restore(blob)
+        t2 = time.perf_counter()
+        del blob
+        runner = Runner("yolo-somi", str(f32_path), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        print(f"checkpoint on {gpu}: yolo-somi f32 file {f32_path.stat().st_size / 1e6:.1f} MB (build {t_build:.2f} s, "
+              f"export + write {t_save:.2f} s), bf16 strip {bf16_path.stat().st_size / 1e6:.1f} MB ({t_strip:.2f} s); "
+              f"load: read {t1 - t0:.2f} s, decode {t2 - t1:.2f} s, Runner(weights=...) whole {t3 - t2:.2f} s "
+              f"(read, decode, build, copy to the device)")
+        assert runner.meta.nc == 10 and np.array_equal(runner.meta.anchors_px, anchors), runner.meta.anchors_px
+        cfg = dict(load_model_cfg(find_config("yolo-somi")))
+        cfg["anchors"] = anchors.reshape(len(anchors), -1).tolist()
+        anchored_cfg = tmp / "yolo-somi-anchors.yaml"
+        anchored_cfg.write_text(yaml.safe_dump(cfg))
+        direct = Runner(str(anchored_cfg), nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+        batch = np.random.default_rng(2).integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+        got = runner(batch)
+        assert got.shape == (BATCH, 300, 6) and np.isfinite(got).all()
+        assert np.array_equal(got, direct(batch)), "Runner(weights=...) and the seed-0 Runner disagree"
+        with torch.device("meta"):  # the config's anchors; nothing is allocated
+            config_meta = parse_model(load_model_cfg(find_config("yolo-somi")))[1]
+        config_anchors = fused_postprocess(direct.forward(batch), config_meta.anchors_px,
+                                           direct.meta.strides).cpu().numpy()
+        n_diff = int((np.abs(config_anchors - got).max(-1) > 0).sum())
+        assert n_diff > 0, "the config's anchors give the same rows: the override check is vacuous"
+        stripped = Runner("yolo-somi", str(bf16_path), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda")
+        state = stripped.model.state_dict()
+        for key, value in runner.model.state_dict().items():
+            assert torch.equal(state[key], value), key
+        print(f"checkpoint: anchors from the file; b{BATCH} rows bitwise equal to the seed-0 Runner with those "
+              f"anchors, {n_diff} of {BATCH * 300} rows differ under the config's anchors; the bf16 copy loads "
+              f"{len(state)} tensors bitwise equal")
+        del direct, stripped, state
+
+        # -- detect on drone frames and VGA images --------------------------
+        src = tmp / "detect-src"
+        src.mkdir()
+        rng = np.random.default_rng(0)
+        i = 0
+        for count, h, w in DETECT_IMAGES:
+            for _ in range(count):
+                assert cv2.imwrite(str(src / f"im{i:02d}_{w}x{h}.jpg"), synthetic_image(rng, h, w))
+                i += 1
+        lines = Lines()
+        LOGGER.addHandler(lines)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            run_dir = detect.run(weights=str(f32_path), cfg="yolo-somi", source=str(src), imgsz=IMGSZ, save_txt=True,
+                                 save_conf=True, project=str(tmp / "runs"), name="detect", device="cuda")
+        finally:
+            LOGGER.removeHandler(lines)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        assert launches == {"odconv_s2": 4 * i, "dcnv2_im2col": 0, "dcnv3_core": 0}, launches
+        n_rows = 0
+        for path, img, im0, _ in LoadImages(str(src), img_size=IMGSZ, stride=runner.stride):
+            det = runner(img[None], conf_thres=0.4, iou_thres=0.2)[0]
+            det = det[det[:, 4] > 0]
+            det[:, :4] = scale_coords(img.shape[:2], det[:, :4], im0.shape[:2])
+            want = [detect.label_line(int(c), xyxy, im0.shape, conf) for *xyxy, conf, c in det]
+            label = run_dir / "labels" / f"{Path(path).stem}.txt"
+            have = label.read_text().splitlines() if label.exists() else []
+            assert have == want, (path, len(have), len(want))
+            n_rows += len(want)
+        speed = next(line for line in lines.lines if line.startswith("Speed"))
+        per_image = [float(line.rsplit("(", 1)[1][:-3]) for line in lines.lines if line.endswith("ms)")]
+        assert len(per_image) == i, lines.lines
+        print(f"detect on {gpu}: {i} images ({', '.join(f'{c} at {w}x{h}' for c, h, w in DETECT_IMAGES)}), "
+              f"{i / wall:.1f} img/s over the whole run ({wall:.2f} s, model build included), odconv_s2 "
+              f"{launches['odconv_s2']} launches; {n_rows} label rows equal to the Runner's; inference+NMS per "
+              f"image: first (cold) {per_image[0]:.1f} ms, median of the rest {statistics.median(per_image[1:]):.1f} "
+              f"ms; detect says: {speed}")
+
+        # -- the ensemble ---------------------------------------------------
+        b_path = tmp / "somi-seed1.msgpack"
+        save_model(b_path, "yolo-somi", seed=1, anchor_scale=ANCHOR_SCALE)
+        temper_head(runner.model, HEAD_TEMPER)
+        twins = attempt_load([str(f32_path), str(f32_path)], "yolo-somi", device="cuda")
+        assert isinstance(twins, EnsembleRunner)
+        for m in twins.members:
+            temper_head(m.model, HEAD_TEMPER)
+        with torch.inference_mode():
+            rows = runner.decode(runner.forward(batch))
+            scores = (rows[..., 5:] * rows[..., 4:5]).amax(-1)
+            candidates = {t: int((scores > t).sum(1).max()) for t in (0.05, ENSEMBLE_CONF, 0.25)}
+        print(f"ensemble: most candidates of an image above conf 0.05 / {ENSEMBLE_CONF} / 0.25: "
+              f"{' / '.join(str(n) for n in candidates.values())} (head tempered by {HEAD_TEMPER})")
+        assert candidates[ENSEMBLE_CONF] < 4096 // 2, "a doubled pool would overflow max_nms"
+        ens_rows = twins(batch, conf_thres=ENSEMBLE_CONF)
+        single_rows = runner(batch, conf_thres=ENSEMBLE_CONF, exact=True)
+        assert (ens_rows[..., 4] > 0).any(), "no rows: the ensemble check would be vacuous"
+        ens_rows, n_twins = drop_twins(ens_rows)
+        assert np.array_equal(ens_rows, single_rows), "the ensemble of twins disagrees with the single Runner"
+        del twins
+        pair = attempt_load([str(f32_path), str(b_path)], "yolo-somi", device="cuda")
+        pair(batch)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pair(batch)
+        pair_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        assert launches == {"odconv_s2": 8, "dcnv2_im2col": 0, "dcnv3_core": 0}, launches
+        assert np.isfinite(out).all()
+        print(f"ensemble on {gpu}: [a, a] equals Runner(a) on b{BATCH} at conf {ENSEMBLE_CONF} "
+              f"({int((ens_rows[..., 4] > 0).sum())} rows; {n_twins} twins of zero-area boxes dropped); "
+              f"[a, seed 1] one b{BATCH} batch {pair_ms:.2f} ms, odconv_s2 {launches['odconv_s2']} launches")
+        del pair, runner
+
+        # -- yolo-somi-dcn from a checkpoint, through the REST server -------
+        dcn_path = tmp / "somi-dcn.msgpack"
+        save_model(dcn_path, "yolo-somi-dcn", seed=0, dcn=True)
+        model = hubconf.yolo_somi_dcn(weights=str(dcn_path))
+        assert model.runner.meta.nc == 10 and model.runner.device.type == "cuda"
+        frames = sorted(src.iterdir())
+        payloads = [p.read_bytes() for p in (frames[0], frames[1], frames[-2], frames[-1])][:N_POSTS]
+        images = [cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR) for b in payloads]
+        model(images[0])  # warm-up: cuDNN plans for b1
+        server = DetectionServer(("127.0.0.1", 0), model)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/v1/object-detection/yolo-somi-dcn"
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            answers, lat = [], []
+            for payload in payloads:
+                for body, ctype in ((payload, None), multipart(payload)):
+                    records, secs = post(url, body, ctype)
+                    answers.append(records)
+                    lat.append(secs)
+            launches = launch_counts()
+        finally:
+            server.shutdown()
+            server.close()
+            thread.join(timeout=30)
+        per = {"odconv_s2": 4, "dcnv2_im2col": 9, "dcnv3_core": 1}
+        assert launches == {k: n * 2 * len(payloads) for k, n in per.items()}, launches
+        for j, img in enumerate(images):
+            direct_records = json.loads(json.dumps(model(img).records()[0]))
+            assert answers[2 * j] == answers[2 * j + 1] == direct_records, j
+        n_records = sum(len(a) for a in answers)
+        print(f"serve on {gpu}: yolo-somi-dcn from a weights file, {len(answers)} requests "
+              f"({len(payloads)} raw, {len(payloads)} multipart; 1920x1080 and 640x480 JPEGs), latency median "
+              f"{statistics.median(lat) * 1e3:.2f} ms (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), "
+              f"{n_records} records equal to AutoShape's; launches per forward "
+              f"{', '.join(f'{k} {n // len(answers)}' for k, n in launches.items())}")
+    print(f"checkpoints and entry points on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     def one(source):
@@ -688,6 +946,7 @@ def main() -> int:
     parity("yolo-somi")
     parity("yolo-somi-dcn")
     evaluate(gpu)
+    entry_points(gpu)
 
     kernels = [
         kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111", flagship["odconv_s2"],

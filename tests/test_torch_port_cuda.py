@@ -1,4 +1,5 @@
-"""yolosomi_tpu_torch's CUDA kernels against their plain versions, on a GPU.
+"""yolosomi_tpu_torch's CUDA kernels against their plain versions, and the
+entry points that load a checkpoint reaching them, on a GPU.
 
 These tests need a CUDA device and skip without one. The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -7,12 +8,21 @@ PyTorch (tests/conftest.py imports jax, hence --noconftest):
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
+import yaml
 
+from yolosomi_tpu_torch import api
+from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
+from yolosomi_tpu_torch.engine.runner import Runner
+from yolosomi_tpu_torch.models.dcn import randomize_offset_heads
+from yolosomi_tpu_torch.models.yolo import build_model
 from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
 from yolosomi_tpu_torch.ops.odconv import _TILES, _plan, _smem_bytes, odconv_s2, odconv_s2_reference
+from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
+from yolosomi_tpu_torch.utils.weights import export_jax_variables
 
 
 @pytest.fixture
@@ -185,3 +195,68 @@ def test_dcn_kernels_reject_what_they_do_not_take(cuda):
         dcnv2_im2col(x, o.transpose(1, 2), o, o)
     with pytest.raises(ValueError, match="one CUDA device"):
         dcnv2_im2col(x, o, o, o.cpu())
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and entry points on the card
+# ---------------------------------------------------------------------------
+
+KERNELS = (odconv_s2, dcnv2_im2col, dcnv3_core)
+
+
+def _weights_file(tmp_path, name: str):
+    """A width-0.25 / depth-0.33 copy of config `name`, and a weights file of
+    it from seed 0 (offset heads randomised) with anchors 1.25 x the
+    config's, written through the inverse weight bridge."""
+    cfg = dict(load_model_cfg(find_config(name)))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    cfg_path = tmp_path / f"{name}-small.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    model, meta = build_model(cfg, nc=3, device="cpu", seed=0)
+    randomize_offset_heads(model, seed=0)
+    weights = tmp_path / f"{name}.msgpack"
+    save_variables(weights, export_jax_variables(model), anchors=meta.anchors_px * 1.25)
+    return str(cfg_path), str(weights)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolo-somi", "yolo-somi-dcn"])
+def test_runner_from_a_weights_file_reaches_the_kernels(cuda, tmp_path, name):
+    cfg, weights = _weights_file(tmp_path, name)
+    runner = Runner(cfg, weights, dtype=torch.float32, device="cuda")
+    cpu = Runner(cfg, weights, dtype=torch.float32, device="cpu")
+    assert runner.meta.nc == 3 and np.array_equal(runner.meta.anchors_px, cpu.meta.anchors_px)
+    x = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    before = [k.launches for k in KERNELS]
+    got = runner.forward(x)
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(KERNELS, before)]
+    assert launched[0] == 4 and (all(launched[1:]) if name == "yolo-somi-dcn" else not any(launched[1:])), launched
+    for g, r in zip(got, cpu.forward(x)):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_strip_file_round_trips_on_the_device(cuda, tmp_path):
+    cfg, weights = _weights_file(tmp_path, "yolo-somi")
+    stripped = tmp_path / "stripped.msgpack"
+    strip_checkpoint(weights, stripped)
+    a = Runner(cfg, str(stripped), dtype=torch.bfloat16, device="cuda")
+    b = Runner(cfg, weights, dtype=torch.bfloat16, device="cuda")
+    for (k, u), v in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        assert torch.equal(u, v), k
+    x = np.random.default_rng(1).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(a(x), b(x))
+
+
+@pytest.mark.cuda
+def test_autoshape_on_the_device_reaches_every_kernel(cuda, tmp_path):
+    cfg, weights = _weights_file(tmp_path, "yolo-somi-dcn")
+    model = api.load(cfg, weights, imgsz=64, conf=0.001, device="cuda")
+    ims = [np.random.default_rng(2).integers(0, 256, (90, 120, 3), dtype=np.uint8)]
+    before = [k.launches for k in KERNELS]
+    results = model(ims)
+    launched = [k.launches - b for k, b in zip(KERNELS, before)]
+    assert launched[0] == 4 and all(launched), launched
+    det = results.pred[0]
+    assert len(det) and np.isfinite(det).all() and (det[:, [0, 2]] <= 120).all() and (det[:, [1, 3]] <= 90).all()

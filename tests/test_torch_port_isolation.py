@@ -1,5 +1,7 @@
-"""yolosomi_tpu_torch and chip_smoke.py stand alone: no jax, jaxlib, flax
-or yolosomi_tpu import, checked in the source and in a fresh interpreter."""
+"""yolosomi_tpu_torch and chip_smoke.py stand alone: no jax, jaxlib, flax,
+msgpack (the card has no such package; the port has its own codec),
+yolosomi_tpu or root-CLI import (the JAX package's detect.py, serve.py,
+...), checked in the source and in a fresh interpreter."""
 
 import ast
 import subprocess
@@ -7,7 +9,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "yolosomi_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "yolosomi_tpu", "detect", "serve", "hubconf", "wbf", "val", "train",
+             "export", "bench")
 
 
 def _port_sources():

@@ -142,8 +142,8 @@ def test_runner_on_cpu_serves_its_own_postprocess(flagship, tmp_path):
     assert valid.any() and (out[~valid] == 0).all()
     with pytest.raises(NotImplementedError, match="TTA"):
         runner(images, augment=True)
-    with pytest.raises(TypeError):
-        runner(images.astype(np.float32))
+    with pytest.raises(TypeError):  # float in [0, 1] is taken, as JAX's Runner takes it; ints are not
+        runner(images.astype(np.int32))
 
 
 def test_entry_points_default_to_cuda():

@@ -1,6 +1,6 @@
-"""The eval dataset and its loader (counterparts of
-yolosomi_tpu/data/datasets.py:40-240, :295-350, :486-630 and
-yolosomi_tpu/losses.py:365 pad_targets).
+"""The eval dataset and its loader, and the inference sources (counterparts
+of yolosomi_tpu/data/datasets.py:40-240, :295-350, :486-630, :632-701 and
+:824-866, and yolosomi_tpu/losses.py:365 pad_targets).
 
 Images decode and resize with cv2, exactly as the JAX loader does.
 Batches collate to fixed shapes: images (B, H, W, 3) uint8 BGR NHWC and
@@ -13,6 +13,12 @@ beside the image directory (or list file): JSON, so loading it runs no
 unpickler, and under a name the JAX loader's `.somi.cache.npy` never
 collides with. Mosaic, mixup, the perspective warp and rect batches are
 training features (ROADMAP queue A item 5) and raise NotImplementedError.
+
+LoadImages (files, directories, globs and videos) and LoadStreams (camera
+and network streams) feed detect. Both letterbox with cv2; the JAX
+LoadImages takes its C++ letterbox (native/imgproc.cc) when that builds,
+which is only close to cv2's, so their images agree with the port's
+exactly only where the JAX package runs without it.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from yolosomi_tpu_torch.utils.boxes import xywhn2xyxy, xyxy2xywhn
 from yolosomi_tpu_torch.utils.general import LOGGER
 
 IMG_FORMATS = ("bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp")
+VID_FORMATS = ("asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv")
 CACHE_VERSION = "yolosomi-tpu-torch-0.1"
 CACHE_SUFFIX = ".somi-torch.cache.json"
 MAX_LABELS = 300  # target rows per image in a batch
@@ -289,3 +296,121 @@ class DataLoader:
         finally:
             closed.set()
             t.join()
+
+
+class LoadImages:
+    """Inference source of image files, a directory, a glob or videos.
+    Yields (path, letterboxed HWC uint8 BGR, original image, the video
+    capture or None) in file order, images before videos."""
+
+    def __init__(self, path, img_size: int = 640, stride: int = 32, auto: bool = False):
+        p = str(Path(path).resolve())
+        if "*" in p:
+            files = sorted(glob.glob(p, recursive=True))
+        elif os.path.isdir(p):
+            files = sorted(glob.glob(os.path.join(p, "*.*")))
+        elif os.path.isfile(p):
+            files = [p]
+        else:
+            raise FileNotFoundError(f"{p} does not exist")
+        images = [x for x in files if x.rsplit(".", 1)[-1].lower() in IMG_FORMATS]
+        videos = [x for x in files if x.rsplit(".", 1)[-1].lower() in VID_FORMATS]
+        self.files = images + videos
+        self.video_flag = [False] * len(images) + [True] * len(videos)
+        self.img_size = img_size
+        self.stride = stride
+        self.auto = auto
+        self.nf = len(self.files)
+        self.mode = "image"
+        self.cap = None
+        if self.nf == 0:
+            raise FileNotFoundError(f"no images or videos in {p}")
+        if videos:
+            self.cap = cv2.VideoCapture(videos[0])
+
+    def __iter__(self):
+        self.count = 0
+        return self
+
+    def __len__(self):
+        return self.nf
+
+    def __next__(self):
+        if self.count == self.nf:
+            raise StopIteration
+        path = self.files[self.count]
+        if self.video_flag[self.count]:
+            self.mode = "video"
+            ret, im0 = self.cap.read()
+            if not ret:  # this video is done: on to the next file
+                self.count += 1
+                self.cap.release()
+                if self.count == self.nf:
+                    raise StopIteration
+                path = self.files[self.count]
+                self.cap = cv2.VideoCapture(path)
+                ret, im0 = self.cap.read()
+        else:
+            self.count += 1
+            im0 = cv2.imread(path)
+            if im0 is None:
+                raise FileNotFoundError(f"image not found {path}")
+        img = letterbox(im0, self.img_size, stride=self.stride, auto=self.auto)[0]
+        return path, np.ascontiguousarray(img), im0, self.cap
+
+
+class LoadStreams:
+    """Inference source of camera indices or stream URLs (one, a list, or a
+    .txt of them), one reader thread per stream keeping its newest frame.
+    Each step yields (sources, letterboxed batch (N, H, W, 3) uint8, the
+    frames, None). `close()` stops the readers and releases the streams."""
+
+    def __init__(self, sources, img_size: int = 640, stride: int = 32):
+        if isinstance(sources, str) and os.path.isfile(sources) and sources.endswith(".txt"):
+            with open(sources) as f:
+                sources = [s.strip() for s in f.read().splitlines() if s.strip()]
+        elif isinstance(sources, str):
+            sources = [sources]
+        self.sources = sources
+        self.img_size = img_size
+        self.stride = stride
+        self.imgs = [None] * len(sources)
+        self.caps = []
+        self.threads = []
+        self.running = threading.Event()
+        self.running.set()
+        for i, s in enumerate(sources):
+            cap = cv2.VideoCapture(int(s) if s.isdigit() else s)
+            self.caps.append(cap)
+            ok = cap.isOpened()
+            if ok:
+                ok, self.imgs[i] = cap.read()
+            if not ok:
+                self.close()
+                raise OSError(f"failed to read from stream {s}")
+        for i, cap in enumerate(self.caps):
+            t = threading.Thread(target=self._reader, args=(i, cap), daemon=True)
+            t.start()
+            self.threads.append(t)
+
+    def _reader(self, i: int, cap):
+        while self.running.is_set() and cap.isOpened():
+            ok, frame = cap.read()
+            if not ok:
+                break
+            self.imgs[i] = frame
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        frames = [im.copy() for im in self.imgs]
+        batch = np.stack([letterbox(f, self.img_size, stride=self.stride, auto=False)[0] for f in frames])
+        return self.sources, batch, frames, None
+
+    def close(self):
+        self.running.clear()
+        for t in self.threads:
+            t.join(timeout=5)
+        for cap in self.caps:
+            cap.release()

@@ -6,7 +6,7 @@ through an explicit registry, with the JAX package's channel, repeat and
 analytic stride propagation. The registry holds the modules of the
 flagship graph (configs/models/yolo-somi.yaml) and the deformable family
 of its DCN variant (configs/models/yolo-somi-dcn.yaml); a row outside it
-raises KeyError.
+raises KeyError naming ROADMAP queue A item 8.
 """
 
 from __future__ import annotations
@@ -140,7 +140,8 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
     for i, (f, n, mname, args) in enumerate(rows):
         mname = str(mname)
         if mname not in _REGISTRY:
-            raise KeyError(f"module '{mname}' not in registry (row {i})")
+            raise KeyError(f"module '{mname}' not in registry (row {i}): the rest of the model zoo is not ported "
+                           "yet (ROADMAP queue A item 8)")
         cls, kind = _REGISTRY[mname]
         tokens = {"nc": nc, "anchors": anchors, "None": None, "True": True, "False": False}
         args = [tokens.get(a, a) if isinstance(a, str) else a for a in args]
@@ -288,15 +289,20 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
 
 
 def build_model(cfg: dict, nc: Optional[int] = None, device=None, dtype: torch.dtype = torch.float32,
-                seed: int = 0):
+                seed: int = 0, anchors=None):
     """Compile a model YAML dict -> (DetectionModel, ModelMeta), with random
     weights from `seed`, in eval mode, in `dtype` and channels_last on
-    `device` (CUDA unless the caller names another)."""
+    `device` (CUDA unless the caller names another). An explicit `nc` or
+    `anchors` (per-level pixel lists, as the YAML writes them) overrides the
+    YAML's."""
     device = resolve_device(device)
     cfg = dict(cfg)
     if nc is not None and nc != cfg.get("nc"):
         LOGGER.info(f"Overriding model.yaml nc={cfg.get('nc')} with nc={nc}")
         cfg["nc"] = nc
+    if anchors is not None:
+        LOGGER.info(f"Overriding model.yaml anchors with anchors={anchors}")
+        cfg["anchors"] = anchors
     modules, meta = parse_model(cfg, ch=cfg.get("ch", 3), dtype=dtype)
     model = DetectionModel(modules, meta)
     init_weights(model, meta, seed)

@@ -1,7 +1,7 @@
 """Postprocess: the serving path's fused score -> top-k -> decode-k ->
 exact tiled NMS, and the eval path's NMS over decoded rows with its
 multi-label mode (counterparts of yolosomi_tpu/ops/nms.py:84-260 and
-:306-383).
+:306-383); and Gaussian soft-NMS's score decay (:259-303).
 
 The keep-set is the JAX package's: greedy NMS in score order with a
 strict `>` on both the confidence and the IoU threshold, per-class by the
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from yolosomi_tpu_torch.utils.boxes import box_iou, xywh2xyxy
+from yolosomi_tpu_torch.utils.iou import bbox_iou
 
 MAX_WH = 4096.0  # class-offset multiplier: boxes of different classes never overlap
 
@@ -207,3 +208,28 @@ def non_max_suppression(
         out[i, :m, 4] = scores[i, kept]
         out[i, :m, 5] = cls_idx[i, kept]
     return out
+
+
+def soft_nms_scores(boxes: torch.Tensor, scores: torch.Tensor, sigma: float = 0.5, max_det: int = 300,
+                    iou_thresh: float = 0.3, ciou: bool = True) -> torch.Tensor:
+    """Gaussian soft-NMS (the reference's general.py:834-862, present but
+    unwired there). min(max_det, K) times: take the live box with the top
+    score (the lowest index on a tie), fix its score, and multiply the
+    scores of the boxes that overlap it above `iou_thresh` by
+    exp(-overlap^2 / sigma). Overlap is CIoU by default, as in the
+    reference. Returns the decayed scores in input order; boxes never taken
+    score 0. `boxes` is (K, 4) xyxy."""
+    scores = torch.as_tensor(scores)
+    boxes = torch.as_tensor(boxes, dtype=scores.dtype)
+    live = scores.clone()
+    final = torch.zeros_like(scores)
+    for _ in range(min(max_det, boxes.shape[0])):
+        j = int(torch.argmax(live))
+        final[j] = live[j]
+        if ciou:
+            iou = bbox_iou(boxes[j][None], boxes, xywh=False, CIoU=True)
+        else:
+            iou = box_iou(boxes[j][None], boxes)[0]
+        live = live * torch.where(iou > iou_thresh, torch.exp(-(iou**2) / sigma), torch.ones_like(iou))
+        live[j] = 0.0
+    return final

@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's flax variables -> the port's modules.
+"""Weight bridge: the JAX package's flax variables <-> the port's modules.
 
 `variables` is the JAX package's `{"params": ..., "batch_stats": ...}` tree
 as nested dicts of numpy arrays (the caller does the device_get; this
@@ -10,15 +10,27 @@ torch layout (counterpart of yolosomi_tpu/utils/onnx_export.py:35-51).
 DCNv3's Dense layers, depthwise conv and LayerNorm map by name; DCNv2's
 3-D (P, C, c2) weight keeps its flax layout in the port (models/dcn.py),
 so it passes through untransposed.
+
+`export_jax_variables` is the inverse: a port model -> the flax tree, with
+flax paths, flax layouts and float32 numpy values, for the checkpoint
+writers (engine/checkpoint.py). Where the forward map is many-to-one, the
+module types decide: L.Conv's Conv2d is the flax `cv/conv`, any other
+Conv2d a bare ConvRaw `<name>/conv`, except DCNv2's `conv_offset_mask` and
+DCNv3's `dw_conv` (flax nn.Conv, no wrapper) and EMA-CBAM's `fc` pair
+(flax Dense kernels held as 1x1 Conv2d).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+from yolosomi_tpu_torch.models import dcn as D
+from yolosomi_tpu_torch.models import layers as L
 
 _LIST_RE = re.compile(r"^(m|dw|pw|bn_dw|bn_pw)(\d+)$")
 
@@ -130,3 +142,74 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> Tuple[List[st
             matched[key] = True
     unmatched = [k for k in state if k not in matched and not k.endswith("num_batches_tracked")]
     return unmatched, unused
+
+
+# ---------------------------------------------------------------------------
+# the inverse: port model -> flax variables
+# ---------------------------------------------------------------------------
+
+# torch module path -> flax path, applied in order to the dotted path of the
+# module that holds a leaf (the inverse of _path_to_key's rewrites)
+_INVERSE_RE = (
+    (re.compile(r"^model\.(\d+)"), lambda m: f"layers_{m.group(1)}"),
+    (re.compile(r"\.DCovN\.(\d+)\.0\.fn\.0$"), lambda m: f".dw{int(m.group(1)) - 3}"),
+    (re.compile(r"\.DCovN\.(\d+)\.0\.fn\.2$"), lambda m: f".bn_dw{int(m.group(1)) - 3}"),
+    (re.compile(r"\.DCovN\.0$"), lambda m: ".dcov_patch"),
+    (re.compile(r"\.DCovN\.2$"), lambda m: ".bn_patch"),
+    (re.compile(r"\.DCovN\.(\d+)\.1$"), lambda m: f".pw{int(m.group(1)) - 3}"),
+    (re.compile(r"\.DCovN\.(\d+)\.3$"), lambda m: f".bn_pw{int(m.group(1)) - 3}"),
+    (re.compile(r"\.(?:shared_MLP|fc)\.([02])$"), lambda m: f".fc{int(m.group(1)) // 2 + 1}"),
+    (re.compile(r"\.m\.(\d+)"), lambda m: f".m{m.group(1)}"),
+)
+_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
+
+
+def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[torch.Tensor], torch.Tensor]]:
+    """One torch state key -> (collection, flax path, torch-to-flax layout)."""
+    prefix, name = key.rsplit(".", 1) if "." in key else ("", key)
+    mod = model.get_submodule(prefix)
+    path = prefix
+    for pattern, repl in _INVERSE_RE:
+        path = pattern.sub(repl, path)
+    same = lambda t: t  # noqa: E731
+    layout = same
+    if isinstance(mod, nn.Conv2d):
+        parent = model.get_submodule(prefix.rsplit(".", 1)[0]) if "." in prefix else model
+        dense = re.search(r"\.fc[12]$", path) is not None  # EMA-CBAM's fc pair: flax Dense
+        if isinstance(parent, L.Conv):
+            path = path[: -len(".conv")] + ".cv.conv"
+        elif not (dense or isinstance(parent, (D.DCNv2, D.DCNv3))):
+            path += ".conv"
+        if name == "weight":
+            layout = (lambda t: t[:, :, 0, 0].T) if dense else (lambda t: t.permute(2, 3, 1, 0))
+    elif isinstance(mod, nn.Linear) and name == "weight":
+        layout = lambda t: t.T  # noqa: E731
+    elif isinstance(mod, L.ODConv2d) and name == "weight":
+        layout = lambda t: t.permute(0, 3, 4, 2, 1)  # noqa: E731  (K,O,I,kh,kw) -> (K,kh,kw,I,O)
+    collection = "params"
+    if isinstance(mod, _NORMS) and name in ("running_mean", "running_var"):
+        collection, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[name]
+    elif isinstance(mod, _NORMS) and name == "weight":
+        name = "scale"
+    elif isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "weight":
+        name = "kernel"
+    return collection, [p for p in path.split(".") if p] + [name], layout
+
+
+@torch.no_grad()
+def export_jax_variables(model: nn.Module) -> dict:
+    """The port model's weights as the JAX package's flax variables
+    `{"params": ..., "batch_stats": ...}`: nested dicts of float32 numpy
+    arrays in flax layout, which load_jax_variables maps back exactly."""
+    variables: dict = {"params": {}, "batch_stats": {}}
+    for key, value in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        collection, path, layout = _flax_leaf(model, key)
+        if key not in _key_candidates(path, collection):
+            raise ValueError(f"{key} exports to {collection}/{'/'.join(path)}, which does not load back to it")
+        node = variables[collection]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = layout(value).float().cpu().contiguous().numpy()
+    return variables

@@ -9,10 +9,11 @@ max_nms 30000) -> letterbox-inverse rescale on the host -> TP matching at
 10 IoU thresholds -> ap_per_class -> the P / R / mAP table, a Speed line
 and `metrics.json` in the run directory.
 
-Runs on CUDA unless `device` names another device. `--weights` (a
-`.msgpack` checkpoint) waits for ROADMAP queue A item 3; until then `run`
-takes `variables` (the JAX package's flax variables as nested numpy
-dicts), a built `runner`, or neither (random weights from seed 0). int8
+Runs on CUDA unless `device` names another device. Weights come from
+`weights` / `--weights` (a `.msgpack` weights file or a `.ckpt` checkpoint,
+loaded by the Runner), `variables` (the JAX package's flax variables as
+nested numpy dicts), a built `runner`, or none of these (random weights
+from seed 0). int8
 (item 7), TTA (`augment`, item 9), the val loss (`compute_loss`, item 5),
 plots (matplotlib, item 9) and spatial sharding (item 6) raise
 NotImplementedError.
@@ -128,8 +129,8 @@ def run(
     if runner is None:
         if weights is None and variables is None:
             LOGGER.info("no weights given: random weights from seed 0")
-        runner = Runner(cfg, nc=nc, dtype=torch.bfloat16 if half else torch.float32, imgsz=imgsz, device=device,
-                        variables=variables, weights=weights)
+        runner = Runner(cfg, weights, nc=nc, dtype=torch.bfloat16 if half else torch.float32, imgsz=imgsz,
+                        device=device, variables=variables)
     imgsz = check_img_size(imgsz, s=runner.stride)
 
     save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)
@@ -253,7 +254,7 @@ def run(
 def parse_opt(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--data", type=str, default="visdrone")
-    parser.add_argument("--weights", type=str, default=None, help="a .msgpack checkpoint (not ported yet)")
+    parser.add_argument("--weights", type=str, default=None, help="a .msgpack weights file or a .ckpt checkpoint")
     parser.add_argument("--cfg", type=str, default="yolo-somi")
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--imgsz", "--img", "--img-size", type=int, default=640)
