@@ -4,8 +4,8 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
  1. device: needs CUDA; prints the card's name and power limit; TF32 off
- 2. build: compiles every CUDA source of the serving paths from csrc/,
-    one nvcc per source, all started together
+ 2. build: compiles every CUDA source of the serving and training paths
+    from csrc/, one nvcc per source, all started together
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the serving paths give it (f32 and bf16), with kernel, plain-version,
     library-call and bound times and the kernel's multiple of its bound:
@@ -55,6 +55,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     hubconf.yolo_somi_dcn and served by serve.DetectionServer on
     127.0.0.1: 4 JPEGs posted raw and 4 as multipart must get the records
     AutoShape gives directly, with 4 / 9 / 1 launches per forward
+ 8. training, on a set of 64 train and 16 val synthetic 640x480 JPEGs
+    labelled with the shapes drawn in them (rectangle class 0, disc class
+    1, nc 10). (a), with phase 3: odconv_s2_dx and odconv_s2_dwmix
+    against autograd of the plain version at the four ODConv sites (b8),
+    f32 and bf16, a bitwise repeat, timed beside the plain version and
+    cuDNN's grouped-conv backward. (b) one full-width f32 train-mode step
+    (b2, seed-0 weights, head tempered) through the kernels against the
+    same step under plain_version(), both held against the plain step in
+    f64: the loss and the BatchNorm statistics after the step within twice
+    the plain f32 step's distance, every parameter's gradient within four
+    times the larger of the plain step's distance and its median
+    (train_step_parity); non-zero ODConv bank gradients; 4 + 4 + 4
+    launches against 0. Then, at b8 for seeds 0-2, the step through the
+    kernels against the same step with the plain ODConv backward behind
+    the same forward kernel: the loss and BatchNorm statistics bitwise,
+    every parameter's gradient within 5e-5 relative norm distance
+    (train_step_witness; the step under plain_version() printed beside
+    it). (c) train.run of the full-width flagship (hyp.visdrone,
+    640 px, b8, bf16, autoanchor on) for 2 epochs, then a third from
+    --resume: every logged loss finite, no step skipped (the optimizer
+    step counts every step, across the resume), 4 forward + 4 dx + 4
+    dwmix launches per train step, the weights files written,
+    Runner(last.msgpack) serving a b8 batch; then the train step alone,
+    timed and profiled (busy share)
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -80,20 +104,25 @@ import torch
 import torch.nn.functional as F
 import yaml
 
-from yolosomi_tpu_torch import detect, hubconf, val
+from yolosomi_tpu_torch import detect, hubconf, train, val
 from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset, LoadImages
 from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
+from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.runner import EnsembleRunner, Runner, attempt_load
+from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step, upload_images
+from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d, ODConv2d
 from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
 from yolosomi_tpu_torch.models.heads import decode
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
-from yolosomi_tpu_torch.ops.odconv import _plan, odconv_s2, odconv_s2_reference, plain_version
+from yolosomi_tpu_torch.ops.odconv import (OdconvS2Function, _dw_split, _plan, odconv_s2, odconv_s2_backward_reference,
+                                           odconv_s2_dwmix, odconv_s2_dx, odconv_s2_reference, plain_version)
 from yolosomi_tpu_torch.serve import DetectionServer
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
-from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
+from yolosomi_tpu_torch.utils.config import find_config, load_hyp, load_model_cfg
 from yolosomi_tpu_torch.utils.general import LOGGER
 from yolosomi_tpu_torch.utils.msgpack import msgpack_restore
 from yolosomi_tpu_torch.utils.weights import export_jax_variables
@@ -105,8 +134,8 @@ N_REQUESTS = 10
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 OUT = Path("chiprun_out")
-SOURCES = ("odconv_s2.cu", "dcn.cu")
-KERNELS = (odconv_s2, dcnv2_im2col, dcnv3_core)
+SOURCES = ("odconv_s2.cu", "dcn.cu", "odconv_s2_bwd.cu")
+KERNELS = (odconv_s2, dcnv2_im2col, dcnv3_core, odconv_s2_dx, odconv_s2_dwmix)
 # launches per served batch on each path
 PER_BATCH = {
     "yolo-somi": {"odconv_s2": 4},
@@ -120,6 +149,23 @@ ANCHOR_SCALE = 1.25  # the checkpoint's anchors against the config's
 DETECT_IMAGES = ((8, 1080, 1920), (8, 480, 640))  # (count, h, w): drone frames, then VGA
 N_POSTS = 4  # images posted to the server, each raw and as multipart
 ENSEMBLE_CONF = 0.1  # the twin-ensemble check's threshold
+TRAIN_IMAGES, VAL_IMAGES = 64, 16  # the training phase's self-drawn set, 640x480
+TRAIN_EPOCHS = 2  # then one more from --resume
+# the gradient kernels against autograd of the plain version, relative
+# norm of the difference: f32 sums in another order (measured 3e-7 to
+# 2e-6); bf16 rounds the output once (2**-9 relative, 1.7e-3 measured)
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+# the full-width f32 step through the kernels against plain_version(), both
+# against f64: the floor for gradients that are zero in exact arithmetic, as
+# a share of the largest gradient's norm (train_step_parity)
+STEP_GRAD_TOL = 1e-6
+# the same step at b8 through the kernels against the plain ODConv backward
+# behind the same forward kernel (train_step_witness): each parameter's
+# gradient within WITNESS_TOL relative norm distance (plus the floor above),
+# for each seed. The least limit that passed was 1.4e-6 to 6.2e-6 over seeds
+# 0-4 on the H100: WITNESS_TOL is 8x the largest
+WITNESS_SEEDS = (0, 1, 2)
+WITNESS_TOL = 5e-5
 
 
 def gpu_line() -> str:
@@ -410,6 +456,11 @@ def reset_counts() -> None:
         k.launches = 0
 
 
+def only(**counts) -> dict:
+    """Every kernel's expected count: those named, 0 for the rest."""
+    return {k.__name__: counts.get(k.__name__, 0) for k in KERNELS}
+
+
 def serve(gpu: str, cfg_name: str) -> dict:
     """Serve N_REQUESTS batches; returns this path's launch counts."""
     runner = Runner(cfg_name, nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
@@ -519,19 +570,30 @@ def parity(cfg_name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def synthetic_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
-    """Noise with 2-7 bright rectangles and discs drawn by numpy masks."""
+def synthetic_shapes(rng: np.random.Generator, h: int, w: int):
+    """Noise with 2-7 bright rectangles and discs drawn by numpy masks, and
+    their boxes: (n, 5) [cls, x1, y1, x2, y2] pixels, class 0 a rectangle,
+    class 1 a disc (the mask's bounding box, x2 and y2 exclusive)."""
     im = (rng.integers(0, 80, (h, w, 3)) + rng.integers(0, 40)).astype(np.uint8)
     yy, xx = np.mgrid[0:h, 0:w]
+    boxes = []
     for _ in range(rng.integers(2, 8)):
         s = int(rng.integers(20, 120))
         cx, cy = int(rng.integers(s, w - s)), int(rng.integers(s, h - s))
-        if rng.random() < 0.5:
+        rect = rng.random() < 0.5
+        if rect:
             mask = (np.abs(xx - cx) < s // 2) & (np.abs(yy - cy) < s // 3)
         else:
             mask = (xx - cx) ** 2 + (yy - cy) ** 2 < (s // 2) ** 2
         im[mask] = rng.integers(120, 256, 3)
-    return im
+        ys, xs = np.nonzero(mask)
+        boxes.append((0 if rect else 1, xs.min(), ys.min(), xs.max() + 1, ys.max() + 1))
+    return im, np.array(boxes, np.float32)
+
+
+def synthetic_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """synthetic_shapes' image alone."""
+    return synthetic_shapes(rng, h, w)[0]
 
 
 @torch.no_grad()
@@ -631,7 +693,7 @@ def evaluate(gpu: str) -> None:
         plain_launches = launch_counts()
         print(f"eval launches: kernels {launches}, plain_version() {plain_launches}; {n_labels} labels")
         n_batches = -(-EVAL_IMAGES // BATCH)
-        assert launches == {"odconv_s2": 4 * n_batches, "dcnv2_im2col": 0, "dcnv3_core": 0}, launches
+        assert launches == only(odconv_s2=4 * n_batches), launches
         assert not any(plain_launches.values()), plain_launches
         assert plain[2] > 0.5, f"plain mAP@.5 {plain[2]}: the self-labelled check would be vacuous"
         assert abs(kernels[2] - plain[2]) <= 0.01, (kernels[2], plain[2])
@@ -787,7 +849,7 @@ def entry_points(gpu: str) -> None:
             LOGGER.removeHandler(lines)
         wall = time.perf_counter() - t0
         launches = launch_counts()
-        assert launches == {"odconv_s2": 4 * i, "dcnv2_im2col": 0, "dcnv3_core": 0}, launches
+        assert launches == only(odconv_s2=4 * i), launches
         n_rows = 0
         for path, img, im0, _ in LoadImages(str(src), img_size=IMGSZ, stride=runner.stride):
             det = runner(img[None], conf_thres=0.4, iou_thres=0.2)[0]
@@ -836,7 +898,7 @@ def entry_points(gpu: str) -> None:
         out = pair(batch)
         pair_ms = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
-        assert launches == {"odconv_s2": 8, "dcnv2_im2col": 0, "dcnv3_core": 0}, launches
+        assert launches == only(odconv_s2=8), launches
         assert np.isfinite(out).all()
         print(f"ensemble on {gpu}: [a, a] equals Runner(a) on b{BATCH} at conf {ENSEMBLE_CONF} "
               f"({int((ens_rows[..., 4] > 0).sum())} rows; {n_twins} twins of zero-area boxes dropped); "
@@ -871,7 +933,7 @@ def entry_points(gpu: str) -> None:
             server.close()
             thread.join(timeout=30)
         per = {"odconv_s2": 4, "dcnv2_im2col": 9, "dcnv3_core": 1}
-        assert launches == {k: n * 2 * len(payloads) for k, n in per.items()}, launches
+        assert launches == only(**{k: n * 2 * len(payloads) for k, n in per.items()}), launches
         for j, img in enumerate(images):
             direct_records = json.loads(json.dumps(model(img).records()[0]))
             assert answers[2 * j] == answers[2 * j + 1] == direct_records, j
@@ -882,6 +944,371 @@ def entry_points(gpu: str) -> None:
               f"{n_records} records equal to AutoShape's; launches per forward "
               f"{', '.join(f'{k} {n // len(answers)}' for k, n in launches.items())}")
     print(f"checkpoints and entry points on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def check_backward(sites, gen: torch.Generator) -> tuple:
+    """odconv_s2_dx and odconv_s2_dwmix against autograd of
+    odconv_s2_reference at every ODConv site (b8, 640 px), f32 and bf16,
+    with a bitwise repeat; timed beside the plain version (autograd of the
+    grouped conv for that gradient alone), cuDNN's grouped-conv backward on
+    inputs already in its layout, and the copy that makes a strided dy
+    contiguous. Returns the bf16 summaries (dx, dwmix)."""
+    sums = {"dx": new_summary(), "dwmix": new_summary()}
+    for row, xs, ws in sites:
+        B, H, W, C = xs
+        cout = ws[-1]
+        x32 = torch.randn(xs, device="cuda", generator=gen)
+        w32 = torch.randn(ws, device="cuda", generator=gen) * (2.0 / (9 * C)) ** 0.5
+        dy32 = torch.randn((B, H // 2, W // 2, cout), device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy = x32.to(dtype), w32.to(dtype), dy32.to(dtype)
+            got = {"dx": odconv_s2_dx(dy, w, H, W), "dwmix": odconv_s2_dwmix(x, dy)}
+            torch.cuda.synchronize()
+            ref = dict(zip(("dx", "dwmix"), odconv_s2_backward_reference(x.float(), w.float(), dy.float())))
+            assert torch.equal(odconv_s2_dx(dy, w, H, W), got["dx"]), f"row {row}: two dx calls disagree"
+            assert torch.equal(odconv_s2_dwmix(x, dy), got["dwmix"]), f"row {row}: two dwmix calls disagree"
+            # the library call alone, on inputs already in its layout: the grouped conv's backward
+            gy = dy.permute(0, 3, 1, 2).reshape(1, B * cout, H // 2, W // 2).contiguous()
+            gx = x.permute(0, 3, 1, 2).reshape(1, B * C, H, W).contiguous()
+            gw = w.permute(0, 4, 3, 1, 2).reshape(B * cout, C, 3, 3).contiguous()
+            conv_bwd = lambda mask: torch.ops.aten.convolution_backward(  # noqa: E731
+                gy, gx, gw, None, [2, 2], [1, 1], [1, 1], False, [0, 0], B, mask)
+            runs = {"dx": (lambda: odconv_s2_dx(dy, w, H, W),
+                           lambda: odconv_s2_backward_reference(x, w, dy, need_dw=False),
+                           lambda: conv_bwd([True, False, False])),
+                    "dwmix": (lambda: odconv_s2_dwmix(x, dy),
+                              lambda: odconv_s2_backward_reference(x, w, dy, need_dx=False),
+                              lambda: conv_bwd([False, True, False]))}
+            for name, (kernel, plain, library) in runs.items():
+                diff = (got[name].float() - ref[name]).norm().item() / max(ref[name].norm().item(), 1e-30)
+                err = (got[name].float() - ref[name]).abs().max().item()
+                assert diff <= GRAD_TOL[dtype], (row, name, dtype, diff)
+                kernel_ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
+                bound = bound_ms(x, w)  # each gradient reads and writes the forward's bytes and does its FLOPs
+                extra = f" split {_dw_split(B, H, W, C, cout)}" if name == "dwmix" else ""
+                print(f"odconv_s2_{name} row {row} x{tuple(xs)} cout {cout} {str(dtype)[6:]}{extra}: kernel_ms "
+                      f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound[0]:.4f} "
+                      f"({bound[1]}) x bound {kernel_ms / bound[0]:.1f} rel norm err {diff:.2e} max_abs_err {err:.3e}")
+                if dtype == torch.bfloat16:
+                    add_site(sums[name], 1, kernel_ms, plain_ms, library_ms, bound, err)
+            if dtype == torch.bfloat16:  # what a strided dy costs: the NCHW-contiguous grad viewed NHWC
+                strided = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                print(f"odconv_s2 row {row}: making a strided bf16 dy contiguous takes "
+                      f"{time_ms(lambda: strided.contiguous()):.4f} ms")
+    return sums["dx"], sums["dwmix"]
+
+
+def write_shapes_split(root: Path, split: str, n: int, rng: np.random.Generator) -> int:
+    """n synthetic 640x480 JPEGs under root/split/images, labelled with the
+    shapes drawn in them (rectangle 0, disc 1). Returns the label count."""
+    (root / split / "images").mkdir(parents=True)
+    (root / split / "labels").mkdir()
+    n_labels = 0
+    for i in range(n):
+        im, boxes = synthetic_shapes(rng, 480, 640)
+        assert cv2.imwrite(str(root / split / "images" / f"{split}{i:03d}.jpg"), im)
+        xywhn = xyxy2xywhn(boxes[:, 1:5], w=640, h=480)
+        (root / split / "labels" / f"{split}{i:03d}.txt").write_text(
+            "".join(f"{int(c)} " + " ".join(f"{v:.6f}" for v in b) + "\n" for c, b in zip(boxes[:, 0], xywhn)))
+        n_labels += len(boxes)
+    return n_labels
+
+
+def step_grads(model, loss_fn, images: np.ndarray, targets: np.ndarray):
+    """(loss, gradients of every parameter) of one train-mode forward and
+    backward in the model's dtype; the BatchNorm statistics move as a train
+    step moves them."""
+    model.train()
+    dtype = next(model.parameters()).dtype
+    preds = model(upload_images(images, torch.device("cuda")).to(dtype))
+    loss, _ = loss_fn(preds, torch.as_tensor(targets, device="cuda"))
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def bn_stats(model) -> list:
+    return [t.detach().clone() for m in model.modules() if isinstance(m, (FlaxBatchNorm1d, FlaxBatchNorm2d))
+            for t in (m.running_mean, m.running_var)]
+
+
+def train_step_parity(root: Path) -> None:
+    """Phase 8(b): one full-width f32 step (b2, 640 px, seed-0 weights, head
+    tempered) through the kernels against the same step under
+    plain_version(), each held against the plain step in f64: the loss,
+    every parameter's gradient, the BatchNorm statistics after the step,
+    and non-zero gradients of the ODConv banks.
+
+    A fixed relative tolerance between the two f32 steps cannot hold: the
+    forward kernel's rounding (3e-5 of the loss) moves the full-width
+    model's gradients by a median of a few percent, at b2 and at b8 alike
+    (the plain f32 step's gradients lie a median 3.4e-2 from f64 on the
+    H100). train_step_witness holds the gradient kernels tightly behind a
+    shared forward. Here each parameter's gradient passes where the
+    kernels' f32 step is no further from f64 than four times the larger of
+    the plain f32 step's distance for that parameter and its median
+    distance over all of them
+    (both are draws of the same rounding noise; a wrong gradient is off by
+    its own size), plus STEP_GRAD_TOL times the largest gradient's norm
+    for gradients that are zero in exact arithmetic (a per-channel shift
+    ahead of a train-mode BatchNorm, e.g. EMA-CBAM's GroupNorm bias, has
+    none). The loss and the BatchNorm statistics are held to twice the
+    plain step's distance."""
+    model, meta = build_model(load_model_cfg(find_config("yolo-somi")), nc=10, device="cuda", seed=0)
+    temper_head(model, HEAD_TEMPER)
+    plain_model, f64_model = copy.deepcopy(model), copy.deepcopy(model).double()
+    loss_fn = ComputeLoss(meta, load_hyp(find_config("hyp.visdrone", "hyps")))
+    images, targets, _, _ = next(iter(DataLoader(DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ), 2)))
+    seen = []  # the layout each upstream gradient arrives in
+    backward = OdconvS2Function.backward
+
+    def spy(ctx, dy):
+        seen.append(dy.is_contiguous())
+        return backward(ctx, dy)
+
+    reset_counts()
+    OdconvS2Function.backward = staticmethod(spy)
+    try:
+        loss_k, grads_k = step_grads(model, loss_fn, images, targets)
+    finally:
+        OdconvS2Function.backward = backward
+    launches = launch_counts()
+    reset_counts()
+    with plain_version():
+        loss_p, grads_p = step_grads(plain_model, loss_fn, images, targets)
+        torch.cuda.empty_cache()
+        loss_d, grads_d = step_grads(f64_model, loss_fn, images, targets)
+    assert launches == only(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4), launches
+    assert not any(launch_counts().values()), launch_counts()
+
+    def rel(a, ref):
+        return (a.double() - ref).norm().item() / max(ref.norm().item(), 1e-300)
+
+    names = [n for n, _ in model.named_parameters()]
+    floor = STEP_GRAD_TOL * max(g.norm().item() for g in grads_d)
+    p_median = statistics.median(rel(gp, gd) for gp, gd in zip(grads_p, grads_d))
+    worst, ratios = None, []
+    for name, gk, gp, gd in zip(names, grads_k, grads_p, grads_d):
+        assert torch.isfinite(gk).all(), name
+        ek, ep, nd = (gk.double() - gd).norm().item(), (gp.double() - gd).norm().item(), gd.norm().item()
+        ratios.append(ek / max(ep, 1e-300))
+        if ek > 4 * max(ep, p_median * nd) + floor:
+            worst = (name, ek, ep, nd)
+    k_rel = sorted(rel(gk, gd) for gk, gd in zip(grads_k, grads_d))
+    p_rel = sorted(rel(gp, gd) for gp, gd in zip(grads_p, grads_d))
+    bn_k, bn_p, bn_d = bn_stats(model), bn_stats(plain_model), bn_stats(f64_model)
+    bn_ek = max(rel(a, c) for a, c in zip(bn_k, bn_d))
+    bn_ep = max(rel(b, c) for b, c in zip(bn_p, bn_d))
+    banks = [n for n, m in model.named_modules() if isinstance(m, ODConv2d)]
+    bank_norms = [grads_k[names.index(f"{b}.weight")].norm().item() for b in banks]
+    bank_rel = [(rel(grads_k[names.index(f"{b}.weight")], grads_d[names.index(f"{b}.weight")]),
+                 rel(grads_p[names.index(f"{b}.weight")], grads_d[names.index(f"{b}.weight")])) for b in banks]
+    lk, lp, ld = loss_k.item(), loss_p.item(), loss_d.item()
+    print(f"train step parity f32 b2 {IMGSZ} px (full width, head tempered by {HEAD_TEMPER}), against the plain step "
+          f"in f64: loss {lk:.7f} kernels, {lp:.7f} plain, {ld:.7f} f64; {len(names)} parameter gradients, relative "
+          f"norm distance to f64: kernels median {statistics.median(k_rel):.2e} max {k_rel[-1]:.2e}, plain median "
+          f"{statistics.median(p_rel):.2e} max {p_rel[-1]:.2e}; kernel/plain distance ratio median "
+          f"{statistics.median(ratios):.2f} max {max(ratios):.2f}; BatchNorm statistics after the step: kernels "
+          f"{bn_ek:.2e}, plain {bn_ep:.2e}; ODConv bank gradient norms {', '.join(f'{v:.3e}' for v in bank_norms)} "
+          f"(to f64, kernels / plain: {', '.join(f'{a:.1e} / {b:.1e}' for a, b in bank_rel)}); "
+          f"launches {launches}; upstream gradients contiguous: {seen}")
+    assert abs(lk - ld) <= 2 * abs(lp - ld) + 1e-6 * abs(ld), (lk, lp, ld)
+    assert worst is None, worst
+    assert bn_ek <= 2 * bn_ep + 1e-6, (bn_ek, bn_ep)
+    assert len(bank_norms) == 4 and all(v > 0 for v in bank_norms), bank_norms
+
+
+def plain_backward(ctx, dy):
+    """OdconvS2Function's backward with autograd of the plain version in
+    place of the gradient kernels (train_step_witness)."""
+    x, wmix = ctx.saved_tensors
+    return odconv_s2_backward_reference(x, wmix, dy.contiguous(), ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+
+
+def train_step_witness(root: Path, seed: int) -> None:
+    """Phase 8(b), second witness: the full-width f32 step at b8 (weights
+    from `seed`, head tempered) through the kernels, against the same step
+    whose ODConv backward is autograd of the plain version behind the same
+    forward kernel. The forward is then the same bits (the loss and the
+    BatchNorm statistics are held bitwise), so the two steps differ only by
+    the gradient kernels' summation order carried back through a fixed
+    graph: each parameter's gradient within WITNESS_TOL relative norm
+    distance, plus STEP_GRAD_TOL times the largest gradient's norm for
+    gradients that are zero in exact arithmetic. The step under
+    plain_version() is printed beside them and not held: its f32 gradients
+    differ from the kernels' by a median of a few percent at b8 as at b2
+    (train_step_parity), so that noise is not the trunk's batch of two."""
+    model, meta = build_model(load_model_cfg(find_config("yolo-somi")), nc=10, device="cuda", seed=seed)
+    temper_head(model, HEAD_TEMPER)
+    back_model, plain_model = copy.deepcopy(model), copy.deepcopy(model)
+    loss_fn = ComputeLoss(meta, load_hyp(find_config("hyp.visdrone", "hyps")))
+    images, targets, _, _ = next(iter(DataLoader(DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ),
+                                                 BATCH)))
+    reset_counts()
+    loss_k, grads_k = step_grads(model, loss_fn, images, targets)
+    launches = launch_counts()
+    reset_counts()
+    backward = OdconvS2Function.backward
+    OdconvS2Function.backward = staticmethod(plain_backward)
+    try:
+        loss_b, grads_b = step_grads(back_model, loss_fn, images, targets)
+    finally:
+        OdconvS2Function.backward = backward
+    launches_b = launch_counts()
+    reset_counts()
+    with plain_version():
+        loss_p, grads_p = step_grads(plain_model, loss_fn, images, targets)
+    assert launches == only(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4), launches
+    assert launches_b == only(odconv_s2=4), launches_b
+    assert not any(launch_counts().values()), launch_counts()
+    names = [n for n, _ in model.named_parameters()]
+    floor = STEP_GRAD_TOL * max(g.norm().item() for g in grads_b)
+
+    def distances(ref):
+        d = [((gk - g).norm().item(), g.norm().item()) for gk, g in zip(grads_k, ref)]
+        return d, sorted(((a / max(n, 1e-30), name) for (a, n), name in zip(d, names)), reverse=True)
+
+    def summary(rel):
+        v = [r for r, _ in rel]
+        return (f"median {statistics.median(v):.2e}, 90th percentile {v[len(v) // 10]:.2e}, max {v[0]:.2e} "
+                f"({rel[0][1]}), next {', '.join(f'{r:.1e} ({n})' for r, n in rel[1:3])}")
+
+    dist_b, rel_b = distances(grads_b)
+    _, rel_p = distances(grads_p)
+    over = [(name, a, n) for (a, n), name in zip(dist_b, names) if a > WITNESS_TOL * n + floor]
+    least = max((a - floor) / max(n, 1e-30) for a, n in dist_b)  # the least limit that would pass
+    bn_k, bn_b, bn_p = bn_stats(model), bn_stats(back_model), bn_stats(plain_model)
+    bn_plain = max(((a - c).norm() / c.norm().clamp_min(1e-30)).item() for a, c in zip(bn_k, bn_p))
+    lk, lb, lp = loss_k.item(), loss_b.item(), loss_p.item()
+    print(f"train step witness f32 b{BATCH} {IMGSZ} px seed {seed} (full width, head tempered by {HEAD_TEMPER}): "
+          f"{len(names)} parameter gradients through the kernels against the plain ODConv backward behind the same "
+          f"forward kernel (loss {lk:.7f} / {lb:.7f}), relative norm distance {summary(rel_b)}; limit "
+          f"{WITNESS_TOL:.0e} plus {floor:.2e} absolute (the least limit that passes: {least:.2e}). Against the step under plain_version() (loss {lp:.7f}, "
+          f"relative {abs(lk - lp) / abs(lp):.2e}; BatchNorm statistics {bn_plain:.2e}): {summary(rel_p)}. "
+          f"launches {launches}")
+    assert torch.isfinite(loss_k) and all(torch.isfinite(g).all() for g in grads_k)
+    assert torch.equal(loss_k, loss_b), (lk, lb)
+    assert all(torch.equal(a, b) for a, b in zip(bn_k, bn_b)), "the same forward moved the statistics otherwise"
+    assert not over, over[:5]
+    del model, back_model, plain_model, grads_k, grads_b, grads_p
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(gpu: str, root: Path) -> None:
+    """The full-width bf16 b8 train step alone: median host-clock time of 5
+    synchronised steps, then one step under the profiler (busy share)."""
+    cfg = load_model_cfg(find_config("yolo-somi"))
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    model, meta = build_model(cfg, nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
+    ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
+    batches = list(DataLoader(ds, BATCH, shuffle=True, drop_last=True))[:3]
+    opt = make_optimizer(hyp, nb=len(batches), epochs=1, batch_size=BATCH)
+    state = create_train_state(model, opt)
+    step = make_train_step(ComputeLoss(meta, hyp), opt, amp_dtype=torch.bfloat16)
+    for images, targets, _, _ in batches[:2]:  # warm-up
+        step(state, images, targets)
+    times = []
+    for k in range(5):
+        images, targets = batches[k % len(batches)][:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, images, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    images, targets = batches[0][:2]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, images, targets)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ours = {name: sum(e.self_device_time_total for e in kernels if any(k in e.key for k in keys)) / 1e3
+            for name, keys in (("odconv_s2 forward", ("odconv_s2_bf16", "odconv_s2_splitk")),
+                               ("odconv_s2_dx", ("odconv_s2_dx",)),
+                               ("odconv_s2_dwmix", ("odconv_s2_dw_", "odconv_s2_bwd_reduce")))}
+    path = OUT / "chip_smoke_profile_train.txt"
+    path.write_text(f"{gpu}\n{events.table(sort_by='self_device_time_total', row_limit=50)}\n")
+    med = statistics.median(times)
+    print(f"train step on {gpu}: full-width yolo-somi bf16 b{BATCH} {IMGSZ} px, median of 5 {med * 1e3:.1f} ms "
+          f"({BATCH / med:.1f} img/s; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); one profiled step: "
+          f"wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items()) + f"; table in {path}")
+
+
+def training(gpu: str) -> dict:
+    """Phase 8: the gradient kernels (a, in main), one full-width f32 step
+    against plain_version() (b), then train.run of the full-width flagship
+    for TRAIN_EPOCHS epochs and one more from --resume (c). Returns the
+    training path's launch counts."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "shapes"
+        rng = np.random.default_rng(0)
+        n_train = write_shapes_split(root, "train", TRAIN_IMAGES, rng)
+        n_val = write_shapes_split(root, "val", VAL_IMAGES, rng)
+        data = root / "data.yaml"
+        data.write_text(yaml.safe_dump({"path": str(root), "train": "train/images", "val": "val/images", "nc": 10,
+                                        "names": [f"class{i}" for i in range(10)]}))
+        train_step_parity(root)
+        torch.cuda.empty_cache()
+        for seed in WITNESS_SEEDS:
+            train_step_witness(root, seed)
+        t_b = time.perf_counter()
+
+        kw = dict(cfg="yolo-somi", data=str(data), hyp="hyp.visdrone", batch_size=BATCH, imgsz=IMGSZ,
+                  project=str(tmp / "runs"), name="train", workers=8, device="cuda")
+        run_dir = tmp / "runs" / "train"
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        train.run(epochs=TRAIN_EPOCHS, **kw)
+        first = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
+        train.run(epochs=TRAIN_EPOCHS + 1, weights=str(run_dir / "weights" / "last.ckpt"), resume=True,
+                  exist_ok=True, **kw)
+        launches = launch_counts()
+        log = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
+        nb = TRAIN_IMAGES // BATCH
+        steps = nb * (TRAIN_EPOCHS + 1)
+        val_batches = -(-VAL_IMAGES // BATCH) * (TRAIN_EPOCHS + 1)
+        assert [r["epoch"] for r in log] == list(range(TRAIN_EPOCHS + 1)), [r["epoch"] for r in log]
+        assert log[TRAIN_EPOCHS]["opt_step"] == first[-1]["opt_step"] + nb, "the resumed run did not continue the step"
+        assert [r["opt_step"] for r in log] == [nb * (e + 1) for e in range(TRAIN_EPOCHS + 1)], "a step was skipped"
+        assert all(r["skipped_logged"] == 0 for r in log)
+        assert all(np.isfinite(v) for r in log for row in r["logged_losses"] for v in row[1:])
+        # validation runs two forwards a batch, the detections' and the val loss's, as the JAX val.py does
+        assert launches == only(odconv_s2=4 * (steps + 2 * val_batches), odconv_s2_dx=4 * steps,
+                                odconv_s2_dwmix=4 * steps), launches
+        for f in ("last.ckpt", "best.ckpt", "last.msgpack", "best.msgpack"):
+            assert (run_dir / "weights" / f).exists(), f
+        csv = (run_dir / "results.csv").read_text().splitlines()
+        assert csv[0] == "epoch,box,obj,cls,P,R,mAP50,mAP,fitness" and len(csv) == TRAIN_EPOCHS + 2, csv
+        runner = Runner("yolo-somi", str(run_dir / "weights" / "last.msgpack"), dtype=torch.bfloat16, imgsz=IMGSZ,
+                        device="cuda")
+        images = next(iter(DataLoader(DetectionDataset(str(root / "val" / "images"), img_size=IMGSZ), BATCH)))[0]
+        out = runner(images, conf_thres=0.001)
+        assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), out.shape
+        peak = max(r.get("max_memory_allocated", 0) for r in log)
+        print(f"train.run on {gpu}: full-width yolo-somi, hyp.visdrone (mosaic 1.0, mixup 0.2), {IMGSZ} px, b{BATCH}, "
+              f"bf16, autoanchor on; {TRAIN_IMAGES} train / {VAL_IMAGES} val 640x480 images ({n_train} / {n_val} "
+              f"self-drawn labels); {TRAIN_EPOCHS} epochs, then epoch {log[-1]['epoch']} from --resume (optimizer "
+              f"step {first[-1]['opt_step']} -> {log[-1]['opt_step']}); launches per train step odconv_s2 4, "
+              f"odconv_s2_dx {launches['odconv_s2_dx'] // steps}, odconv_s2_dwmix {launches['odconv_s2_dwmix'] // steps} "
+              f"(whole run {launches}); peak memory {peak / 1e9:.2f} GB; weights files written; Runner(last.msgpack) "
+              f"served b{BATCH} with {int((out[..., 4] > 0).sum())} rows")
+        for r, row in zip(log, csv[1:]):
+            print(f"train epoch {r['epoch']}: {r['steps']} steps in {r['train_s']:.2f} s "
+                  f"({r['train_s'] / r['steps'] * 1e3:.1f} ms/step, {BATCH * r['steps'] / r['train_s']:.1f} img/s), "
+                  f"loader wait {r['loader_wait_s'] / r['steps'] * 1e3:.1f} ms/step, val {r['val_s']:.2f} s; "
+                  f"results.csv: {row}")
+        profile_train_step(gpu, root)
+        print(f"training on {gpu}: phase {time.perf_counter() - t_phase:.1f} s (8b {t_b - t_phase:.1f} s)")
+    return launches
 
 
 def build_all() -> None:
@@ -936,10 +1363,12 @@ def main() -> int:
     v2_sites, v3_sites = dcn_sites("yolo-somi-dcn", BATCH, IMGSZ)
     v2_summary = check_dcnv2(v2_sites, gen)
     v3_summary = check_dcnv3(v3_sites, gen)
-    print("per served batch (bf16, sites times launches): " + "; ".join(
+    dx_summary, dw_summary = check_backward(odconv_sites(meta, BATCH, IMGSZ), gen)
+    print("per served batch or train step (bf16, sites times launches): " + "; ".join(
         f"{name} kernel_ms {sm['ms']:.4f} library_ms {sm['library_ms']:.4f} bound_ms {sm['bound_ms']:.4f} "
         f"x bound {sm['ms'] / sm['bound_ms']:.1f}"
-        for name, sm in (("odconv_s2", odconv_summary), ("dcnv2_im2col", v2_summary), ("dcnv3_core", v3_summary))))
+        for name, sm in (("odconv_s2", odconv_summary), ("dcnv2_im2col", v2_summary), ("dcnv3_core", v3_summary),
+                         ("odconv_s2_dx", dx_summary), ("odconv_s2_dwmix", dw_summary))))
 
     flagship = serve(gpu, "yolo-somi")
     dcn = serve(gpu, "yolo-somi-dcn")
@@ -947,12 +1376,19 @@ def main() -> int:
     parity("yolo-somi-dcn")
     evaluate(gpu)
     entry_points(gpu)
+    trained = training(gpu)
+    per_step = {name: trained[name] // (TRAIN_IMAGES // BATCH * (TRAIN_EPOCHS + 1))
+                for name in ("odconv_s2_dx", "odconv_s2_dwmix")}
 
     kernels = [
         kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111", flagship["odconv_s2"],
                      odconv_summary),
         kernel_entry("dcnv2_im2col", "dcn.cu", "tools/probe_pallas_gather.py:27", dcn["dcnv2_im2col"], v2_summary),
         kernel_entry("dcnv3_core", "dcn.cu", "tools/probe_pallas_gather.py:27", dcn["dcnv3_core"], v3_summary),
+        # no Pallas counterpart: they replace XLA's VJP of the batch-grouped vmap conv that JAX trains ODConv with
+        *(dict(kernel_entry(name, "odconv_s2_bwd.cu", "yolosomi_tpu/models/layers.py:874", trained[name], summary),
+               launches_per_train_step=per_step[name])
+          for name, summary in (("odconv_s2_dx", dx_summary), ("odconv_s2_dwmix", dw_summary))),
     ]
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,8 @@ for the port's weight bridge."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,18 @@ from yolosomi_tpu.utils.torch_convert import convert_state_dict
 from yolosomi_tpu.utils.torch_mirror import build_torch_mirror
 
 WIDTH, DEPTH, IMGSZ, NC = 0.25, 0.33, 64, 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """torch's CPU ops on one thread in a module that imports this fixture:
+    the test run shares the machine among several worker processes, and a
+    pool of one thread per core in each of them thrashes (a small model's
+    train step took 40x as long with six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def small_flagship_cfg() -> dict:

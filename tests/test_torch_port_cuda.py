@@ -6,6 +6,11 @@ neither jax nor the JAX package, so it runs on a machine that has only
 PyTorch (tests/conftest.py imports jax, hence --noconftest):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
+
+The gradient kernels (odconv_s2_dx, odconv_s2_dwmix) are held against
+autograd of the plain version by the relative norm of the difference:
+1e-5 in f32 (summation order only) and 4e-3 in bf16 (one rounding of the
+output, 2**-9 relative).
 """
 
 import numpy as np
@@ -20,7 +25,14 @@ from yolosomi_tpu_torch.models.dcn import randomize_offset_heads
 from yolosomi_tpu_torch.models.yolo import build_model
 from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
-from yolosomi_tpu_torch.ops.odconv import _TILES, _plan, _smem_bytes, odconv_s2, odconv_s2_reference
+from yolosomi_tpu_torch import train
+from yolosomi_tpu_torch.engine.optim import make_optimizer
+from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
+from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.models.layers import ODConv2d
+from yolosomi_tpu_torch.ops.odconv import (_TILES, _dw_split, _plan, _smem_bytes, odconv_s2, odconv_s2_backward_reference,
+                                           odconv_s2_dwmix, odconv_s2_dx, odconv_s2_reference)
+from yolosomi_tpu_torch.utils.config import load_hyp
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.weights import export_jax_variables
 
@@ -260,3 +272,134 @@ def test_autoshape_on_the_device_reaches_every_kernel(cuda, tmp_path):
     assert launched[0] == 4 and all(launched), launched
     det = results.pred[0]
     assert len(det) and np.isfinite(det).all() and (det[:, [0, 2]] <= 120).all() and (det[:, [1, 3]] <= 90).all()
+
+
+# ---------------------------------------------------------------------------
+# the gradient kernels and training
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+
+
+def _rel(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((a.float() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64, 128), (2, 16, 16, 256, 256), (2, 8, 8, 512, 256),
+                                   (3, 22, 38, 24, 72), (2, 320, 320, 64, 128)])
+def test_odconv_s2_gradient_kernels_match_plain_autograd(cuda, dtype, shape):
+    """The flagship's channel counts (Cin, Cout) = (64, 128), (256, 256),
+    (512, 256), ragged tiles (24, 72 at 22x38), and row 1 at batch 2,
+    whose dwmix splits its reduction; each twice, bitwise."""
+    b, h, w, cin, cout = shape
+    x = torch.randn(b, h, w, cin, device="cuda", generator=cuda).to(dtype)
+    wmix = (torch.randn(b, 3, 3, cin, cout, device="cuda", generator=cuda) * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+    dy = torch.randn(b, h // 2, w // 2, cout, device="cuda", generator=cuda).to(dtype)
+    before = (odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+    dx, dw = odconv_s2_dx(dy, wmix, h, w), odconv_s2_dwmix(x, dy)
+    torch.cuda.synchronize()
+    assert (odconv_s2_dx.launches, odconv_s2_dwmix.launches) == (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dw.dtype == dtype and dx.shape == x.shape and dw.shape == wmix.shape
+    rdx, rdw = odconv_s2_backward_reference(x.float(), wmix.float(), dy.float())
+    assert _rel(dx, rdx) <= GRAD_TOL[dtype] and _rel(dw, rdw) <= GRAD_TOL[dtype], (_rel(dx, rdx), _rel(dw, rdw))
+    assert torch.equal(odconv_s2_dx(dy, wmix, h, w), dx) and torch.equal(odconv_s2_dwmix(x, dy), dw)
+    if shape == (2, 320, 320, 64, 128):
+        assert _dw_split(b, h, w, cin, cout) > 1
+
+
+@pytest.mark.cuda
+def test_odconv_s2_under_autograd_launches_only_the_gradients_asked_for(cuda):
+    x = torch.randn(2, 16, 16, 64, device="cuda", generator=cuda)
+    wmix = torch.randn(2, 3, 3, 64, 128, device="cuda", generator=cuda) * 0.05
+    g = torch.randn(2, 8, 8, 128, device="cuda", generator=cuda)
+    for need_x, need_w in ((True, True), (True, False), (False, True)):
+        xs, ws = x.clone().requires_grad_(need_x), wmix.clone().requires_grad_(need_w)
+        before = (odconv_s2.launches, odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+        (odconv_s2(xs, ws) * g).sum().backward()
+        assert (odconv_s2.launches - before[0], odconv_s2_dx.launches - before[1],
+                odconv_s2_dwmix.launches - before[2]) == (1, int(need_x), int(need_w))
+        rdx, rdw = odconv_s2_backward_reference(x, wmix, g)
+        if need_x:
+            assert _rel(xs.grad, rdx) <= GRAD_TOL[torch.float32]
+        if need_w:
+            assert _rel(ws.grad, rdw) <= GRAD_TOL[torch.float32]
+    with torch.autocast("cuda", dtype=torch.bfloat16):  # one dtype is all the kernels take
+        with pytest.raises(TypeError):
+            odconv_s2(x.bfloat16().requires_grad_(), wmix.requires_grad_())
+
+
+@pytest.mark.cuda
+def test_odconv_s2_gradient_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.randn(2, 8, 8, 16, device="cuda", generator=cuda).bfloat16()
+    wmix = torch.randn(2, 3, 3, 16, 32, device="cuda", generator=cuda).bfloat16()
+    dy = torch.randn(2, 4, 4, 32, device="cuda", generator=cuda).bfloat16()
+    before = (odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+    with pytest.raises(TypeError):
+        odconv_s2_dx(dy.float(), wmix, 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        odconv_s2_dwmix(x, dy.permute(0, 2, 1, 3))
+    with pytest.raises(ValueError, match="does not match"):
+        odconv_s2_dx(dy[:, :3], wmix, 8, 8)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        odconv_s2_dwmix(x[..., :12].contiguous(), dy)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        odconv_s2_dx(dy[..., :20].contiguous(), wmix[..., :20].contiguous(), 8, 8)
+    flat = torch.empty(dy.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        odconv_s2_dx(flat[1:].view(dy.shape), wmix, 8, 8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        odconv_s2_dwmix(x, dy.cpu())
+    assert (odconv_s2_dx.launches, odconv_s2_dwmix.launches) == before
+
+
+@pytest.mark.cuda
+def test_dcn_kernels_refuse_a_gradient_on_cuda(cuda, tmp_path):
+    """No backward yet: under autograd each raises instead of returning an
+    output without a gradient; without gradients they run. train.py
+    refuses yolo-somi-dcn on CUDA with the same message."""
+    v = torch.randn(1, 6, 6, 8, device="cuda", generator=cuda).requires_grad_()
+    off = torch.zeros(1, 6, 6, 2 * 9, device="cuda")
+    mask = torch.full((1, 6, 6, 9), 1 / 9, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        dcnv3_core(v, off, mask, 3, 3, 1, 1, 1, 1, 1, 1, 1, 8)
+    oy = torch.zeros(1, 6, 6, 9, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dcnv2_im2col(v.detach(), oy, oy.detach(), torch.ones(1, 6, 6, 9, device="cuda"))
+    with torch.no_grad():
+        assert dcnv3_core(v, off, mask, 3, 3, 1, 1, 1, 1, 1, 1, 1, 8).shape == (1, 6, 6, 8)
+    data = tmp_path / "data.yaml"
+    data.write_text(yaml.safe_dump({"path": str(tmp_path), "train": "images", "val": "images", "nc": 3}))
+    opt = train.parse_opt(["--cfg", "yolo-somi-dcn", "--data", str(data), "--project", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        train.train(load_hyp(find_config("hyp.visdrone", "hyps")), opt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_a_train_step_on_cuda_goes_through_the_gradient_kernels(cuda, amp):
+    """The small flagship, b2, 64 px: one step launches the forward and
+    both gradient kernels at the four ODConv sites, every gradient is
+    finite, and the ODConv banks move."""
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    model, meta = build_model(cfg, nc=3, device="cuda", seed=0, compute_dtype=amp)
+    opt = make_optimizer(hyp, nb=2, epochs=1, batch_size=2)
+    state = create_train_state(model, opt)
+    step = make_train_step(ComputeLoss(meta, hyp), opt, amp_dtype=amp)
+    banks = [m.weight for m in model.modules() if isinstance(m, ODConv2d)]
+    bank0 = [b.detach().clone() for b in banks]
+    t = np.full((2, 8, 5), -1, np.float32)
+    t[..., 1:] = 0
+    t[:, :2] = [[0, 0.3, 0.4, 0.2, 0.3], [2, 0.6, 0.6, 0.1, 0.1]]
+    images = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    before = (odconv_s2.launches, odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+    m = step(state, images, t)
+    step(state, images, t)  # the second step has a non-zero LR for the banks (their group is warmed from 0)
+    torch.cuda.synchronize()
+    assert (odconv_s2.launches - before[0], odconv_s2_dx.launches - before[1],
+            odconv_s2_dwmix.launches - before[2]) == (8, 8, 8)
+    assert bool(m["grads_finite"]) and torch.isfinite(m["loss"])
+    assert len(banks) == 4 and all(not torch.equal(b, b0) for b, b0 in zip(banks, bank0))

@@ -24,6 +24,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
+from tests._torch_port_common import few_threads  # noqa: F401
 from yolosomi_tpu.models.heads import decode as jax_decode
 from yolosomi_tpu.models.yolo import build_model as jax_build_model
 from yolosomi_tpu.ops import dcn as jdcn

@@ -30,7 +30,7 @@ import jax.numpy as jnp
 import detect as jax_detect
 import serve as jax_serve
 import wbf as jax_wbf_cli
-from tests._torch_port_common import IMGSZ, NC, jax_flagship, small_flagship_cfg
+from tests._torch_port_common import IMGSZ, NC, few_threads, jax_flagship, small_flagship_cfg  # noqa: F401
 from tests.test_torch_port_checkpoint import ROWS_TOL, assert_rows_match, spread
 from tests.test_torch_port_eval import _write_image
 from yolosomi_tpu import api as jax_api

@@ -11,7 +11,8 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from tests._torch_port_common import IMGSZ, NC, jax_flagship, layer_variables, small_flagship_cfg
+from tests._torch_port_common import (IMGSZ, NC, few_threads, jax_flagship, layer_variables,  # noqa: F401
+                                      small_flagship_cfg)
 from yolosomi_tpu.models.heads import decode as jax_decode
 from yolosomi_tpu.models.yolo import build_model as jax_build_model
 from yolosomi_tpu_torch.engine.runner import Runner

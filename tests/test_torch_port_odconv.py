@@ -1,7 +1,9 @@
 """yolosomi_tpu_torch ODConv against the JAX package: the per-sample conv's
 plain version against the Pallas kernel (interpret mode), and the whole
 ODConv module against the flax ODConv at the flagship's row 1 and row 26
-sites; and the bf16 kernel's launch plan, which is pure Python. The CUDA
+sites; the gradient wrappers' plain versions on the CPU against the VJP of
+the conv the JAX package trains through; and the bf16 kernel's launch
+plan, which is pure Python. The CUDA
 kernel itself is checked on a GPU by tests/test_torch_port_cuda.py and
 chip_smoke.py."""
 
@@ -12,11 +14,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_port_common import IMGSZ, jax_flagship, layer_variables, small_flagship_cfg
+from tests._torch_port_common import IMGSZ, few_threads, jax_flagship, layer_variables, small_flagship_cfg  # noqa: F401
 from yolosomi_tpu.ops.odconv_pallas import odconv_s2_pallas
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops.odconv import (_BK, _BM, _TILES, _k_splits, _plan, _smem_bytes, odconv_s2,
-                                           odconv_s2_reference, plain_version)
+                                           odconv_s2_dwmix, odconv_s2_dx, odconv_s2_reference, plain_version)
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.weights import load_jax_variables
 
@@ -49,6 +51,39 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_checks_shapes():
         odconv_s2(x, wmix[:, :, :, :3])
     with pytest.raises(ValueError, match="CUDA"):  # no silent plain version off the CPU
         odconv_s2(x.to("meta"), wmix.to("meta"))
+
+
+def _jax_training_conv(x, wmix):
+    """The per-sample conv the JAX package trains through (ODConv2d's
+    batch-grouped `vmap` branch, yolosomi_tpu/models/layers.py:928-942, at
+    k 3, s 2, p 1, d 1, g 1)."""
+    def one(xi, wi):
+        return jax.lax.conv_general_dilated(xi[None], wi, window_strides=(2, 2), padding=((1, 1), (1, 1)),
+                                            rhs_dilation=(1, 1), dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                                            feature_group_count=1)[0]
+
+    return jax.vmap(one)(x, wmix)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 8, 8, 16, 32), (2, 10, 6, 3, 4), (1, 12, 20, 24, 8)])
+def test_gradient_wrappers_on_cpu_match_the_vjp_jax_trains_through(b, h, w, cin, cout):
+    """odconv_s2_dx and odconv_s2_dwmix on CPU tensors run their plain
+    version (and count no launch): dx and dwmix within 1e-4 of the largest
+    element of jax.vjp of the JAX package's training conv (f32, other
+    summation orders)."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+    wmix = (rng.standard_normal((b, 3, 3, cin, cout)) * 0.1).astype(np.float32)
+    dy = rng.standard_normal((b, h // 2, w // 2, cout)).astype(np.float32)
+    _, vjp = jax.vjp(_jax_training_conv, jnp.asarray(x), jnp.asarray(wmix))
+    want_dx, want_dw = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    before = (odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+    dx = odconv_s2_dx(torch.from_numpy(dy), torch.from_numpy(wmix), h, w).numpy()
+    dw = odconv_s2_dwmix(torch.from_numpy(x), torch.from_numpy(dy)).numpy()
+    assert (odconv_s2_dx.launches, odconv_s2_dwmix.launches) == before
+    assert dx.shape == x.shape and dw.shape == wmix.shape
+    np.testing.assert_allclose(dx, want_dx, rtol=0, atol=1e-4 * np.abs(want_dx).max())
+    np.testing.assert_allclose(dw, want_dw, rtol=0, atol=1e-4 * np.abs(want_dw).max())
 
 
 @pytest.fixture(scope="module")

@@ -1,18 +1,28 @@
-"""The eval dataset and its loader, and the inference sources (counterparts
-of yolosomi_tpu/data/datasets.py:40-240, :295-350, :486-630, :632-701 and
-:824-866, and yolosomi_tpu/losses.py:365 pad_targets).
+"""The training and eval dataset and its loader, and the inference sources
+(counterparts of yolosomi_tpu/data/datasets.py:40-350, :486-630, :632-701
+and :824-866, and yolosomi_tpu/losses.py:365 pad_targets).
 
 Images decode and resize with cv2, exactly as the JAX loader does.
 Batches collate to fixed shapes: images (B, H, W, 3) uint8 BGR NHWC and
-targets (B, MAX_LABELS, 5) [cls, xc, yc, w, h] normalized, padded with
-cls = -1. The loader is ordered and pads the last batch by wrapping to the
-start of the dataset.
+targets (B, max_labels, 5) [cls, xc, yc, w, h] normalized, padded with
+cls = -1. The loader pads the last batch by wrapping to the start of the
+dataset (or drops it), and shuffles with numpy's generator of
+seed + epoch.
+
+The training branch (`augment=True`): a 4-image mosaic with probability
+`mosaic` (copy-reduce-paste, then the perspective warp that crops the 2s
+canvas to s), mixed with a second mosaic with probability `mixup`; else
+the letterboxed image and the warp; then the Albumentations plane, the
+HSV jitter and the flips. It draws from Python's `random` and numpy's
+global `np.random` in the JAX package's order, so with one item thread
+(`workers=1`) and no prefetch thread the two loaders give the same bytes
+from the same seeds; with several threads the draws interleave, as in
+the JAX loader. Rect batches (`rect`) raise NotImplementedError.
 
 The label cache is the port's own file, `<dir>.somi-torch.cache.json`
 beside the image directory (or list file): JSON, so loading it runs no
 unpickler, and under a name the JAX loader's `.somi.cache.npy` never
-collides with. Mosaic, mixup, the perspective warp and rect batches are
-training features (ROADMAP queue A item 5) and raise NotImplementedError.
+collides with.
 
 LoadImages (files, directories, globs and videos) and LoadStreams (camera
 and network streams) feed detect. Both letterbox with cv2; the JAX
@@ -29,14 +39,16 @@ import json
 import math
 import os
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import cv2
 import numpy as np
 
+from yolosomi_tpu_torch.data import augment as A
 from yolosomi_tpu_torch.data.augment import letterbox
 from yolosomi_tpu_torch.utils.boxes import xywhn2xyxy, xyxy2xywhn
 from yolosomi_tpu_torch.utils.general import LOGGER
@@ -47,7 +59,7 @@ CACHE_VERSION = "yolosomi-tpu-torch-0.1"
 CACHE_SUFFIX = ".somi-torch.cache.json"
 MAX_LABELS = 300  # target rows per image in a batch
 PREFETCH = 2  # batches the loader keeps ready
-TRAINING_ONLY = "is a training feature, not ported yet (ROADMAP queue A item 5)"
+RECT_NOT_PORTED = "rect batches (--rect) are not ported yet (ROADMAP queue A item 5)"
 _END = object()  # the prefetch queue's end marker
 
 
@@ -125,22 +137,28 @@ def verify_image_label(im_file: str, lb_file: str):
 
 
 class DetectionDataset:
-    """The val dataset: an image list, its validated labels, and
-    letterboxed samples at `img_size` (the non-augmenting branch of the
-    JAX DetectionDataset)."""
+    """An image list, its validated labels, and samples at `img_size`:
+    letterboxed (eval), or augmented as the training set (`augment`, with
+    the hyp's gains and probabilities)."""
 
-    def __init__(self, path, img_size: int = 640, augment: bool = False, rect: bool = False):
-        if augment:
-            raise NotImplementedError(f"augment (mosaic, mixup, perspective) {TRAINING_ONLY}")
+    def __init__(self, path, img_size: int = 640, augment: bool = False, hyp: Optional[dict] = None,
+                 rect: bool = False, max_labels: int = MAX_LABELS):
         if rect:
-            raise NotImplementedError(f"rect batches {TRAINING_ONLY}")
+            raise NotImplementedError(RECT_NOT_PORTED)
         self.img_size = img_size
+        self.augment = augment
+        self.hyp = hyp or {}
+        self.max_labels = max_labels
+        self.mosaic = augment
+        self.mosaic_border = [-img_size // 2, -img_size // 2]
+        self.albumentations = A.Albumentations() if augment else None
         self.img_files = list_images(path)
         self.label_files = img2label_paths(self.img_files)
         cache = self._load_or_build_cache(path)
         self.labels = [cache[f][0] for f in self.img_files]
         self.shapes = np.array([cache[f][1] for f in self.img_files], np.float64)  # (n, 2) (w, h)
         self.n = len(self.img_files)
+        self.indices = np.arange(self.n)
 
     # -- caching --------------------------------------------------------
 
@@ -191,31 +209,105 @@ class DetectionDataset:
 
     def load_image(self, i: int):
         """Image i as loaded, its long side resized to img_size (INTER_AREA
-        when shrinking). Returns (image, (h0, w0), (h, w))."""
+        when shrinking an eval image, else INTER_LINEAR). Returns (image,
+        (h0, w0), (h, w))."""
         im = cv2.imread(self.img_files[i])
         if im is None:
             raise FileNotFoundError(f"image not found {self.img_files[i]}")
         h0, w0 = im.shape[:2]
         r = self.img_size / max(h0, w0)
         if r != 1:
-            interp = cv2.INTER_AREA if r < 1 else cv2.INTER_LINEAR
+            interp = cv2.INTER_AREA if r < 1 and not self.augment else cv2.INTER_LINEAR
             im = cv2.resize(im, (int(w0 * r), int(h0 * r)), interpolation=interp)
         return im, (h0, w0), im.shape[:2]
+
+    @staticmethod
+    def _mosaic_tile_rects(i: int, xc: int, yc: int, w: int, h: int, s: int):
+        """Canvas and source rectangles of mosaic tile i (top left, top
+        right, bottom left, bottom right) around the centre (xc, yc)."""
+        if i == 0:
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+        elif i == 1:
+            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+            x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+        elif i == 2:
+            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+            x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+        else:
+            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+            x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+        return (x1a, y1a, x2a, y2a), (x1b, y1b, x2b, y2b)
+
+    def _perspective(self, img, labels, border=(0, 0)):
+        hyp = self.hyp
+        return A.random_perspective(img, labels, degrees=hyp.get("degrees", 0.0), translate=hyp.get("translate", 0.1),
+                                    scale=hyp.get("scale", 0.5), shear=hyp.get("shear", 0.0),
+                                    perspective=hyp.get("perspective", 0.0), border=border)
+
+    def load_mosaic(self, index: int):
+        """Image `index` and three drawn at random on a 2s x 2s canvas
+        around a random centre; copy-reduce-paste, then the warp crops to
+        s x s. Returns (image, (n, 5) [cls, x1, y1, x2, y2] pixels)."""
+        s = self.img_size
+        labels4 = []
+        yc, xc = (int(random.uniform(-x, 2 * s + x)) for x in self.mosaic_border)
+        indices = [index] + random.choices(list(self.indices), k=3)
+        random.shuffle(indices)
+        img4 = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
+        for i, idx in enumerate(indices):
+            img, _, (h, w) = self.load_image(idx)
+            (x1a, y1a, x2a, y2a), (x1b, y1b, x2b, y2b) = self._mosaic_tile_rects(i, xc, yc, w, h, s)
+            img4[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            padw, padh = x1a - x1b, y1a - y1b
+            labels = self.labels[idx].copy()
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy(labels[:, 1:], w, h, padw, padh)
+            labels4.append(labels)
+        labels4 = np.concatenate(labels4, 0)
+        labels4[:, 1:] = labels4[:, 1:].clip(0, 2 * s)
+        img4, labels4 = A.copy_reduce_paste(img4, labels4, p=self.hyp.get("copy_paste", 0.0))
+        return self._perspective(img4, labels4, border=self.mosaic_border)
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, index: int):
         """(image HWC uint8 BGR, labels (n, 5) [cls, xc, yc, w, h]
-        normalized to the letterboxed image, path, shapes), where shapes is
-        ((h0, w0), ((h / h0, w / w0), (padw, padh))) for scale_coords."""
-        img, (h0, w0), (h, w) = self.load_image(index)
-        img, ratio, pad = letterbox(img, self.img_size, auto=False, scaleup=False)
-        shapes = (h0, w0), ((h / h0, w / w0), pad)
-        labels = self.labels[index].copy()
-        if labels.size:
-            labels[:, 1:] = xywhn2xyxy(labels[:, 1:], ratio[0] * w, ratio[1] * h, padw=pad[0], padh=pad[1])
+        normalized to the image, path, shapes). For a letterboxed image
+        shapes is ((h0, w0), ((h / h0, w / w0), (padw, padh))) for
+        scale_coords; for a mosaic it is None."""
+        hyp = self.hyp
+        if self.mosaic and random.random() < hyp.get("mosaic", 0.0):
+            img, labels = self.load_mosaic(index)
+            shapes = None
+            if random.random() < hyp.get("mixup", 0.0):
+                img, labels = A.mixup(img, labels, *self.load_mosaic(random.randint(0, self.n - 1)))
+        else:
+            img, (h0, w0), (h, w) = self.load_image(index)
+            img, ratio, pad = letterbox(img, self.img_size, auto=False, scaleup=self.augment)
+            shapes = (h0, w0), ((h / h0, w / w0), pad)
+            labels = self.labels[index].copy()
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy(labels[:, 1:], ratio[0] * w, ratio[1] * h, padw=pad[0], padh=pad[1])
+            if self.augment:
+                img, labels = self._perspective(img, labels)
+        nl = len(labels)
+        if nl:
             labels[:, 1:5] = xyxy2xywhn(labels[:, 1:5], w=img.shape[1], h=img.shape[0], clip=True, eps=1e-3)
+        if self.augment:
+            img, labels = self.albumentations(img, labels)
+            nl = len(labels)
+            img = A.augment_hsv(img, hgain=hyp.get("hsv_h", 0.0), sgain=hyp.get("hsv_s", 0.0),
+                                vgain=hyp.get("hsv_v", 0.0))
+            if random.random() < hyp.get("flipud", 0.0):
+                img = np.flipud(img)
+                if nl:
+                    labels[:, 2] = 1 - labels[:, 2]
+            if random.random() < hyp.get("fliplr", 0.0):
+                img = np.fliplr(img)
+                if nl:
+                    labels[:, 1] = 1 - labels[:, 1]
         return np.ascontiguousarray(img), labels.astype(np.float32), self.img_files[index], shapes
 
 
@@ -231,38 +323,59 @@ def pad_targets(label_list, max_labels: int = MAX_LABELS) -> np.ndarray:
     return out
 
 
-def collate_batch(samples):
-    """Samples -> (images (B, H, W, 3) uint8, targets (B, MAX_LABELS, 5),
+def collate_batch(samples, max_labels: int = MAX_LABELS):
+    """Samples -> (images (B, H, W, 3) uint8, targets (B, max_labels, 5),
     paths, shapes)."""
     imgs, labels, paths, shapes = zip(*samples)
-    return np.stack(imgs, 0), pad_targets(list(labels)), list(paths), list(shapes)
+    return np.stack(imgs, 0), pad_targets(list(labels), max_labels), list(paths), list(shapes)
 
 
 class DataLoader:
-    """Ordered batches of a DetectionDataset. Items load on a pool of up to
-    8 threads (cv2 releases the GIL while it decodes and resizes) and a
-    prefetch thread keeps PREFETCH batches ready. The last batch is filled
-    up by wrapping to the start, so every batch has `batch_size` images."""
+    """Batches of a DetectionDataset: in order, or shuffled by numpy's
+    generator of seed + epoch (the epoch counts the loader's iterations,
+    from 1). Items load on a pool of `workers` threads (cv2 releases the
+    GIL while it decodes and warps; default up to 8; 1 loads them in
+    order on the batch thread) and a prefetch thread keeps `prefetch`
+    batches ready (0: the batches are made in the consumer's thread). The
+    last batch is filled up by wrapping to the start, or dropped with
+    `drop_last`."""
 
-    def __init__(self, dataset: DetectionDataset, batch_size: int):
+    def __init__(self, dataset: DetectionDataset, batch_size: int, shuffle: bool = False, prefetch: int = PREFETCH,
+                 drop_last: bool = False, seed: int = 0, workers: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle, self.prefetch, self.drop_last, self.seed = shuffle, prefetch, drop_last, seed
+        self.workers = workers if workers is not None else min(8, os.cpu_count() or 1)
+        self.epoch = 0
 
     def __len__(self):
-        return math.ceil(len(self.dataset) / self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
 
     def _batches(self):
         idx = np.arange(len(self.dataset))
-        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        max_labels = getattr(self.dataset, "max_labels", MAX_LABELS)
+        pool = ThreadPoolExecutor(max_workers=self.workers) if self.workers > 1 else None
+        try:
             for b in range(len(self)):
                 sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
                 if len(sel) < self.batch_size:
                     sel = np.concatenate([sel, idx[: self.batch_size - len(sel)]])
-                items = list(pool.map(self.dataset.__getitem__, [int(i) for i in sel]))
-                yield collate_batch(items)
+                sel = [int(i) for i in sel]
+                items = list(pool.map(self.dataset.__getitem__, sel)) if pool else [self.dataset[i] for i in sel]
+                yield collate_batch(items, max_labels)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
 
     def __iter__(self):
-        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        self.epoch += 1
+        if self.prefetch <= 0:
+            yield from self._batches()
+            return
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         closed = threading.Event()  # set when the consumer is done, early or not
 
         def put(item) -> None:

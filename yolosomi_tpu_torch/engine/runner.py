@@ -117,6 +117,17 @@ class Runner:
         NHWC batch."""
         return self.model(self.upload(images))
 
+    def val_loss_fn(self, compute_loss):
+        """(images, targets) -> numpy (3,) [lbox, lobj, lcls] of
+        `compute_loss` on the eval-mode forward of a uint8 or float NHWC
+        batch and its (B, M, 5) padded targets (the val losses)."""
+        @torch.inference_mode()
+        def loss_fn_batch(images, targets) -> np.ndarray:
+            t = torch.as_tensor(np.asarray(targets), dtype=torch.float32, device=self.device)
+            return compute_loss(self.forward(images), t)[1].cpu().numpy()
+
+        return loss_fn_batch
+
     def decode(self, preds) -> torch.Tensor:
         """Raw maps -> decoded rows (B, N, 5 + nc) in input pixels."""
         self._check_head()

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from yolosomi_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, Conv
+from yolosomi_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, Conv, FlaxBatchNorm2d
 from yolosomi_tpu_torch.ops.dcn import dcnv2_columns, dcnv3_sampling
 
 
@@ -83,7 +83,7 @@ class DCNv2(nn.Module):
         self.conv_offset_mask = nn.Conv2d(c1, 3 * k * k, k, s, p, bias=True)
         self.weight = nn.Parameter(torch.zeros(k * k, c1, c2))
         self.bias = nn.Parameter(torch.zeros(c2))
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act is True else nn.Identity()
 
     def forward(self, x):

@@ -10,6 +10,11 @@ Numerical conventions kept from the JAX package:
   trunk's BatchNorm has eps 1e-5 (layers.py:842). The momentum
   conventions (flax 0.97 == torch 0.03, flax 0.9 == torch 0.1) matter only
   for training.
+- In training mode every BatchNorm normalizes with the batch statistics
+  and updates its running variance with the biased batch variance, as
+  flax.linen.BatchNorm does (FlaxBatchNorm1d / FlaxBatchNorm2d); torch's
+  own update uses the unbiased one (2x flax's for ODConv's trunk at batch
+  2). Eval mode is torch's BatchNorm unchanged.
 - SEAM's GELU is exact erf in float32 and the tanh form in bfloat16
   (layers.py:631-632).
 """
@@ -28,6 +33,37 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
 
 
+class _FlaxRunningStats:
+    """Training-mode BatchNorm with flax's running statistics: normalize
+    with the batch mean and biased variance, then
+    running = (1 - momentum) * running + momentum * batch statistic, with
+    the biased variance. The batch statistics come from the same fused
+    batch_norm call (momentum 1 into scratch buffers, which receive the
+    mean and the unbiased variance); the variance is rescaled by (n-1)/n."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
+        return y
+
+
+class FlaxBatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
+class FlaxBatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
 def autopad(k: int, p: Optional[int] = None) -> int:
     return k // 2 if p is None else p
 
@@ -39,7 +75,7 @@ class Conv(nn.Module):
                  act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act else nn.Identity()
 
     def forward(self, x):
@@ -152,7 +188,7 @@ class SEAM(nn.Module):
         super().__init__()
         c = c1
         gelu = lambda: nn.GELU(approximate="tanh" if approx_gelu else "none")  # noqa: E731
-        bn = lambda: nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)  # noqa: E731
+        bn = lambda: FlaxBatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)  # noqa: E731
         self.DCovN = nn.Sequential(
             nn.Conv2d(c, c, 3, 1, 1, groups=c), gelu(), bn(),
             *[
@@ -298,7 +334,7 @@ class ODConv2d(nn.Module):
         self.weight = nn.Parameter(torch.zeros(K, c2, c1, k, k))
         self.bias = nn.Parameter(torch.zeros(K, c2))
         self.fc = nn.Linear(c1, hidden, bias=False)
-        self.bn = nn.BatchNorm1d(hidden, eps=1e-5, momentum=0.1)
+        self.bn = FlaxBatchNorm1d(hidden, eps=1e-5, momentum=0.1)
         self.fc_f = nn.Linear(hidden, c2)
         self.fc_s = nn.Linear(hidden, k * k)
         self.fc_c = nn.Linear(hidden, c1)
@@ -329,7 +365,7 @@ class ODConv(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, kerNums: int = 4):
         super().__init__()
         self.conv = ODConv2d(c1, c2, k, s, K=kerNums)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU()
 
     def forward(self, x):

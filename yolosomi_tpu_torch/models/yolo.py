@@ -289,12 +289,14 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
 
 
 def build_model(cfg: dict, nc: Optional[int] = None, device=None, dtype: torch.dtype = torch.float32,
-                seed: int = 0, anchors=None):
+                seed: int = 0, anchors=None, compute_dtype: Optional[torch.dtype] = None):
     """Compile a model YAML dict -> (DetectionModel, ModelMeta), with random
     weights from `seed`, in eval mode, in `dtype` and channels_last on
     `device` (CUDA unless the caller names another). An explicit `nc` or
     `anchors` (per-level pixel lists, as the YAML writes them) overrides the
-    YAML's."""
+    YAML's. `compute_dtype` is the dtype the model runs in where it is not
+    `dtype` (bfloat16 under autocast over float32 weights); SEAM takes its
+    GELU form from it."""
     device = resolve_device(device)
     cfg = dict(cfg)
     if nc is not None and nc != cfg.get("nc"):
@@ -303,7 +305,7 @@ def build_model(cfg: dict, nc: Optional[int] = None, device=None, dtype: torch.d
     if anchors is not None:
         LOGGER.info(f"Overriding model.yaml anchors with anchors={anchors}")
         cfg["anchors"] = anchors
-    modules, meta = parse_model(cfg, ch=cfg.get("ch", 3), dtype=dtype)
+    modules, meta = parse_model(cfg, ch=cfg.get("ch", 3), dtype=compute_dtype or dtype)
     model = DetectionModel(modules, meta)
     init_weights(model, meta, seed)
     model = model.to(device=device, dtype=dtype)

@@ -5,6 +5,9 @@ DCNv2's modulated sampling, :209-233).
 `dcnv3_core` and `dcnv2_im2col` launch the hand-written CUDA kernels of
 csrc/dcn.cu for CUDA tensors and run their plain versions for CPU
 tensors. There is no fallback: on CUDA each launches its kernel or raises.
+The kernels have no backward yet: on CUDA, where autograd records and an
+input needs a gradient, both raise (DCN_NO_BACKWARD) rather than hand
+back an output that would carry none. The plain versions train.
 
 The plain versions copy the JAX arithmetic with `torch.gather`. They
 compute in float32, or in float64 when given float64, and cast back to
@@ -48,9 +51,15 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+DCN_NO_BACKWARD = ("has no backward kernel yet, so it cannot train on CUDA (the DCN backwards, ROADMAP queue A "
+                   "item 5); run without gradients, or train yolo-somi-dcn on the CPU")
+
+
 def _check_cuda(name: str, tensors) -> None:
     """What the kernels take: one CUDA device, one dtype of float32 or
-    bfloat16, contiguous, 32-bit sizes."""
+    bfloat16, contiguous, 32-bit sizes; and no gradient asked of them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} {DCN_NO_BACKWARD}")
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one CUDA device, got {[str(t.device) for t in tensors]}")

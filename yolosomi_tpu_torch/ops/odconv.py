@@ -1,10 +1,19 @@
 """The per-sample-weight 3x3 stride-2 conv of ODConv (counterpart of
-yolosomi_tpu/ops/odconv_pallas.py::odconv_s2_pallas).
+yolosomi_tpu/ops/odconv_pallas.py::odconv_s2_pallas) and its gradient.
 
 `odconv_s2` launches the hand-written CUDA kernel (csrc/odconv_s2.cu) for
 a CUDA tensor and runs the plain version for a CPU tensor. There is no
 fallback: on CUDA it launches the kernel or raises. The bf16 kernel's
 launch plan (tile configuration and split-K) is chosen here, by `_plan`.
+
+On CUDA under autograd the call goes through `OdconvS2Function`, whose
+backward launches two more hand-written kernels (csrc/odconv_s2_bwd.cu):
+`odconv_s2_dx` (the input gradient, by parity class of the input pixel)
+and `odconv_s2_dwmix` (the per-sample weight gradient, its pixel
+reduction split by `_dw_split`). The JAX package's kernel has no VJP (JAX
+trains ODConv through the batch-grouped vmap conv); the plain versions of
+the gradients are the autograd of `odconv_s2_reference`, which is what a
+CPU tensor and `plain_version()` get.
 """
 
 from __future__ import annotations
@@ -18,11 +27,20 @@ import torch.nn.functional as F
 from yolosomi_tpu_torch.ops import build, plain_active, plain_version  # noqa: F401  (plain_version re-exported)
 
 _SOURCE = "odconv_s2.cu"
+_BWD_SOURCE = "odconv_s2_bwd.cu"
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point and signature, without the trailing stream pointer
 _ENTRY = {
     torch.float32: ("odconv_s2_f32", [_PTR] * 3 + [_INT] * 5),
     torch.bfloat16: ("odconv_s2_bf16", [_PTR] * 4 + [_INT] * 7),
+}
+_DX_ENTRY = {
+    torch.float32: ("odconv_s2_dx_f32", [_PTR] * 3 + [_INT] * 5),
+    torch.bfloat16: ("odconv_s2_dx_bf16", [_PTR] * 3 + [_INT] * 5),
+}
+_DW_ENTRY = {
+    torch.float32: ("odconv_s2_dw_f32", [_PTR] * 4 + [_INT] * 6),
+    torch.bfloat16: ("odconv_s2_dw_bf16", [_PTR] * 4 + [_INT] * 6),
 }
 
 # The bf16 kernel's tile configurations (csrc/odconv_s2.cu, Tile0 and
@@ -33,6 +51,12 @@ _TILES = {0: (128, 3, 2), 1: (256, 4, 1)}
 _BM, _BK = 128, 64
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 _MAX_SPLIT = 8
+# the backward kernels' tiles (csrc/odconv_s2_bwd.cu): 64 x 64 outputs, the
+# reduction in steps of 32; dwmix splits its pixel reduction until about
+# _DW_BLOCKS blocks are in flight (4 of its 256-thread blocks fit an SM)
+_BWD_TILE, _BWD_K = 64, 32
+_DW_BLOCKS = 4 * _SMS
+_DW_MAX_SPLIT = 16
 
 
 def _smem_bytes(cfg: int) -> int:
@@ -70,10 +94,23 @@ def _plan(B: int, H: int, W: int, cin: int, cout: int) -> tuple:
     return cfg, split
 
 
-def _entry(dtype: torch.dtype):
+def _dw_split(B: int, H: int, W: int, cin: int, cout: int) -> int:
+    """Parts of dwmix's pixel reduction: enough for about _DW_BLOCKS blocks
+    over the B * ceil(9*Cin/64) * ceil(Cout/64) output tiles (at most
+    _DW_MAX_SPLIT, each part whole 32-pixel steps, none empty). At 640 px,
+    batch 8, only row 1 splits (144 tiles, 25 600 pixels: 3 parts)."""
+    steps = math.ceil((H // 2) * (W // 2) / _BWD_K)
+    tiles = B * math.ceil(9 * cin / _BWD_TILE) * math.ceil(cout / _BWD_TILE)
+    split = min(_DW_MAX_SPLIT, max(1, _DW_BLOCKS // max(tiles, 1)), max(1, steps))
+    while split > 1 and (split - 1) * math.ceil(steps / split) >= steps:  # an empty last part
+        split -= 1
+    return split
+
+
+def _entry(dtype: torch.dtype, table: dict = None, source: str = _SOURCE):
     """The C entry point for `dtype`, built and loaded on first use."""
-    name, argtypes = _ENTRY[dtype]
-    fn = getattr(build.load(_SOURCE), name)
+    name, argtypes = (table or _ENTRY)[dtype]
+    fn = getattr(build.load(source), name)
     fn.argtypes = argtypes + [_PTR]
     fn.restype = ctypes.c_int
     return fn
@@ -100,6 +137,72 @@ def odconv_s2_reference(x: torch.Tensor, wmix: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, cout, H // 2, W // 2).permute(0, 2, 3, 1)
 
 
+def _check_cuda(tensors, cin: int, cout: int) -> None:
+    """What every kernel of this module needs of its operands (x, wmix, dy),
+    checked before any launch: one CUDA device, one dtype of float32 or
+    bfloat16, contiguous; in bfloat16, Cin and Cout multiples of 8 and
+    16-byte-aligned pointers."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dtype == torch.bfloat16 and (cin % 8 or cout % 8):
+        raise ValueError(f"odconv_s2 in bfloat16 needs Cin and Cout multiples of 8, got {cin} and {cout}")
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"odconv_s2's operands must be on one CUDA device, got {[str(t.device) for t in tensors]}")
+    if dtype not in _ENTRY or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"odconv_s2 takes float32 or bfloat16 of one dtype, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("odconv_s2 needs contiguous operands")
+    if dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("odconv_s2 in bfloat16 needs 16-byte-aligned operands")
+
+
+def _launch(fn, args, x: torch.Tensor, what: str) -> None:
+    with torch.cuda.device(x.device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _forward_kernel(x: torch.Tensor, wmix: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on checked CUDA inputs."""
+    B, H, W, C = x.shape
+    cout = wmix.shape[-1]
+    out = torch.empty((B, H // 2, W // 2, cout), device=x.device, dtype=x.dtype)
+    args = [x.data_ptr(), wmix.data_ptr(), out.data_ptr()]
+    if x.dtype == torch.bfloat16:
+        cfg, split = _plan(B, H, W, C, cout)
+        ws = torch.empty((split, B, H // 2, W // 2, cout), device=x.device, dtype=torch.float32) if split > 1 else None
+        args += [ws.data_ptr() if ws is not None else None, B, H, W, C, cout, cfg, split]
+    else:
+        args += [B, H, W, C, cout]
+    _launch(_entry(x.dtype), args, x, "odconv_s2")
+    odconv_s2.launches += 1
+    return out
+
+
+class OdconvS2Function(torch.autograd.Function):
+    """odconv_s2 under autograd on CUDA: the forward kernel, and a backward
+    of the two gradient kernels, each launched only where its input needs
+    a gradient. Under autocast both run as called: the kernels take x and
+    wmix in one dtype and raise otherwise."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, wmix):
+        ctx.save_for_backward(x, wmix)
+        return _forward_kernel(x, wmix)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        x, wmix = ctx.saved_tensors
+        # the gradient arrives through ODConv2d's NHWC -> NCHW permute: make
+        # it the kernels' contiguous NHWC (free where it already is)
+        dy = dy.contiguous()
+        dx = odconv_s2_dx(dy, wmix, x.shape[1], x.shape[2]) if ctx.needs_input_grad[0] else None
+        dw = odconv_s2_dwmix(x, dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def odconv_s2(x: torch.Tensor, wmix: torch.Tensor) -> torch.Tensor:
     """Per-sample 3x3 stride-2 conv, padding 1, f32 accumulation.
 
@@ -108,41 +211,85 @@ def odconv_s2(x: torch.Tensor, wmix: torch.Tensor) -> torch.Tensor:
     x.dtype. A CPU tensor runs `odconv_s2_reference`; a CUDA tensor
     launches the kernel on the current stream and counts the launch in
     `odconv_s2.launches` (one per call, split-K's reduction included).
-    bfloat16 needs Cin and Cout multiples of 8 and 16-byte-aligned x and
-    wmix (16-byte vectors of channels)."""
+    Where autograd records and x or wmix needs a gradient, the call goes
+    through OdconvS2Function, whose backward launches odconv_s2_dx and
+    odconv_s2_dwmix. bfloat16 needs Cin and Cout multiples of 8 and
+    16-byte-aligned x and wmix (16-byte vectors of channels)."""
     _check(x, wmix)
     if x.device.type == "cpu":
         return odconv_s2_reference(x, wmix)
-    B, H, W, C = x.shape
-    cout = wmix.shape[-1]
-    if x.dtype == torch.bfloat16 and (C % 8 or cout % 8):
-        raise ValueError(f"odconv_s2 in bfloat16 needs Cin and Cout multiples of 8, got {C} and {cout}")
-    if x.device.type != "cuda" or wmix.device != x.device:
-        raise ValueError(f"x and wmix must be on one CUDA device, got {x.device} and {wmix.device}")
-    if x.dtype not in _ENTRY or wmix.dtype != x.dtype:
-        raise TypeError(f"odconv_s2 takes float32 or bfloat16 of one dtype, got {x.dtype} and {wmix.dtype}")
-    if not (x.is_contiguous() and wmix.is_contiguous()):
-        raise ValueError("odconv_s2 needs contiguous x and wmix")
-    out = torch.empty((B, H // 2, W // 2, cout), device=x.device, dtype=x.dtype)
-    fn = _entry(x.dtype)
-    args = [x.data_ptr(), wmix.data_ptr(), out.data_ptr()]
-    if x.dtype == torch.bfloat16:
-        if x.data_ptr() % 16 or wmix.data_ptr() % 16:
-            raise ValueError("odconv_s2 in bfloat16 needs 16-byte-aligned x and wmix")
-        cfg, split = _plan(B, H, W, C, cout)
-        ws = torch.empty((split, B, H // 2, W // 2, cout), device=x.device, dtype=torch.float32) if split > 1 else None
-        args += [ws.data_ptr() if ws is not None else None, B, H, W, C, cout, cfg, split]
-    else:
-        args += [B, H, W, C, cout]
-    with torch.cuda.device(x.device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"odconv_s2 kernel launch failed: CUDA error {rc}")
-    odconv_s2.launches += 1
-    return out
+    _check_cuda((x, wmix), x.shape[-1], wmix.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or wmix.requires_grad):
+        return OdconvS2Function.apply(x, wmix)
+    return _forward_kernel(x, wmix)
 
 
 odconv_s2.launches = 0
+
+
+def _check_dy(dy: torch.Tensor, B: int, H: int, W: int, cout: int) -> None:
+    if tuple(dy.shape) != (B, H // 2, W // 2, cout):
+        raise ValueError(f"dy {tuple(dy.shape)} does not match the output {(B, H // 2, W // 2, cout)}")
+
+
+def odconv_s2_backward_reference(x: torch.Tensor, wmix: torch.Tensor, dy: torch.Tensor, need_dx: bool = True,
+                                 need_dw: bool = True):
+    """Plain version of both gradient kernels: autograd of
+    odconv_s2_reference. Returns (dx or None, dwmix or None)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(need_dx)
+        wg = wmix.detach().requires_grad_(need_dw)
+        y = odconv_s2_reference(xg, wg)
+        wanted = [t for t, need in ((xg, need_dx), (wg, need_dw)) if need]
+        grads = list(torch.autograd.grad(y, wanted, dy))
+    return (grads.pop(0) if need_dx else None), (grads.pop(0) if need_dw else None)
+
+
+def odconv_s2_dx(dy: torch.Tensor, wmix: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The input gradient of odconv_s2: dy (B, H/2, W/2, Cout) and wmix
+    (B, 3, 3, Cin, Cout) -> dx (B, H, W, Cin), in their dtype. A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel and counts
+    it in `odconv_s2_dx.launches`."""
+    B, cin, cout = wmix.shape[0], wmix.shape[3], wmix.shape[4]
+    _check_dy(dy, B, H, W, cout)
+    if dy.device.type == "cpu":  # the plain version reads only x's shape
+        return odconv_s2_backward_reference(dy.new_zeros((B, H, W, cin)), wmix, dy, need_dw=False)[0]
+    _check_cuda((dy, wmix), cin, cout)
+    dx = torch.empty((B, H, W, cin), device=dy.device, dtype=dy.dtype)
+    _launch(_entry(dy.dtype, _DX_ENTRY, _BWD_SOURCE), [dy.data_ptr(), wmix.data_ptr(), dx.data_ptr(), B, H, W, cin,
+                                                       cout], dy, "odconv_s2_dx")
+    odconv_s2_dx.launches += 1
+    return dx
+
+
+odconv_s2_dx.launches = 0
+
+
+def odconv_s2_dwmix(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of odconv_s2: x (B, H, W, Cin) and dy
+    (B, H/2, W/2, Cout) -> dwmix (B, 3, 3, Cin, Cout), in their dtype. A
+    CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (its split reduction included) and counts it in
+    `odconv_s2_dwmix.launches`. Two calls give the same bits."""
+    B, H, W, cin = x.shape
+    cout = dy.shape[-1]
+    _check_dy(dy, B, H, W, cout)
+    if H % 2 or W % 2:
+        raise ValueError(f"H and W must be even, got {H}x{W}")
+    if x.device.type == "cpu":  # the plain version reads only wmix's shape
+        return odconv_s2_backward_reference(x, x.new_zeros((B, 3, 3, cin, cout)), dy, need_dx=False)[1]
+    _check_cuda((x, dy), cin, cout)
+    dw = torch.empty((B, 3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    split = _dw_split(B, H, W, cin, cout)
+    ws = torch.empty((split, B, 9 * cin, cout), device=x.device, dtype=torch.float32) if split > 1 else None
+    _launch(_entry(x.dtype, _DW_ENTRY, _BWD_SOURCE),
+            [x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr() if ws is not None else None, B, H, W, cin,
+             cout, split], x, "odconv_s2_dwmix")
+    odconv_s2_dwmix.launches += 1
+    return dw
+
+
+odconv_s2_dwmix.launches = 0
 
 
 def per_sample_conv(x: torch.Tensor, wmix: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,344 @@
+"""Training (counterpart of the root train.py of the JAX package, :56-717).
+
+    python -m yolosomi_tpu_torch.train --data <data yaml> --cfg yolo-somi --hyp hyp.visdrone \
+        [--epochs 300 --batch-size 16 --imgsz 640] [--device cpu] [--no-bf16]
+
+The loop: autoanchor (unless --noautoanchor), the augmenting loader
+(mosaic, mixup, perspective, HSV, flips), the train step (bf16 under
+autocast by default, f32 with --no-bf16; the finite guard, --accumulate,
+--freeze), validation of the EMA weights every epoch with the val losses,
+results.csv, and weights/last.ckpt and best.ckpt (the JAX package's
+checkpoint layout, written on a background thread) stripped at the end
+to last.msgpack and best.msgpack. --resume continues a run from its
+last.ckpt: weights, BatchNorm statistics, EMA, optimizer state and epoch.
+--weights starts from another run's parameters wherever path and shape
+match.
+
+Runs on CUDA unless --device names another device. Options of the JAX
+CLI that are not ported raise NotImplementedError naming their ROADMAP
+item; so does a deformable (DCN) model on CUDA, whose kernels have no
+backward yet. Besides the JAX package's files, each run writes
+train_log.jsonl: one JSON object per epoch with its losses, metrics and
+host-clock timings.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import yaml
+
+from yolosomi_tpu_torch import val as validate
+from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset
+from yolosomi_tpu_torch.engine.checkpoint import (AsyncCheckpointer, load_checkpoint, restore_train_state,
+                                                  strip_checkpoint)
+from yolosomi_tpu_torch.engine.ema import EarlyStopping
+from yolosomi_tpu_torch.engine.optim import current_lr, make_optimizer
+from yolosomi_tpu_torch.engine.runner import Runner
+from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
+from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3
+from yolosomi_tpu_torch.models.yolo import build_model, parse_model
+from yolosomi_tpu_torch.ops.dcn import DCN_NO_BACKWARD
+from yolosomi_tpu_torch.utils.autoanchor import check_anchors
+from yolosomi_tpu_torch.utils.callbacks import Callbacks
+from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg, load_hyp, load_model_cfg, save_yaml
+from yolosomi_tpu_torch.utils.general import LOGGER, check_img_size, get_latest_run, increment_path, resolve_device
+from yolosomi_tpu_torch.utils.loggers import ResultsCSV
+from yolosomi_tpu_torch.utils.metrics import fitness
+from yolosomi_tpu_torch.utils.weights import load_matching_params
+
+# options of the JAX CLI this port does not have yet: (attribute, when it is on, what and its ROADMAP item)
+NOT_PORTED = (
+    ("multi_scale", lambda v: v, "--multi-scale (jax.image.resize antialiases on downsampling; it needs its own "
+                                 "parity test) is not ported yet (ROADMAP queue A item 5)"),
+    ("device_preprocess", lambda v: v, "--device-preprocess is not ported yet (ROADMAP queue A item 5)"),
+    ("cache", lambda v: bool(v), "--cache (ram and device) is not ported yet (ROADMAP queue A item 5)"),
+    ("remat", lambda v: v > 0, "--remat is not ported yet (ROADMAP queue A item 5)"),
+    ("teacher", lambda v: bool(v), "--teacher (distillation) is not ported yet (ROADMAP queue A item 5)"),
+    ("evolve", lambda v: bool(v), "--evolve is not ported yet (ROADMAP queue A item 5)"),
+    ("sync_bn", lambda v: v, "--sync-bn and multi-GPU training are not ported yet (ROADMAP queue A item 6)"),
+    ("image_weights", lambda v: v, "--image-weights is not ported yet (ROADMAP queue A item 5)"),
+    ("rep", lambda v: v, "--rep (the repulsion loss) is not ported yet (ROADMAP queue A item 5)"),
+    ("quad", lambda v: v, "--quad is not ported yet (ROADMAP queue A item 5)"),
+    ("rect", lambda v: v, "--rect is not ported yet (ROADMAP queue A item 5)"),
+    ("upload_dataset", lambda v: v, "--upload-dataset (Weights & Biases) is not ported"),
+)
+
+
+def _refuse_unported(opt) -> None:
+    for attr, on, what in NOT_PORTED:
+        if on(getattr(opt, attr, None) or 0):
+            raise NotImplementedError(what)
+
+
+def _mean_losses(logged: list) -> np.ndarray:
+    return np.mean(logged, 0) if logged else np.zeros(3)
+
+
+def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
+    """One training run; returns the best fitness."""
+    _refuse_unported(opt)
+    callbacks = callbacks or Callbacks()
+    random.seed(opt.seed)
+    np.random.seed(opt.seed)
+    device = resolve_device(opt.device or None)
+    save_dir = increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok, mkdir=True)
+    (save_dir / "weights").mkdir(parents=True, exist_ok=True)
+    last, best = save_dir / "weights" / "last.ckpt", save_dir / "weights" / "best.ckpt"
+    save_yaml(save_dir / "hyp.yaml", hyp)
+    save_yaml(save_dir / "opt.yaml", vars(opt))
+    callbacks.run("on_pretrain_routine_start")
+
+    data_dict = load_data_cfg(find_config(opt.data, "data"))
+    nc = 1 if opt.single_cls else int(data_dict["nc"])
+    names = data_dict.get("names", [str(i) for i in range(nc)])
+    cfg = load_model_cfg(find_config(opt.cfg))
+    amp_dtype = None if opt.no_bf16 else torch.bfloat16
+    with torch.device("meta"):  # the graph's geometry; nothing is allocated
+        modules, meta = parse_model(dict(cfg, nc=nc))
+    if device.type == "cuda" and any(isinstance(m, (DCNv2, DCNv3)) for mod in modules for m in mod.modules()):
+        raise NotImplementedError(f"{opt.cfg}: a deformable model's sampling kernel {DCN_NO_BACKWARD}")
+    gs = int(max(meta.strides))
+    imgsz = check_img_size(opt.imgsz, s=gs)
+
+    # loss gains scaled to the number of levels, classes and image size
+    hyp = dict(hyp)
+    hyp["box"] *= 3.0 / meta.nl
+    hyp["cls"] *= nc / 80.0 * 3.0 / meta.nl
+    hyp["obj"] *= (imgsz / 640) ** 2 * 3.0 / meta.nl
+
+    train_ds = DetectionDataset(data_dict["train"], img_size=imgsz, augment=True, hyp=hyp, max_labels=opt.max_labels)
+    train_loader = DataLoader(train_ds, opt.batch_size, shuffle=True, drop_last=True, workers=opt.workers)
+    nb = len(train_loader)
+    if nb == 0:
+        raise ValueError(f"{len(train_ds)} training images make no batch of {opt.batch_size}")
+
+    ckpt = load_checkpoint(opt.weights) if opt.weights and Path(opt.weights).exists() else None
+    anchors = None
+    if opt.resume and ckpt is not None and ckpt.get("anchors") is not None:
+        anchors = np.asarray(ckpt["anchors"], np.float32).reshape(meta.nl, -1).tolist()  # the run's own
+    elif not opt.noautoanchor:
+        new = check_anchors(train_ds, meta, thr=hyp["anchor_t"], imgsz=imgsz, kmean=opt.kmean)
+        anchors = new.tolist() if new is not None else None
+    model, meta = build_model(cfg, nc=nc, device=device, dtype=torch.float32, seed=opt.seed, anchors=anchors,
+                              compute_dtype=amp_dtype)
+    meta.names = names
+    anchors_out = np.asarray(meta.anchors_px, np.float32).reshape(meta.nl, -1)
+
+    start_epoch, best_fitness = 0, 0.0
+    if ckpt is not None:
+        loaded, total = load_matching_params(model, ckpt["params"])
+        LOGGER.info(f"transferred {loaded}/{total} params from {opt.weights}")
+        if opt.resume:
+            start_epoch = int(ckpt.get("epoch", -1)) + 1
+            best_fitness = float(ckpt.get("best_fitness", 0.0))
+
+    accumulate = max(round(64 / opt.batch_size), 1) if opt.accumulate else 1
+    optimizer = make_optimizer(hyp, nb=max(nb // accumulate, 1), epochs=opt.epochs, batch_size=opt.batch_size,
+                               accumulate=accumulate, adam=opt.adam, linear_lr=opt.linear_lr)
+    state = create_train_state(model, optimizer, accumulate=accumulate)
+    if start_epoch > 0:
+        restore_train_state(state, ckpt)
+        state.step = start_epoch * nb
+        LOGGER.info(f"resuming at epoch {start_epoch}, optimizer step {int(state.opt_state.step)}")
+    loss_fn = ComputeLoss(meta, hyp)
+    train_step = make_train_step(loss_fn, optimizer, accumulate=accumulate, freeze=opt.freeze, amp_dtype=amp_dtype)
+
+    # validation: the EMA weights, copied each epoch into a model of the
+    # compute dtype, decoded with the run's anchors
+    val_runner = Runner(str(find_config(opt.cfg)), nc=nc, dtype=amp_dtype or torch.float32, imgsz=imgsz,
+                        device=device, seed=opt.seed)
+    val_runner.meta = meta
+    val_loader = DataLoader(DetectionDataset(data_dict["val"], img_size=imgsz), opt.batch_size)
+    results_csv = ResultsCSV(save_dir)
+    callbacks.register_action("on_fit_epoch_end", "results.csv", results_csv.log_epoch)
+    stopper = EarlyStopping(patience=opt.patience)
+    ckpt_writer = AsyncCheckpointer()
+    log_every = max(nb // 10, 1)
+    LOGGER.info(f"Image sizes {imgsz} train/val, {len(train_ds)} images, {nb} batches/epoch, device {device}, "
+                f"{'bf16' if amp_dtype else 'f32'}, accumulate {accumulate}. Starting training for {opt.epochs} "
+                f"epochs...")
+    callbacks.run("on_pretrain_routine_end")
+    callbacks.run("on_train_start")
+
+    t0 = time.time()
+    final_epoch = start_epoch
+    prev_best = best_fitness
+    try:
+        for epoch in range(start_epoch, opt.epochs):
+            final_epoch = epoch
+            callbacks.run("on_train_epoch_start")
+            t_ep = time.perf_counter()
+            logged, losses, n_skipped = [], [], 0
+            t_wait = 0.0
+            pending = None  # (batch index, metrics) read after the next step is queued
+            it = iter(train_loader)
+            for i in range(nb):
+                t_a = time.perf_counter()
+                images, targets, _, _ = next(it)
+                t_wait += time.perf_counter() - t_a
+                metrics = train_step(state, images, targets)
+                if pending is not None:
+                    logged.append(_log_step(epoch, opt.epochs, nb, *pending, losses))
+                    n_skipped += not logged[-1]
+                pending = (i, metrics) if i % log_every == 0 or i == nb - 1 else None
+                callbacks.run("on_train_batch_end", i)
+            if pending is not None:
+                logged.append(_log_step(epoch, opt.epochs, nb, *pending, losses))
+                n_skipped += not logged[-1]
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t_train = time.perf_counter() - t_ep
+            mloss = _mean_losses([m[1:] for m in losses])
+            if n_skipped:
+                LOGGER.warning(f"epoch {epoch}: {n_skipped}/{len(logged)} logged steps skipped on non-finite "
+                               "gradients")
+            callbacks.run("on_train_epoch_end", epoch)
+
+            t_val = time.perf_counter()
+            val_ran = (not opt.noval and epoch % max(opt.val_period, 1) == 0) or epoch == opt.epochs - 1
+            results = (0.0,) * 7
+            if val_ran:
+                val_runner.model.load_state_dict(state.ema.ema.state_dict())
+                results, _, _ = validate.run(data_dict, batch_size=opt.batch_size, imgsz=imgsz, runner=val_runner,
+                                             project=str(save_dir), name="val", exist_ok=True, names=names,
+                                             single_cls=opt.single_cls, compute_loss=loss_fn, dataloader=val_loader)
+            t_val = time.perf_counter() - t_val
+            fi = float(fitness(np.array(results[:4])))
+            best_fitness = max(best_fitness, fi)
+            callbacks.run("on_fit_epoch_end", epoch, mloss, results, fi)
+
+            opt_step = int(state.opt_state.step)
+            record = {"epoch": epoch, "steps": nb, "logged_losses": losses, "skipped_logged": n_skipped,
+                      "opt_step": opt_step, "lr": current_lr(hyp, opt_step, max(nb // accumulate, 1), opt.epochs,
+                                                             opt.linear_lr),
+                      "loss": mloss.tolist(), "results": list(results),
+                      "fitness": fi, "train_s": t_train, "loader_wait_s": t_wait, "val_s": t_val}
+            if device.type == "cuda":
+                record["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+            with open(save_dir / "train_log.jsonl", "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+            if not opt.nosave or epoch == opt.epochs - 1:
+                improved = fi > prev_best
+                prev_best = max(prev_best, fi)
+                if epoch % max(opt.ckpt_period, 1) == 0 or improved or epoch == opt.epochs - 1:
+                    paths = [last] + ([best] if fi == best_fitness else [])
+                    if opt.save_period > 0 and epoch % opt.save_period == 0:
+                        paths.append(last.parent / f"epoch{epoch}.ckpt")
+                    ckpt_writer.save(paths, state, epoch=epoch, best_fitness=best_fitness, anchors=anchors_out)
+                    callbacks.run("on_model_save", paths, epoch, fi)
+            LOGGER.info(f"epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s (train {t_train:.1f}s, loader "
+                        f"wait {t_wait:.1f}s, val {t_val:.1f}s) fitness {fi:.4f}")
+            if val_ran and stopper(epoch, fi):
+                LOGGER.info(f"early stopping at epoch {epoch} (patience {opt.patience})")
+                ckpt_writer.save([last], state, epoch=epoch, best_fitness=best_fitness, anchors=anchors_out)
+                break
+    finally:
+        ckpt_writer.close()
+    LOGGER.info(f"{final_epoch - start_epoch + 1} epochs in {(time.time() - t0) / 3600:.3f}h")
+    for f in (last, best):
+        if f.exists():
+            strip_checkpoint(f, f.with_suffix(".msgpack"))
+    callbacks.run("on_train_end", last, best, final_epoch)
+    return best_fitness
+
+
+def _log_step(epoch: int, epochs: int, nb: int, i: int, metrics: dict, losses: list) -> bool:
+    """Read one step's metrics (a host sync), log them, add [i, box, obj,
+    cls] to `losses`; True when the step's gradients were finite."""
+    m = {k: float(v) for k, v in metrics.items()}
+    ok = bool(m["grads_finite"])
+    losses.append([i, m["lbox"], m["lobj"], m["lcls"]])
+    LOGGER.info(f"epoch {epoch}/{epochs - 1} batch {i}/{nb} box {m['lbox']:.4f} obj {m['lobj']:.4f} "
+                f"cls {m['lcls']:.4f}{'' if ok else ' SKIPPED(non-finite grads)'}")
+    return ok
+
+
+def parse_opt(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--weights", type=str, default="", help="initial weights (.ckpt/.msgpack)")
+    parser.add_argument("--cfg", type=str, default="yolo-somi")
+    parser.add_argument("--data", type=str, default="visdrone")
+    parser.add_argument("--hyp", type=str, default="hyp.visdrone")
+    parser.add_argument("--epochs", type=int, default=300)
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--imgsz", "--img", "--img-size", type=int, default=640)
+    parser.add_argument("--rect", action="store_true", help="not ported yet")
+    parser.add_argument("--multi-scale", action="store_true", help="not ported yet")
+    parser.add_argument("--accumulate", action="store_true", help="gradient accumulation to nominal batch 64")
+    parser.add_argument("--image-weights", action="store_true", help="not ported yet")
+    parser.add_argument("--quad", action="store_true", help="not ported yet")
+    parser.add_argument("--resume", nargs="?", const=True, default=False)
+    parser.add_argument("--evolve", type=int, nargs="?", const=300, default=0, help="not ported yet")
+    parser.add_argument("--noval", action="store_true")
+    parser.add_argument("--val-period", type=int, default=1, metavar="N",
+                        help="validate every N epochs (always on the final epoch)")
+    parser.add_argument("--noautoanchor", action="store_true")
+    parser.add_argument("--kmean", action="store_true", help="k-means++ autoanchor")
+    parser.add_argument("--adam", action="store_true")
+    parser.add_argument("--linear-lr", action="store_true")
+    parser.add_argument("--single-cls", action="store_true")
+    parser.add_argument("--rep", action="store_true", help="repulsion loss (not ported yet)")
+    parser.add_argument("--device-preprocess", action="store_true", help="not ported yet")
+    parser.add_argument("--label-smoothing", type=float, default=0.0)
+    parser.add_argument("--patience", type=int, default=100)
+    parser.add_argument("--project", default="runs/train")
+    parser.add_argument("--name", default="exp")
+    parser.add_argument("--exist-ok", action="store_true")
+    parser.add_argument("--device", type=str, default="", help="torch device: cuda (default), cuda:1 or cpu")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max-labels", type=int, default=300)
+    parser.add_argument("--no-bf16", action="store_true", help="train in f32 (default: bf16 under autocast)")
+    parser.add_argument("--freeze", type=int, default=0, help="freeze the first N layers")
+    parser.add_argument("--teacher", type=str, default="", help="distillation (not ported yet)")
+    parser.add_argument("--ckpt-period", type=int, default=1,
+                        help="save last/best every N epochs (and on improvements and the final epoch)")
+    parser.add_argument("--save-period", type=int, default=-1, help="also save a checkpoint every N epochs")
+    parser.add_argument("--nosave", action="store_true", help="only save the final checkpoint")
+    parser.add_argument("--cache", type=str, nargs="?", const="ram", default="", help="not ported yet")
+    parser.add_argument("--workers", type=int, default=8, help="loader item threads")
+    parser.add_argument("--remat", type=int, default=0, metavar="N", help="not ported yet")
+    parser.add_argument("--upload-dataset", action="store_true", help="not ported")
+    parser.add_argument("--sync-bn", action="store_true", help="not ported yet")
+    return parser.parse_args(argv)
+
+
+def main(opt):
+    if opt.resume and not opt.weights:
+        # a bare --resume: the newest run under --project, with its opt.yaml
+        last = opt.resume if isinstance(opt.resume, str) else get_latest_run(opt.project)
+        if not last:
+            raise FileNotFoundError(f"no last.ckpt found under {opt.project} to resume")
+        opt_yaml = Path(last).parents[1] / "opt.yaml"
+        if opt_yaml.exists():
+            for k, v in yaml.safe_load(opt_yaml.read_text()).items():
+                if k not in ("resume", "weights", "exist_ok") and hasattr(opt, k):
+                    setattr(opt, k, v)
+        opt.weights, opt.exist_ok = str(last), True
+        LOGGER.info(f"resuming from {last}")
+    hyp = load_hyp(find_config(opt.hyp, "hyps"))
+    if opt.label_smoothing:
+        hyp["label_smoothing"] = opt.label_smoothing
+    return train(hyp, opt)
+
+
+def run(**kwargs) -> float:
+    """train.py from Python: parse_opt's defaults with `kwargs` over them."""
+    opt = parse_opt([])
+    for k, v in kwargs.items():
+        if not hasattr(opt, k):
+            raise TypeError(f"unknown option {k}")
+        setattr(opt, k, v)
+    return main(opt)
+
+
+if __name__ == "__main__":
+    main(parse_opt())

@@ -130,3 +130,24 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.
     area1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
     area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
     return inter / (area1[:, None] + area2[None, :] - inter + eps)
+
+
+def box_candidates(box1, box2, wh_thr=2, ar_thr=20, area_thr=0.1, eps=1e-16):
+    """The boxes an augmentation keeps: box1 (4, n) before, box2 (4, n)
+    after, xyxy pixels. Kept where the new box is over wh_thr px a side,
+    keeps over area_thr of its area and has an aspect ratio under ar_thr."""
+    xp = _xp(box2)
+    w1, h1 = box1[2] - box1[0], box1[3] - box1[1]
+    w2, h2 = box2[2] - box2[0], box2[3] - box2[1]
+    ar = xp.maximum(w2 / (h2 + eps), h2 / (w2 + eps))
+    return (w2 > wh_thr) & (h2 > wh_thr) & (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr)
+
+
+def bbox_ioa(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Intersection over box2's area: box1 (4,) against box2 (n, 4), xyxy,
+    in float32 as the JAX package computes it."""
+    box1, box2 = np.asarray(box1, np.float32), np.asarray(box2, np.float32)
+    inter = np.clip(np.minimum(box1[2], box2[:, 2]) - np.maximum(box1[0], box2[:, 0]), 0, None) * \
+        np.clip(np.minimum(box1[3], box2[:, 3]) - np.maximum(box1[1], box2[:, 1]), 0, None)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1]) + np.float32(eps)
+    return inter / area2

@@ -1,11 +1,13 @@
 """General helpers: logger, channel rounding, image-size check, run
-directories, device resolution (counterparts of
-yolosomi_tpu/utils/general.py:23-97)."""
+directories, the latest run, device resolution (counterparts of
+yolosomi_tpu/utils/general.py:23-108)."""
 
 from __future__ import annotations
 
+import glob
 import logging
 import math
+import os
 from pathlib import Path
 
 import torch
@@ -52,6 +54,14 @@ def increment_path(path, exist_ok: bool = False, mkdir: bool = False) -> Path:
     if mkdir:
         path.mkdir(parents=True, exist_ok=True)
     return path
+
+
+def get_latest_run(search_dir: str = ".") -> str:
+    """The most recently created last.ckpt (or last.msgpack) under
+    search_dir, for a bare --resume; "" when there is none."""
+    runs = glob.glob(f"{search_dir}/**/last.ckpt", recursive=True) + \
+        glob.glob(f"{search_dir}/**/last.msgpack", recursive=True)
+    return max(runs, key=os.path.getctime) if runs else ""
 
 
 def resolve_device(device=None) -> torch.device:

@@ -213,3 +213,53 @@ def export_jax_variables(model: nn.Module) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = layout(value).float().cpu().contiguous().numpy()
     return variables
+
+
+def export_param_tree(model: nn.Module, names: List[str], tensors: List[torch.Tensor]) -> dict:
+    """Per-parameter tensors (optimizer buffers, gradients) laid out as the
+    flax `params` tree of `model`'s parameters `names`: flax paths, flax
+    layouts, float32 numpy."""
+    tree: dict = {}
+    for name, t in zip(names, tensors):
+        _, path, layout = _flax_leaf(model, name)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = layout(t.detach()).float().cpu().contiguous().numpy()
+    return tree
+
+
+def import_param_tree(model: nn.Module, names: List[str], tree: dict) -> List[torch.Tensor]:
+    """The inverse of export_param_tree: a flax `params`-shaped tree ->
+    one float32 CPU tensor per parameter name, in torch layout."""
+    params = dict(model.named_parameters())
+    out = []
+    for name in names:
+        _, path, _ = _flax_leaf(model, name)
+        node = tree
+        for p in path:
+            node = node[p]
+        out.append(torch.from_numpy(np.array(_to_torch_layout(node, path[-1], tuple(params[name].shape)))))
+    return out
+
+
+@torch.no_grad()
+def load_matching_params(model: nn.Module, params: dict) -> Tuple[int, int]:
+    """Copy every parameter of a flax `params` tree that the model has at
+    the same path and shape (transfer learning); the rest keep their
+    values. Returns (parameters copied, parameters of the model)."""
+    loaded, named = 0, dict(model.named_parameters())
+    for name, p in named.items():
+        _, path, _ = _flax_leaf(model, name)
+        node = params
+        for key in path:
+            node = node.get(key) if isinstance(node, dict) else None
+        if node is None:
+            continue
+        try:
+            value = _to_torch_layout(node, path[-1], tuple(p.shape))
+        except ValueError:  # another shape
+            continue
+        p.copy_(torch.from_numpy(np.array(value)))
+        loaded += 1
+    return loaded, len(named)

@@ -13,9 +13,10 @@ Runs on CUDA unless `device` names another device. Weights come from
 `weights` / `--weights` (a `.msgpack` weights file or a `.ckpt` checkpoint,
 loaded by the Runner), `variables` (the JAX package's flax variables as
 nested numpy dicts), a built `runner`, or none of these (random weights
-from seed 0). int8
-(item 7), TTA (`augment`, item 9), the val loss (`compute_loss`, item 5),
-plots (matplotlib, item 9) and spatial sharding (item 6) raise
+from seed 0). `compute_loss` (a losses.ComputeLoss) adds the val
+losses, the mean [box, obj, cls] of the loss on the eval-mode forward,
+as results[4:7]. int8 (item 7), TTA (`augment`, item 9), plots
+(matplotlib, item 9) and spatial sharding (item 6) raise
 NotImplementedError.
 """
 
@@ -112,11 +113,11 @@ def run(
     names=None,
     compute_loss=None,
 ):
-    """Evaluate and return ((P, R, mAP@.5, mAP@.5:.95, 0, 0, 0), per-class
-    mAP@.5:.95 (nc,), (pre, inference+NMS, post) ms per image). `half`
-    builds the Runner in bf16, else f32; a given `runner` keeps its own."""
+    """Evaluate and return ((P, R, mAP@.5, mAP@.5:.95, val box, obj, cls
+    loss), per-class mAP@.5:.95 (nc,), (pre, inference+NMS, post) ms per
+    image); the losses are 0 without `compute_loss`. `half` builds the
+    Runner in bf16, else f32; a given `runner` keeps its own."""
     for flag, what in ((int8, "int8 eval (ROADMAP queue A item 7)"), (augment, "TTA (ROADMAP queue A item 9)"),
-                       (compute_loss is not None, "the val loss (ROADMAP queue A item 5)"),
                        (plots, "plots (matplotlib; ROADMAP queue A item 9)"),
                        (shard_spatial > 1, "spatial sharding (ROADMAP queue A item 6)")):
         if flag:
@@ -139,6 +140,9 @@ def run(
         dataset = DetectionDataset(data_dict[task], img_size=imgsz)
         dataloader = DataLoader(dataset, batch_size)
 
+    loss_fn_batch = runner.val_loss_fn(compute_loss) if compute_loss is not None else None
+    val_losses = np.zeros(3)
+    n_loss_batches = 0
     iouv = np.linspace(0.5, 0.95, 10)
     stats = []
     jdict = []  # COCO-format prediction records
@@ -155,6 +159,9 @@ def run(
         # the eval protocol: multi-label, exact top-k over max_nms 30000 candidates
         out = runner(x, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det, max_nms=30000,
                      multi_label=True, exact=True)
+        if loss_fn_batch is not None:
+            val_losses += loss_fn_batch(x, targets)
+            n_loss_batches += 1
         t2 = time.time()
 
         h, w = images.shape[1:3]
@@ -239,7 +246,8 @@ def run(
     maps = np.zeros(nc) + map_
     for i, c in enumerate(ap_class):
         maps[int(c)] = ap[i]
-    results = (mp, mr, map50, map_, 0.0, 0.0, 0.0)  # the three val losses wait for compute_loss
+    vb, vo, vc = (val_losses / max(n_loss_batches, 1)).tolist()
+    results = (mp, mr, map50, map_, vb, vo, vc)
     fi = float(fitness(np.array(results[:4])))
     LOGGER.info(f"fitness: {fi:.4f} ({time.time() - t_start:.1f}s)")
     (save_dir / "metrics.json").write_text(json.dumps({
