@@ -15,7 +15,9 @@ by BN_GAIN (`spread`), after which every box has a score of its own. The
 bfloat16 BatchNorm test keeps the fixture as it is.
 """
 
+import copy
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -37,11 +39,14 @@ from yolosomi_tpu.models.yolo import build_model as jax_build_model
 from yolosomi_tpu.utils import boxes as jax_boxes
 from yolosomi_tpu_torch import val
 from yolosomi_tpu_torch.engine import checkpoint
+from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.runner import Runner
+from yolosomi_tpu_torch.engine.trainer import create_train_state
 from yolosomi_tpu_torch.models.yolo import build_model
 from yolosomi_tpu_torch.utils import msgpack
+from yolosomi_tpu_torch.utils.config import find_config, load_hyp
 from yolosomi_tpu_torch.utils.general import LOGGER
-from yolosomi_tpu_torch.utils.weights import _leaves, export_jax_variables, load_jax_variables
+from yolosomi_tpu_torch.utils.weights import _leaves, export_jax_variables, export_param_tree, load_jax_variables
 
 BN_GAIN = 5.0
 ROWS_TOL = 1e-5  # (B, 300, 6) rows of the two packages in f32: absolute, plus 1e-6 relative (2 ulp at 128 px)
@@ -278,6 +283,75 @@ def test_export_gives_back_the_jax_variable_tree(which):
         for k in ref:
             assert got[k].dtype == np.float32 and got[k].shape == ref[k].shape, k
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def _cpu_train_state():
+    """The small flagship's train state on the CPU, its momentum buffers
+    drawn from seed 0 (the optimizer starts them at zero)."""
+    model, _ = build_model(small_flagship_cfg(), nc=NC, device="cpu")
+    state = create_train_state(model, make_optimizer(load_hyp(find_config("hyp.visdrone", "hyps")), nb=4, epochs=1,
+                                                     batch_size=2))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for buf in state.opt_state.momentum_buf:
+            buf.copy_(torch.randn(buf.shape, generator=gen))
+    return state
+
+
+def _live_tensors(state) -> list:
+    """Every tensor a train step or the EMA updates in place."""
+    return [*state.model.state_dict().values(), *state.ema.ema.state_dict().values(), *state.opt_state.momentum_buf]
+
+
+def test_export_shares_no_memory_with_the_model():
+    """export_jax_variables and export_param_tree hand out copies: a leaf
+    that viewed a contiguous float32 CPU tensor (a bias, a BatchNorm
+    statistic, a momentum buffer) would change under the next step."""
+    state = _cpu_train_state()
+    model = state.model
+    exported = [v for tree in (export_jax_variables(model), export_jax_variables(state.ema.ema),
+                               export_param_tree(model, state.names, state.opt_state.momentum_buf))
+                for _, v in _leaves(tree)]
+    live = [t.numpy() for t in _live_tensors(state)]
+    assert len(exported) > 500
+    shared = [i for i, v in enumerate(exported) if any(np.may_share_memory(v, t) for t in live)]
+    assert not shared, f"{len(shared)} of {len(exported)} exported leaves view the model's state"
+
+
+def test_async_checkpointer_writes_the_state_at_save(tmp_path, monkeypatch):
+    """AsyncCheckpointer.save copies the state to the host before it
+    returns: in-place updates of the model, its EMA and the momentum
+    buffers made while the writer thread waits do not reach the file."""
+    state = _cpu_train_state()
+    frozen = copy.deepcopy(state)
+    gate = threading.Event()
+    write = checkpoint.write_checkpoint_payload
+
+    def held_write(*args, **kwargs):
+        assert gate.wait(60)
+        write(*args, **kwargs)
+
+    monkeypatch.setattr(checkpoint, "write_checkpoint_payload", held_write)
+    writer = checkpoint.AsyncCheckpointer()
+    try:
+        writer.save(tmp_path / "a.ckpt", state, epoch=1)
+        with torch.no_grad():  # what the next train step and EMA update do
+            for t in _live_tensors(state):
+                if t.is_floating_point():
+                    t.add_(1.0)
+        gate.set()
+        writer.wait()
+    finally:
+        gate.set()
+        writer.close()
+    got = checkpoint.load_checkpoint(tmp_path / "a.ckpt")
+    want = checkpoint.build_checkpoint_payload(frozen, epoch=1)
+    trees = [(got[k], want[k]) for k in ("params", "batch_stats", "ema_params", "ema_batch_stats")]
+    for got_tree, want_tree in trees + [(got["opt_state"]["momentum_buf"], want["opt_state"]["momentum_buf"])]:
+        g, w = flat(got_tree), flat(want_tree)
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
 def test_a_port_written_file_loads_in_both_packages(ckpt):

@@ -30,8 +30,9 @@ from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
 from yolosomi_tpu_torch.losses import ComputeLoss
 from yolosomi_tpu_torch.models.layers import ODConv2d
-from yolosomi_tpu_torch.ops.odconv import (_TILES, _dw_split, _plan, _smem_bytes, odconv_s2, odconv_s2_backward_reference,
-                                           odconv_s2_dwmix, odconv_s2_dx, odconv_s2_reference)
+from yolosomi_tpu_torch.ops.odconv import (_DW_TILES, _DX_TILES, _TILES, _dw_plan, _dw_split, _plan, _smem_bytes,
+                                           odconv_s2, odconv_s2_backward_reference, odconv_s2_dwmix, odconv_s2_dx,
+                                           odconv_s2_reference)
 from yolosomi_tpu_torch.utils.config import load_hyp
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.weights import export_jax_variables
@@ -288,11 +289,16 @@ def _rel(a: torch.Tensor, ref: torch.Tensor) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 32, 32, 64, 128), (2, 16, 16, 256, 256), (2, 8, 8, 512, 256),
-                                   (3, 22, 38, 24, 72), (2, 320, 320, 64, 128)])
+                                   (3, 22, 38, 24, 72), (2, 320, 320, 64, 128), (2, 18, 26, 120, 40),
+                                   (1, 12, 20, 200, 136), (1, 96, 98, 256, 256), (2, 16, 16, 64, 64)])
 def test_odconv_s2_gradient_kernels_match_plain_autograd(cuda, dtype, shape):
     """The flagship's channel counts (Cin, Cout) = (64, 128), (256, 256),
-    (512, 256), ragged tiles (24, 72 at 22x38), and row 1 at batch 2,
-    whose dwmix splits its reduction; each twice, bitwise."""
+    (512, 256), row 1 at batch 2 (dwmix splits its reduction in f32 and
+    bf16), and shapes that reach every bf16 tile configuration of both
+    kernels, dwmix with and without a split, with ragged rows and columns
+    in every parity class and taps inside K steps (Cout 72, 40, 136);
+    tests/test_torch_port_odconv.py pins which shape gets which plan. Each
+    twice, bitwise."""
     b, h, w, cin, cout = shape
     x = torch.randn(b, h, w, cin, device="cuda", generator=cuda).to(dtype)
     wmix = (torch.randn(b, 3, 3, cin, cout, device="cuda", generator=cuda) * (2.0 / (9 * cin)) ** 0.5).to(dtype)
@@ -306,7 +312,16 @@ def test_odconv_s2_gradient_kernels_match_plain_autograd(cuda, dtype, shape):
     assert _rel(dx, rdx) <= GRAD_TOL[dtype] and _rel(dw, rdw) <= GRAD_TOL[dtype], (_rel(dx, rdx), _rel(dw, rdw))
     assert torch.equal(odconv_s2_dx(dy, wmix, h, w), dx) and torch.equal(odconv_s2_dwmix(x, dy), dw)
     if shape == (2, 320, 320, 64, 128):
-        assert _dw_split(b, h, w, cin, cout) > 1
+        assert _dw_split(b, h, w, cin, cout) > 1 and _dw_plan(b, h, w, cin, cout)[1] > 1
+
+
+@pytest.mark.cuda
+def test_odconv_s2_gradient_tile_tables_match_the_kernels(cuda):
+    lib = build.load("odconv_s2_bwd.cu")
+    for kernel, tiles in enumerate((_DX_TILES, _DW_TILES)):
+        assert [lib.odconv_s2_bwd_bf16_smem(kernel, cfg) for cfg in sorted(tiles)] == [
+            _smem_bytes(cfg, tiles) for cfg in sorted(tiles)]
+        assert lib.odconv_s2_bwd_bf16_smem(kernel, len(tiles)) == -1
 
 
 @pytest.mark.cuda

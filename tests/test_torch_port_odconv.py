@@ -3,9 +3,9 @@ plain version against the Pallas kernel (interpret mode), and the whole
 ODConv module against the flax ODConv at the flagship's row 1 and row 26
 sites; the gradient wrappers' plain versions on the CPU against the VJP of
 the conv the JAX package trains through; and the bf16 kernel's launch
-plan, which is pure Python. The CUDA
-kernel itself is checked on a GPU by tests/test_torch_port_cuda.py and
-chip_smoke.py."""
+plan and the bf16 gradient kernels' plans, which are pure Python. The
+CUDA kernels themselves are checked on a GPU by
+tests/test_torch_port_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -17,7 +17,8 @@ import jax.numpy as jnp
 from tests._torch_port_common import IMGSZ, few_threads, jax_flagship, layer_variables, small_flagship_cfg  # noqa: F401
 from yolosomi_tpu.ops.odconv_pallas import odconv_s2_pallas
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
-from yolosomi_tpu_torch.ops.odconv import (_BK, _BM, _TILES, _k_splits, _plan, _smem_bytes, odconv_s2,
+from yolosomi_tpu_torch.ops.odconv import (_BK, _BM, _DW_MAX_SPLIT, _DW_TILES, _DX_TILES, _TILES, _dw_plan,
+                                           _dx_plan, _k_splits, _plan, _smem_bytes, odconv_s2,
                                            odconv_s2_dwmix, odconv_s2_dx, odconv_s2_reference, plain_version)
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.weights import load_jax_variables
@@ -165,7 +166,7 @@ def test_plan_tiles_cover_the_output_once_and_splits_partition_k(shape):
         for by in range(-(-cout // bn)):
             cover[bx * bm:(bx + 1) * bm, by * bn:(by + 1) * bn] += 1
     assert (cover == 1).all()
-    parts = _k_splits(cin, split)
+    parts = _k_splits(K, split)
     assert len(parts) == split and parts[0][0] == 0 and parts[-1][1] == K
     assert all(a < b for a, b in parts)  # none empty
     assert all(parts[i][1] == parts[i + 1][0] for i in range(split - 1))
@@ -198,3 +199,89 @@ def test_bf16_needs_channels_in_multiples_of_8_before_any_launch(cin, cout):
     # f32 takes any width; off the CPU and the card it still refuses the device
     with pytest.raises(ValueError, match="CUDA"):
         odconv_s2(x.float(), wmix.float())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 gradient kernels' launch plans (csrc/odconv_s2_bwd.cu)
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_port_cuda.py's gradient shapes, with the (dx tile
+# configuration, (dwmix tile configuration, split)) each must reach: every
+# configuration of both kernels, dwmix with and without a split; ragged
+# rows and columns in every parity class at (3, 22, 38, 24, 72),
+# (2, 18, 26, 120, 40) and (1, 12, 20, 200, 136), whose Cout (72, 40, 136)
+# also puts taps inside K steps
+CARD_BWD_PLANS = {(2, 32, 32, 64, 128): (0, (0, 2)), (2, 16, 16, 256, 256): (2, (1, 1)),
+                  (2, 8, 8, 512, 256): (2, (1, 1)), (3, 22, 38, 24, 72): (0, (0, 4)),
+                  (2, 320, 320, 64, 128): (0, (0, 16)), (2, 18, 26, 120, 40): (1, (0, 2)),
+                  (1, 12, 20, 200, 136): (2, (1, 1)), (1, 96, 98, 256, 256): (2, (1, 4)),
+                  (2, 16, 16, 64, 64): (0, (0, 1))}
+
+
+def _fits_an_sm(tiles: dict, cfg: int) -> None:
+    """A block's shared memory fits (227 KB); per_sm blocks fit one SM's
+    228 KB (1 KB of it reserved a block) and 2048 threads; the registers
+    the launch bounds (256 threads, per_sm blocks) leave a thread hold its
+    BN/2 f32 accumulators and the loaders' state."""
+    bn, _, per_sm = tiles[cfg]
+    smem = _smem_bytes(cfg, tiles)
+    assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
+    assert per_sm * 256 <= 2048
+    assert min(255, 65536 // (256 * per_sm)) >= bn // 2 + 24
+
+
+@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + list(CARD_BWD_PLANS))
+def test_dx_plan_covers_every_input_pixel_and_channel_once(shape):
+    """The grid (ceil(M/128), ceil(Cin/BN), B*4) of the bf16 dx kernel: the
+    block rows of each parity class (py, px) are its pixels (qy, qx) = (m //
+    OW, m % OW), written to (2qy+py, 2qx+px); together the four classes'
+    in-range tiles write every (pixel, channel) of dx once."""
+    B, H, W, cin, cout = shape
+    cfg = _dx_plan(cin)
+    bn = _DX_TILES[cfg][0]
+    OW, M = W // 2, (H // 2) * (W // 2)
+    cover = np.zeros((H * W, cin), np.int16)
+    for py, px in ((1, 1), (1, 0), (0, 1), (0, 0)):  # the kernel's ranks 0-3
+        for bx in range(-(-M // _BM)):
+            m = np.arange(bx * _BM, min(M, (bx + 1) * _BM))
+            pix = (2 * (m // OW) + py) * W + 2 * (m % OW) + px
+            for by in range(-(-cin // bn)):
+                cover[pix, by * bn:(by + 1) * bn] += 1
+    assert (cover == 1).all()
+    assert cin <= bn or bn == 256  # one column tile covers Cin, or 256-wide tiles
+    _fits_an_sm(_DX_TILES, cfg)
+
+
+@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + list(CARD_BWD_PLANS))
+def test_dw_plan_covers_dwmix_once_and_splits_partition_the_pixels(shape):
+    """The grid (ceil(9*Cin/128), ceil(Cout/BN), B*split) of the bf16 dwmix
+    kernel writes every (tap, ci, co) of a sample once; the split's parts
+    are non-empty whole 64-pixel K steps that partition the P pixels."""
+    B, H, W, cin, cout = shape
+    cfg, split = _dw_plan(*shape)
+    bn = _DW_TILES[cfg][0]
+    R, P = 9 * cin, (H // 2) * (W // 2)
+    cover = np.zeros((R, cout), np.int16)
+    for bx in range(-(-R // _BM)):
+        for by in range(-(-cout // bn)):
+            cover[bx * _BM:(bx + 1) * _BM, by * bn:(by + 1) * bn] += 1
+    assert (cover == 1).all()
+    parts = _k_splits(P, split)
+    assert 1 <= split <= _DW_MAX_SPLIT and len(parts) == split
+    assert all(a < b for a, b in parts) and all(a % _BK == 0 for a, _ in parts)
+    assert parts[0][0] == 0 and parts[-1][1] == P and all(parts[i][1] == parts[i + 1][0] for i in range(split - 1))
+    _fits_an_sm(_DW_TILES, cfg)
+
+
+def test_bwd_plans_of_the_serving_sites_and_the_card_cases():
+    """At 640 px, b8: dx takes 128x64 tiles at row 1 (Cin 64) and 128x256
+    at rows 26, 29 and 32; dwmix 128x128 at row 1 with its 25,600-pixel
+    reduction split in 6 (40 output tiles), 128x256 elsewhere, row 26
+    split in 2 (144 tiles: 1.09 waves unsplit). The card tests reach every
+    configuration of both kernels, dwmix with and without a split."""
+    assert [_dx_plan(s[3]) for s in SERVING_SITES] == [0, 2, 2, 2]
+    assert [_dw_plan(*s) for s in SERVING_SITES] == [(0, 6), (1, 2), (1, 1), (1, 1)]
+    assert {s: (_dx_plan(s[3]), _dw_plan(*s)) for s in CARD_BWD_PLANS} == CARD_BWD_PLANS
+    assert {dx for dx, _ in CARD_BWD_PLANS.values()} == set(_DX_TILES)
+    assert {(cfg, split > 1) for _, (cfg, split) in CARD_BWD_PLANS.values()} == {(c, s) for c in _DW_TILES
+                                                                               for s in (False, True)}

@@ -3,8 +3,9 @@
 Each kernel source under csrc/ has a plain C interface and is compiled by
 `nvcc` into its own shared library at first use, then loaded with ctypes.
 Libraries go to build/yolosomi_tpu_torch/ under the repository root and
-are named by a hash of their source, so an edited source is rebuilt and a
-stale library is never loaded.
+are named by a hash of their source and of the headers beside it
+(csrc/*.cuh), so an edited source or header is rebuilt and a stale library
+is never loaded.
 """
 
 from __future__ import annotations
@@ -40,7 +41,10 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -10,10 +10,12 @@ On CUDA under autograd the call goes through `OdconvS2Function`, whose
 backward launches two more hand-written kernels (csrc/odconv_s2_bwd.cu):
 `odconv_s2_dx` (the input gradient, by parity class of the input pixel)
 and `odconv_s2_dwmix` (the per-sample weight gradient, its pixel
-reduction split by `_dw_split`). The JAX package's kernel has no VJP (JAX
-trains ODConv through the batch-grouped vmap conv); the plain versions of
-the gradients are the autograd of `odconv_s2_reference`, which is what a
-CPU tensor and `plain_version()` get.
+reduction split where the tiles leave the card idle). Their bf16 launch
+plans are chosen here too: `_dx_plan` and `_dw_plan` (the f32 kernels'
+split by `_dw_split`). The JAX package's kernel has no VJP (JAX trains
+ODConv through the batch-grouped vmap conv); the plain versions of the
+gradients are the autograd of `odconv_s2_reference`, which is what a CPU
+tensor and `plain_version()` get.
 """
 
 from __future__ import annotations
@@ -36,11 +38,11 @@ _ENTRY = {
 }
 _DX_ENTRY = {
     torch.float32: ("odconv_s2_dx_f32", [_PTR] * 3 + [_INT] * 5),
-    torch.bfloat16: ("odconv_s2_dx_bf16", [_PTR] * 3 + [_INT] * 5),
+    torch.bfloat16: ("odconv_s2_dx_bf16", [_PTR] * 3 + [_INT] * 6),
 }
 _DW_ENTRY = {
     torch.float32: ("odconv_s2_dw_f32", [_PTR] * 4 + [_INT] * 6),
-    torch.bfloat16: ("odconv_s2_dw_bf16", [_PTR] * 4 + [_INT] * 6),
+    torch.bfloat16: ("odconv_s2_dw_bf16", [_PTR] * 4 + [_INT] * 7),
 }
 
 # The bf16 kernel's tile configurations (csrc/odconv_s2.cu, Tile0 and
@@ -51,25 +53,34 @@ _TILES = {0: (128, 3, 2), 1: (256, 4, 1)}
 _BM, _BK = 128, 64
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 _MAX_SPLIT = 8
-# the backward kernels' tiles (csrc/odconv_s2_bwd.cu): 64 x 64 outputs, the
-# reduction in steps of 32; dwmix splits its pixel reduction until about
-# _DW_BLOCKS blocks are in flight (4 of its 256-thread blocks fit an SM)
+# The bf16 gradient kernels' tile configurations (csrc/odconv_s2_bwd.cu,
+# DxTile* and DwTile*), as _TILES: BM = 128 rows, K step BK = 64. dx's
+# columns are Cin, dwmix's Cout.
+_DX_TILES = {0: (64, 4, 2), 1: (128, 3, 2), 2: (256, 4, 1)}
+_DW_TILES = {0: (128, 3, 2), 1: (256, 4, 1)}
+# H100 SXM peaks for _dw_plan's cost model: bf16 tensor FLOP/s, HBM bytes/s
+_PEAK_FLOPS, _PEAK_BYTES = 989e12, 3.35e12
+# the f32 gradient kernels' tiles: 64 x 64 outputs, the reduction in steps
+# of 32; dwmix splits its pixel reduction until about _DW_BLOCKS blocks are
+# in flight (4 of its 256-thread blocks fit an SM); in f32 and bf16 into at
+# most _DW_MAX_SPLIT parts (the f32 workspace)
 _BWD_TILE, _BWD_K = 64, 32
 _DW_BLOCKS = 4 * _SMS
 _DW_MAX_SPLIT = 16
 
 
-def _smem_bytes(cfg: int) -> int:
-    """Shared memory of tile configuration `cfg` (the kernel's Tile::SMEM:
-    the stages and 1 KB to align them to the 128-byte swizzle's 1 KB)."""
-    bn, stages, _ = _TILES[cfg]
+def _smem_bytes(cfg: int, tiles: dict = None) -> int:
+    """Shared memory of tile configuration `cfg` of `tiles` (the forward's
+    _TILES by default; the kernels' Tile::SMEM: the stages and 1 KB to
+    align them to the 128-byte swizzle's 1 KB)."""
+    bn, stages, _ = (tiles or _TILES)[cfg]
     return stages * (_BM + bn) * _BK * 2 + 1024
 
 
-def _k_splits(cin: int, split: int) -> list:
-    """The [start, end) ranges of K = 9*cin that the kernel's `split` parts
-    cover: ceil(ceil(K/BK)/split) whole K steps each, the last cut at K."""
-    K = 9 * cin
+def _k_splits(K: int, split: int) -> list:
+    """The [start, end) ranges of a reduction of length K that a kernel's
+    `split` parts cover: ceil(ceil(K/BK)/split) whole K steps each, the last
+    cut at K (the forward's K = 9*Cin, bf16 dwmix's K = the pixels)."""
     per = math.ceil(math.ceil(K / _BK) / split) * _BK
     return [(i * per, min(K, (i + 1) * per)) for i in range(split)]
 
@@ -89,16 +100,55 @@ def _plan(B: int, H: int, W: int, cin: int, cout: int) -> tuple:
     bn, _, per_sm = _TILES[cfg]
     tiles = math.ceil(M / _BM) * math.ceil(cout / bn) * B
     split = min(_MAX_SPLIT, max(1, per_sm * _SMS // max(tiles, 1)), max(1, math.ceil(9 * cin / _BK)))
-    while split > 1 and _k_splits(cin, split)[-1][0] >= 9 * cin:  # an empty last part
+    while split > 1 and _k_splits(9 * cin, split)[-1][0] >= 9 * cin:  # an empty last part
         split -= 1
     return cfg, split
 
 
+def _dx_plan(cin: int) -> int:
+    """Tile configuration of the bf16 dx kernel: columns BN = 64, 128 or
+    256, the least that covers Cin (256 and two column tiles at Cin 512),
+    so each gathered tile of dy serves as many input channels as it can.
+    Rows are the parity class's pixels: the grid has B * 4 * ceil(M/128)
+    row tiles (6400 at row 1, 640 px, b8), enough to fill the card."""
+    return 0 if cin <= 64 else 1 if cin <= 128 else 2
+
+
+def _dw_cost(B: int, H: int, W: int, cin: int, cout: int, cfg: int, split: int) -> float:
+    """Seconds _dw_plan expects for the bf16 dwmix at this plan, at the
+    card's peaks: the waves of resident blocks times the K steps of one
+    part (a wave-step: every SM's blocks do one 128 x BN x 64 product),
+    plus the f32 partial sums written and read back once per part."""
+    bn, _, per_sm = _DW_TILES[cfg]
+    tiles = B * math.ceil(9 * cin / _BM) * math.ceil(cout / bn)
+    waves = math.ceil(tiles * split / (per_sm * _SMS))
+    steps = math.ceil(math.ceil((H // 2) * (W // 2) / _BK) / split)
+    wave_step = per_sm * 2 * _BM * bn * _BK / (_PEAK_FLOPS / _SMS)
+    workspace = 8 * B * 9 * cin * cout * split / _PEAK_BYTES if split > 1 else 0.0
+    return waves * steps * wave_step + workspace
+
+
+def _dw_plan(B: int, H: int, W: int, cin: int, cout: int) -> tuple:
+    """(tile configuration, split) of the bf16 dwmix kernel: columns BN =
+    128 where Cout <= 128, else 256 (x gathered once for 256 output
+    channels); the pixel reduction split into the number of parts
+    (_k_splits(P, split), at most _DW_MAX_SPLIT, none empty) that _dw_cost
+    expects to be fastest. Output tiles are few (40 at row 1, 640 px, b8,
+    over a 25,600-pixel reduction; 144 at rows 26 and 29, 1.09 waves of 132
+    SMs), so splitting fills the card, but each part costs its f32 partial
+    sums' round trip through memory."""
+    cfg = 1 if cout > 128 else 0
+    P = (H // 2) * (W // 2)
+    splits = [s for s in range(1, _DW_MAX_SPLIT + 1) if _k_splits(P, s)[-1][0] < P]  # none empty
+    return cfg, min(splits, key=lambda s: (_dw_cost(B, H, W, cin, cout, cfg, s), s))
+
+
 def _dw_split(B: int, H: int, W: int, cin: int, cout: int) -> int:
-    """Parts of dwmix's pixel reduction: enough for about _DW_BLOCKS blocks
-    over the B * ceil(9*Cin/64) * ceil(Cout/64) output tiles (at most
-    _DW_MAX_SPLIT, each part whole 32-pixel steps, none empty). At 640 px,
-    batch 8, only row 1 splits (144 tiles, 25 600 pixels: 3 parts)."""
+    """Parts of the f32 dwmix kernel's pixel reduction: enough for about
+    _DW_BLOCKS blocks over the B * ceil(9*Cin/64) * ceil(Cout/64) output
+    tiles (at most _DW_MAX_SPLIT, each part whole 32-pixel steps, none
+    empty). At 640 px, batch 8, only row 1 splits (144 tiles, 25 600
+    pixels: 3 parts)."""
     steps = math.ceil((H // 2) * (W // 2) / _BWD_K)
     tiles = B * math.ceil(9 * cin / _BWD_TILE) * math.ceil(cout / _BWD_TILE)
     split = min(_DW_MAX_SPLIT, max(1, _DW_BLOCKS // max(tiles, 1)), max(1, steps))
@@ -255,9 +305,16 @@ def odconv_s2_dx(dy: torch.Tensor, wmix: torch.Tensor, H: int, W: int) -> torch.
     if dy.device.type == "cpu":  # the plain version reads only x's shape
         return odconv_s2_backward_reference(dy.new_zeros((B, H, W, cin)), wmix, dy, need_dw=False)[0]
     _check_cuda((dy, wmix), cin, cout)
+    return _dx_kernel(dy, wmix, H, W, _dx_plan(cin) if dy.dtype == torch.bfloat16 else None)
+
+
+def _dx_kernel(dy: torch.Tensor, wmix: torch.Tensor, H: int, W: int, cfg) -> torch.Tensor:
+    """The dx kernel on checked CUDA inputs; `cfg` is the bf16 tile
+    configuration (None in f32)."""
+    B, cin, cout = wmix.shape[0], wmix.shape[3], wmix.shape[4]
     dx = torch.empty((B, H, W, cin), device=dy.device, dtype=dy.dtype)
-    _launch(_entry(dy.dtype, _DX_ENTRY, _BWD_SOURCE), [dy.data_ptr(), wmix.data_ptr(), dx.data_ptr(), B, H, W, cin,
-                                                       cout], dy, "odconv_s2_dx")
+    args = [dy.data_ptr(), wmix.data_ptr(), dx.data_ptr(), B, H, W, cin, cout] + ([cfg] if cfg is not None else [])
+    _launch(_entry(dy.dtype, _DX_ENTRY, _BWD_SOURCE), args, dy, "odconv_s2_dx")
     odconv_s2_dx.launches += 1
     return dx
 
@@ -279,12 +336,20 @@ def odconv_s2_dwmix(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":  # the plain version reads only wmix's shape
         return odconv_s2_backward_reference(x, x.new_zeros((B, 3, 3, cin, cout)), dy, need_dx=False)[1]
     _check_cuda((x, dy), cin, cout)
+    plan = _dw_plan(B, H, W, cin, cout) if x.dtype == torch.bfloat16 else (None, _dw_split(B, H, W, cin, cout))
+    return _dw_kernel(x, dy, *plan)
+
+
+def _dw_kernel(x: torch.Tensor, dy: torch.Tensor, cfg, split: int) -> torch.Tensor:
+    """The dwmix kernel on checked CUDA inputs, its split reduction
+    included: bf16 tile configuration `cfg` (None in f32), `split` parts."""
+    B, H, W, cin = x.shape
+    cout = dy.shape[-1]
     dw = torch.empty((B, 3, 3, cin, cout), device=x.device, dtype=x.dtype)
-    split = _dw_split(B, H, W, cin, cout)
     ws = torch.empty((split, B, 9 * cin, cout), device=x.device, dtype=torch.float32) if split > 1 else None
-    _launch(_entry(x.dtype, _DW_ENTRY, _BWD_SOURCE),
-            [x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr() if ws is not None else None, B, H, W, cin,
-             cout, split], x, "odconv_s2_dwmix")
+    args = [x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr() if ws is not None else None, B, H, W, cin, cout]
+    _launch(_entry(x.dtype, _DW_ENTRY, _BWD_SOURCE), args + ([cfg] if cfg is not None else []) + [split], x,
+            "odconv_s2_dwmix")
     odconv_s2_dwmix.launches += 1
     return dw
 

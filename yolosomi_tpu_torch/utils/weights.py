@@ -196,11 +196,20 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
     return collection, [p for p in path.split(".") if p] + [name], layout
 
 
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A contiguous float32 numpy copy of `t` on the host. Always a copy:
+    `.float().cpu().contiguous()` returns the tensor itself for a
+    contiguous float32 CPU tensor, and a numpy view of live model state
+    would change under the optimizer's and the EMA's in-place updates."""
+    return t.detach().to("cpu", torch.float32, copy=True, memory_format=torch.contiguous_format).numpy()
+
+
 @torch.no_grad()
 def export_jax_variables(model: nn.Module) -> dict:
     """The port model's weights as the JAX package's flax variables
     `{"params": ..., "batch_stats": ...}`: nested dicts of float32 numpy
-    arrays in flax layout, which load_jax_variables maps back exactly."""
+    arrays in flax layout, which load_jax_variables maps back exactly.
+    Every array is a copy that shares no memory with the model."""
     variables: dict = {"params": {}, "batch_stats": {}}
     for key, value in model.state_dict().items():
         if key.endswith("num_batches_tracked"):
@@ -211,21 +220,21 @@ def export_jax_variables(model: nn.Module) -> dict:
         node = variables[collection]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = layout(value).float().cpu().contiguous().numpy()
+        node[path[-1]] = _host_copy(layout(value))
     return variables
 
 
 def export_param_tree(model: nn.Module, names: List[str], tensors: List[torch.Tensor]) -> dict:
     """Per-parameter tensors (optimizer buffers, gradients) laid out as the
     flax `params` tree of `model`'s parameters `names`: flax paths, flax
-    layouts, float32 numpy."""
+    layouts, float32 numpy copies."""
     tree: dict = {}
     for name, t in zip(names, tensors):
         _, path, layout = _flax_leaf(model, name)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = layout(t.detach()).float().cpu().contiguous().numpy()
+        node[path[-1]] = _host_copy(layout(t.detach()))
     return tree
 
 
