@@ -7,12 +7,17 @@ PyTorch (tests/conftest.py imports jax, hence --noconftest):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-The gradient kernels (odconv_s2_dx, odconv_s2_dwmix) are held against
-autograd of the plain version by the relative norm of the difference:
-1e-5 in f32 (summation order only) and 4e-3 in bf16 (one rounding of the
-output, 2**-9 relative).
+The gradient kernels (odconv_s2_dx, odconv_s2_dwmix, dcnv2_im2col_bwd,
+dcnv3_core_bwd) are held against autograd of the plain version by the
+relative norm of the difference: 1e-5 in f32 (summation order only) and
+4e-3 in bf16 (one rounding of the output, 2**-9 relative). The DCN
+kernels scatter the input gradient with f32 atomics, so they are held to
+the same bound on every call rather than repeated bitwise.
 """
 
+import json
+
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -21,10 +26,13 @@ import yaml
 from yolosomi_tpu_torch import api
 from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
 from yolosomi_tpu_torch.engine.runner import Runner
-from yolosomi_tpu_torch.models.dcn import randomize_offset_heads
+from yolosomi_tpu_torch.models.dcn import BottleneckDCN, DCNv3, init_dcn_heads, randomize_offset_heads
 from yolosomi_tpu_torch.models.yolo import build_model
 from yolosomi_tpu_torch.ops import build
-from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv2_im2col_reference, dcnv3_core, dcnv3_core_reference
+from yolosomi_tpu_torch.ops import plain_version
+from yolosomi_tpu_torch.ops.dcn import (dcnv2_im2col, dcnv2_im2col_backward_reference, dcnv2_im2col_bwd,
+                                        dcnv2_im2col_reference, dcnv3_core, dcnv3_core_backward_reference,
+                                        dcnv3_core_bwd, dcnv3_core_reference, dcnv3_points)
 from yolosomi_tpu_torch import train
 from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
@@ -112,17 +120,19 @@ def test_odconv_s2_kernel_rejects_what_it_does_not_take(cuda):
         odconv_s2(flat[1:].view(x.shape), wmix.bfloat16())
 
 
-def _dcnv3_case(gen, dtype, n, h, w, g, cg, s, dil, k=3, shifted=None):
+def _dcnv3_case(gen, dtype, n, h, w, g, cg, s, dil, k=3, shifted=None, zero=False):
     """Inputs of a k x k DCNv3 sampling with pad k // 2; `shifted` ("value"
     or "offset") puts that tensor one element past an aligned address:
     value then misses 16-byte alignment, and offset the alignment of its
-    (x, y) pairs."""
+    (x, y) pairs; `zero` makes the offsets 0 (the heads' init)."""
     pad, P = k // 2, k * k
     ho = (h + 2 * pad - (dil * (k - 1) + 1)) // s + 1
     wo = (w + 2 * pad - (dil * (k - 1) + 1)) // s + 1
     value = torch.randn(n, h, w, g * cg, device="cuda", generator=gen)
     # offsets of several pixels: fractional points, some off the map
     offset = (torch.rand(n, ho, wo, g * P * 2, device="cuda", generator=gen) - 0.5) * 8
+    if zero:
+        offset.zero_()
     logits = torch.randn(n, ho, wo, g, P, device="cuda", generator=gen) * 2
     mask = torch.softmax(logits, -1).reshape(n, ho, wo, g * P)
     inputs = {"value": value.to(dtype), "offset": offset.to(dtype), "mask": mask.to(dtype)}
@@ -369,26 +379,194 @@ def test_odconv_s2_gradient_kernels_reject_what_they_do_not_take(cuda):
     assert (odconv_s2_dx.launches, odconv_s2_dwmix.launches) == before
 
 
+def _write_shapes(root, n: int, size: int = 96):
+    """n synthetic JPEGs under root/images with one labelled rectangle each."""
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        im = rng.integers(0, 80, (size, size, 3), dtype=np.uint8)
+        x0, y0 = (int(v) for v in rng.integers(8, size // 2, 2))
+        im[y0:y0 + 30, x0:x0 + 40] = 220
+        cv2.imwrite(str(root / "images" / f"{i}.jpg"), im)
+        (root / "labels" / f"{i}.txt").write_text(
+            f"{i % 3} {(x0 + 20) / size:.6f} {(y0 + 15) / size:.6f} {40 / size:.6f} {30 / size:.6f}\n")
+    data = root / "data.yaml"
+    data.write_text(yaml.safe_dump({"path": str(root), "train": "images", "val": "images", "nc": 3,
+                                    "names": ["a", "b", "c"]}))
+    return data
+
+
 @pytest.mark.cuda
-def test_dcn_kernels_refuse_a_gradient_on_cuda(cuda, tmp_path):
-    """No backward yet: under autograd each raises instead of returning an
-    output without a gradient; without gradients they run. train.py
-    refuses yolo-somi-dcn on CUDA with the same message."""
+def test_dcn_kernels_return_gradients_on_cuda_and_train_accepts_the_dcn_config(cuda, tmp_path):
+    """The calls that raised before the gradient kernels: each now returns
+    a gradient through its gradient kernel, equal to the plain version's;
+    train.train takes full-width yolo-somi-dcn on CUDA (one epoch at 64
+    px on four images) and writes its weights."""
     v = torch.randn(1, 6, 6, 8, device="cuda", generator=cuda).requires_grad_()
     off = torch.zeros(1, 6, 6, 2 * 9, device="cuda")
     mask = torch.full((1, 6, 6, 9), 1 / 9, device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
-        dcnv3_core(v, off, mask, 3, 3, 1, 1, 1, 1, 1, 1, 1, 8)
+    before = (dcnv3_core_bwd.launches, dcnv2_im2col_bwd.launches)
+    (gv,) = torch.autograd.grad(dcnv3_core(v, off, mask, 3, 3, 1, 1, 1, 1, 1, 1, 1, 8).sum(), [v])
     oy = torch.zeros(1, 6, 6, 9, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        dcnv2_im2col(v.detach(), oy, oy.detach(), torch.ones(1, 6, 6, 9, device="cuda"))
-    with torch.no_grad():
-        assert dcnv3_core(v, off, mask, 3, 3, 1, 1, 1, 1, 1, 1, 1, 8).shape == (1, 6, 6, 8)
-    data = tmp_path / "data.yaml"
-    data.write_text(yaml.safe_dump({"path": str(tmp_path), "train": "images", "val": "images", "nc": 3}))
-    opt = train.parse_opt(["--cfg", "yolo-somi-dcn", "--data", str(data), "--project", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="no backward"):
-        train.train(load_hyp(find_config("hyp.visdrone", "hyps")), opt)
+    (goy,) = torch.autograd.grad(dcnv2_im2col(v.detach(), oy, oy.detach(), torch.ones(1, 6, 6, 9, device="cuda")).sum(),
+                                 [oy])
+    torch.cuda.synchronize()
+    assert (dcnv3_core_bwd.launches, dcnv2_im2col_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ones = torch.ones(1, 6, 6, 8, device="cuda")
+    assert _rel(gv, dcnv3_core_backward_reference(v.detach(), off, mask, ones, 3, 3, 1, 1, 1, 1, 1, 1, 1, 8)[0]) < 1e-6
+    want = dcnv2_im2col_backward_reference(v.detach(), oy.detach(), oy.detach(), torch.ones_like(oy),
+                                           torch.ones(1, 36, 72, device="cuda"))[1]
+    assert want.abs().max() > 0 and _rel(goy, want) < 1e-5  # zero offsets: the one-sided derivative
+    data = _write_shapes(tmp_path / "ds", 4)
+    opt = train.parse_opt(["--cfg", "yolo-somi-dcn", "--data", str(data), "--project", str(tmp_path / "runs"),
+                           "--epochs", "1", "--batch-size", "2", "--imgsz", "64", "--noautoanchor", "--workers", "2"])
+    train.train(load_hyp(find_config("hyp.visdrone", "hyps")), opt)
+    assert (tmp_path / "runs" / "exp" / "weights" / "last.msgpack").exists()
+
+
+def _same_corners(offset, H, W, args):
+    """(N, Ho, Wo, G*P*2) mask of the DCNv3 points whose kernel coordinates
+    (closed form, unpadded) and plain-version coordinates (normalised
+    round trip, padded) floor to the same corner: f32 rounds them apart in
+    the last bits, and a point within an ulp of an integer can land on
+    either side of it, where doffset jumps (the one-sided derivative)."""
+    pad_h, pad_w = args[4], args[5]
+    kx, ky = dcnv3_points(offset.float(), H, W, *args[:9], closed_form=True)
+    px, py = dcnv3_points(offset.float(), H, W, *args[:9])
+    same = (kx.floor() + pad_w == px.floor()) & (ky.floor() + pad_h == py.floor())
+    return same.unsqueeze(-1).expand(*same.shape, 2).reshape(offset.shape)
+
+
+def _masked_rel(a, ref, keep):
+    return _rel(a.float() * keep, ref * keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 9, 11, 5, 1), (1, 13, 7, 40, 2), (3, 6, 6, 1, 1), (2, 12, 10, 256, 1),
+                                  (1, 9, 7, 512, 2), (1, 8, 6, 256, 1, "misaligned"), (2, 12, 10, 256, 1, "zero"),
+                                  (2, 9, 11, 5, 2, "zero")])
+def test_dcnv2_im2col_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
+    """dx, both offsets and the mask against autograd of the plain version:
+    odd C one channel a lane, C = 256 / 512 (the training widths) 16-byte
+    vectors, an x off 16-byte alignment, zero offsets (integer points:
+    the one-sided derivative, 3 of 4 corners of weight 0), strides 1 and
+    2, offsets reaching past the border; each twice, both within the
+    bound (the dx scatter adds in a varying order)."""
+    n, h, w, c, s = case[:5]
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    x = torch.randn(n, h, w, c, device="cuda", generator=cuda)
+    oy, ox = ((torch.rand(2, n, ho, wo, 9, device="cuda", generator=cuda) - 0.5) * 8).unbind(0)
+    if "zero" in case:
+        oy, ox = torch.zeros_like(oy), torch.zeros_like(ox)
+    mask = torch.sigmoid(torch.randn(n, ho, wo, 9, device="cuda", generator=cuda))
+    dcols = torch.randn(n, ho * wo, 9 * c, device="cuda", generator=cuda)
+    x, oy, ox, mask, dcols = (t.to(dtype) for t in (x, oy, ox, mask, dcols))
+    if "misaligned" in case:
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(n, h, w, c)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    ref = dcnv2_im2col_backward_reference(x.float(), oy.float(), ox.float(), mask.float(), dcols.float(), 3, s, 1)
+    for _ in range(2):
+        before = dcnv2_im2col_bwd.launches
+        got = dcnv2_im2col_bwd(x, oy, ox, mask, dcols, 3, s, 1)
+        torch.cuda.synchronize()
+        assert dcnv2_im2col_bwd.launches == before + 1
+        for g, r, t in zip(got, ref, (x, oy, ox, mask)):
+            assert g.dtype == dtype and g.shape == t.shape
+            assert _rel(g, r) <= GRAD_TOL[dtype], (_rel(g, r), tuple(t.shape))
+    if "zero" in case:
+        assert ref[1].abs().max() > 0 and ref[2].abs().max() > 0
+    assert dcnv2_im2col_bwd(x, oy, ox, mask, dcols, 3, s, 1, need_x=False)[0] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 9, 11, 4, 5, 1, 1), (1, 13, 7, 8, 16, 2, 2), (3, 6, 6, 1, 33, 1, 1),
+                                  (2, 20, 20, 8, 128, 1, 1), (1, 9, 7, 3, 2, 1, 1), (1, 10, 9, 16, 8, 1, 1, 5),
+                                  (1, 8, 6, 2, 16, 1, 1, 3, "value"), (1, 8, 6, 2, 16, 1, 1, 3, "offset"),
+                                  (2, 20, 20, 8, 128, 1, 1, 3, None, True), (1, 9, 7, 3, 5, 2, 1, 3, None, True)])
+def test_dcnv3_core_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
+    """dvalue, offset and mask against autograd of the plain version, at
+    the forward test's shapes (odd Cg, Cg 128 the training width, Cg 2 in
+    rounds, k 5, misaligned value and offset) and at zero offsets. doffset
+    is compared where the kernel's and the plain version's coordinates
+    floor to the same corner (_same_corners: every point at random
+    offsets but a rare one within an ulp of an integer; at zero offsets,
+    the points that both put on the integer)."""
+    (value, offset, mask), args = _dcnv3_case(cuda, dtype, *case)
+    n, h, w = value.shape[:3]
+    dout = torch.randn(*offset.shape[:3], value.shape[-1], device="cuda", generator=cuda).to(dtype)
+    ref = dcnv3_core_backward_reference(value.float(), offset.float(), mask.float(), dout.float(), *args)
+    keep = _same_corners(offset, h, w, args)
+    assert keep.float().mean() > 0.5
+    for _ in range(2):
+        before = dcnv3_core_bwd.launches
+        got = dcnv3_core_bwd(value, offset, mask, dout, *args)
+        torch.cuda.synchronize()
+        assert dcnv3_core_bwd.launches == before + 1
+        assert all(g.dtype == dtype and g.shape == t.shape for g, t in zip(got, (value, offset, mask)))
+        assert _rel(got[0], ref[0]) <= GRAD_TOL[dtype], _rel(got[0], ref[0])
+        assert _masked_rel(got[1], ref[1], keep) <= GRAD_TOL[dtype], _masked_rel(got[1], ref[1], keep)
+        assert _rel(got[2], ref[2]) <= GRAD_TOL[dtype], _rel(got[2], ref[2])
+    assert (ref[1] * keep).abs().max() > 0
+    assert dcnv3_core_bwd(value, offset, mask, dout, *args, need_input=False)[0] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["DCNv3", "BottleneckDCN"])
+def test_dcn_blocks_under_autocast_sample_in_one_dtype(cuda, block):
+    """Under bf16 autocast DCNv3's softmax runs in f32 and the block casts
+    the mask to value's bf16; DCNv2's operands (conv, BatchNorm, sigmoid)
+    are bf16 as they come. So the forward and gradient kernels run (one
+    launch each), the gradients reach every parameter and are finite, and
+    the step is near the one under plain_version(). In eval mode: ahead of
+    a train-mode BatchNorm, DCNv2's bias has no gradient; no shortcut: it
+    would add the f32 input to the bf16 output."""
+    torch.manual_seed(0)
+    m = (DCNv3(64, group=4) if block == "DCNv3" else BottleneckDCN(64, 64, shortcut=False)).cuda().eval()
+    for mod in m.modules():  # the JAX init (DCNv2's weight is zero until then), then random offset heads
+        init_dcn_heads(mod, torch.Generator(device="cuda").manual_seed(0))
+    randomize_offset_heads(m, seed=0)
+    fwd, bwd = (dcnv3_core, dcnv3_core_bwd) if block == "DCNv3" else (dcnv2_im2col, dcnv2_im2col_bwd)
+    x = torch.randn(2, 64, 12, 12, device="cuda", generator=cuda).to(memory_format=torch.channels_last)
+    grads = []
+    for plain in (False, True):
+        before = (fwd.launches, bwd.launches)
+        with plain_version() if plain else torch.enable_grad():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = m(x)
+            assert out.dtype == torch.bfloat16
+            grads.append(torch.autograd.grad(out.float().square().sum(), list(m.parameters())))
+        launched = (fwd.launches - before[0], bwd.launches - before[1])
+        assert launched == ((0, 0) if plain else (1, 1)), launched
+    for gk, gp in zip(*grads):
+        assert torch.isfinite(gk).all() and gk.abs().max() > 0
+        assert _rel(gk, gp.float()) < 0.05
+
+
+@pytest.mark.cuda
+def test_train_run_of_the_dcn_variant_on_cuda(cuda, tmp_path):
+    """train.run of yolo-somi-dcn at width 0.25 / depth 0.33 (3 DCNv2, 1
+    DCNv3), bf16, 64 px, b2, 4 images: one epoch and one more from
+    --resume; every step launches the forward and gradient kernels of both
+    DCN ops, and the losses are finite."""
+    data = _write_shapes(tmp_path / "ds", 4)
+    cfg = dict(load_model_cfg(find_config("yolo-somi-dcn")))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    cfg_path = tmp_path / "dcn-small.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    kw = dict(cfg=str(cfg_path), data=str(data), hyp="hyp.visdrone", batch_size=2, imgsz=64, noautoanchor=True,
+              workers=2, project=str(tmp_path / "runs"), name="t", device="cuda")
+    before = (dcnv2_im2col_bwd.launches, dcnv3_core_bwd.launches)
+    train.run(epochs=1, **kw)
+    last = tmp_path / "runs" / "t" / "weights" / "last.ckpt"
+    train.run(epochs=2, weights=str(last), resume=True, exist_ok=True, **kw)
+    steps = 2 * 2
+    assert (dcnv2_im2col_bwd.launches - before[0], dcnv3_core_bwd.launches - before[1]) == (3 * steps, steps)
+    log = [json.loads(line) for line in (tmp_path / "runs" / "t" / "train_log.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in log] == [0, 1] and all(r["skipped_logged"] == 0 for r in log)
+    assert all(np.isfinite(v) for r in log for row in r["logged_losses"] for v in row[1:])
 
 
 @pytest.mark.cuda

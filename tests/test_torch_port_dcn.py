@@ -502,8 +502,10 @@ def test_dcn_runner_defaults_to_cuda():
 
 def test_plain_version_switch_reaches_every_kernel_wrapper(dcn_graph, monkeypatch):
     """Outside `plain_version()` the model calls the three kernel wrappers
-    (4 odconv_s2, 3 dcnv2_im2col, 1 dcnv3_core at depth 0.33); inside it
-    calls none of them. One switch, also importable from ops.odconv."""
+    (4 odconv_s2, 3 dcnv2_im2col, 1 dcnv3_core at depth 0.33), and its
+    backward the two DCN gradient wrappers (3 dcnv2_im2col_bwd, 1
+    dcnv3_core_bwd, through the autograd Functions); inside it calls none
+    of them. One switch, also importable from ops.odconv."""
     pmodel = dcn_graph[4]
     calls = []
 
@@ -516,6 +518,8 @@ def test_plain_version_switch_reaches_every_kernel_wrapper(dcn_graph, monkeypatc
     monkeypatch.setattr(ops_odconv, "odconv_s2", recording("odconv_s2", ops_odconv.odconv_s2))
     monkeypatch.setattr(ops_dcn, "dcnv3_core", recording("dcnv3_core", ops_dcn.dcnv3_core))
     monkeypatch.setattr(ops_dcn, "dcnv2_im2col", recording("dcnv2_im2col", ops_dcn.dcnv2_im2col))
+    for name in ("dcnv2_im2col_bwd", "dcnv3_core_bwd"):
+        monkeypatch.setattr(ops_dcn, name, recording(name, getattr(ops_dcn, name)))
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 3, IMGSZ, IMGSZ)).astype(np.float32))
     with torch.no_grad():
         pmodel(x)
@@ -525,4 +529,11 @@ def test_plain_version_switch_reaches_every_kernel_wrapper(dcn_graph, monkeypatc
         with plain_version():
             pmodel(x)
         assert calls == []
+    sum(o.sum() for o in pmodel(x)).backward()
+    assert (calls.count("dcnv2_im2col_bwd"), calls.count("dcnv3_core_bwd")) == (3, 1), calls
+    calls.clear()
+    with plain_version():
+        sum(o.sum() for o in pmodel(x)).backward()
+    assert calls == []
+    pmodel.zero_grad(set_to_none=True)
     assert ops_odconv.plain_version is plain_version

@@ -49,6 +49,7 @@ from yolosomi_tpu.engine import ema as jax_ema
 from yolosomi_tpu.engine import optim as jax_optim
 from yolosomi_tpu.engine import trainer as jax_trainer
 from yolosomi_tpu.utils import autoanchor as jax_autoanchor
+from yolosomi_tpu.utils import iou as jax_iou
 from yolosomi_tpu_torch import losses, train
 from yolosomi_tpu_torch.data import datasets
 from yolosomi_tpu_torch.engine import checkpoint, optim
@@ -58,7 +59,7 @@ from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_ste
 from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops.odconv import _DW_MAX_SPLIT, _dw_split
-from yolosomi_tpu_torch.utils import autoanchor
+from yolosomi_tpu_torch.utils import autoanchor, iou
 from yolosomi_tpu_torch.utils.config import find_config, load_hyp
 from yolosomi_tpu_torch.utils.weights import _flax_leaf, _leaves, export_jax_variables, load_jax_variables
 
@@ -255,6 +256,26 @@ def test_compute_loss_and_its_gradient_match_jax(jax_run, jax_loss_cases, hyp, c
     for g, jg in zip(pgrads, jgrads):
         jg = np.asarray(jg)
         np.testing.assert_allclose(g.numpy(), jg, rtol=0, atol=1e-4 * np.abs(jg).max())
+
+
+@pytest.mark.parametrize("ciou", [False, True], ids=["iou", "ciou"])
+def test_bbox_iou_gradient_matches_jax_where_boxes_touch(ciou):
+    """Pairs whose overlap is exactly 0 wide or high (boxes that touch):
+    there JAX's clip has derivative 1/2 and torch's clamp 1, so the port
+    clips as JAX does (utils/iou.py `_clip0`). The same values; gradients
+    within 1e-6 of the largest."""
+    b1 = np.array([[0.0, 0.0, 0.5, 0.5], [0.1, 0.2, 0.5, 0.75], [0.25, 0.25, 0.75, 0.5], [0.2, 0.1, 0.6, 0.3]],
+                  np.float32)
+    b2 = np.array([[0.5, 0.0, 1.0, 0.5], [0.5, 0.25, 0.875, 0.5], [0.0, 0.5, 0.5, 1.0], [0.3, 0.2, 0.5, 0.9]],
+                  np.float32)
+    want, jgrad = jax.value_and_grad(
+        lambda a: jax_iou.bbox_iou(a, jnp.asarray(b2), xywh=False, CIoU=ciou).sum())(jnp.asarray(b1))
+    t = torch.from_numpy(b1).requires_grad_()
+    got = iou.bbox_iou(t, torch.from_numpy(b2), xywh=False, CIoU=ciou).sum()
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    jgrad = np.asarray(jgrad)
+    np.testing.assert_allclose(t.grad.numpy(), jgrad, rtol=0, atol=1e-6 * np.abs(jgrad).max())
 
 
 def test_build_targets_level_matches_jax_exactly(jax_run):

@@ -12,6 +12,12 @@ Numerical conventions kept from the JAX package:
   with p = ky*k + kx (dcn.py:215-224), not torchvision's interleaved pairs.
 - DCNv2's weight keeps the JAX (P, C, c2) layout, so the columns of
   `dcnv2_im2col` (p-major) multiply its (P*C, c2) view directly.
+- DCNv3's mask is cast to value's dtype before the sampling (the kernels
+  take one dtype): under torch.autocast its softmax runs in f32, where
+  flax's bf16 module computes it in bf16. Without autocast the cast is a
+  no-op, so the f32 and the bf16 (serving) models are unchanged. DCNv2's
+  operands (a conv, cuDNN's BatchNorm and a sigmoid of bf16) stay bf16
+  under autocast.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ class DCNv3(nn.Module):
         ctx = F.gelu(self.norm(self.dw_conv(x).permute(0, 2, 3, 1)), approximate="tanh")
         offset = self.offset(ctx)
         mask = torch.softmax(self.mask(ctx).reshape(N, H, W, G, P), -1).reshape(N, H, W, G * P)
+        mask = mask.to(value.dtype)
         out = dcnv3_sampling(value.contiguous(), offset.contiguous(), mask.contiguous(), k, k, self.stride,
                              self.stride, self.pad, self.pad, self.dilation, self.dilation, G, C // G,
                              self.offset_scale)

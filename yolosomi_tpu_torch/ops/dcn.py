@@ -1,13 +1,17 @@
 """Deformable sampling for DCNv3 and DCNv2 (counterparts of
 yolosomi_tpu/ops/dcn.py `_bilinear_gather` + `dcnv3_core`, :34-124, and
-DCNv2's modulated sampling, :209-233).
+DCNv2's modulated sampling, :209-233), and its gradient.
 
 `dcnv3_core` and `dcnv2_im2col` launch the hand-written CUDA kernels of
 csrc/dcn.cu for CUDA tensors and run their plain versions for CPU
 tensors. There is no fallback: on CUDA each launches its kernel or raises.
-The kernels have no backward yet: on CUDA, where autograd records and an
-input needs a gradient, both raise (DCN_NO_BACKWARD) rather than hand
-back an output that would carry none. The plain versions train.
+Where autograd records and an input needs a gradient, the call goes
+through `Dcnv3CoreFunction` / `Dcnv2Im2colFunction`, whose backward calls
+`dcnv3_core_bwd` / `dcnv2_im2col_bwd`: the hand-written kernels of
+csrc/dcn_bwd.cu on CUDA, autograd of the plain forward on the CPU. The
+JAX package trains through XLA's VJP of its gathers, so the gradient is
+JAX's: at an integer sampling coordinate the one-sided derivative over
+the corners floor(p) and floor(p) + 1 (`_corner_weight`).
 
 The plain versions copy the JAX arithmetic with `torch.gather`. They
 compute in float32, or in float64 when given float64, and cast back to
@@ -17,6 +21,7 @@ the input's dtype.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -24,23 +29,29 @@ import torch.nn.functional as F
 from yolosomi_tpu_torch.ops import build, plain_active
 
 _SOURCE = "dcn.cu"
+_BWD_SOURCE = "dcn_bwd.cu"
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # threads per block of dcnv3_core and dcnv2_im2col, and the most pairs a
 # dcnv2_im2col lane group writes (csrc/dcn.cu V3_THREADS, V2_THREADS,
-# V2_PAIRS)
+# V2_PAIRS); the gradient kernels' blocks (csrc/dcn_bwd.cu BWD_THREADS)
 _V3_THREADS = 256
 _V2_THREADS, _V2_PAIRS = 256, 4
+_BWD_THREADS = 256
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# C signatures (csrc/dcn.cu), without the trailing stream pointer
+# C signatures (csrc/dcn.cu, csrc/dcn_bwd.cu), without the trailing stream
+# pointer
 _ARGTYPES = {
     "dcnv3_core": [_PTR] * 4 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 2,
     "dcnv2_im2col": [_PTR] * 5 + [_INT] * 11,
+    "dcnv3_core_bwd": [_PTR] * 7 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 2,
+    "dcnv2_im2col_bwd": [_PTR] * 9 + [_INT] * 11,
 }
 
 
 def _entry(name: str, dtype: torch.dtype):
     """The C entry point `<name>_<f32|bf16>`, built and loaded on first use."""
-    fn = getattr(build.load(_SOURCE), f"{name}_{_DTYPES[dtype]}")
+    source = _BWD_SOURCE if name.endswith("_bwd") else _SOURCE
+    fn = getattr(build.load(source), f"{name}_{_DTYPES[dtype]}")
     fn.argtypes = _ARGTYPES[name] + [_PTR]
     fn.restype = ctypes.c_int
     return fn
@@ -51,15 +62,9 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-DCN_NO_BACKWARD = ("has no backward kernel yet, so it cannot train on CUDA (the DCN backwards, ROADMAP queue A "
-                   "item 5); run without gradients, or train yolo-somi-dcn on the CPU")
-
-
 def _check_cuda(name: str, tensors) -> None:
     """What the kernels take: one CUDA device, one dtype of float32 or
-    bfloat16, contiguous, 32-bit sizes; and no gradient asked of them."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} {DCN_NO_BACKWARD}")
+    bfloat16, contiguous, 32-bit sizes."""
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one CUDA device, got {[str(t.device) for t in tensors]}")
@@ -74,9 +79,25 @@ def _check_cuda(name: str, tensors) -> None:
 def _launch(name: str, fn, ptrs, ints, extra=()) -> None:
     with torch.cuda.device(ptrs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), *ints, *extra, stream)
+        rc = fn(*(None if t is None else t.data_ptr() for t in ptrs), *ints, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _abs(d: torch.Tensor) -> torch.Tensor:
+    """|d| with JAX's derivative at 0 (+1, where torch's `abs` gives 0); the
+    same values, up to the sign of a zero."""
+    return torch.where(d >= 0, d, -d)
+
+
+def _corner_weight(p: torch.Tensor, corner: torch.Tensor) -> torch.Tensor:
+    """The JAX package's bilinear weight of a corner along one axis,
+    |1 - |p - corner||, with JAX's derivative where p is an integer: -1 at
+    corner floor(p), +1 at floor(p) + 1 (the one-sided derivative over
+    those two corners). torch's `abs` has derivative 0 at 0, which made
+    every sampling gradient 0 at integer points, as at the zero-initialised
+    offset heads."""
+    return _abs(1.0 - _abs(p - corner))
 
 
 def _bilinear_gather(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
@@ -93,7 +114,7 @@ def _bilinear_gather(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> t
     for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
         xc = x0 + dx
         yc = y0 + dy
-        w = (1.0 - (px - xc).abs()).abs() * (1.0 - (py - yc).abs()).abs()
+        w = _corner_weight(px, xc) * _corner_weight(py, yc)
         inb = (xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1)
         xi = xc.clamp(0, W - 1).long()
         yi = yc.clamp(0, H - 1).long()
@@ -122,20 +143,31 @@ def _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels):
                          f"{tuple(input.shape)} with G={group}, P={P}")
 
 
-def dcnv3_core_reference(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
-                         pad_h: int, pad_w: int, dilation_h: int, dilation_w: int, group: int, group_channels: int,
-                         offset_scale: float = 1.0) -> torch.Tensor:
-    """Plain version of `dcnv3_core`: the JAX arithmetic (dcn.py:59-124),
-    reference points normalised over the padded canvas included."""
-    _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
-    ct = _compute_dtype(input.dtype)
-    dev = input.device
-    x = F.pad(input, (0, 0, pad_w, pad_w, pad_h, pad_h))
-    N, H_, W_, _ = x.shape
-    _, Hout, Wout, _ = offset.shape
+def dcnv3_points(offset, H: int, W: int, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int, pad_h: int,
+                 pad_w: int, dilation_h: int, dilation_w: int, group: int, offset_scale: float = 1.0,
+                 closed_form: bool = False, dtype: torch.dtype = None):
+    """DCNv3's sampling coordinates (px, py), each (N, Ho, Wo, G, P), in
+    pixels of the padded canvas (`closed_form` False: the plain version's
+    and JAX's round trip through coordinates normalised over that canvas)
+    or of the unpadded H x W map (`closed_form` True: dcnv3_core's kernels'
+    f32 arithmetic, px = cx + (gx + off_x) * offset_scale, exact for
+    offset_scale 1); in `dtype`, by default float32 or float64 as the
+    offsets. The two differ by pad and, in f32, in the last bits:
+    a point within an ulp of an integer can floor to another corner."""
+    ct = dtype or _compute_dtype(offset.dtype)
+    dev = offset.device
+    N, Hout, Wout, _ = offset.shape
     P = kernel_h * kernel_w
-    G, Cg = group, group_channels
-
+    off = offset.reshape(N, Hout, Wout, group, P, 2).to(ct)
+    if closed_form:
+        half_x, half_y = (dilation_w * (kernel_w - 1)) // 2, (dilation_h * (kernel_h - 1)) // 2
+        pp = torch.arange(P, device=dev)
+        gx = ((pp // kernel_h) * dilation_w - half_x).to(ct)  # p = ix*kh + iy
+        gy = ((pp % kernel_h) * dilation_h - half_y).to(ct)
+        cx = (half_x + torch.arange(Wout, device=dev) * stride_w - pad_w).to(ct)[None, None, :, None, None]
+        cy = (half_y + torch.arange(Hout, device=dev) * stride_h - pad_h).to(ct)[None, :, None, None, None]
+        return cx + (gx + off[..., 0]) * offset_scale, cy + (gy + off[..., 1]) * offset_scale
+    H_, W_ = H + 2 * pad_h, W + 2 * pad_w
     base_y = (dilation_h * (kernel_h - 1)) // 2 + 0.5
     base_x = (dilation_w * (kernel_w - 1)) // 2 + 0.5
     ref_y = (base_y + torch.arange(Hout, dtype=ct, device=dev) * stride_h) / H_
@@ -149,13 +181,26 @@ def dcnv3_core_reference(input, offset, mask, kernel_h: int, kernel_w: int, stri
         [gx[:, None].expand(kernel_w, kernel_h) / W_, gy[None, :].expand(kernel_w, kernel_h) / H_], -1
     ).reshape(P, 2)
 
-    off = offset.reshape(N, Hout, Wout, G, P, 2).to(ct)
     spatial_norm = torch.tensor([W_, H_], dtype=ct, device=dev)
     loc = (ref[None, :, :, None, None, :] + grid[None, None, None, None] * offset_scale
            + off * offset_scale / spatial_norm)  # (N, Hout, Wout, G, P, 2) normalised
+    return loc[..., 0] * W_ - 0.5, loc[..., 1] * H_ - 0.5
 
-    px = loc[..., 0] * W_ - 0.5
-    py = loc[..., 1] * H_ - 0.5
+
+def dcnv3_core_reference(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
+                         pad_h: int, pad_w: int, dilation_h: int, dilation_w: int, group: int, group_channels: int,
+                         offset_scale: float = 1.0) -> torch.Tensor:
+    """Plain version of `dcnv3_core`: the JAX arithmetic (dcn.py:59-124),
+    reference points normalised over the padded canvas included."""
+    _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
+    ct = _compute_dtype(input.dtype)
+    x = F.pad(input, (0, 0, pad_w, pad_w, pad_h, pad_h))
+    N, H_, W_, _ = x.shape
+    _, Hout, Wout, _ = offset.shape
+    P = kernel_h * kernel_w
+    G, Cg = group, group_channels
+    px, py = dcnv3_points(offset, input.shape[1], input.shape[2], kernel_h, kernel_w, stride_h, stride_w, pad_h,
+                          pad_w, dilation_h, dilation_w, group, offset_scale, dtype=ct)
     Q = Hout * Wout * P
     px = px.permute(0, 1, 2, 4, 3).reshape(N, Q, G)
     py = py.permute(0, 1, 2, 4, 3).reshape(N, Q, G)
@@ -190,14 +235,26 @@ def dcnv3_core(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int,
     input.dtype. A CPU tensor runs `dcnv3_core_reference`; CUDA tensors
     (float32 or bfloat16, one dtype, contiguous; any kernel size and group
     count) launch the kernel on the current stream and count the launch in
-    `dcnv3_core.launches`."""
+    `dcnv3_core.launches`. Where autograd records and an input needs a
+    gradient, the call goes through Dcnv3CoreFunction (on the CPU too), whose
+    backward is `dcnv3_core_bwd`."""
     args = (kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w, dilation_h, dilation_w, group, group_channels)
     _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
+    if input.device.type != "cpu":
+        _check_cuda("dcnv3_core", (input, offset, mask))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (input, offset, mask)):
+        return Dcnv3CoreFunction.apply(input, offset, mask, args, offset_scale)
+    return _v3_forward(input, offset, mask, args, offset_scale)
+
+
+def _v3_forward(input, offset, mask, args: tuple, offset_scale: float) -> torch.Tensor:
+    """dcnv3_core on checked inputs: the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
     if input.device.type == "cpu":
         return dcnv3_core_reference(input, offset, mask, *args, offset_scale=offset_scale)
-    _check_cuda("dcnv3_core", (input, offset, mask))
     N, H, W, C = input.shape
     _, Ho, Wo, _ = offset.shape
+    group, group_channels = args[8:]
     out = torch.empty((N, Ho, Wo, C), device=input.device, dtype=input.dtype)
     vec, lanes = _v3_geometry(group_channels, input.element_size(),
                               input.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
@@ -208,6 +265,78 @@ def dcnv3_core(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int,
 
 
 dcnv3_core.launches = 0
+
+
+class Dcnv3CoreFunction(torch.autograd.Function):
+    """dcnv3_core under autograd: the forward of `dcnv3_core` (kernel or
+    plain version, by device), and a backward of one `dcnv3_core_bwd` call,
+    made where any of value, offset and mask needs a gradient (value's
+    scatter only where value does). Under autocast both run as called: the
+    kernels take one dtype and raise otherwise."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, input, offset, mask, args, offset_scale):
+        ctx.save_for_backward(input, offset, mask)
+        ctx.args, ctx.offset_scale = args, offset_scale
+        return _v3_forward(input, offset, mask, args, offset_scale)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dout):
+        input, offset, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        grads = dcnv3_core_bwd(input, offset, mask, dout.contiguous().to(input.dtype), *ctx.args,
+                               offset_scale=ctx.offset_scale, need_input=need[0])
+        return tuple(g if n else None for g, n in zip(grads, need)) + (None, None)
+
+
+def dcnv3_core_backward_reference(input, offset, mask, dout, kernel_h: int, kernel_w: int, stride_h: int,
+                                  stride_w: int, pad_h: int, pad_w: int, dilation_h: int, dilation_w: int,
+                                  group: int, group_channels: int, offset_scale: float = 1.0) -> tuple:
+    """Plain version of `dcnv3_core_bwd`: autograd of dcnv3_core_reference.
+    Returns (dinput, doffset, dmask) in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (input, offset, mask)]
+        out = dcnv3_core_reference(*leaves, kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w, dilation_h,
+                                   dilation_w, group, group_channels, offset_scale)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def dcnv3_core_bwd(input, offset, mask, dout, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
+                   pad_h: int, pad_w: int, dilation_h: int, dilation_w: int, group: int, group_channels: int,
+                   offset_scale: float = 1.0, need_input: bool = True) -> tuple:
+    """The gradient of dcnv3_core: dout (N, Ho, Wo, G*Cg) -> (dinput,
+    doffset, dmask), each in its input's dtype, the derivative at integer
+    coordinates one-sided as JAX's (`_corner_weight`); dinput is None when
+    not `need_input`. A CPU tensor runs the plain version; CUDA tensors (one
+    dtype, contiguous) launch the kernel of csrc/dcn_bwd.cu, which scatters
+    dinput with f32 atomics into a zeroed f32 buffer (cast once to bf16;
+    the order of the adds varies from call to call), and count the launch
+    in `dcnv3_core_bwd.launches`."""
+    args = (kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w, dilation_h, dilation_w, group, group_channels)
+    _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
+    if tuple(dout.shape) != tuple(offset.shape[:3]) + (input.shape[-1],):
+        raise ValueError(f"dout {tuple(dout.shape)} does not match the output "
+                         f"{tuple(offset.shape[:3]) + (input.shape[-1],)}")
+    if input.device.type == "cpu":
+        grads = dcnv3_core_backward_reference(input, offset, mask, dout, *args, offset_scale=offset_scale)
+        return (grads[0] if need_input else None, *grads[1:])
+    _check_cuda("dcnv3_core_bwd", (input, offset, mask, dout))
+    N, H, W, C = input.shape
+    _, Ho, Wo, _ = offset.shape
+    dinput = torch.zeros((N, H, W, C), device=input.device, dtype=torch.float32) if need_input else None
+    doffset, dmask = torch.empty_like(offset), torch.empty_like(mask)
+    vec, lanes = _v3_geometry(group_channels, input.element_size(),
+                              input.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0)
+    _launch("dcnv3_core_bwd", _entry("dcnv3_core_bwd", input.dtype),
+            (input, offset, mask, dout, dinput, doffset, dmask),
+            (N, H, W, group, group_channels, Ho, Wo, *args[:8]), (float(offset_scale), vec, lanes))
+    dcnv3_core_bwd.launches += 1
+    return (dinput.to(input.dtype) if need_input else None), doffset, dmask
+
+
+dcnv3_core_bwd.launches = 0
 
 
 def dcnv3_sampling(*args, **kwargs) -> torch.Tensor:
@@ -274,15 +403,31 @@ def dcnv2_im2col(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: 
     (N, Ho*Wo, P*C), p-major to match the weight's (P, C, c2) flattening.
     A CPU tensor runs `dcnv2_im2col_reference`; CUDA tensors (float32 or
     bfloat16, one dtype, contiguous) launch the kernel on the current
-    stream and count the launch in `dcnv2_im2col.launches`."""
+    stream and count the launch in `dcnv2_im2col.launches`. Where autograd
+    records and an input needs a gradient, the call goes through
+    Dcnv2Im2colFunction (on the CPU too), whose backward is
+    `dcnv2_im2col_bwd`."""
     _check_v2(x, offset_y, offset_x, mask, k)
+    if x.device.type != "cpu":
+        _check_cuda("dcnv2_im2col", (x, offset_y, offset_x, mask))
+        _check_v2_size(x, offset_y)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, offset_y, offset_x, mask)):
+        return Dcnv2Im2colFunction.apply(x, offset_y, offset_x, mask, k, stride, pad)
+    return _v2_forward(x, offset_y, offset_x, mask, k, stride, pad)
+
+
+def _check_v2_size(x, offset_y) -> None:
+    if x.shape[0] * math.prod(offset_y.shape[1:]) * x.shape[-1] >= 2**31:
+        raise ValueError("dcnv2_im2col: the columns would have 2**31 elements or more")
+
+
+def _v2_forward(x, offset_y, offset_x, mask, k: int, stride: int, pad: int) -> torch.Tensor:
+    """dcnv2_im2col on checked inputs: the plain version for CPU tensors,
+    the kernel for CUDA tensors."""
     if x.device.type == "cpu":
         return dcnv2_im2col_reference(x, offset_y, offset_x, mask, k, stride, pad)
-    _check_cuda("dcnv2_im2col", (x, offset_y, offset_x, mask))
     N, H, W, C = x.shape
     _, Ho, Wo, P = offset_y.shape
-    if N * Ho * Wo * P * C >= 2**31:
-        raise ValueError("dcnv2_im2col: the columns would have 2**31 elements or more")
     cols = torch.empty((N, Ho * Wo, P * C), device=x.device, dtype=x.dtype)
     vec, lanes, _ = _v2_geometry(C, x.element_size(), x.data_ptr() % 16 == 0 and cols.data_ptr() % 16 == 0)
     fn = _entry("dcnv2_im2col", x.dtype)
@@ -292,6 +437,72 @@ def dcnv2_im2col(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: 
 
 
 dcnv2_im2col.launches = 0
+
+
+class Dcnv2Im2colFunction(torch.autograd.Function):
+    """dcnv2_im2col under autograd: the forward of `dcnv2_im2col` (kernel or
+    plain version, by device), and a backward of one `dcnv2_im2col_bwd`
+    call, made where any of x, the offsets and the mask needs a gradient
+    (x's scatter only where x does)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, offset_y, offset_x, mask, k, stride, pad):
+        ctx.save_for_backward(x, offset_y, offset_x, mask)
+        ctx.geometry = (k, stride, pad)
+        return _v2_forward(x, offset_y, offset_x, mask, k, stride, pad)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dcols):
+        x, offset_y, offset_x, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        grads = dcnv2_im2col_bwd(x, offset_y, offset_x, mask, dcols.contiguous().to(x.dtype), *ctx.geometry,
+                                 need_x=need[0])
+        return tuple(g if n else None for g, n in zip(grads, need)) + (None, None, None)
+
+
+def dcnv2_im2col_backward_reference(x, offset_y, offset_x, mask, dcols, k: int = 3, stride: int = 1,
+                                    pad: int = 1) -> tuple:
+    """Plain version of `dcnv2_im2col_bwd`: autograd of
+    dcnv2_im2col_reference. Returns (dx, doffset_y, doffset_x, dmask)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, offset_y, offset_x, mask)]
+        return torch.autograd.grad(dcnv2_im2col_reference(*leaves, k, stride, pad), leaves, dcols)
+
+
+def dcnv2_im2col_bwd(x, offset_y, offset_x, mask, dcols, k: int = 3, stride: int = 1, pad: int = 1,
+                     need_x: bool = True) -> tuple:
+    """The gradient of dcnv2_im2col: dcols (N, Ho*Wo, P*C), p-major as the
+    forward writes it -> (dx, doffset_y, doffset_x, dmask), each in its
+    input's dtype, the derivative at integer coordinates one-sided as
+    JAX's (`_corner_weight`); dx is None when not `need_x`. A CPU tensor
+    runs the plain version; CUDA tensors (one dtype, contiguous) launch
+    the kernel of csrc/dcn_bwd.cu, which scatters dx with f32 atomics into
+    a zeroed f32 buffer (cast once to bf16; the order of the adds varies
+    from call to call), and count the launch in
+    `dcnv2_im2col_bwd.launches`."""
+    _check_v2(x, offset_y, offset_x, mask, k)
+    N, H, W, C = x.shape
+    _, Ho, Wo, P = offset_y.shape
+    if tuple(dcols.shape) != (N, Ho * Wo, P * C):
+        raise ValueError(f"dcols {tuple(dcols.shape)} does not match the columns {(N, Ho * Wo, P * C)}")
+    if x.device.type == "cpu":
+        grads = dcnv2_im2col_backward_reference(x, offset_y, offset_x, mask, dcols, k, stride, pad)
+        return (grads[0] if need_x else None, *grads[1:])
+    _check_cuda("dcnv2_im2col_bwd", (x, offset_y, offset_x, mask, dcols))
+    _check_v2_size(x, offset_y)
+    dx = torch.zeros((N, H, W, C), device=x.device, dtype=torch.float32) if need_x else None
+    doffset_y, doffset_x, dmask = (torch.empty_like(t) for t in (offset_y, offset_x, mask))
+    vec, lanes = _v3_geometry(C, x.element_size(), x.data_ptr() % 16 == 0 and dcols.data_ptr() % 16 == 0)
+    _launch("dcnv2_im2col_bwd", _entry("dcnv2_im2col_bwd", x.dtype),
+            (x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask),
+            (N, H, W, C, Ho, Wo, k, stride, pad, vec, lanes))
+    dcnv2_im2col_bwd.launches += 1
+    return (dx.to(x.dtype) if need_x else None), doffset_y, doffset_x, dmask
+
+
+dcnv2_im2col_bwd.launches = 0
 
 
 def dcnv2_columns(*args, **kwargs) -> torch.Tensor:

@@ -16,8 +16,8 @@ match.
 
 Runs on CUDA unless --device names another device. Options of the JAX
 CLI that are not ported raise NotImplementedError naming their ROADMAP
-item; so does a deformable (DCN) model on CUDA, whose kernels have no
-backward yet. Besides the JAX package's files, each run writes
+item. The DCN variant trains on CUDA through the sampling kernels' own
+gradient kernels (ops/dcn.py). Besides the JAX package's files, each run writes
 train_log.jsonl: one JSON object per epoch with its losses, metrics and
 host-clock timings.
 """
@@ -43,9 +43,7 @@ from yolosomi_tpu_torch.engine.optim import current_lr, make_optimizer
 from yolosomi_tpu_torch.engine.runner import Runner
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
 from yolosomi_tpu_torch.losses import ComputeLoss
-from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
-from yolosomi_tpu_torch.ops.dcn import DCN_NO_BACKWARD
 from yolosomi_tpu_torch.utils.autoanchor import check_anchors
 from yolosomi_tpu_torch.utils.callbacks import Callbacks
 from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg, load_hyp, load_model_cfg, save_yaml
@@ -102,9 +100,7 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
     cfg = load_model_cfg(find_config(opt.cfg))
     amp_dtype = None if opt.no_bf16 else torch.bfloat16
     with torch.device("meta"):  # the graph's geometry; nothing is allocated
-        modules, meta = parse_model(dict(cfg, nc=nc))
-    if device.type == "cuda" and any(isinstance(m, (DCNv2, DCNv3)) for mod in modules for m in mod.modules()):
-        raise NotImplementedError(f"{opt.cfg}: a deformable model's sampling kernel {DCN_NO_BACKWARD}")
+        meta = parse_model(dict(cfg, nc=nc))[1]
     gs = int(max(meta.strides))
     imgsz = check_img_size(opt.imgsz, s=gs)
 

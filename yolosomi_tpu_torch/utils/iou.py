@@ -12,6 +12,13 @@ import math
 import torch
 
 
+def _clip0(d: torch.Tensor) -> torch.Tensor:
+    """max(d, 0) with the derivative of `jnp.clip(d, 0, None)`: 1/2 at
+    d = 0 (where boxes touch), as JAX gives it; torch's clamp gives 1. The
+    same values for finite d."""
+    return 0.5 * (d + d.abs())
+
+
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, CIoU: bool = False, alpha: float = 1.0,
              eps: float = 1e-7) -> torch.Tensor:
     """IoU (or CIoU) of aligned boxes of broadcastable shapes (..., 4),
@@ -30,8 +37,8 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, CIoU: bo
         w1, h1 = b1x2 - b1x1, b1y2 - b1y1 + eps
         w2, h2 = b2x2 - b2x1, b2y2 - b2y1 + eps
 
-    inter = (torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0) * \
-        (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0)
+    inter = _clip0(torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)) * \
+        _clip0(torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1))
     union = w1 * h1 + w2 * h2 - inter + eps
     iou = inter / union
     if alpha != 1.0:
