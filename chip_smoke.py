@@ -87,12 +87,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
  9. training yolo-somi-dcn, on the same set. (a), with phase 3:
     dcnv2_im2col_bwd at rows 6 and 8 and dcnv3_core_bwd at row 10 against
     autograd of the plain version (b8), f32 and bf16, offsets reaching past
-    the border and, for DCNv2, zero offsets (the heads' init); every call
-    twice, each within GRAD_TOL (the input gradient's f32 atomics add in a
-    varying order); timed beside the plain version and grid_sample's
-    backward. (b) the full-width f32 step (b2) through the kernels against
-    plain_version(), both against f64, as 8(b), with the offset heads
-    random and at their zero init: every offset head's gradient non-zero.
+    the border and zero offsets (the heads' init); every call twice, each
+    within GRAD_TOL (the input gradient's f32 atomics add in a varying
+    order), doffset and dmask the same bits both times; timed beside the
+    plain version and grid_sample's backward, with each site's launch plan
+    and the share of corners past the plan's windows (added straight to
+    global memory). (b) the full-width f32 step (b2) through the kernels
+    against plain_version(), both against f64, as 8(b), with the offset
+    heads random and at their zero init: every offset head's gradient
+    non-zero.
     (c) the b8 witness in bf16 (seeds 0-1), as train.run trains: the step
     through the DCN gradient kernels against the step with their plain
     backward behind the same forward, as 8(b), the repeat held to the same
@@ -136,10 +139,10 @@ from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
 from yolosomi_tpu_torch.models.heads import decode
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops import build
-from yolosomi_tpu_torch.ops.dcn import (Dcnv2Im2colFunction, Dcnv3CoreFunction, dcnv2_im2col,
-                                        dcnv2_im2col_backward_reference, dcnv2_im2col_bwd, dcnv2_im2col_reference,
-                                        dcnv3_core, dcnv3_core_backward_reference, dcnv3_core_bwd,
-                                        dcnv3_core_reference, dcnv3_points)
+from yolosomi_tpu_torch.ops.dcn import (Dcnv2Im2colFunction, Dcnv3CoreFunction, _v2_bwd_plan, _v3_bwd_plan,
+                                        dcnv2_im2col, dcnv2_im2col_backward_reference, dcnv2_im2col_bwd,
+                                        dcnv2_im2col_reference, dcnv3_core, dcnv3_core_backward_reference,
+                                        dcnv3_core_bwd, dcnv3_core_reference, dcnv3_points)
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
 from yolosomi_tpu_torch.ops.odconv import (OdconvS2Function, _dw_plan, _dw_split, _dx_plan, _plan, odconv_s2,
                                            odconv_s2_backward_reference, odconv_s2_dwmix, odconv_s2_dx,
@@ -546,26 +549,60 @@ def dcn_grad_bound(nbytes: int, channels: int, corners: int, points: int) -> tup
     return roofline(nbytes, float(channels) * (8 * corners + 6 * points), PEAK_FLOPS[torch.float32])
 
 
+def spill_share(plan, px: torch.Tensor, py: torch.Tensor, H: int, W: int, s: int, pad: int) -> float:
+    """The share of the corners a DCN gradient kernel adds into the input
+    gradient (on the map, weight not 0) that lie past their block's window
+    under `plan` and go straight to global atomics; px, py (N, Ho, Wo, ...)
+    the kernel's sampling points."""
+    Ho, Wo = px.shape[1:3]
+    rest = (1,) * (px.dim() - 3)
+    oy = torch.arange(Ho, device=px.device).reshape(1, Ho, 1, *rest)
+    ox = torch.arange(Wo, device=px.device).reshape(1, 1, Wo, *rest)
+    y_lo = oy // plan.th * plan.th * s - pad - plan.halo
+    x_lo = ox // plan.tw * plan.tw * s - pad - plan.halo
+    x0, y0 = px.floor(), py.floor()
+    fx, fy = px - x0, py - y0
+    adds = spills = 0
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xc, yc = x0 + dx, y0 + dy
+        w = (fx if dx else 1 - fx) * (fy if dy else 1 - fy)
+        added = (xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1) & (w != 0)
+        inside = (yc - y_lo >= 0) & (yc - y_lo < plan.fh) & (xc - x_lo >= 0) & (xc - x_lo < plan.fw)
+        adds += added.sum().item()
+        spills += (added & ~inside).sum().item()
+    return spills / max(adds, 1)
+
+
+def plan_text(plan) -> str:
+    return (f"plan (tile {plan.th}x{plan.tw}, slice {plan.cs} of {plan.slices}, halo {plan.halo}, window "
+            f"{plan.fh}x{plan.fw}, {plan.blocks} blocks, {plan.smem} B shared)")
+
+
 def check_dcn_backward(v2_sites, v3_sites, gen: torch.Generator) -> tuple:
     """dcnv2_im2col_bwd and dcnv3_core_bwd against autograd of the plain
     version at every DCN site (b8, 640 px), f32 and bf16, with random
-    offsets up to +-4 px (past the border) and, for DCNv2, zero offsets (the
-    heads' init: integer points, the one-sided derivative); every call
-    twice, both within GRAD_TOL (the input gradient is scattered with f32
-    atomics, so a repeat is not bitwise); DCNv3's doffset where both
+    offsets up to +-4 px (past the border) and zero offsets (the heads'
+    init: integer points, the one-sided derivative); every call twice,
+    both within GRAD_TOL (the input gradient is added with f32 atomics, so
+    a repeat is not bitwise; the offset and mask gradients are, and must
+    give the same bits); DCNv3's doffset where both
     versions' coordinates floor alike (same_corners). Timed with random
     offsets beside the plain version and autograd of grid_sample for the
     same sampling (input and grid gradients, on inputs already in its
-    layout). Returns the bf16 summaries (dcnv2_im2col_bwd, dcnv3_core_bwd)."""
+    layout). Each line shows the launch plan and the share of corners
+    that spill past its windows. Returns the bf16 summaries
+    (dcnv2_im2col_bwd, dcnv3_core_bwd)."""
     sums = {"dcnv2_im2col_bwd": new_summary(), "dcnv3_core_bwd": new_summary()}
 
     def check(name, kernel, plain, ref, keeps, label):
-        errs = []
+        errs, calls = [], []
         for _ in range(2):
             got = kernel()
             torch.cuda.synchronize()
             errs.append([rel_err(g, r, k) for g, r, k in zip(got, ref, keeps)])
+            calls.append(got)
         assert all(e <= GRAD_TOL[got[0].dtype] for row in errs for e in row), (name, label, errs)
+        assert all(torch.equal(a, b) for a, b in zip(calls[0][1:], calls[1][1:])), (name, label, "not repeatable")
         plain_got = plain()
         plain_errs = [rel_err(g, r, k) for g, r, k in zip(plain_got, ref, keeps)]
         return got, max(max(row) for row in errs), plain_errs
@@ -584,6 +621,8 @@ def check_dcn_backward(v2_sites, v3_sites, gen: torch.Generator) -> tuple:
             corners = valid_corners(px, py, H, W)
             for dtype in (torch.float32, torch.bfloat16):
                 x, oy, ox, m, g = (t.to(dtype).contiguous() for t in (x32, oy32, ox32, m32, g32))
+                plan = _v2_bwd_plan(N, C, Ho, Wo, k, s, x.element_size())
+                spill = spill_share(plan, px, py, H, W, s, p)
                 ref = dcnv2_im2col_backward_reference(x.float(), oy.float(), ox.float(), m.float(), g.float(), k, s, p)
                 kernel = lambda: dcnv2_im2col_bwd(x, oy, ox, m, g, k, s, p)  # noqa: E731
                 plain = lambda: dcnv2_im2col_backward_reference(x, oy, ox, m, g, k, s, p)  # noqa: E731
@@ -594,7 +633,8 @@ def check_dcn_backward(v2_sites, v3_sites, gen: torch.Generator) -> tuple:
                 abs_err = max((a.float() - b).abs().max().item() for a, b in zip(got, ref))
                 kernel_ms = time_ms(kernel)
                 line = (f"dcnv2_im2col_bwd row {row} x{tuple(xs)} dcols {tuple(g.shape)} x{count}/step "
-                        f"{str(dtype)[6:]} {offsets} offsets: kernel_ms {kernel_ms:.4f}")
+                        f"{str(dtype)[6:]} {offsets} offsets {plan_text(plan)} spill {spill:.4f}: "
+                        f"kernel_ms {kernel_ms:.4f}")
                 if offsets == "random":
                     xin = x.permute(0, 3, 1, 2).contiguous()
                     grid = grid_of(px, py, H, W, dtype).reshape(N, Ho * Wo, P, 2)
@@ -609,7 +649,7 @@ def check_dcn_backward(v2_sites, v3_sites, gen: torch.Generator) -> tuple:
                              f"{kernel_ms / bound[0]:.1f}")
                     if dtype == torch.bfloat16:
                         add_site(sums["dcnv2_im2col_bwd"], count, kernel_ms, plain_ms, library_ms, bound, abs_err)
-                print(line + f"; {corners * C / 1e6:.1f} M f32 atomic adds at most; rel norm err (dx, doffset_y, "
+                print(line + f"; {corners * C / 1e6:.1f} M f32 adds at most; rel norm err (dx, doffset_y, "
                       f"doffset_x, dmask) max {err:.2e}, plain {', '.join(f'{e:.1e}' for e in plain_errs)}; "
                       f"max_abs_err {abs_err:.3e}")
     for site in v3_sites:
@@ -617,34 +657,44 @@ def check_dcn_backward(v2_sites, v3_sites, gen: torch.Generator) -> tuple:
         d = dcnv3_site(site, gen)
         N, H, W, G, Cg, Ho, Wo, P = d["shape"]
         args = d["args"]
-        corners = valid_corners(d["px"], d["py"], H, W)
         g32 = torch.randn((N, Ho, Wo, G * Cg), device="cuda", generator=gen)
-        for dtype in (torch.float32, torch.bfloat16):
-            v, o, m, g = (t.to(dtype).contiguous() for t in (d["v32"], d["o32"], d["m32"], g32))
-            ref = dcnv3_core_backward_reference(v.float(), o.float(), m.float(), g.float(), *args)
-            keep = same_corners(o, H, W, args)
-            kernel = lambda: dcnv3_core_bwd(v, o, m, g, *args)  # noqa: E731
-            plain = lambda: dcnv3_core_backward_reference(v, o, m, g, *args)  # noqa: E731
-            got, err, plain_errs = check("dcnv3_core_bwd", kernel, plain, ref, (None, keep, None), f"row {row}")
-            abs_err = max(((a.float() - b) * (kk if kk is not None else 1)).abs().max().item()
-                          for a, b, kk in zip(got, ref, (None, keep, None)))
-            vin = v.reshape(N, H, W, G, Cg).permute(0, 3, 4, 1, 2).reshape(N * G, Cg, H, W).contiguous()
-            grid = grid_of(d["px"], d["py"], H, W, dtype).permute(0, 3, 1, 2, 4, 5).reshape(N * G, Ho * Wo, P, 2)
-            gout = g.reshape(N, Ho * Wo, G, 1, Cg).expand(N, Ho * Wo, G, P, Cg).permute(0, 2, 4, 1, 3).reshape(
-                N * G, Cg, Ho * Wo, P).contiguous()
-            library = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
-                gout, vin, grid, 0, 0, False, [True, True])
-            kernel_ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
-            nbytes = (2 * (v.numel() + o.numel() + m.numel()) + g.numel()) * v.element_size()
-            bound = dcn_grad_bound(nbytes, Cg, corners, N * Ho * Wo * G * P)
-            print(f"dcnv3_core_bwd row {row} x{tuple(xs)} G {G} P {P} x{count}/step {str(dtype)[6:]}: kernel_ms "
-                  f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (grid_sample's backward, "
-                  f"sampling only) bound_ms {bound[0]:.4f} ({bound[1]}; {nbytes / 1e6:.1f} MB) x bound "
-                  f"{kernel_ms / bound[0]:.1f}; {corners * Cg / 1e6:.1f} M f32 atomic adds at most; doffset compared "
-                  f"at {keep.float().mean().item():.6f} of the points; rel norm err (dvalue, doffset, dmask) max "
-                  f"{err:.2e}, plain {', '.join(f'{e:.1e}' for e in plain_errs)}; max_abs_err {abs_err:.3e}")
-            if dtype == torch.bfloat16:
-                add_site(sums["dcnv3_core_bwd"], count, kernel_ms, plain_ms, library_ms, bound, abs_err)
+        for offsets, o32, px, py in (("random", d["o32"], d["px"], d["py"]),
+                                     ("zero", torch.zeros_like(d["o32"]), d["bx"].expand_as(d["px"]),
+                                      d["by"].expand_as(d["py"]))):
+            corners = valid_corners(px, py, H, W)
+            for dtype in (torch.float32, torch.bfloat16):
+                v, o, m, g = (t.to(dtype).contiguous() for t in (d["v32"], o32, d["m32"], g32))
+                plan = _v3_bwd_plan(N, G, Cg, Ho, Wo, *args[:4], *args[6:8], v.element_size())
+                spill = spill_share(plan, px, py, H, W, args[2], args[4])
+                ref = dcnv3_core_backward_reference(v.float(), o.float(), m.float(), g.float(), *args)
+                keep = same_corners(o, H, W, args)
+                kernel = lambda: dcnv3_core_bwd(v, o, m, g, *args)  # noqa: E731
+                plain = lambda: dcnv3_core_backward_reference(v, o, m, g, *args)  # noqa: E731
+                got, err, plain_errs = check("dcnv3_core_bwd", kernel, plain, ref, (None, keep, None),
+                                             f"row {row} {offsets}")
+                abs_err = max(((a.float() - b) * (kk if kk is not None else 1)).abs().max().item()
+                              for a, b, kk in zip(got, ref, (None, keep, None)))
+                kernel_ms = time_ms(kernel)
+                line = (f"dcnv3_core_bwd row {row} x{tuple(xs)} G {G} P {P} x{count}/step {str(dtype)[6:]} "
+                        f"{offsets} offsets {plan_text(plan)} spill {spill:.4f}: kernel_ms {kernel_ms:.4f}")
+                if offsets == "random":
+                    vin = v.reshape(N, H, W, G, Cg).permute(0, 3, 4, 1, 2).reshape(N * G, Cg, H, W).contiguous()
+                    grid = grid_of(px, py, H, W, dtype).permute(0, 3, 1, 2, 4, 5).reshape(N * G, Ho * Wo, P, 2)
+                    gout = g.reshape(N, Ho * Wo, G, 1, Cg).expand(N, Ho * Wo, G, P, Cg).permute(0, 2, 4, 1, 3).reshape(
+                        N * G, Cg, Ho * Wo, P).contiguous()
+                    library = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+                        gout, vin, grid, 0, 0, False, [True, True])
+                    plain_ms, library_ms = time_ms(plain), time_ms(library)
+                    nbytes = (2 * (v.numel() + o.numel() + m.numel()) + g.numel()) * v.element_size()
+                    bound = dcn_grad_bound(nbytes, Cg, corners, N * Ho * Wo * G * P)
+                    line += (f" plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (grid_sample's backward, "
+                             f"sampling only) bound_ms {bound[0]:.4f} ({bound[1]}; {nbytes / 1e6:.1f} MB) x bound "
+                             f"{kernel_ms / bound[0]:.1f}")
+                    if dtype == torch.bfloat16:
+                        add_site(sums["dcnv3_core_bwd"], count, kernel_ms, plain_ms, library_ms, bound, abs_err)
+                print(line + f"; {corners * Cg / 1e6:.1f} M f32 adds at most; doffset compared at "
+                      f"{keep.float().mean().item():.6f} of the points; rel norm err (dvalue, doffset, dmask) max "
+                      f"{err:.2e}, plain {', '.join(f'{e:.1e}' for e in plain_errs)}; max_abs_err {abs_err:.3e}")
     return sums["dcnv2_im2col_bwd"], sums["dcnv3_core_bwd"]
 
 
@@ -1613,7 +1663,8 @@ def train_step_witness(root: Path, seed: int, amp_dtype=None, cfg_name: str = "y
 PROFILED = (("odconv_s2 forward", ("odconv_s2_bf16", "odconv_s2_splitk")), ("odconv_s2_dx", ("odconv_s2_dx",)),
             ("odconv_s2_dwmix", ("odconv_s2_dw_", "odconv_s2_bwd_reduce")),
             ("dcnv2_im2col", ("dcnv2_im2col_kernel",)), ("dcnv3_core", ("dcnv3_core_kernel",)),
-            ("dcnv2_im2col_bwd", ("dcnv2_im2col_bwd_kernel",)), ("dcnv3_core_bwd", ("dcnv3_core_bwd_kernel",)))
+            ("dcnv2_im2col_bwd", ("dcnv2_im2col_bwd_kernel", "dcnv2_im2col_bwd_sums")),
+            ("dcnv3_core_bwd", ("dcnv3_core_bwd_kernel", "dcnv3_core_bwd_sums")))
 
 
 def profile_train_step(gpu: str, root: Path, cfg_name: str = "yolo-somi") -> None:

@@ -11,8 +11,10 @@ The gradient kernels (odconv_s2_dx, odconv_s2_dwmix, dcnv2_im2col_bwd,
 dcnv3_core_bwd) are held against autograd of the plain version by the
 relative norm of the difference: 1e-5 in f32 (summation order only) and
 4e-3 in bf16 (one rounding of the output, 2**-9 relative). The DCN
-kernels scatter the input gradient with f32 atomics, so they are held to
-the same bound on every call rather than repeated bitwise.
+kernels add the input gradient with f32 atomics (into shared-memory
+windows, and past them into the global buffer), so it is held to the same
+bound on every call rather than repeated bitwise; their offset and mask
+gradients are fixed-order sums and repeat bitwise.
 """
 
 import json
@@ -30,9 +32,10 @@ from yolosomi_tpu_torch.models.dcn import BottleneckDCN, DCNv3, init_dcn_heads, 
 from yolosomi_tpu_torch.models.yolo import build_model
 from yolosomi_tpu_torch.ops import build
 from yolosomi_tpu_torch.ops import plain_version
-from yolosomi_tpu_torch.ops.dcn import (dcnv2_im2col, dcnv2_im2col_backward_reference, dcnv2_im2col_bwd,
-                                        dcnv2_im2col_reference, dcnv3_core, dcnv3_core_backward_reference,
-                                        dcnv3_core_bwd, dcnv3_core_reference, dcnv3_points)
+from yolosomi_tpu_torch.ops.dcn import (_v2_bwd_launch, _v2_bwd_plan, dcnv2_im2col, dcnv2_im2col_backward_reference,
+                                        dcnv2_im2col_bwd, dcnv2_im2col_reference, dcnv3_core,
+                                        dcnv3_core_backward_reference, dcnv3_core_bwd, dcnv3_core_reference,
+                                        dcnv3_points)
 from yolosomi_tpu_torch import train
 from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
@@ -120,11 +123,13 @@ def test_odconv_s2_kernel_rejects_what_it_does_not_take(cuda):
         odconv_s2(flat[1:].view(x.shape), wmix.bfloat16())
 
 
-def _dcnv3_case(gen, dtype, n, h, w, g, cg, s, dil, k=3, shifted=None, zero=False):
+def _dcnv3_case(gen, dtype, n, h, w, g, cg, s, dil, k=3, shifted=None, zero=False, far=False):
     """Inputs of a k x k DCNv3 sampling with pad k // 2; `shifted` ("value"
     or "offset") puts that tensor one element past an aligned address:
     value then misses 16-byte alignment, and offset the alignment of its
-    (x, y) pairs; `zero` makes the offsets 0 (the heads' init)."""
+    (x, y) pairs; `zero` makes the offsets 0 (the heads' init); `far`
+    makes them 20 to 21 pixels (every corner past the gradient kernel's
+    window)."""
     pad, P = k // 2, k * k
     ho = (h + 2 * pad - (dil * (k - 1) + 1)) // s + 1
     wo = (w + 2 * pad - (dil * (k - 1) + 1)) // s + 1
@@ -133,6 +138,8 @@ def _dcnv3_case(gen, dtype, n, h, w, g, cg, s, dil, k=3, shifted=None, zero=Fals
     offset = (torch.rand(n, ho, wo, g * P * 2, device="cuda", generator=gen) - 0.5) * 8
     if zero:
         offset.zero_()
+    if far:
+        offset = offset / 8 + 20.5
     logits = torch.randn(n, ho, wo, g, P, device="cuda", generator=gen) * 2
     mask = torch.softmax(logits, -1).reshape(n, ho, wo, g * P)
     inputs = {"value": value.to(dtype), "offset": offset.to(dtype), "mask": mask.to(dtype)}
@@ -446,20 +453,27 @@ def _masked_rel(a, ref, keep):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [(2, 9, 11, 5, 1), (1, 13, 7, 40, 2), (3, 6, 6, 1, 1), (2, 12, 10, 256, 1),
                                   (1, 9, 7, 512, 2), (1, 8, 6, 256, 1, "misaligned"), (2, 12, 10, 256, 1, "zero"),
-                                  (2, 9, 11, 5, 2, "zero")])
+                                  (2, 9, 11, 5, 2, "zero"), (2, 13, 21, 64, 1), (2, 48, 44, 128, 1, "far"),
+                                  (1, 40, 40, 5, 2, "far"), (1, 17, 19, 6, 1, "misaligned")])
 def test_dcnv2_im2col_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
     """dx, both offsets and the mask against autograd of the plain version:
-    odd C one channel a lane, C = 256 / 512 (the training widths) 16-byte
-    vectors, an x off 16-byte alignment, zero offsets (integer points:
-    the one-sided derivative, 3 of 4 corners of weight 0), strides 1 and
-    2, offsets reaching past the border; each twice, both within the
-    bound (the dx scatter adds in a varying order)."""
+    odd C one channel a lane (VEC 1), C = 256 / 512 (the training widths:
+    channel slices split across blocks, their sums added by the second
+    pass), x off alignment (VEC 1 at C 256 and 6), zero offsets (integer
+    points: the one-sided derivative, 3 of 4 corners of weight 0), strides
+    1 and 2, maps of ragged tiles whose windows reach past the border,
+    offsets reaching past the border, and offsets of 20 to 21 pixels
+    ("far": every corner past its window, to global atomics); each twice,
+    both within the bound (the dx adds land in a varying order), the
+    offset and mask gradients the same bits both times."""
     n, h, w, c, s = case[:5]
     ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
     x = torch.randn(n, h, w, c, device="cuda", generator=cuda)
     oy, ox = ((torch.rand(2, n, ho, wo, 9, device="cuda", generator=cuda) - 0.5) * 8).unbind(0)
     if "zero" in case:
         oy, ox = torch.zeros_like(oy), torch.zeros_like(ox)
+    if "far" in case:
+        oy, ox = oy / 8 + 20.5, ox / 8 + 20.5
     mask = torch.sigmoid(torch.randn(n, ho, wo, 9, device="cuda", generator=cuda))
     dcols = torch.randn(n, ho * wo, 9 * c, device="cuda", generator=cuda)
     x, oy, ox, mask, dcols = (t.to(dtype) for t in (x, oy, ox, mask, dcols))
@@ -467,6 +481,7 @@ def test_dcnv2_im2col_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
         x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(n, h, w, c)
         assert x.is_contiguous() and x.data_ptr() % 16
     ref = dcnv2_im2col_backward_reference(x.float(), oy.float(), ox.float(), mask.float(), dcols.float(), 3, s, 1)
+    calls = []
     for _ in range(2):
         before = dcnv2_im2col_bwd.launches
         got = dcnv2_im2col_bwd(x, oy, ox, mask, dcols, 3, s, 1)
@@ -475,6 +490,9 @@ def test_dcnv2_im2col_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
         for g, r, t in zip(got, ref, (x, oy, ox, mask)):
             assert g.dtype == dtype and g.shape == t.shape
             assert _rel(g, r) <= GRAD_TOL[dtype], (_rel(g, r), tuple(t.shape))
+        calls.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(calls[0][1:], calls[1][1:]))
+    assert ref[0].abs().max() > 0
     if "zero" in case:
         assert ref[1].abs().max() > 0 and ref[2].abs().max() > 0
     assert dcnv2_im2col_bwd(x, oy, ox, mask, dcols, 3, s, 1, need_x=False)[0] is None
@@ -485,21 +503,26 @@ def test_dcnv2_im2col_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
 @pytest.mark.parametrize("case", [(2, 9, 11, 4, 5, 1, 1), (1, 13, 7, 8, 16, 2, 2), (3, 6, 6, 1, 33, 1, 1),
                                   (2, 20, 20, 8, 128, 1, 1), (1, 9, 7, 3, 2, 1, 1), (1, 10, 9, 16, 8, 1, 1, 5),
                                   (1, 8, 6, 2, 16, 1, 1, 3, "value"), (1, 8, 6, 2, 16, 1, 1, 3, "offset"),
-                                  (2, 20, 20, 8, 128, 1, 1, 3, None, True), (1, 9, 7, 3, 5, 2, 1, 3, None, True)])
+                                  (2, 20, 20, 8, 128, 1, 1, 3, None, True), (1, 9, 7, 3, 5, 2, 1, 3, None, True),
+                                  (2, 40, 44, 2, 64, 1, 1, 3, None, False, True), (1, 23, 13, 4, 6, 1, 1)])
 def test_dcnv3_core_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
     """dvalue, offset and mask against autograd of the plain version, at
-    the forward test's shapes (odd Cg, Cg 128 the training width, Cg 2 in
-    rounds, k 5, misaligned value and offset) and at zero offsets. doffset
+    the forward test's shapes (odd Cg, Cg 128 the training width in two
+    channel slices, Cg 2 two lanes a pair, k 5, misaligned value and
+    offset), at zero offsets, at offsets of 20 to 21 pixels (every corner
+    past its window, to global atomics) and on a map of ragged tiles. doffset
     is compared where the kernel's and the plain version's coordinates
     floor to the same corner (_same_corners: every point at random
     offsets but a rare one within an ulp of an integer; at zero offsets,
-    the points that both put on the integer)."""
+    the points that both put on the integer). Each twice, dvalue within
+    the bound both times, doffset and dmask the same bits."""
     (value, offset, mask), args = _dcnv3_case(cuda, dtype, *case)
     n, h, w = value.shape[:3]
     dout = torch.randn(*offset.shape[:3], value.shape[-1], device="cuda", generator=cuda).to(dtype)
     ref = dcnv3_core_backward_reference(value.float(), offset.float(), mask.float(), dout.float(), *args)
     keep = _same_corners(offset, h, w, args)
     assert keep.float().mean() > 0.5
+    calls = []
     for _ in range(2):
         before = dcnv3_core_bwd.launches
         got = dcnv3_core_bwd(value, offset, mask, dout, *args)
@@ -509,8 +532,29 @@ def test_dcnv3_core_bwd_kernel_matches_plain_autograd(cuda, dtype, case):
         assert _rel(got[0], ref[0]) <= GRAD_TOL[dtype], _rel(got[0], ref[0])
         assert _masked_rel(got[1], ref[1], keep) <= GRAD_TOL[dtype], _masked_rel(got[1], ref[1], keep)
         assert _rel(got[2], ref[2]) <= GRAD_TOL[dtype], _rel(got[2], ref[2])
-    assert (ref[1] * keep).abs().max() > 0
+        calls.append(got)
+    assert torch.equal(calls[0][1], calls[1][1]) and torch.equal(calls[0][2], calls[1][2])
+    assert (ref[1] * keep).abs().max() > 0 and ref[0].abs().max() > 0
     assert dcnv3_core_bwd(value, offset, mask, dout, *args, need_input=False)[0] is None
+
+
+@pytest.mark.cuda
+def test_dcn_gradient_kernels_refuse_a_plan_they_cannot_run(cuda):
+    """The C side checks the plan it is handed: a window past 227 KB of
+    shared memory, or 16-byte lanes on an input off 16-byte alignment, is
+    refused before any launch."""
+    x = torch.randn(1, 8, 8, 64, device="cuda", generator=cuda)
+    o = torch.zeros(1, 8, 8, 9, device="cuda")
+    dcols = torch.randn(1, 64, 9 * 64, device="cuda", generator=cuda)
+    plan = _v2_bwd_plan(1, 64, 8, 8, 3, 1, 4)
+    _v2_bwd_launch(x, o, o, o, dcols, 3, 1, 1, plan)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _v2_bwd_launch(x, o, o, o, dcols, 3, 1, 1, plan._replace(fh=400, fw=400))
+    shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _v2_bwd_launch(shifted, o, o, o, dcols, 3, 1, 1, plan)
+    vec1 = _v2_bwd_plan(1, 64, 8, 8, 3, 1, 4, aligned=False)
+    assert _v2_bwd_launch(shifted, o, o, o, dcols, 3, 1, 1, vec1)[0].isfinite().all()
 
 
 @pytest.mark.cuda

@@ -24,26 +24,46 @@
 // its 0 still enters doffset. DCNv3's padding is virtual: only on-map
 // pixels get a gradient, as the VJP of jnp.pad gives.
 //
-// Design: each kernel keeps its forward's geometry. A lane group (a power
-// of two of threads, at most a warp) takes one (pixel, point) pair of DCNv2
-// or one (pixel, group) item of DCNv3; its lanes take 16-byte vectors of
-// the channels (8 bf16 or 4 f32; one channel where C or a pointer does not
-// allow it) and accumulate in f32. The offset and mask sums reduce over the
-// group with xor shuffles. The input gradient is a scatter into
-// data-dependent corners, so it is accumulated with f32 atomics (a float4
-// reduction per 4 channels, sm_90) into a zeroed f32 buffer that the wrapper
-// casts once to the input's dtype. Corners off the map or of weight 0 (3 of
-// 4 at an integer point) scatter nothing. The adds land in an order that
-// varies from run to run, so dinput is not bitwise repeatable (dmask and
-// doffset are: each is one lane's fixed-order sum).
-//
 // Bound: the least traffic reads dcols / dout, the input, offsets and mask
 // once and writes dinput, doffset and dmask once: at 640 px, b8, bf16, row
 // 6 of yolo-somi-dcn moves ~73 MB a launch (59 MB of dcols), row 8 ~37 MB,
-// row 10 (DCNv3) ~14.7 MB. The scatter is what holds the kernels back: at
-// row 6, 4 corners x N*Ho*Wo*P*C = 118 M f32 adds a launch, 29.5 M float4
-// reductions, resolved in the L2's atomic units; the measured times are in
-// PERF.md.
+// row 10 (DCNv3) ~14.7 MB. What held the first kernels back was the input
+// gradient's scatter: at row 6, 4 corners x N*Ho*Wo*P*C = 118 M f32 adds a
+// launch, each element of the 13 MB dx taking ~36 of them in L2's atomic
+// units.
+//
+// Design: one kernel serves both (DCNv2 is the one-group case with p =
+// ky*k + kx and separate offset planes). A block takes a tile of th x tw
+// output pixels of one image (and, for DCNv3, one group) and one slice of
+// cs channels. Its threads first decode every (pixel, point) pair of the
+// tile into a table in shared memory. Around the tile lies a window of
+// fh x fw map pixels: the tile's receptive field, its bilinear +1 corner
+// and `halo` pixels on each side for the offsets. The block sorts the
+// corners that land in the window by window pixel (a count, a scan and a
+// fill with integer shared-memory atomics, which are native; Hopper has no
+// native f32 add in shared memory, and its compare-and-swap loops cost as
+// much as the L2 atomics they would save). Then:
+// - lane groups walk the pairs: each pair's offset and mask sums over the
+//   slice, and its corners past the window (an offset past the halo)
+//   added straight to global memory;
+// - lane groups walk the window pixels: each gathers its list of corners
+//   in registers (m * w_k * g_c from the table and the upstream gradient)
+//   and adds the result to global memory once, with one 16-byte f32
+//   reduction per 4 channels.
+// Only windows overlap, so an element of dx takes a few global adds
+// instead of ~36. In the pair loop a lane takes 16 bytes of channels (8
+// bf16 or 4 f32; one channel where the channels or a pointer do not allow
+// it); in the gather it takes runs of 4 channels (bf16 two 8-byte runs,
+// 4*lanes channels apart), so a warp's 16-byte f32 reductions cover
+// contiguous bytes in both dtypes.
+//
+// doffset and dmask are deterministic: a pair's sums over its slice reduce
+// over the lane group with xor shuffles in a fixed order; with one slice
+// lane 0 stores them, with several it writes them to an f32 workspace and
+// a second kernel adds the slices in order. dinput is not bitwise
+// repeatable: a window pixel's list is filled in a varying order, and the
+// windows' and spills' global atomics add in a varying order, into a
+// zeroed f32 buffer that the wrapper casts once to the input's dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,347 +75,509 @@
 
 namespace {
 
-constexpr int BWD_THREADS = 256;  // threads per block of both kernels (ops/dcn.py::_BWD_THREADS)
+constexpr int BWD_THREADS = 256;    // threads per block (ops/dcn.py::_BWD_THREADS)
+constexpr int BWD_BLOCKS = 4;       // blocks an SM the registers must allow (64 a thread)
+constexpr int SMEM_BLOCK = 232448;  // the most shared memory an H100 block may take (227 KB)
+// 4-byte words of shared memory per (pixel, point) pair of a tile and per
+// window pixel (ops/dcn.py::_BWD_PAIR_WORDS, _BWD_PIXEL_WORDS): the pair
+// table's 7 and its 4 corners' list entries; a count and a fill cursor
+constexpr int PAIR_WORDS = 11;
+constexpr int PIXEL_WORDS = 2;
 
-// dst[0 .. VEC) += v[0 .. VEC) with f32 atomics: float4 reductions where
-// VEC allows (dst 16-byte aligned: the wrapper's buffer, C a multiple of VEC)
-template <int VEC>
+// 4 bf16 channels: an 8-byte load
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ static void unpack(Raw u, float* v) {
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+};
+
+// A launch plan (ops/dcn.py::_v3_bwd_plan): tiles of th x tw output
+// pixels, ty x tx of them a map; slices of cs channels; a window of fh x fw
+// map pixels from (tile origin * stride - pad - halo)
+struct Tiles {
+  int th, tw, cs, halo, fh, fw, ty, tx, slices;
+};
+
+// dst[0 .. N) += v[0 .. N) in global memory: 16-byte f32 reductions where
+// N is a multiple of 4 (dst 16-byte aligned), else scalar f32 atomics
+template <int N>
 __device__ __forceinline__ void red_add(float* dst, const float* v) {
-  if constexpr (VEC % 4 == 0) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int i = 0; i < VEC; i += 4)
+    for (int i = 0; i < N; i += 4)
       atomicAdd(reinterpret_cast<float4*>(dst + i), make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
   } else {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) atomicAdd(dst + i, v[i]);
+    for (int i = 0; i < N; ++i) atomicAdd(dst + i, v[i]);
   }
 }
 
-// One lane's share of a point's gradient over VEC channels: g the upstream
-// gradient, val the four corners' values (0 off the map), the weights
-// w_k and the bilinear fractions; adds to the point's three sums
-// (dmask, and doffset_x / doffset_y before the factor s * m).
-template <int VEC>
-__device__ __forceinline__ void point_sums(const float* g, float (*val)[VEC], const float* w, float fx,
-                                           float fy, float& sm, float& ax, float& ay) {
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    const float v00 = val[0][e], v10 = val[1][e], v01 = val[2][e], v11 = val[3][e];
-    const float sample = w[0] * v00 + w[1] * v10 + w[2] * v01 + w[3] * v11;
-    sm = fmaf(g[e], sample, sm);
-    ax = fmaf(g[e], (1.0f - fy) * (v10 - v00) + fy * (v11 - v01), ax);
-    ay = fmaf(g[e], (1.0f - fx) * (v01 - v00) + fx * (v11 - v10), ay);
+// The bilinear weight of corner k = (k & 1, k >> 1) at fractions (fx, fy)
+__device__ __forceinline__ float corner_weight(int k, float fx, float fy) {
+  return ((k & 1) ? fx : 1.0f - fx) * ((k >> 1) ? fy : 1.0f - fy);
+}
+
+// A pair's gradients, (sm, ax, ay) summed over all its channels: dmask and
+// the offsets' (DCNv2: doffset_y, doffset_x; DCNv3: the (x, y) pairs)
+template <bool V3, typename T>
+__device__ __forceinline__ void store_sums(T* d_a, T* d_b, T* dmask, long long q, float m, float scale, float sm,
+                                           float ax, float ay) {
+  store(dmask + q, sm);
+  if constexpr (V3) {
+    store(d_a + 2 * q, m * ax * scale);
+    store(d_a + 2 * q + 1, m * ay * scale);
+  } else {
+    store(d_a + q, m * ay);
+    store(d_b + q, m * ax);
   }
 }
 
-// The four corners of (px, py): offsets `stride * (yc * W + xc) + base` of
-// the corners on the H x W map (-1 off it), the fractions fx, fy, and the
-// bilinear weights w_k (0 off the map)
-__device__ __forceinline__ void corners(float px, float py, int H, int W, long long stride, long long base,
-                                        long long* idx, float* w, float& fx, float& fy) {
-  const float x0f = floorf(px);
-  const float y0f = floorf(py);
-  fx = px - x0f;
-  fy = py - y0f;
-  const int x0 = static_cast<int>(x0f);
-  const int y0 = static_cast<int>(y0f);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int dx = k & 1;
-    const int dy = k >> 1;
-    const int xc = x0 + dx;
-    const int yc = y0 + dy;
-    const bool inside = xc >= 0 && xc <= W - 1 && yc >= 0 && yc <= H - 1;
-    idx[k] = inside ? base + stride * (static_cast<long long>(yc) * W + xc) : -1;
-    w[k] = inside ? (dx ? fx : 1.0f - fx) * (dy ? fy : 1.0f - fy) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ float group_sum(float v, int lanes) {
-  for (int o = lanes >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_WARP, v, o, lanes);
-  return v;
-}
-
-// A group of `lanes` threads per (pixel, point) pair q = (pix, p),
-// pix = (n*Ho + oy)*Wo + ox, p = ky*k + kx: its offsets and mask sit at q
-// and its columns at dcols[q*C .. q*C + C). Every lane decodes the pair
-// (the same addresses: one transaction); lane l takes the VEC-vectors l,
-// l + lanes, ... of the C channels, scatters its share of dx and sums its
-// share of the pair's three gradients, which the group reduces; lane 0
-// stores them. Every lane of the warp joins every shuffle.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(BWD_THREADS)
-dcnv2_im2col_bwd_kernel(const T* __restrict__ x, const T* __restrict__ offset_y, const T* __restrict__ offset_x,
-                        const T* __restrict__ mask, const T* __restrict__ dcols, float* __restrict__ dx,
-                        T* __restrict__ doffset_y, T* __restrict__ doffset_x, T* __restrict__ dmask, V2Shape s,
-                        int lanes) {
-  const int P = s.k * s.k;
-  const long long pairs = static_cast<long long>(s.N) * s.Ho * s.Wo * P;
-  const long long t = static_cast<long long>(blockIdx.x) * BWD_THREADS + threadIdx.x;
+// Block b = (((n * G + g) * ty + tile row) * tx + tile column) * slices +
+// slice. Its pairs t = p * th*tw + i, the tile's pixel i (row-major)
+// fastest, and its window pixels go to lane groups of `lanes` = cs / VEC
+// threads, BWD_THREADS / lanes at a time. In the pair loop lane l takes
+// channels slice*cs + l*VEC .. + VEC; in the gather the VEC / RUN runs of
+// RUN channels at slice*cs + (r*lanes + l)*RUN, r = 0, 1, ... The pair
+// loop is warp-uniform: every lane joins every shuffle.
+// DCNv2 (V3 false): x (N, H, W, C), off_a / off_b the y / x offsets and
+// mask at pair q = pix*P + p, grad = dcols (q*C ..); d_a / d_b doffset_y /
+// doffset_x. DCNv3: off_a the (x, y) offsets at 2q, q = (pix*G + g)*P + p,
+// p = ix*kh + iy, grad = dout (pix*C + g*Cg ..); d_a doffset.
+// `part` (slices > 1): the pairs' partial sums, [slice][3][Q].
+template <typename T, int VEC, bool V3>
+__device__ __forceinline__ void sampling_bwd(const T* __restrict__ x, const T* __restrict__ off_a,
+                                             const T* __restrict__ off_b, const T* __restrict__ mask,
+                                             const T* __restrict__ grad, float* __restrict__ dx, T* __restrict__ d_a,
+                                             T* __restrict__ d_b, T* __restrict__ dmask, float* __restrict__ part,
+                                             const V3Shape& s, const Tiles& pl, bool pair) {
+  constexpr int RUN = VEC >= 4 ? 4 : 1;
+  constexpr int RUNS = VEC / RUN;
+  extern __shared__ int smem[];
+  const int P = s.kh * s.kw;
+  const int C = s.G * s.Cg;
+  const int lanes = pl.cs / VEC;
   const int lane = threadIdx.x & (lanes - 1);
-  const bool live = t / lanes < pairs;
-  const long long q = live ? t / lanes : 0;
-  const int p = static_cast<int>(q % P);
-  const long long pix = q / P;
-  const int ox = static_cast<int>(pix % s.Wo);
-  const int oy = static_cast<int>((pix / s.Wo) % s.Ho);
-  const long long n = pix / (static_cast<long long>(s.Wo) * s.Ho);
-  const int ky = p / s.k;
-  const int kx = p - ky * s.k;
-  const float py = static_cast<float>(oy * s.stride - s.pad + ky) + to_f32(offset_y[q]);
-  const float px = static_cast<float>(ox * s.stride - s.pad + kx) + to_f32(offset_x[q]);
-  const float m = to_f32(mask[q]);
-  long long idx[4];
-  float w[4], fx, fy;
-  corners(px, py, s.H, s.W, s.C, n * s.H * s.W * s.C, idx, w, fx, fy);
-  float sm = 0.0f, ax = 0.0f, ay = 0.0f;
-  if (live) {
-    const T* g_row = dcols + q * s.C;
-    for (int v = lane * VEC; v < s.C; v += lanes * VEC) {
-      float g[VEC];
-      Vec<T, VEC>::unpack(Vec<T, VEC>::load(g_row + v), g);
-      float val[4][VEC];
+  int b = blockIdx.x;
+  const int slice = b % pl.slices;
+  b /= pl.slices;
+  const int tile_x = b % pl.tx;
+  b /= pl.tx;
+  const int tile_y = b % pl.ty;
+  b /= pl.ty;
+  const int g = b % s.G;
+  const int n = b / s.G;
+  const int oy0 = tile_y * pl.th;
+  const int ox0 = tile_x * pl.tw;
+  const int y_lo = oy0 * s.sh - s.ph - pl.halo;
+  const int x_lo = ox0 * s.sw - s.pw - pl.halo;
+  const int wpix = pl.fh * pl.fw;
+  const int pairs = pl.th * pl.tw * P;
+  int cr[RUNS];  // this lane's runs' first channels in the group, -1 past Cg
+#pragma unroll
+  for (int r = 0; r < RUNS; ++r) {
+    const int c = slice * pl.cs + (r * lanes + lane) * RUN;
+    cr[r] = c < s.Cg ? c : -1;
+  }
+  const int img = n * s.H * s.W * C + g * s.Cg;  // 32-bit offsets: every tensor < 2**31 elements (ops/dcn.py)
+  const long long Q = static_cast<long long>(s.N) * s.Ho * s.Wo * s.G * P;
+  // shared memory: the pair table (7 words a pair), the window pixels'
+  // counts (then their lists' starts, one more for the end) and fill
+  // cursors, and the lists (one word a listed corner: t*4 + k)
+  int* t_x0 = smem;
+  int* t_y0 = t_x0 + pairs;
+  float* t_fx = reinterpret_cast<float*>(t_x0 + 2 * pairs);
+  float* t_fy = t_fx + pairs;
+  float* t_m = t_fx + 2 * pairs;
+  int* t_q = t_x0 + 5 * pairs;  // the pair's index, -1 past the map
+  int* t_g = t_x0 + 6 * pairs;  // its upstream gradient row
+  int* start = t_x0 + 7 * pairs;
+  int* fill = start + wpix + 1;
+  int* list = fill + wpix;
+  // a corner's window pixel, or -1 where it adds nothing (off the map, of
+  // weight 0: 3 of 4 at an integer point) or lies past the window (spills)
+  auto listed = [&](int x0, int y0, float w, int k, bool& spill) {
+    const int xc = x0 + (k & 1);
+    const int yc = y0 + (k >> 1);
+    const bool adds = w != 0.0f && xc >= 0 && xc <= s.W - 1 && yc >= 0 && yc <= s.H - 1;
+    const int wy = yc - y_lo;
+    const int wx = xc - x_lo;
+    const bool inside = static_cast<unsigned>(wy) < static_cast<unsigned>(pl.fh) &&
+                        static_cast<unsigned>(wx) < static_cast<unsigned>(pl.fw);
+    spill = adds && !inside;
+    return adds && inside ? wy * pl.fw + wx : -1;
+  };
+  if (dx != nullptr) {
+    for (int i = threadIdx.x; i < 2 * wpix + 1; i += BWD_THREADS) start[i] = 0;
+    __syncthreads();
+  }
+  // the table, point fastest: neighbouring threads read neighbouring
+  // offsets; each listed corner counted at its window pixel
+  for (int u = threadIdx.x; u < pairs; u += BWD_THREADS) {
+    const int i = u / P;
+    const int p = u - i * P;
+    const int t = p * pl.th * pl.tw + i;
+    const int oy = oy0 + i / pl.tw;
+    const int ox = ox0 + i % pl.tw;
+    int q = -1, goff = 0;
+    float px = 0.0f, py = 0.0f, m = 0.0f;
+    if (oy < s.Ho && ox < s.Wo) {
+      const int pix = (n * s.Ho + oy) * s.Wo + ox;
+      if constexpr (V3) {
+        q = (pix * s.G + g) * P + p;
+        const int half_x = (s.dw * (s.kw - 1)) / 2;
+        const int half_y = (s.dh * (s.kh - 1)) / 2;
+        const int ix = p / s.kh;
+        const int iy = p - ix * s.kh;
+        const float2 o = load_pair(off_a + 2 * static_cast<long long>(q), pair);
+        const float cx = static_cast<float>(half_x + ox * s.sw - s.pw);
+        const float cy = static_cast<float>(half_y + oy * s.sh - s.ph);
+        px = cx + (static_cast<float>(ix * s.dw - half_x) + o.x) * s.offset_scale;
+        py = cy + (static_cast<float>(iy * s.dh - half_y) + o.y) * s.offset_scale;
+        goff = pix * C + g * s.Cg;
+      } else {
+        q = pix * P + p;
+        const int ky = p / s.kw;
+        const int kx = p - ky * s.kw;
+        py = static_cast<float>(oy * s.sh - s.ph + ky) + to_f32(__ldg(off_a + q));
+        px = static_cast<float>(ox * s.sw - s.pw + kx) + to_f32(__ldg(off_b + q));
+        goff = q * C;
+      }
+      m = to_f32(__ldg(mask + q));
+    }
+    const float x0f = floorf(px);
+    const float y0f = floorf(py);
+    const int x0 = static_cast<int>(x0f);
+    const int y0 = static_cast<int>(y0f);
+    const float fx = px - x0f;
+    const float fy = py - y0f;
+    t_x0[t] = x0;
+    t_y0[t] = y0;
+    t_fx[t] = fx;
+    t_fy[t] = fy;
+    t_m[t] = m;
+    t_q[t] = q;
+    t_g[t] = goff;
+    if (dx != nullptr && q >= 0) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        if (idx[k] >= 0) {
-          Vec<T, VEC>::unpack(Vec<T, VEC>::load(x + idx[k] + v), val[k]);
+        bool spill;
+        const int wp = listed(x0, y0, corner_weight(k, fx, fy), k, spill);
+        if (wp >= 0) atomicAdd(start + wp, 1);
+      }
+    }
+  }
+  __syncthreads();
+  if (dx != nullptr) {
+    // the counts to the lists' starts: an exclusive scan by the first warp
+    if (threadIdx.x < 32) {
+      const int per = (wpix + 31) / 32;
+      const int lo = threadIdx.x * per;
+      const int hi = min(lo + per, wpix);
+      int sum = 0;
+      for (int i = lo; i < hi; ++i) sum += start[i];
+      int incl = sum;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL_WARP, incl, o);
+        if (static_cast<int>(threadIdx.x) >= o) incl += v;
+      }
+      int run = incl - sum;
+      for (int i = lo; i < hi; ++i) {
+        const int c = start[i];
+        start[i] = run;
+        run += c;
+      }
+      if (threadIdx.x == 31) start[wpix] = incl;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < pairs; t += BWD_THREADS) {
+      if (t_q[t] < 0) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bool spill;
+        const int wp = listed(t_x0[t], t_y0[t], corner_weight(k, t_fx[t], t_fy[t]), k, spill);
+        if (wp >= 0) list[start[wp] + atomicAdd(fill + wp, 1)] = t * 4 + k;
+      }
+    }
+  }
+  // the pairs: their sums, and their corners past the window
+  for (int t0 = 0; t0 < pairs; t0 += BWD_THREADS / lanes) {
+    const int t = t0 + static_cast<int>(threadIdx.x) / lanes;
+    const int q = t < pairs ? t_q[t] : -1;
+    float sm = 0.0f, ax = 0.0f, ay = 0.0f;
+    const int cv = slice * pl.cs + lane * VEC;  // the lane's VEC channels in the pair loop
+    if (q >= 0 && cv < s.Cg) {
+      const int x0 = t_x0[t];
+      const int y0 = t_y0[t];
+      const float fx = t_fx[t];
+      const float fy = t_fy[t];
+      const float m = t_m[t];
+      const T* g_row = grad + t_g[t];
+      float gv[VEC], val[4][VEC], w[4];
+      int at[4];  // the corner's element offset in x and dx, -1 off the map
+      Vec<T, VEC>::unpack(Vec<T, VEC>::load(g_row + cv), gv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int xc = x0 + (k & 1);
+        const int yc = y0 + (k >> 1);
+        const bool inside = xc >= 0 && xc <= s.W - 1 && yc >= 0 && yc <= s.H - 1;
+        at[k] = inside ? img + (yc * s.W + xc) * C : -1;
+        w[k] = inside ? corner_weight(k, fx, fy) : 0.0f;
+        if (inside) {
+          Vec<T, VEC>::unpack(Vec<T, VEC>::load(x + at[k] + cv), val[k]);
         } else {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) val[k][e] = 0.0f;
         }
       }
-      point_sums<VEC>(g, val, w, fx, fy, sm, ax, ay);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float v00 = val[0][e], v10 = val[1][e], v01 = val[2][e], v11 = val[3][e];
+        const float sample = w[0] * v00 + w[1] * v10 + w[2] * v01 + w[3] * v11;
+        sm = fmaf(gv[e], sample, sm);
+        ax = fmaf(gv[e], (1.0f - fy) * (v10 - v00) + fy * (v11 - v01), ax);
+        ay = fmaf(gv[e], (1.0f - fx) * (v01 - v00) + fx * (v11 - v10), ay);
+      }
       if (dx != nullptr) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          if (idx[k] < 0 || w[k] == 0.0f) continue;
+          bool spill;
+          listed(x0, y0, w[k], k, spill);
+          if (!spill) continue;
           float add[VEC];
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) add[e] = m * w[k] * g[e];
-          red_add<VEC>(dx + idx[k] + v, add);
+          for (int e = 0; e < VEC; ++e) add[e] = m * w[k] * gv[e];
+          red_add<VEC>(dx + at[k] + cv, add);
         }
       }
     }
+    for (int o = lanes >> 1; o > 0; o >>= 1) {
+      sm += __shfl_xor_sync(FULL_WARP, sm, o, lanes);
+      ax += __shfl_xor_sync(FULL_WARP, ax, o, lanes);
+      ay += __shfl_xor_sync(FULL_WARP, ay, o, lanes);
+    }
+    if (q >= 0 && lane == 0) {
+      if (part != nullptr) {
+        float* dst = part + static_cast<long long>(slice) * 3 * Q + q;
+        dst[0] = sm;
+        dst[Q] = ax;
+        dst[2 * Q] = ay;
+      } else {
+        store_sums<V3>(d_a, d_b, dmask, q, t_m[t], s.offset_scale, sm, ax, ay);
+      }
+    }
   }
-  sm = group_sum(sm, lanes);
-  ax = group_sum(ax, lanes);
-  ay = group_sum(ay, lanes);
-  if (live && lane == 0) {
-    store(dmask + q, sm);
-    store(doffset_x + q, m * ax);
-    store(doffset_y + q, m * ay);
+  if (dx == nullptr) return;
+  __syncthreads();  // every list filled
+  // the window pixels: each gathers its corners, then adds to dx once
+  for (int wp = threadIdx.x / lanes; wp < wpix; wp += BWD_THREADS / lanes) {
+    const int begin = start[wp];
+    const int end = start[wp + 1];
+    if (begin == end || cr[0] < 0) continue;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+    for (int j = begin; j < end; ++j) {
+      const int t = list[j] >> 2;
+      const float wm = t_m[t] * corner_weight(list[j] & 3, t_fx[t], t_fy[t]);
+#pragma unroll
+      for (int r = 0; r < RUNS; ++r) {
+        if (cr[r] < 0) continue;
+        float gv[RUN];
+        Vec<T, RUN>::unpack(Vec<T, RUN>::load(grad + t_g[t] + cr[r]), gv);
+#pragma unroll
+        for (int e = 0; e < RUN; ++e) acc[r * RUN + e] = fmaf(wm, gv[e], acc[r * RUN + e]);
+      }
+    }
+    const int at = img + ((y_lo + wp / pl.fw) * s.W + x_lo + wp % pl.fw) * C;
+#pragma unroll
+    for (int r = 0; r < RUNS; ++r)
+      if (cr[r] >= 0) red_add<RUN>(dx + at + cr[r], acc + r * RUN);
   }
 }
 
-// The forward's geometry: a group of `lanes` threads per (pixel, group)
-// item, lane l taking the VEC-vectors l, l + lanes, ... of its Cg channels;
-// block b holds BWD_THREADS / lanes consecutive pixels, from tile b / G on,
-// of group b % G. For each round of `lanes` points, lane l decodes point
-// r0 + l (p = ix*kh + iy) in the forward's closed form; the group walks the
-// round's points in order, point j's corners shuffled from lane j, each
-// lane scattering its share of dvalue and summing its share of the point's
-// three gradients; the group's sums land in lane j, which stores them
-// after the round. Every lane of the warp joins every shuffle.
+// The two kernels, named apart for the profiler
 template <typename T, int VEC>
-__global__ void __launch_bounds__(BWD_THREADS)
-dcnv3_core_bwd_kernel(const T* __restrict__ value, const T* __restrict__ offset, const T* __restrict__ mask,
-                      const T* __restrict__ dout, float* __restrict__ dvalue, T* __restrict__ doffset,
-                      T* __restrict__ dmask, V3Shape s, int lanes, bool pair) {
-  const int P = s.kh * s.kw;
-  const int C = s.G * s.Cg;
-  const int npix = s.N * s.Ho * s.Wo;
-  const int lane = threadIdx.x & (lanes - 1);
-  const int tile = blockIdx.x / s.G;
-  const int g = blockIdx.x - tile * s.G;
-  const int pix = tile * (BWD_THREADS / lanes) + threadIdx.x / lanes;
-  const bool live = pix < npix;
-  const int ox = pix % s.Wo;
-  const int oy = (pix / s.Wo) % s.Ho;
-  const int n = pix / (s.Wo * s.Ho);
-  const int half_x = (s.dw * (s.kw - 1)) / 2;
-  const int half_y = (s.dh * (s.kh - 1)) / 2;
-  const float cx = static_cast<float>(half_x + ox * s.sw - s.pw);
-  const float cy = static_cast<float>(half_y + oy * s.sh - s.ph);
-  const size_t q0 = (static_cast<size_t>(pix) * s.G + g) * P;  // the item's first point
-  const long long base = static_cast<long long>(n) * s.H * s.W * C + g * s.Cg;  // the item's image
-  const T* g_src = dout + static_cast<size_t>(pix) * C + g * s.Cg;
-  for (int r0 = 0; r0 < P; r0 += lanes) {
-    long long idx[4] = {-1, -1, -1, -1};
-    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f}, fx = 0.0f, fy = 0.0f, m = 0.0f;
-    const int p = r0 + lane;
-    const bool mine = live && p < P;
-    if (mine) {
-      const int ix = p / s.kh;
-      const int iy = p - ix * s.kh;
-      const float2 o = load_pair(offset + 2 * (q0 + p), pair);
-      const float px = cx + (static_cast<float>(ix * s.dw - half_x) + o.x) * s.offset_scale;
-      const float py = cy + (static_cast<float>(iy * s.dh - half_y) + o.y) * s.offset_scale;
-      m = to_f32(__ldg(mask + q0 + p));
-      corners(px, py, s.H, s.W, C, base, idx, w, fx, fy);
-    }
-    float own_m = 0.0f, own_x = 0.0f, own_y = 0.0f;  // this lane's point's gradients
-    const int points = min(lanes, P - r0);
-    for (int j = 0; j < points; ++j) {
-      long long ij[4];
-      float wj[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        ij[k] = __shfl_sync(FULL_WARP, idx[k], j, lanes);
-        wj[k] = __shfl_sync(FULL_WARP, w[k], j, lanes);
-      }
-      const float fxj = __shfl_sync(FULL_WARP, fx, j, lanes);
-      const float fyj = __shfl_sync(FULL_WARP, fy, j, lanes);
-      const float mj = __shfl_sync(FULL_WARP, m, j, lanes);
-      float sm = 0.0f, ax = 0.0f, ay = 0.0f;
-      for (int c0 = 0; c0 < s.Cg; c0 += lanes * VEC) {
-        const int v = c0 + lane * VEC;
-        if (!live || v >= s.Cg) continue;
-        float gv[VEC];
-        Vec<T, VEC>::unpack(Vec<T, VEC>::load(g_src + v), gv);
-        float val[4][VEC];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (ij[k] >= 0) {
-            Vec<T, VEC>::unpack(Vec<T, VEC>::load(value + ij[k] + v), val[k]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) val[k][e] = 0.0f;
-          }
-        }
-        point_sums<VEC>(gv, val, wj, fxj, fyj, sm, ax, ay);
-        if (dvalue != nullptr) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (ij[k] < 0 || wj[k] == 0.0f) continue;
-            float add[VEC];
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) add[e] = mj * wj[k] * gv[e];
-            red_add<VEC>(dvalue + ij[k] + v, add);
-          }
-        }
-      }
-      sm = group_sum(sm, lanes);
-      ax = group_sum(ax, lanes);
-      ay = group_sum(ay, lanes);
-      if (lane == j) {
-        own_m = sm;
-        own_x = mj * ax * s.offset_scale;
-        own_y = mj * ay * s.offset_scale;
-      }
-    }
-    if (mine) {
-      store(dmask + q0 + p, own_m);
-      store(doffset + 2 * (q0 + p), own_x);
-      store(doffset + 2 * (q0 + p) + 1, own_y);
-    }
-  }
+__global__ void __launch_bounds__(BWD_THREADS, BWD_BLOCKS)
+dcnv2_im2col_bwd_kernel(const T* x, const T* off_a, const T* off_b, const T* mask, const T* grad, float* dx, T* d_a,
+                        T* d_b, T* dmask, float* part, V3Shape s, Tiles pl, bool pair) {
+  sampling_bwd<T, VEC, false>(x, off_a, off_b, mask, grad, dx, d_a, d_b, dmask, part, s, pl, pair);
 }
 
-// `vec` is 1 or 16 / sizeof(T) (then C % vec == 0 and x, dcols 16-byte
-// aligned); `lanes` a power of two up to 32: ops/dcn.py::_v3_geometry of C.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_BLOCKS)
+dcnv3_core_bwd_kernel(const T* x, const T* off_a, const T* off_b, const T* mask, const T* grad, float* dx, T* d_a,
+                      T* d_b, T* dmask, float* part, V3Shape s, Tiles pl, bool pair) {
+  sampling_bwd<T, VEC, true>(x, off_a, off_b, mask, grad, dx, d_a, d_b, dmask, part, s, pl, pair);
+}
+
+// The pairs' sums over the slices, added in slice order, and stored
+template <typename T, bool V3>
+__device__ __forceinline__ void sums(const float* __restrict__ part, const T* __restrict__ mask, T* __restrict__ d_a,
+                                     T* __restrict__ d_b, T* __restrict__ dmask, long long Q, int slices,
+                                     float scale) {
+  const long long q = static_cast<long long>(blockIdx.x) * BWD_THREADS + threadIdx.x;
+  if (q >= Q) return;
+  float sm = 0.0f, ax = 0.0f, ay = 0.0f;
+  for (int sl = 0; sl < slices; ++sl) {
+    const float* src = part + static_cast<long long>(sl) * 3 * Q + q;
+    sm += src[0];
+    ax += src[Q];
+    ay += src[2 * Q];
+  }
+  store_sums<V3>(d_a, d_b, dmask, q, to_f32(mask[q]), scale, sm, ax, ay);
+}
+
 template <typename T>
-int launch_v2_bwd(const void* x, const void* offset_y, const void* offset_x, const void* mask, const void* dcols,
-                  void* dx, void* doffset_y, void* doffset_x, void* dmask, V2Shape s, int vec, int lanes,
-                  void* stream) {
+__global__ void __launch_bounds__(BWD_THREADS)
+dcnv2_im2col_bwd_sums(const float* part, const T* mask, T* d_a, T* d_b, T* dmask, long long Q, int slices,
+                      float scale) {
+  sums<T, false>(part, mask, d_a, d_b, dmask, Q, slices, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+dcnv3_core_bwd_sums(const float* part, const T* mask, T* d_a, T* d_b, T* dmask, long long Q, int slices,
+                    float scale) {
+  sums<T, true>(part, mask, d_a, d_b, dmask, Q, slices, scale);
+}
+
+template <typename T>
+using BwdKernel = void (*)(const T*, const T*, const T*, const T*, const T*, float*, T*, T*, T*, float*, V3Shape, Tiles,
+                           bool);
+template <typename T>
+using SumsKernel = void (*)(const float*, const T*, T*, T*, T*, long long, int, float);
+
+// The kernels of DCNv2 (V3 false) or DCNv3
+template <typename T, int VEC, bool V3>
+BwdKernel<T> bwd_kernel() {
+  if constexpr (V3) return dcnv3_core_bwd_kernel<T, VEC>;
+  else return dcnv2_im2col_bwd_kernel<T, VEC>;
+}
+
+template <typename T, bool V3>
+SumsKernel<T> sums_kernel() {
+  if constexpr (V3) return dcnv3_core_bwd_sums<T>;
+  else return dcnv2_im2col_bwd_sums<T>;
+}
+
+// `vec` 1 or 16 / sizeof(T) (then Cg % vec == 0 and x, grad 16-byte
+// aligned); `cs` vec times a power of two up to 32; the pair table, the
+// window's counts and the lists at most SMEM_BLOCK bytes. part: an f32 workspace of slices * 3 * Q
+// floats where the plan has more than one slice, else unused.
+template <typename T, bool V3>
+int launch_bwd(const void* x, const void* off_a, const void* off_b, const void* mask, const void* grad, void* dx,
+               void* d_a, void* d_b, void* dmask, void* part, V3Shape s, int vec, int th, int tw, int cs, int halo,
+               int fh, int fw, void* stream) {
   constexpr int FULL = 16 / sizeof(T);
-  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long pairs = static_cast<long long>(s.N) * s.Ho * s.Wo * s.k * s.k;
-  const long long blocks = (pairs * lanes + BWD_THREADS - 1) / BWD_THREADS;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const int lanes = vec > 0 ? cs / vec : 0;
+  if ((vec != 1 && vec != FULL) || cs % vec != 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      th < 1 || tw < 1 || halo < 0 || fh < 1 || fw < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == FULL && (s.Cg % FULL != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+                      reinterpret_cast<uintptr_t>(grad) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long Q = static_cast<long long>(s.N) * s.Ho * s.Wo * s.G * s.kh * s.kw;
+  const Tiles pl{th, tw, cs, halo, fh, fw, (s.Ho + th - 1) / th, (s.Wo + tw - 1) / tw, (s.Cg + cs - 1) / cs};
+  const long long blocks = static_cast<long long>(s.N) * s.G * pl.ty * pl.tx * pl.slices;
+  const size_t smem = (static_cast<size_t>(th) * tw * s.kh * s.kw * PAIR_WORDS + PIXEL_WORDS * fh * fw + 1) * 4;
+  if (2 * Q >= (1LL << 31) || blocks >= (1LL << 31) || smem > SMEM_BLOCK || (pl.slices > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0 || Q == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xx = static_cast<const T*>(x);
-  const T* oy = static_cast<const T*>(offset_y);
-  const T* ox = static_cast<const T*>(offset_x);
-  const T* m = static_cast<const T*>(mask);
-  const T* g = static_cast<const T*>(dcols);
-  float* d = static_cast<float*>(dx);
-  T* doy = static_cast<T*>(doffset_y);
-  T* dox = static_cast<T*>(doffset_x);
+  const T* oa = static_cast<const T*>(off_a);
+  const T* ob = static_cast<const T*>(off_b);
+  const T* mk = static_cast<const T*>(mask);
+  const T* gr = static_cast<const T*>(grad);
+  T* da = static_cast<T*>(d_a);
+  T* db = static_cast<T*>(d_b);
   T* dm = static_cast<T*>(dmask);
-  const unsigned grid = static_cast<unsigned>(blocks);
-  if (vec == 1)
-    dcnv2_im2col_bwd_kernel<T, 1><<<grid, BWD_THREADS, 0, st>>>(xx, oy, ox, m, g, d, doy, dox, dm, s, lanes);
-  else if (vec == FULL && s.C % FULL == 0)
-    dcnv2_im2col_bwd_kernel<T, FULL><<<grid, BWD_THREADS, 0, st>>>(xx, oy, ox, m, g, d, doy, dox, dm, s, lanes);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  float* pt = pl.slices > 1 ? static_cast<float*>(part) : nullptr;
+  const bool pair = reinterpret_cast<uintptr_t>(off_a) % (2 * sizeof(T)) == 0;
+  const BwdKernel<T> kernel = vec == FULL ? bwd_kernel<T, FULL, V3>() : bwd_kernel<T, 1, V3>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<static_cast<unsigned>(blocks), BWD_THREADS, smem, st>>>(xx, oa, ob, mk, gr, static_cast<float*>(dx), da,
+                                                                    db, dm, pt, s, pl, pair);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || pt == nullptr) return static_cast<int>(e);
+  const SumsKernel<T> reduce = sums_kernel<T, V3>();
+  reduce<<<static_cast<unsigned>((Q + BWD_THREADS - 1) / BWD_THREADS), BWD_THREADS, 0, st>>>(pt, mk, da, db, dm, Q,
+                                                                                           pl.slices, s.offset_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// `vec` is 1 or 16 / sizeof(T) (then Cg % vec == 0 and value, dout 16-byte
-// aligned); `lanes` a power of two up to 32: ops/dcn.py::_v3_geometry.
+template <typename T>
+int launch_v2_bwd(const void* x, const void* offset_y, const void* offset_x, const void* mask, const void* dcols,
+                  void* dx, void* doffset_y, void* doffset_x, void* dmask, void* part, int N, int H, int W, int C,
+                  int Ho, int Wo, int k, int stride, int pad, int vec, int th, int tw, int cs, int halo, int fh,
+                  int fw, void* stream) {
+  const V3Shape s{N, H, W, 1, C, Ho, Wo, k, k, stride, stride, pad, pad, 1, 1, 1.0f};
+  return launch_bwd<T, false>(x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask, part, s, vec,
+                              th, tw, cs, halo, fh, fw, stream);
+}
+
 template <typename T>
 int launch_v3_bwd(const void* value, const void* offset, const void* mask, const void* dout, void* dvalue,
-                  void* doffset, void* dmask, V3Shape s, int vec, int lanes, void* stream) {
-  constexpr int FULL = 16 / sizeof(T);
-  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = BWD_THREADS / lanes;
-  const long long tiles = (static_cast<long long>(s.N) * s.Ho * s.Wo + per_block - 1) / per_block;
-  if (static_cast<long long>(s.N) * s.Ho * s.Wo * s.G * s.kh * s.kw * 2 >= (1LL << 31) ||
-      tiles * s.G >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (tiles * s.G == 0 || s.Cg == 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = static_cast<int>(tiles * s.G);
-  const bool pair = reinterpret_cast<uintptr_t>(offset) % (2 * sizeof(T)) == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* v = static_cast<const T*>(value);
-  const T* o = static_cast<const T*>(offset);
-  const T* m = static_cast<const T*>(mask);
-  const T* g = static_cast<const T*>(dout);
-  float* dv = static_cast<float*>(dvalue);
-  T* dof = static_cast<T*>(doffset);
-  T* dm = static_cast<T*>(dmask);
-  if (vec == 1)
-    dcnv3_core_bwd_kernel<T, 1><<<blocks, BWD_THREADS, 0, st>>>(v, o, m, g, dv, dof, dm, s, lanes, pair);
-  else if (vec == FULL && s.Cg % FULL == 0)
-    dcnv3_core_bwd_kernel<T, FULL><<<blocks, BWD_THREADS, 0, st>>>(v, o, m, g, dv, dof, dm, s, lanes, pair);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
-V3Shape v3_shape(int N, int H, int W, int G, int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
-                 int dh, int dw, float offset_scale) {
-  return V3Shape{N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale};
+                  void* doffset, void* dmask, void* part, int N, int H, int W, int G, int Cg, int Ho, int Wo, int kh,
+                  int kw, int sh, int sw, int ph, int pw, int dh, int dw, float offset_scale, int vec, int th, int tw,
+                  int cs, int halo, int fh, int fw, void* stream) {
+  const V3Shape s{N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale};
+  return launch_bwd<T, true>(value, offset, nullptr, mask, dout, dvalue, doffset, nullptr, dmask, part, s, vec, th,
+                             tw, cs, halo, fh, fw, stream);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers of
 // contiguous tensors (dx / dvalue: a zeroed f32 buffer of the input's
-// shape, or null for no input gradient); `stream` is a cudaStream_t. Each
-// returns cudaGetLastError() after the launch (0 on success).
+// shape, or null for no input gradient; part: the plan's f32 workspace or
+// null); the plan (vec, th, tw, cs, halo, fh, fw) is ops/dcn.py's
+// _v2_bwd_plan / _v3_bwd_plan; `stream` is a cudaStream_t. Each returns
+// cudaGetLastError() after its launches (0 on success).
 extern "C" int dcnv2_im2col_bwd_f32(const void* x, const void* offset_y, const void* offset_x, const void* mask,
-                                    const void* dcols, void* dx, void* doffset_y, void* doffset_x, void* dmask, int N,
-                                    int H, int W, int C, int Ho, int Wo, int k, int stride, int pad, int vec,
-                                    int lanes, void* stream) {
-  return launch_v2_bwd<float>(x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask,
-                              V2Shape{N, H, W, C, Ho, Wo, k, stride, pad}, vec, lanes, stream);
+                                    const void* dcols, void* dx, void* doffset_y, void* doffset_x, void* dmask,
+                                    void* part, int N, int H, int W, int C, int Ho, int Wo, int k, int stride, int pad,
+                                    int vec, int th, int tw, int cs, int halo, int fh, int fw, void* stream) {
+  return launch_v2_bwd<float>(x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask, part, N, H, W, C,
+                              Ho, Wo, k, stride, pad, vec, th, tw, cs, halo, fh, fw, stream);
 }
 
 extern "C" int dcnv2_im2col_bwd_bf16(const void* x, const void* offset_y, const void* offset_x, const void* mask,
                                      const void* dcols, void* dx, void* doffset_y, void* doffset_x, void* dmask,
-                                     int N, int H, int W, int C, int Ho, int Wo, int k, int stride, int pad, int vec,
-                                     int lanes, void* stream) {
-  return launch_v2_bwd<__nv_bfloat16>(x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask,
-                                      V2Shape{N, H, W, C, Ho, Wo, k, stride, pad}, vec, lanes, stream);
+                                     void* part, int N, int H, int W, int C, int Ho, int Wo, int k, int stride,
+                                     int pad, int vec, int th, int tw, int cs, int halo, int fh, int fw,
+                                     void* stream) {
+  return launch_v2_bwd<__nv_bfloat16>(x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask, part, N,
+                                      H, W, C, Ho, Wo, k, stride, pad, vec, th, tw, cs, halo, fh, fw, stream);
 }
 
 extern "C" int dcnv3_core_bwd_f32(const void* value, const void* offset, const void* mask, const void* dout,
-                                  void* dvalue, void* doffset, void* dmask, int N, int H, int W, int G, int Cg, int Ho,
-                                  int Wo, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw,
-                                  float offset_scale, int vec, int lanes, void* stream) {
-  return launch_v3_bwd<float>(value, offset, mask, dout, dvalue, doffset, dmask,
-                              v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale), vec,
-                              lanes, stream);
+                                  void* dvalue, void* doffset, void* dmask, void* part, int N, int H, int W, int G,
+                                  int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
+                                  int dw, float offset_scale, int vec, int th, int tw, int cs, int halo, int fh,
+                                  int fw, void* stream) {
+  return launch_v3_bwd<float>(value, offset, mask, dout, dvalue, doffset, dmask, part, N, H, W, G, Cg, Ho, Wo, kh,
+                              kw, sh, sw, ph, pw, dh, dw, offset_scale, vec, th, tw, cs, halo, fh, fw, stream);
 }
 
 extern "C" int dcnv3_core_bwd_bf16(const void* value, const void* offset, const void* mask, const void* dout,
-                                   void* dvalue, void* doffset, void* dmask, int N, int H, int W, int G, int Cg,
-                                   int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw,
-                                   float offset_scale, int vec, int lanes, void* stream) {
-  return launch_v3_bwd<__nv_bfloat16>(value, offset, mask, dout, dvalue, doffset, dmask,
-                                      v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale),
-                                      vec, lanes, stream);
+                                   void* dvalue, void* doffset, void* dmask, void* part, int N, int H, int W, int G,
+                                   int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
+                                   int dw, float offset_scale, int vec, int th, int tw, int cs, int halo, int fh,
+                                   int fw, void* stream) {
+  return launch_v3_bwd<__nv_bfloat16>(value, offset, mask, dout, dvalue, doffset, dmask, part, N, H, W, G, Cg, Ho,
+                                      Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale, vec, th, tw, cs, halo, fh, fw,
+                                      stream);
 }

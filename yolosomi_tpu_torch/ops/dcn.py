@@ -8,7 +8,8 @@ tensors. There is no fallback: on CUDA each launches its kernel or raises.
 Where autograd records and an input needs a gradient, the call goes
 through `Dcnv3CoreFunction` / `Dcnv2Im2colFunction`, whose backward calls
 `dcnv3_core_bwd` / `dcnv2_im2col_bwd`: the hand-written kernels of
-csrc/dcn_bwd.cu on CUDA, autograd of the plain forward on the CPU. The
+csrc/dcn_bwd.cu on CUDA (launch plans from `_v2_bwd_plan` /
+`_v3_bwd_plan`), autograd of the plain forward on the CPU. The
 JAX package trains through XLA's VJP of its gathers, so the gradient is
 JAX's: at an integer sampling coordinate the one-sided derivative over
 the corners floor(p) and floor(p) + 1 (`_corner_weight`).
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -37,14 +39,25 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _V3_THREADS = 256
 _V2_THREADS, _V2_PAIRS = 256, 4
 _BWD_THREADS = 256
+# the gradient kernels' plans (_v3_bwd_plan): output tiles of at most
+# _BWD_TILE x _BWD_TILE pixels, channel slices of at most _BWD_SLICE, a
+# halo of _BWD_HALO map pixels around each tile's receptive field; shared
+# memory of _BWD_PAIR_WORDS 4-byte words per (pixel, point) pair of the
+# tile, _BWD_PIXEL_WORDS per window pixel, and one more (csrc/dcn_bwd.cu
+# PAIR_WORDS, PIXEL_WORDS); an H100's shared memory: at most _SMEM_BLOCK
+# bytes a block (csrc/dcn_bwd.cu SMEM_BLOCK), _SMEM_SM an SM, 1 KB of it
+# reserved for each block
+_BWD_TILE, _BWD_SLICE, _BWD_HALO = 4, 128, 2
+_BWD_PAIR_WORDS, _BWD_PIXEL_WORDS = 11, 2
+_SMEM_BLOCK, _SMEM_SM, _SMEM_RESERVED = 232448, 233472, 1024
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures (csrc/dcn.cu, csrc/dcn_bwd.cu), without the trailing stream
 # pointer
 _ARGTYPES = {
     "dcnv3_core": [_PTR] * 4 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 2,
     "dcnv2_im2col": [_PTR] * 5 + [_INT] * 11,
-    "dcnv3_core_bwd": [_PTR] * 7 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 2,
-    "dcnv2_im2col_bwd": [_PTR] * 9 + [_INT] * 11,
+    "dcnv3_core_bwd": [_PTR] * 8 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 7,
+    "dcnv2_im2col_bwd": [_PTR] * 10 + [_INT] * 16,
 }
 
 
@@ -223,6 +236,91 @@ def _v3_geometry(Cg: int, elem_size: int, aligned: bool = True) -> tuple:
     return vec, min(32, 1 << max(Cg // vec - 1, 0).bit_length())
 
 
+class BwdPlan(NamedTuple):
+    """A launch plan of dcnv2_im2col_bwd / dcnv3_core_bwd (csrc/dcn_bwd.cu):
+    VEC channels a lane, lane groups of `lanes` threads on a (pixel, point)
+    pair, channel slices of cs = vec * lanes (`slices` of them, a block
+    each); output tiles of th x tw pixels (a block each); each block's
+    window of fh x fw map pixels from (tile origin * stride - pad - halo),
+    whose corners it gathers before one global add; `smem` bytes of shared
+    memory a block (the tile's pair table and corner lists, the window's
+    counts); `blocks` blocks."""
+
+    vec: int
+    lanes: int
+    cs: int
+    slices: int
+    th: int
+    tw: int
+    halo: int
+    fh: int
+    fw: int
+    blocks: int
+    smem: int
+
+
+def _v3_bwd_plan(N: int, G: int, Cg: int, Ho: int, Wo: int, kh: int, kw: int, sh: int, sw: int, dh: int, dw: int,
+                 elem_size: int, aligned: bool = True, tile: int = _BWD_TILE, slice_: int = _BWD_SLICE,
+                 halo: int = _BWD_HALO) -> BwdPlan:
+    """The gradient kernels' plan for Cg channels a group (DCNv2: one group
+    of C), the output Ho x Wo, the kernel kh x kw at strides (sh, sw) and
+    dilations (dh, dw), inputs of `elem_size` bytes: VEC and the channels'
+    16-byte vectors as `_v3_geometry` sets them (`aligned`: the input and
+    the upstream gradient); slices of at most `slice_` channels; tiles of
+    `tile` x `tile` pixels (clipped to the map), halved along the longer
+    side while the shared memory would leave room for fewer than two
+    blocks an SM; the window the tile's receptive field, its bilinear +1
+    corner and `halo` pixels on each side, clipped to one block's shared
+    memory where even a one-pixel tile's does not fit (the corners past it
+    add to global memory). `tile`, `slice_` and `halo` are the module's
+    constants; probe_dcn_bwd.py times others."""
+    vec = _v3_geometry(Cg, elem_size, aligned)[0]
+    lanes = min(slice_ // vec, 32, 1 << max(math.ceil(Cg / vec) - 1, 0).bit_length())
+    cs = vec * lanes
+    th, tw = max(1, min(tile, Ho)), max(1, min(tile, Wo))
+
+    def sizes(th: int, tw: int) -> tuple:
+        """(fh, fw, 4-byte words of the pairs and the one more)"""
+        return ((th - 1) * sh + dh * (kh - 1) + 2 + 2 * halo, (tw - 1) * sw + dw * (kw - 1) + 2 + 2 * halo,
+                th * tw * kh * kw * _BWD_PAIR_WORDS + 1)
+
+    fh, fw, words = sizes(th, tw)
+    while (words + fh * fw * _BWD_PIXEL_WORDS) * 4 > _SMEM_SM // 2 - _SMEM_RESERVED and th * tw > 1:
+        th, tw = ((th + 1) // 2, tw) if th >= tw else (th, (tw + 1) // 2)
+        fh, fw, words = sizes(th, tw)
+    most = (_SMEM_BLOCK // 4 - words) // _BWD_PIXEL_WORDS  # window pixels one block can hold
+    fw = min(fw, math.isqrt(most))
+    fh = min(fh, most // fw)
+    slices = math.ceil(Cg / cs)
+    blocks = N * G * math.ceil(Ho / th) * math.ceil(Wo / tw) * slices
+    return BwdPlan(vec, lanes, cs, slices, th, tw, halo, fh, fw, blocks, (words + fh * fw * _BWD_PIXEL_WORDS) * 4)
+
+
+def _v2_bwd_plan(N: int, C: int, Ho: int, Wo: int, k: int, stride: int, elem_size: int, aligned: bool = True,
+                 **kw) -> BwdPlan:
+    """dcnv2_im2col_bwd's plan: `_v3_bwd_plan` of one group of C channels,
+    a k x k kernel, dilation 1."""
+    return _v3_bwd_plan(N, 1, C, Ho, Wo, k, k, stride, stride, 1, 1, elem_size, aligned, **kw)
+
+
+def _bwd_args(plan: BwdPlan) -> tuple:
+    """The plan as the C entry points take it."""
+    return plan.vec, plan.th, plan.tw, plan.cs, plan.halo, plan.fh, plan.fw
+
+
+def _aligned16(*tensors) -> bool:
+    """Whether every tensor starts 16-byte aligned (16-byte vectors)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _workspace(plan: BwdPlan, mask: torch.Tensor):
+    """The f32 partial sums (slice, 3, pair) of a plan with several
+    slices (the pairs are mask's elements), else None."""
+    if plan.slices == 1:
+        return None
+    return torch.empty((plan.slices, 3, mask.numel()), device=mask.device, dtype=torch.float32)
+
+
 def dcnv3_core(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int, pad_h: int,
                pad_w: int, dilation_h: int, dilation_w: int, group: int, group_channels: int,
                offset_scale: float = 1.0) -> torch.Tensor:
@@ -310,10 +408,12 @@ def dcnv3_core_bwd(input, offset, mask, dout, kernel_h: int, kernel_w: int, stri
     doffset, dmask), each in its input's dtype, the derivative at integer
     coordinates one-sided as JAX's (`_corner_weight`); dinput is None when
     not `need_input`. A CPU tensor runs the plain version; CUDA tensors (one
-    dtype, contiguous) launch the kernel of csrc/dcn_bwd.cu, which scatters
-    dinput with f32 atomics into a zeroed f32 buffer (cast once to bf16;
-    the order of the adds varies from call to call), and count the launch
-    in `dcnv3_core_bwd.launches`."""
+    dtype, contiguous) launch the kernel of csrc/dcn_bwd.cu under
+    `_v3_bwd_plan`, which gathers dinput over a window around each tile of
+    output pixels and adds it with f32 atomics into a zeroed f32 buffer
+    (cast once to bf16; the order of the adds varies from call to call;
+    doffset and dmask repeat bitwise), and count the launch in
+    `dcnv3_core_bwd.launches`."""
     args = (kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w, dilation_h, dilation_w, group, group_channels)
     _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
     if tuple(dout.shape) != tuple(offset.shape[:3]) + (input.shape[-1],):
@@ -323,17 +423,26 @@ def dcnv3_core_bwd(input, offset, mask, dout, kernel_h: int, kernel_w: int, stri
         grads = dcnv3_core_backward_reference(input, offset, mask, dout, *args, offset_scale=offset_scale)
         return (grads[0] if need_input else None, *grads[1:])
     _check_cuda("dcnv3_core_bwd", (input, offset, mask, dout))
+    _, Ho, Wo, _ = offset.shape
+    plan = _v3_bwd_plan(input.shape[0], group, group_channels, Ho, Wo, *args[:4], *args[6:8], input.element_size(),
+                        _aligned16(input, dout))
+    dinput, doffset, dmask = _v3_bwd_launch(input, offset, mask, dout, args, offset_scale, plan, need_input)
+    dcnv3_core_bwd.launches += 1
+    return (dinput.to(input.dtype) if need_input else None), doffset, dmask
+
+
+def _v3_bwd_launch(input, offset, mask, dout, args: tuple, offset_scale: float, plan: BwdPlan,
+                   need_input: bool = True) -> tuple:
+    """dcnv3_core_bwd's kernel under `plan` on checked CUDA tensors: (f32
+    dinput or None, doffset, dmask)."""
     N, H, W, C = input.shape
     _, Ho, Wo, _ = offset.shape
     dinput = torch.zeros((N, H, W, C), device=input.device, dtype=torch.float32) if need_input else None
     doffset, dmask = torch.empty_like(offset), torch.empty_like(mask)
-    vec, lanes = _v3_geometry(group_channels, input.element_size(),
-                              input.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0)
     _launch("dcnv3_core_bwd", _entry("dcnv3_core_bwd", input.dtype),
-            (input, offset, mask, dout, dinput, doffset, dmask),
-            (N, H, W, group, group_channels, Ho, Wo, *args[:8]), (float(offset_scale), vec, lanes))
-    dcnv3_core_bwd.launches += 1
-    return (dinput.to(input.dtype) if need_input else None), doffset, dmask
+            (input, offset, mask, dout, dinput, doffset, dmask, _workspace(plan, mask)),
+            (N, H, W, *args[8:], Ho, Wo, *args[:8]), (float(offset_scale), *_bwd_args(plan)))
+    return dinput, doffset, dmask
 
 
 dcnv3_core_bwd.launches = 0
@@ -478,10 +587,11 @@ def dcnv2_im2col_bwd(x, offset_y, offset_x, mask, dcols, k: int = 3, stride: int
     input's dtype, the derivative at integer coordinates one-sided as
     JAX's (`_corner_weight`); dx is None when not `need_x`. A CPU tensor
     runs the plain version; CUDA tensors (one dtype, contiguous) launch
-    the kernel of csrc/dcn_bwd.cu, which scatters dx with f32 atomics into
-    a zeroed f32 buffer (cast once to bf16; the order of the adds varies
-    from call to call), and count the launch in
-    `dcnv2_im2col_bwd.launches`."""
+    the kernel of csrc/dcn_bwd.cu under `_v2_bwd_plan`, which gathers dx
+    over a window around each tile of output pixels and adds it with f32
+    atomics into a zeroed f32 buffer (cast once to bf16; the order of the
+    adds varies from call to call; the other three repeat bitwise), and
+    count the launch in `dcnv2_im2col_bwd.launches`."""
     _check_v2(x, offset_y, offset_x, mask, k)
     N, H, W, C = x.shape
     _, Ho, Wo, P = offset_y.shape
@@ -492,14 +602,24 @@ def dcnv2_im2col_bwd(x, offset_y, offset_x, mask, dcols, k: int = 3, stride: int
         return (grads[0] if need_x else None, *grads[1:])
     _check_cuda("dcnv2_im2col_bwd", (x, offset_y, offset_x, mask, dcols))
     _check_v2_size(x, offset_y)
-    dx = torch.zeros((N, H, W, C), device=x.device, dtype=torch.float32) if need_x else None
-    doffset_y, doffset_x, dmask = (torch.empty_like(t) for t in (offset_y, offset_x, mask))
-    vec, lanes = _v3_geometry(C, x.element_size(), x.data_ptr() % 16 == 0 and dcols.data_ptr() % 16 == 0)
-    _launch("dcnv2_im2col_bwd", _entry("dcnv2_im2col_bwd", x.dtype),
-            (x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask),
-            (N, H, W, C, Ho, Wo, k, stride, pad, vec, lanes))
+    plan = _v2_bwd_plan(N, C, Ho, Wo, k, stride, x.element_size(), _aligned16(x, dcols))
+    dx, doffset_y, doffset_x, dmask = _v2_bwd_launch(x, offset_y, offset_x, mask, dcols, k, stride, pad, plan, need_x)
     dcnv2_im2col_bwd.launches += 1
     return (dx.to(x.dtype) if need_x else None), doffset_y, doffset_x, dmask
+
+
+def _v2_bwd_launch(x, offset_y, offset_x, mask, dcols, k: int, stride: int, pad: int, plan: BwdPlan,
+                   need_x: bool = True) -> tuple:
+    """dcnv2_im2col_bwd's kernel under `plan` on checked CUDA tensors: (f32
+    dx or None, doffset_y, doffset_x, dmask)."""
+    N, H, W, C = x.shape
+    _, Ho, Wo, _ = offset_y.shape
+    dx = torch.zeros((N, H, W, C), device=x.device, dtype=torch.float32) if need_x else None
+    doffset_y, doffset_x, dmask = (torch.empty_like(t) for t in (offset_y, offset_x, mask))
+    _launch("dcnv2_im2col_bwd", _entry("dcnv2_im2col_bwd", x.dtype),
+            (x, offset_y, offset_x, mask, dcols, dx, doffset_y, doffset_x, dmask, _workspace(plan, mask)),
+            (N, H, W, C, Ho, Wo, k, stride, pad, *_bwd_args(plan)))
+    return dx, doffset_y, doffset_x, dmask
 
 
 dcnv2_im2col_bwd.launches = 0
