@@ -9,8 +9,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the serving paths give it (f32 and bf16), with kernel, plain-version,
     library-call and bound times and the kernel's multiple of its bound:
-    odconv_s2 at the four ODConv sites (with its launch plan, and the same
-    bits from two bf16 calls), dcnv2_im2col at rows 6 and 8 and dcnv3_core
+    odconv_s2 at the four ODConv sites of the flagship and the four of
+    yolo-somi-s (with its launch plan, and the same bits from two bf16
+    calls), dcnv2_im2col at rows 6 and 8 and dcnv3_core
     at row 10 of yolo-somi-dcn (with the corner bytes it reads). Every
     timed call starts with a cold L2: a 256 MB buffer is zeroed before it,
     outside the timed events, behind a spin that keeps host launch time
@@ -19,11 +20,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     yolo-somi-dcn (640 px, bf16, random weights from seed 0; the DCN
     offset/mask heads randomised from seed 0) answer batches of 8 uint8
     images through Runner; each path's kernels must have launched their
-    count per batch, with every count set to 0 just before the path
+    count per batch, with every count set to 0 just before the path. Then
+    the rest of the family the same way, each at its published width and
+    nc (FAMILY_SERVED: yolo-somi-s and the ODConv ablation through
+    odconv_s2 4 times a batch; yolo-somi-t, -t-p3s8 and yolov5s, coupled
+    Detect heads, through no kernel; the heads that score nothing above
+    0.25 under random weights serve at conf 1e-6, SERVE_CONF, and every
+    served image must get a detection), and a sweep (SWEEP): every other
+    config the port serves builds at its published width and answers one
+    b8 batch, every row finite, no kernel launched
  5. parity: each model in f32 through the kernels is as close to its
-    plain version in f64 as the plain version in f32 is, on a batch of 2
- 6. eval: val.run of the full-width flagship (nc 10, 640 px, b8, random
-    weights from seed 0) on a self-labelled set. The set is 60 synthetic
+    plain version in f64 as the plain version in f32 is, on a batch of 2:
+    the flagship, yolo-somi-dcn, yolo-somi-s, yolo-somi-t and yolov5s (the
+    last two have no kernel site: their f32 distance from f64 is printed)
+ 6. eval, for the flagship, then yolo-somi-dcn with its offset heads
+    randomised, then with them at their zero init: val.run of the full-width model (nc 10, 640 px, b8,
+    random weights from seed 0) on a self-labelled set. The set is 60 synthetic
     640x480 JPEGs from numpy seed 0 (noise with rectangles and discs drawn
     by numpy masks; 60 = 7 x 8 + 4, so the last batch wraps, and the long
     side is already 640, so the loader pads and never resizes), labelled
@@ -34,8 +46,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     output convs are scaled by HEAD_TEMPER first. val.run in f32 through
     the kernels must match val.run in f32 under plain_version() (mAP@.5
     within 0.01, mAP@.5:.95 within 0.02, the plain path's mAP@.5 above
-    0.5), with odconv_s2 launched 4 times per batch in the kernel run and
-    never in the plain one; then val.run in bf16 through the kernels is
+    0.5), with the model's kernels launched their count per batch in the
+    kernel run (odconv_s2 4; yolo-somi-dcn also dcnv2_im2col 9 and
+    dcnv3_core 1) and never in the plain one; then val.run in bf16 through
+    the kernels is
     timed (eval line, Speed split, img/s), beside bf16 under
     plain_version() and a split of a bf16 batch into model and NMS
  7. checkpoints and entry points, at full width (640 px, nc 10, bf16):
@@ -54,11 +68,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     yolo-somi-dcn, saved with randomised offset heads, is loaded by
     hubconf.yolo_somi_dcn and served by serve.DetectionServer on
     127.0.0.1: 4 JPEGs posted raw and 4 as multipart must get the records
-    AutoShape gives directly, with 4 / 9 / 1 launches per forward
+    AutoShape gives directly, with 4 / 9 / 1 launches per forward. Then
+    hubconf.yolov5s and hubconf.yolov5l (nc 80, random weights) answer
+    AutoShape calls on the 16 JPEGs with no kernel launched, and
+    yolo-somi-t, written through export_jax_variables, loads in
+    Runner(weights=...) to the bits of the seed-0 model and its rows
  8. training, on a set of 64 train and 16 val synthetic 640x480 JPEGs
     labelled with the shapes drawn in them (rectangle class 0, disc class
     1, nc 10). (a), with phase 3: odconv_s2_dx and odconv_s2_dwmix against
-    autograd of the plain version at the four ODConv sites (b8), f32 and
+    autograd of the plain version at the four ODConv sites of the flagship
+    and of yolo-somi-s (b8), f32 and
     bf16, a bitwise repeat, timed beside the plain version and cuDNN's
     grouped-conv backward, with each bf16 launch plan. (b) one full-width
     f32 train-mode step (b2, seed-0 weights, head tempered) through the
@@ -163,11 +182,34 @@ PEAK_BYTES = 3.35e12
 OUT = Path("chiprun_out")
 SOURCES = ("odconv_s2.cu", "dcn.cu", "odconv_s2_bwd.cu", "dcn_bwd.cu")
 KERNELS = (odconv_s2, dcnv2_im2col, dcnv3_core, odconv_s2_dx, odconv_s2_dwmix, dcnv2_im2col_bwd, dcnv3_core_bwd)
-# launches per served batch on each path
+# launches per served batch on each path; any other config launches none
 PER_BATCH = {
     "yolo-somi": {"odconv_s2": 4},
     "yolo-somi-dcn": {"odconv_s2": 4, "dcnv2_im2col": 9, "dcnv3_core": 1},
+    "yolo-somi-s": {"odconv_s2": 4},
+    "ablation/v5s-c2f-odconv-bifpn-p2-decoupled": {"odconv_s2": 4},
 }
+# the rest of the family served as the flagship is (phase 4), at its
+# published width and depth, with its YAML's nc (10 for the SOMI configs,
+# 80 for the YOLOv5 ones)
+FAMILY_SERVED = {"yolo-somi-s": (0.5, 0.67), "ablation/v5s-c2f-odconv-bifpn-p2-decoupled": (0.5, 0.33),
+                 "yolo-somi-t": (1.0, 1.0), "yolo-somi-t-p3s8": (1.0, 1.0), "yolov5s": (0.5, 0.33)}
+# every other config the port serves: each builds and answers one b8 batch
+SWEEP = ("yolo-somi-t-p3", "yolo-somi-t-p3s", "ablation/v5s-c2f", "ablation/v5s-c2f-bifpn-p2", "yolov5n", "yolov5m",
+         "yolov5l", "yolov5x", "yolov5s-p2", "yolov5s6", "yolov5n6", "hub/yolov5s6", "yolov5m6", "yolov5l6",
+         "yolov5x6", "yolov5-p2", "yolov5-p6", "yolov5-p7", "yolov5-bifpn", "yolov5-fpn", "yolov5-panet", "yolov3",
+         "yolov3-spp")
+PARITY = ("yolo-somi", "yolo-somi-dcn", "yolo-somi-s", "yolo-somi-t", "yolov5s")
+# AutoShape's threshold for the yolov5 hub loaders: random weights under
+# the detection priors score ~1e-4 at most, so the usual 0.25 (or 0.001)
+# would return no box to map back to the images
+HUB_CONF = 1e-6
+# the serving threshold (phase 4), Runner's 0.25 unless named here: these
+# heads score nothing above 0.25 under random weights and the priors, so
+# they serve at HUB_CONF and their NMS takes its full top-4096 candidates,
+# as the flagship's does at 0.25
+SERVE_CONF = {name: HUB_CONF for name in ("ablation/v5s-c2f-odconv-bifpn-p2-decoupled", "yolo-somi-t",
+                                          "yolo-somi-t-p3s8", "yolov5s")}
 EVAL_IMAGES = 60  # 7 batches of 8 and a last one that wraps 4
 EVAL_TOP = 10  # labels per image
 HEAD_TEMPER = 0.1
@@ -321,8 +363,9 @@ def add_site(summary: dict, count: int, kernel_ms, plain_ms, library_ms, bound, 
     summary["max_abs_err"] = max(summary["max_abs_err"], err)
 
 
-def check_kernel(sites, gen: torch.Generator) -> dict:
-    """odconv_s2 against odconv_s2_reference at every site, f32 and bf16."""
+def check_kernel(sites, gen: torch.Generator, cfg_name: str = "yolo-somi") -> dict:
+    """odconv_s2 against odconv_s2_reference at every site of `cfg_name`,
+    f32 and bf16."""
     summary = new_summary()
     for row, xs, ws in sites:
         x32 = torch.randn(xs, device="cuda", generator=gen)
@@ -348,7 +391,8 @@ def check_kernel(sites, gen: torch.Generator) -> dict:
             wg = w.permute(0, 4, 3, 1, 2).reshape(B * cout, C, 3, 3).contiguous()
             library_ms = time_ms(lambda: F.conv2d(xg, wg, stride=2, padding=1, groups=B))
             bound = bound_ms(x, w)
-            print(f"odconv_s2 row {row} x{tuple(xs)} cout {ws[-1]} {str(dtype)[6:]}{plan}: kernel_ms {kernel_ms:.4f} "
+            print(f"odconv_s2 {cfg_name} row {row} x{tuple(xs)} cout {ws[-1]} {str(dtype)[6:]}{plan}: kernel_ms "
+                  f"{kernel_ms:.4f} "
                   f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound[0]:.4f} ({bound[1]}) "
                   f"x bound {kernel_ms / bound[0]:.1f} max_abs_err {err:.3e}")
             if dtype == torch.bfloat16:  # the serving path's dtype
@@ -718,13 +762,17 @@ def only(**counts) -> dict:
 
 
 def serve(gpu: str, cfg_name: str) -> dict:
-    """Serve N_REQUESTS batches; returns this path's launch counts."""
-    runner = Runner(cfg_name, nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    """Serve N_REQUESTS batches with the YAML's nc at SERVE_CONF, every
+    image answered with at least one detection; returns this path's launch
+    counts."""
+    runner = Runner(cfg_name, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
     randomize_offset_heads(runner.model, seed=0)
     cfg = runner.meta.yaml
-    assert (cfg["width_multiple"], cfg["depth_multiple"]) == (1.0, 1.0), cfg
+    width = (cfg["width_multiple"], cfg["depth_multiple"])
+    assert width == FAMILY_SERVED.get(cfg_name, (1.0, 1.0)), cfg
+    conf = SERVE_CONF.get(cfg_name, 0.25)
     n_params = sum(p.numel() for p in runner.model.parameters())
-    per_batch = PER_BATCH[cfg_name]
+    per_batch = PER_BATCH.get(cfg_name, {})
     # the graph's own count of kernel sites agrees with the expected launches
     sites = {"odconv_s2": len(odconv_sites(runner.meta, BATCH, IMGSZ)),
              "dcnv2_im2col": sum(isinstance(m, DCNv2) for m in runner.model.modules()),
@@ -732,26 +780,28 @@ def serve(gpu: str, cfg_name: str) -> dict:
     assert sites == {name: per_batch.get(name, 0) for name in sites}, (sites, per_batch)
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
-    runner(batches[0])  # warm-up: cuDNN plans, allocator
+    runner(batches[0], conf_thres=conf)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
     reset_counts()
     lat = []
     for images in batches[1:]:
         t0 = time.perf_counter()
-        out = runner(images)  # ends in a device->host copy of the detections
+        out = runner(images, conf_thres=conf)  # ends in a device->host copy of the detections
         lat.append(time.perf_counter() - t0)
         assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), out.shape
         valid = out[..., 4] > 0
         assert (out[~valid] == 0).all()
+        assert valid.any(1).all(), f"{cfg_name}: an image without detections at conf {conf}: no NMS work"
     launches = launch_counts()
     assert launches == {name: per_batch.get(name, 0) * N_REQUESTS for name in launches}, launches
     med = statistics.median(lat)
     per = ", ".join(f"{name} {n // N_REQUESTS}/batch" for name, n in launches.items() if n)
-    print(f"serving {cfg_name} full width ({n_params / 1e6:.2f} M params) 640 px bf16 b{BATCH}, "
-          f"{N_REQUESTS} requests on {gpu}: latency median {med * 1e3:.2f} ms/batch "
+    print(f"serving {cfg_name} published width/depth {width[0]}/{width[1]} ({n_params / 1e6:.2f} M params, "
+          f"nc {runner.meta.nc}) 640 px bf16 conf {conf:g} "
+          f"b{BATCH}, {N_REQUESTS} requests on {gpu}: latency median {med * 1e3:.2f} ms/batch "
           f"(min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), {BATCH / med:.1f} img/s, "
-          f"detections/img {valid.sum(1).mean():.1f}, launches {per}")
+          f"detections/img {valid.sum(1).mean():.1f}, launches {per or 'none'}")
 
     # the batch split by layer: upload + model, then postprocess (NMS)
     fwd, post = [], []
@@ -761,7 +811,7 @@ def serve(gpu: str, cfg_name: str) -> dict:
         preds = runner.forward(images)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        fused_postprocess(preds, runner.meta.anchors_px, runner.meta.strides).cpu()
+        fused_postprocess(preds, runner.meta.anchors_px, runner.meta.strides, conf_thres=conf).cpu()
         fwd.append(t1 - t0)
         post.append(time.perf_counter() - t1)
     print(f"split {cfg_name}: upload+model median {statistics.median(fwd) * 1e3:.2f} ms/batch, "
@@ -772,41 +822,70 @@ def serve(gpu: str, cfg_name: str) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        runner(batches[1])
+        runner(batches[1], conf_thres=conf)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ours = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 for name in per_batch}
     table = events.table(sort_by="self_device_time_total", row_limit=40)
-    path = OUT / f"chip_smoke_profile_{cfg_name}.txt"
+    path = OUT / f"chip_smoke_profile_{cfg_name.replace('/', '_')}.txt"
     path.write_text(f"{gpu}\n{table}\n")
-    shares = ", ".join(f"{name} kernels {ms:.3f} ms ({100 * ms / max(busy_ms, 1e-9):.1f}%)"
-                       for name, ms in ours.items())
+    shares = "".join(f", {name} kernels {ms:.3f} ms ({100 * ms / max(busy_ms, 1e-9):.1f}% of device time)"
+                     for name, ms in ours.items())
     print(f"profile {cfg_name} (one batch, profiler on): wall {wall_ms:.2f} ms, device kernels {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% busy), {shares} of device time; table in {path}")
+          f"({100 * busy_ms / wall_ms:.1f}% busy){shares}; table in {path}")
     return launches
 
 
+def sweep(gpu: str) -> None:
+    """Every SWEEP config builds at its published width with its YAML's nc
+    (random weights from seed 0) and answers one b8 bf16 batch: (B, 300, 6)
+    rows, all finite, and no kernel launched."""
+    t_phase = time.perf_counter()
+    images = np.random.default_rng(0).integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+    for cfg_name in SWEEP:
+        t0 = time.perf_counter()
+        runner = Runner(cfg_name, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        out = runner(images)
+        t2 = time.perf_counter()
+        assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), (cfg_name, out.shape)
+        assert not any(launch_counts().values()), (cfg_name, launch_counts())
+        meta = runner.meta
+        print(f"sweep {cfg_name}: {sum(p.numel() for p in runner.model.parameters()) / 1e6:.2f} M params, "
+              f"{meta.head_type} nc {meta.nc} na {meta.na} strides {[int(s) for s in meta.strides]}; build "
+              f"{t1 - t0:.2f} s, first b{BATCH} batch {(t2 - t1) * 1e3:.1f} ms, "
+              f"{int((out[..., 4] > 0).sum())} rows, every kernel count 0")
+        del runner
+        torch.cuda.empty_cache()
+    print(f"sweep on {gpu}: {len(SWEEP)} configs in {time.perf_counter() - t_phase:.1f} s")
+
+
 def parity(cfg_name: str) -> None:
-    """The full-width model in f32 through the kernels and through their
-    plain versions, on one batch of 2, each held against the plain version
-    in f64 (DCN offset/mask heads randomised).
+    """The model at its published width with its YAML's nc, in f32 through
+    the kernels and through their plain versions, on one batch of 2, each
+    held against the plain version in f64 (DCN offset/mask heads
+    randomised).
 
     A fixed atol cannot hold here: head outputs reach ~170 and 36 random
     layers amplify f32 rounding, so the plain f32 model itself misses f64
     by ~1e-2. The kernels
     pass when their f32 model is no further from f64 than twice the plain
-    f32 model is."""
-    runner = Runner(cfg_name, nc=10, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+    f32 model is. A config with no kernel site is its own plain version:
+    its one f32 run's distance from f64 is printed, and the rule has
+    nothing to hold."""
+    runner = Runner(cfg_name, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
     randomize_offset_heads(runner.model, seed=0)
     images = np.random.default_rng(1).integers(0, 256, (2, IMGSZ, IMGSZ, 3), dtype=np.uint8)
     before = launch_counts()
     raw = runner.forward(images)
     per_forward = {name: n - before[name] for name, n in launch_counts().items()}
-    assert per_forward == {name: PER_BATCH[cfg_name].get(name, 0) for name in per_forward}, per_forward
+    assert per_forward == {name: PER_BATCH.get(cfg_name, {}).get(name, 0) for name in per_forward}, per_forward
     with plain_version():
-        ref = runner.forward(images)
+        ref = runner.forward(images) if any(per_forward.values()) else raw
         with torch.inference_mode():
             x64 = torch.from_numpy(images).cuda().permute(0, 3, 1, 2).double() / 255.0
             ref64 = copy.deepcopy(runner.model).double()(x64)
@@ -816,8 +895,9 @@ def parity(cfg_name: str) -> None:
         k_err = (a.double() - c).abs().max().item()
         p_err = (b.double() - c).abs().max().item()
         diff = (a - b).abs().max().item()
-        print(f"parity {cfg_name} level {i}: max |out| {c.abs().max().item():.3e}, kernel-vs-plain {diff:.3e}, "
-              f"vs f64: kernel {k_err:.3e} plain {p_err:.3e}")
+        errs = (f"kernel-vs-plain {diff:.3e}, vs f64: kernel {k_err:.3e} plain {p_err:.3e}" if b is not a
+                else f"no kernel site, f32 vs f64 {k_err:.3e}")
+        print(f"parity {cfg_name} level {i}: max |out| {c.abs().max().item():.3e}, {errs}")
         assert k_err <= 2 * p_err + 1e-6, (cfg_name, i, k_err, p_err)
 
 
@@ -901,11 +981,13 @@ def eval_split(name: str, runner: Runner, loader: DataLoader) -> None:
           f"median {statistics.median(post) * 1e3:.2f} ms/batch ({len(fwd)} batches)")
 
 
-def evaluate(gpu: str) -> None:
-    """val.run of the full-width flagship on a self-labelled set: f32
+def evaluate(gpu: str, cfg_name: str = "yolo-somi", offsets: str = "random") -> None:
+    """val.run of the full-width `cfg_name` on a set it labels itself: f32
     through the kernels against f32 under plain_version(), then bf16
-    through the kernels, timed."""
+    through the kernels, timed. DCN offset heads are randomised, or left
+    at their zero init with offsets="zero"."""
     t_phase = time.perf_counter()
+    title = cfg_name if offsets == "random" else f"{cfg_name} ({offsets} offsets)"
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "ds"  # the loader's label cache lands in tmp, beside ds
         (root / "images").mkdir(parents=True)
@@ -917,11 +999,13 @@ def evaluate(gpu: str) -> None:
         data.write_text(yaml.safe_dump({"path": str(root), "train": "images", "val": "images", "nc": 10,
                                         "names": [f"class{i}" for i in range(10)]}))
 
-        runner = Runner("yolo-somi", nc=10, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+        runner = Runner(cfg_name, nc=10, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+        if offsets == "random":
+            randomize_offset_heads(runner.model, seed=0)
         with plain_version():  # why the head is tempered: its scores before
             images = next(iter(DataLoader(DetectionDataset(str(root / "images"), img_size=IMGSZ), BATCH)))[0]
             conf = runner(images, conf_thres=0.25)[..., 4]
-        print(f"eval: untempered head, {(conf == 1.0).sum() / BATCH:.1f} of {(conf > 0).sum() / BATCH:.1f} "
+        print(f"eval {title}: untempered head, {(conf == 1.0).sum() / BATCH:.1f} of {(conf > 0).sum() / BATCH:.1f} "
               f"detections (conf > 0.25) per image have conf exactly 1.0")
         temper_head(runner.model, HEAD_TEMPER)
         n_labels = self_label(runner, root)
@@ -934,7 +1018,7 @@ def evaluate(gpu: str) -> None:
             results, _, speed = val.run(runner=r, name=name, **kw)
             wall = time.perf_counter() - t0
             seen = json.loads((Path(tmp) / "runs" / name / "metrics.json").read_text())["images"]
-            print(f"eval {name}: P {results[0]:.5f} R {results[1]:.5f} mAP@.5 {results[2]:.5f} "
+            print(f"eval {title} {name}: P {results[0]:.5f} R {results[1]:.5f} mAP@.5 {results[2]:.5f} "
                   f"mAP@.5:.95 {results[3]:.5f} images {seen}; Speed {speed[0]:.2f} ms pre, {speed[1]:.2f} ms "
                   f"inference+NMS, {speed[2]:.2f} ms post per image; {seen / wall:.1f} img/s ({wall:.2f} s)")
             assert seen == EVAL_IMAGES, seen
@@ -947,18 +1031,20 @@ def evaluate(gpu: str) -> None:
         with plain_version():
             plain = run("f32-plain", runner)
         plain_launches = launch_counts()
-        print(f"eval launches: kernels {launches}, plain_version() {plain_launches}; {n_labels} labels")
+        print(f"eval {title} launches: kernels {launches}, plain_version() {plain_launches}; {n_labels} labels")
         n_batches = -(-EVAL_IMAGES // BATCH)
-        assert launches == only(odconv_s2=4 * n_batches), launches
+        assert launches == only(**{k: n * n_batches for k, n in PER_BATCH[cfg_name].items()}), launches
         assert not any(plain_launches.values()), plain_launches
         assert plain[2] > 0.5, f"plain mAP@.5 {plain[2]}: the self-labelled check would be vacuous"
         assert abs(kernels[2] - plain[2]) <= 0.01, (kernels[2], plain[2])
         assert abs(kernels[3] - plain[3]) <= 0.02, (kernels[3], plain[3])
 
-        eval_split("f32", runner, loader)
+        eval_split(f"{title} f32", runner, loader)
 
         del runner
-        runner = Runner("yolo-somi", nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+        runner = Runner(cfg_name, nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+        if offsets == "random":
+            randomize_offset_heads(runner.model, seed=0)
         temper_head(runner.model, HEAD_TEMPER)
         runner(next(iter(loader))[0], **EVAL_NMS)  # warm-up
         torch.cuda.synchronize()
@@ -969,8 +1055,8 @@ def evaluate(gpu: str) -> None:
         with plain_version():  # what bf16 itself costs against the f32 labels
             run("bf16-plain", runner)
         assert not any(launch_counts().values()), launch_counts()
-        eval_split("bf16", runner, loader)
-    print(f"eval on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+        eval_split(f"{title} bf16", runner, loader)
+    print(f"eval {title} on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1199,6 +1285,44 @@ def entry_points(gpu: str) -> None:
               f"{statistics.median(lat) * 1e3:.2f} ms (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), "
               f"{n_records} records equal to AutoShape's; launches per forward "
               f"{', '.join(f'{k} {n // len(answers)}' for k, n in launches.items())}")
+        del model
+
+        # -- the yolov5 hub loaders, and yolo-somi-t from a weights file ----
+        paths = [str(f) for f in frames]
+        for loader in (hubconf.yolov5s, hubconf.yolov5l):
+            model = loader(device="cuda", conf=HUB_CONF)
+            assert model.runner.meta.nc == 80 and model.runner.meta.head_type == "Detect"
+            model(paths[:2])  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            results = model(paths)
+            secs = time.perf_counter() - t0
+            assert not any(launch_counts().values()), launch_counts()
+            assert len(results.pred) == len(paths)
+            for det, im in zip(results.pred, results.ims):
+                h, w = im.shape[:2]
+                assert np.isfinite(det).all() and (det[:, [0, 2]] >= 0).all() and (det[:, [0, 2]] <= w).all()
+                assert (det[:, [1, 3]] >= 0).all() and (det[:, [1, 3]] <= h).all()
+            n_rows = sum(len(det) for det in results.pred)
+            assert n_rows > 0, "no rows: the hub check would be vacuous"
+            print(f"hubconf.{loader.__name__} on {gpu}: nc 80, {len(paths)} JPEGs in one AutoShape call "
+                  f"{secs * 1e3:.1f} ms, {n_rows} rows at conf {HUB_CONF} (random weights), all finite and inside "
+                  f"their images; no kernel launched")
+            del model
+        t_path = tmp / "somi-t.msgpack"
+        save_model(t_path, "yolo-somi-t", seed=0)
+        from_file = Runner("yolo-somi-t", str(t_path), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda")
+        direct = Runner("yolo-somi-t", nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+        state = from_file.model.state_dict()
+        for key, value in direct.model.state_dict().items():
+            assert torch.equal(state[key], value), key
+        reset_counts()
+        got = from_file(batch)
+        assert np.array_equal(got, direct(batch)) and np.isfinite(got).all()
+        assert not any(launch_counts().values()), launch_counts()
+        print(f"checkpoint: yolo-somi-t (coupled Detect) through export_jax_variables loads {len(state)} tensors "
+              f"bitwise equal to the seed-0 model; b{BATCH} rows bitwise equal; no kernel launched")
     print(f"checkpoints and entry points on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1207,9 +1331,10 @@ def entry_points(gpu: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_backward(sites, gen: torch.Generator) -> tuple:
+def check_backward(sites, gen: torch.Generator, cfg_name: str = "yolo-somi") -> tuple:
     """odconv_s2_dx and odconv_s2_dwmix against autograd of
-    odconv_s2_reference at every ODConv site (b8, 640 px), f32 and bf16,
+    odconv_s2_reference at every ODConv site of `cfg_name` (b8, 640 px), f32
+    and bf16,
     with a bitwise repeat; timed beside the plain version (autograd of the
     grouped conv for that gradient alone), cuDNN's grouped-conv backward on
     inputs already in its layout, and the copy that makes a strided dy
@@ -1253,15 +1378,15 @@ def check_backward(sites, gen: torch.Generator) -> tuple:
                              " plan (tiles {}, split {})".format(*_dw_plan(B, H, W, C, cout)))
                 else:
                     extra = f" split {_dw_split(B, H, W, C, cout)}" if name == "dwmix" else ""
-                print(f"odconv_s2_{name} row {row} x{tuple(xs)} cout {cout} {str(dtype)[6:]}{extra}: kernel_ms "
-                      f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound[0]:.4f} "
-                      f"({bound[1]}) x bound {kernel_ms / bound[0]:.1f} rel norm err {diff:.2e} "
+                print(f"odconv_s2_{name} {cfg_name} row {row} x{tuple(xs)} cout {cout} {str(dtype)[6:]}{extra}: "
+                      f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
+                      f"{bound[0]:.4f} ({bound[1]}) x bound {kernel_ms / bound[0]:.1f} rel norm err {diff:.2e} "
                       f"(plain {plain_diff:.2e}) max_abs_err {err:.3e}")
                 if dtype == torch.bfloat16:
                     add_site(sums[name], 1, kernel_ms, plain_ms, library_ms, bound, err)
             if dtype == torch.bfloat16:  # what a strided dy costs: the NCHW-contiguous grad viewed NHWC
                 strided = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-                print(f"odconv_s2 row {row}: making a strided bf16 dy contiguous takes "
+                print(f"odconv_s2 {cfg_name} row {row}: making a strided bf16 dy contiguous takes "
                       f"{time_ms(lambda: strided.contiguous()):.4f} ms")
     return sums["dx"], sums["dwmix"]
 
@@ -1823,12 +1948,13 @@ def build_all() -> None:
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": f"yolosomi_tpu_torch/ops/csrc/{source}", "replaces": replaces,
+            "launches": launches, **summary_fields(summary)}
+
+
+def summary_fields(summary: dict) -> dict:
+    """A kernel's summary's numbers, in the kernels line's keys."""
     return {
-        "name": name,
-        "route": "cuda",
-        "source": f"yolosomi_tpu_torch/ops/csrc/{source}",
-        "replaces": replaces,
-        "launches": launches,
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"],
         "plain_ms": summary["plain_ms"],
@@ -1855,39 +1981,54 @@ def main() -> int:
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
     _, meta = parse_model(load_model_cfg(find_config("yolo-somi")))
+    _, meta_s = parse_model(load_model_cfg(find_config("yolo-somi-s")))
     gen = torch.Generator(device="cuda").manual_seed(0)
     odconv_summary = check_kernel(odconv_sites(meta, BATCH, IMGSZ), gen)
+    s_summary = check_kernel(odconv_sites(meta_s, BATCH, IMGSZ), gen, "yolo-somi-s")
     v2_sites, v3_sites = dcn_sites("yolo-somi-dcn", BATCH, IMGSZ)
     v2_summary = check_dcnv2(v2_sites, gen)
     v3_summary = check_dcnv3(v3_sites, gen)
     dx_summary, dw_summary = check_backward(odconv_sites(meta, BATCH, IMGSZ), gen)
+    s_dx_summary, s_dw_summary = check_backward(odconv_sites(meta_s, BATCH, IMGSZ), gen, "yolo-somi-s")
     v2b_summary, v3b_summary = check_dcn_backward(v2_sites, v3_sites, gen)
     print("per served batch or train step (bf16, sites times launches): " + "; ".join(
         f"{name} kernel_ms {sm['ms']:.4f} plain_ms {sm['plain_ms']:.4f} library_ms {sm['library_ms']:.4f} "
         f"bound_ms {sm['bound_ms']:.4f} x bound {sm['ms'] / sm['bound_ms']:.1f}"
         for name, sm in (("odconv_s2", odconv_summary), ("dcnv2_im2col", v2_summary), ("dcnv3_core", v3_summary),
                          ("odconv_s2_dx", dx_summary), ("odconv_s2_dwmix", dw_summary),
-                         ("dcnv2_im2col_bwd", v2b_summary), ("dcnv3_core_bwd", v3b_summary))))
+                         ("dcnv2_im2col_bwd", v2b_summary), ("dcnv3_core_bwd", v3b_summary),
+                         ("odconv_s2 yolo-somi-s", s_summary), ("odconv_s2_dx yolo-somi-s", s_dx_summary),
+                         ("odconv_s2_dwmix yolo-somi-s", s_dw_summary))))
 
     flagship = serve(gpu, "yolo-somi")
     dcn = serve(gpu, "yolo-somi-dcn")
-    parity("yolo-somi")
-    parity("yolo-somi-dcn")
+    t0 = time.perf_counter()
+    family = {name: serve(gpu, name) for name in FAMILY_SERVED}
+    print(f"serving the family on {gpu}: {len(family)} configs in {time.perf_counter() - t0:.1f} s")
+    sweep(gpu)
+    for name in PARITY:
+        parity(name)
     evaluate(gpu)
+    evaluate(gpu, "yolo-somi-dcn")
+    evaluate(gpu, "yolo-somi-dcn", offsets="zero")  # where the random offsets' mAP@.5:.95 gap comes from
     entry_points(gpu)
     trained = training(gpu)
     steps = TRAIN_IMAGES // BATCH * (TRAIN_EPOCHS + 1)
 
     kernels = [
-        kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111", flagship["odconv_s2"],
-                     odconv_summary),
+        dict(kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111",
+                          flagship["odconv_s2"], odconv_summary),
+             **{"yolo-somi-s": {"launches": family["yolo-somi-s"]["odconv_s2"], **summary_fields(s_summary)}}),
         kernel_entry("dcnv2_im2col", "dcn.cu", "tools/probe_pallas_gather.py:27", dcn["dcnv2_im2col"], v2_summary),
         kernel_entry("dcnv3_core", "dcn.cu", "tools/probe_pallas_gather.py:27", dcn["dcnv3_core"], v3_summary),
-        # no Pallas counterpart: they replace XLA's VJP of the batch-grouped vmap conv that JAX trains ODConv with
+        # no Pallas counterpart: they replace XLA's VJP of the batch-grouped vmap conv that JAX trains ODConv with;
+        # yolo-somi-s's sites are checked and timed (phase 8a), not trained, so they carry no launch count
         *(dict(kernel_entry(name, "odconv_s2_bwd.cu", "yolosomi_tpu/models/layers.py:874",
                             trained["yolo-somi"][name], summary),
-               launches_per_train_step=trained["yolo-somi"][name] // steps)
-          for name, summary in (("odconv_s2_dx", dx_summary), ("odconv_s2_dwmix", dw_summary))),
+               launches_per_train_step=trained["yolo-somi"][name] // steps,
+               **{"yolo-somi-s": summary_fields(s_sum)})
+          for name, summary, s_sum in (("odconv_s2_dx", dx_summary, s_dx_summary),
+                                       ("odconv_s2_dwmix", dw_summary, s_dw_summary))),
         # no Pallas counterpart either: they replace XLA's VJP of the gathers that JAX trains the DCN variant with
         *(dict(kernel_entry(name, "dcn_bwd.cu", "yolosomi_tpu/ops/dcn.py:34", trained["yolo-somi-dcn"][name], summary),
                launches_per_train_step=trained["yolo-somi-dcn"][name] // steps)

@@ -1,8 +1,11 @@
 """Shared fixtures for the yolosomi_tpu_torch parity tests: the JAX flagship
 at a small size with randomized variables, as nested dicts of numpy arrays
-for the port's weight bridge."""
+for the port's weight bridge, and seeded numpy draws for any model's flax
+variable tree."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
@@ -54,3 +57,45 @@ def layer_variables(variables: dict, i: int) -> dict:
     """The variables of flax submodule layers_<i>."""
     key = f"layers_{i}"
     return {c: variables[c][key] for c in ("params", "batch_stats") if key in variables.get(c, {})}
+
+
+def random_variables(shapes, seed: int) -> dict:
+    """Numpy draws for every leaf of a flax variable tree of shapes."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        names = [str(getattr(p, "key", p)) for p in path]
+        name, parent, shape = names[-1], names[-2] if len(names) > 1 else "", leaf.shape
+        fan_in = math.prod(shape[:-1]) if len(shape) > 1 else 1
+        if names[0] == "batch_stats":
+            v = rng.uniform(0.5, 2.5, shape) if name == "var" else 0.2 * rng.standard_normal(shape)
+        elif parent == "conv_offset_mask" and name == "bias":  # [dy x P | dx x P | mask x P]
+            p = shape[0] // 3
+            v = rng.standard_normal(shape) * np.repeat([2.0, 2.0, 1.0], p)
+        elif parent in ("conv_offset_mask", "offset", "mask") and name == "kernel":
+            v = rng.standard_normal(shape) / math.sqrt(fan_in)
+        elif parent in ("offset", "mask"):
+            v = rng.standard_normal(shape) * (2.0 if parent == "offset" else 1.0)
+        elif parent == "norm" and name == "scale":
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == "weight" and len(shape) == 1:  # BiFPN fusion weights
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = 0.1 * rng.standard_normal(shape)
+        return np.asarray(v, np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def _to_dict(tree) -> dict:
+    return {k: _to_dict(v) if hasattr(v, "items") else v for k, v in tree.items()}
+
+
+def jax_random_model(cfg: dict, nc: int = NC, seed: int = 0):
+    """(flax model, meta, variables as numpy dicts) for any config, the
+    variables drawn by random_variables from the eval_shape tree: the
+    torch mirror that jax_flagship randomizes through has no C2f, Contract
+    or BottleneckCSP. Nothing is compiled here."""
+    model, meta = jax_build_model(cfg, nc=nc)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, IMGSZ, IMGSZ, 3)), train=False))
+    return model, meta, _to_dict(random_variables(shapes, seed))

@@ -29,8 +29,9 @@ import jax.numpy as jnp
 from flax import serialization
 
 import val as jax_val
-from tests._torch_port_common import IMGSZ, NC, few_threads, jax_flagship, small_flagship_cfg  # noqa: F401
-from tests.test_torch_port_dcn import _to_dict, random_variables, small_dcn_cfg
+from tests._torch_port_common import (IMGSZ, NC, _to_dict, few_threads, jax_flagship,  # noqa: F401
+                                      random_variables, small_flagship_cfg)
+from tests.test_torch_port_dcn import small_dcn_cfg
 from tests.test_torch_port_eval import _run_logged, _table, _write_image
 from yolosomi_tpu.data import datasets as jax_datasets
 from yolosomi_tpu.engine import checkpoint as jax_ckpt

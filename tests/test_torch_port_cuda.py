@@ -250,7 +250,7 @@ def _weights_file(tmp_path, name: str):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["yolo-somi", "yolo-somi-dcn"])
+@pytest.mark.parametrize("name", ["yolo-somi", "yolo-somi-dcn", "yolo-somi-s"])
 def test_runner_from_a_weights_file_reaches_the_kernels(cuda, tmp_path, name):
     cfg, weights = _weights_file(tmp_path, name)
     runner = Runner(cfg, weights, dtype=torch.float32, device="cuda")
@@ -330,6 +330,28 @@ def test_odconv_s2_gradient_kernels_match_plain_autograd(cuda, dtype, shape):
     assert torch.equal(odconv_s2_dx(dy, wmix, h, w), dx) and torch.equal(odconv_s2_dwmix(x, dy), dw)
     if shape == (2, 320, 320, 64, 128):
         assert _dw_split(b, h, w, cin, cout) > 1 and _dw_plan(b, h, w, cin, cout)[1] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 32, 64), (2, 20, 20, 256, 128)])
+def test_odconv_s2_kernels_at_yolo_somi_s_sites_match_plain_version(cuda, dtype, shape):
+    """yolo-somi-s's (Cin, Cout) at row 1 (32, 64: K = 288, four and a half
+    64-channel steps, half of each 128-wide tile idle) and row 32 (256,
+    128): the forward and both gradients against the plain version, each
+    twice, bitwise."""
+    b, h, w, cin, cout = shape
+    x = torch.randn(b, h, w, cin, device="cuda", generator=cuda).to(dtype)
+    wmix = (torch.randn(b, 3, 3, cin, cout, device="cuda", generator=cuda) * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+    dy = torch.randn(b, h // 2, w // 2, cout, device="cuda", generator=cuda).to(dtype)
+    y, dx, dw = odconv_s2(x, wmix), odconv_s2_dx(dy, wmix, h, w), odconv_s2_dwmix(x, dy)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=0.15, rtol=0.03)
+    torch.testing.assert_close(y.float(), odconv_s2_reference(x.float(), wmix.float()), **tol)
+    rdx, rdw = odconv_s2_backward_reference(x.float(), wmix.float(), dy.float())
+    assert _rel(dx, rdx) <= GRAD_TOL[dtype] and _rel(dw, rdw) <= GRAD_TOL[dtype], (_rel(dx, rdx), _rel(dw, rdw))
+    assert torch.equal(odconv_s2(x, wmix), y)
+    assert torch.equal(odconv_s2_dx(dy, wmix, h, w), dx) and torch.equal(odconv_s2_dwmix(x, dy), dw)
 
 
 @pytest.mark.cuda

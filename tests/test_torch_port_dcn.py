@@ -24,7 +24,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from tests._torch_port_common import few_threads  # noqa: F401
+from tests._torch_port_common import _to_dict, few_threads, random_variables  # noqa: F401
 from yolosomi_tpu.models.heads import decode as jax_decode
 from yolosomi_tpu.models.yolo import build_model as jax_build_model
 from yolosomi_tpu.ops import dcn as jdcn
@@ -41,38 +41,6 @@ from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.weights import load_jax_variables
 
 WIDTH, DEPTH, IMGSZ, NC = 0.25, 0.33, 64, 3
-
-
-def random_variables(shapes, seed: int) -> dict:
-    """Numpy draws for every leaf of a flax variable tree of shapes."""
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        names = [str(getattr(p, "key", p)) for p in path]
-        name, parent, shape = names[-1], names[-2] if len(names) > 1 else "", leaf.shape
-        fan_in = math.prod(shape[:-1]) if len(shape) > 1 else 1
-        if names[0] == "batch_stats":
-            v = rng.uniform(0.5, 2.5, shape) if name == "var" else 0.2 * rng.standard_normal(shape)
-        elif parent == "conv_offset_mask" and name == "bias":  # [dy x P | dx x P | mask x P]
-            p = shape[0] // 3
-            v = rng.standard_normal(shape) * np.repeat([2.0, 2.0, 1.0], p)
-        elif parent in ("conv_offset_mask", "offset", "mask") and name == "kernel":
-            v = rng.standard_normal(shape) / math.sqrt(fan_in)
-        elif parent in ("offset", "mask"):
-            v = rng.standard_normal(shape) * (2.0 if parent == "offset" else 1.0)
-        elif parent == "norm" and name == "scale":
-            v = 1.0 + 0.1 * rng.standard_normal(shape)
-        elif name == "weight" and len(shape) == 1:  # BiFPN fusion weights
-            v = rng.uniform(0.5, 1.5, shape)
-        else:
-            v = 0.1 * rng.standard_normal(shape)
-        return np.asarray(v, np.float32)
-
-    return jax.tree_util.tree_map_with_path(draw, shapes)
-
-
-def _to_dict(tree) -> dict:
-    return {k: _to_dict(v) if hasattr(v, "items") else v for k, v in tree.items()}
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:

@@ -30,8 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests._torch_port_common import few_threads  # noqa: F401
-from tests.test_torch_port_dcn import _to_dict, random_variables, small_dcn_cfg
+from tests._torch_port_common import _to_dict, few_threads, random_variables  # noqa: F401
+from tests.test_torch_port_dcn import small_dcn_cfg
 from tests.test_torch_port_train import (B, EPOCHS, NB, assert_stats_close, assert_updates_close, batches, flat,
                                          targets_batch)
 from yolosomi_tpu import losses as jax_losses

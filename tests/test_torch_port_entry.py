@@ -47,6 +47,7 @@ from yolosomi_tpu_torch.engine import runner as runner_mod
 from yolosomi_tpu_torch.engine.runner import EnsembleRunner, Runner, attempt_load
 from yolosomi_tpu_torch.ops import nms, wbf
 from yolosomi_tpu_torch.utils import classifier
+from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 
 IMAGE_SIZES = [(64, 64), (48, 64), (80, 60), (33, 70), (120, 90), (64, 50)]
 
@@ -171,11 +172,11 @@ def test_head_type_guard_raises_for_heads_that_decode_otherwise(files):
     assert runner.meta.head_type in runner_mod.ANCHOR_HEADS
     runner.meta.head_type = "DetectV8"
     for kw in (dict(), dict(multi_label=True, exact=True)):
-        with pytest.raises(NotImplementedError, match="items 4 and 8"):
+        with pytest.raises(NotImplementedError, match="queue A item 8"):
             runner(x, **kw)
     ens = EnsembleRunner(files["cfg"], files["weights"], dtype=torch.float32, device="cpu")
     ens.members[1].meta.head_type = "Segment"
-    with pytest.raises(NotImplementedError, match="items 4 and 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
         ens(x)
 
 
@@ -457,10 +458,22 @@ def test_hub_loaders(files, monkeypatch):
         assert seen[-1] == (cfg, "w.msgpack", {"device": "cpu"})
 
 
-@pytest.mark.parametrize("fn", ["yolov5s", "yolov5l"])
+@pytest.mark.parametrize("fn", ["yolov5s", "yolov5l", "yolov3-tiny"])
 def test_yolov5_hub_loaders_name_the_queue_item(fn):
-    with pytest.raises(KeyError, match="item 8"):
-        getattr(hubconf, fn)(device="cpu")
+    """The yolov5 loaders build their YAML's model (nc 80, its anchors, the
+    coupled Detect head) and answer an AutoShape call on the CPU; a hub
+    config with an unported row (yolov3-tiny's nn.MaxPool2d) still raises
+    KeyError naming ROADMAP queue A item 8."""
+    if fn == "yolov3-tiny":
+        with pytest.raises(KeyError, match="item 8"):
+            hubconf.custom(fn, device="cpu")
+        return
+    model = getattr(hubconf, fn)(device="cpu", imgsz=64)
+    yaml_cfg = load_model_cfg(find_config(fn))
+    assert model.runner.meta.nc == yaml_cfg["nc"] == 80 and model.runner.meta.head_type == "Detect"
+    np.testing.assert_array_equal(model.runner.meta.anchors_px.reshape(3, -1), yaml_cfg["anchors"])
+    image = np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    assert len(model([image]).pred) == 1
 
 
 def test_entry_points_default_to_cuda(files):

@@ -120,10 +120,10 @@ def test_odconv_module_matches_flax(flagship, row):
 # ---------------------------------------------------------------------------
 
 
-def _odconv_sites(width: float, depth: float, imgsz: int, batch: int) -> list:
-    """(B, H, W, Cin, Cout) of every ODConv row of the flagship at this size,
-    read from the graph built on the meta device."""
-    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+def _odconv_sites(width: float, depth: float, imgsz: int, batch: int, name: str = "yolo-somi") -> list:
+    """(B, H, W, Cin, Cout) of every ODConv row of config `name` (the
+    flagship) at this size, read from the graph built on the meta device."""
+    cfg = dict(load_model_cfg(find_config(name)))
     cfg["width_multiple"], cfg["depth_multiple"] = width, depth
     with torch.device("meta"):
         _, meta = parse_model(cfg)
@@ -140,19 +140,23 @@ def _odconv_sites(width: float, depth: float, imgsz: int, batch: int) -> list:
 # width 0.25 / depth 0.33 / 64 px, batch 2
 SERVING_SITES = [(8, 320, 320, 64, 128), (8, 160, 160, 256, 256), (8, 80, 80, 256, 256), (8, 40, 40, 512, 256)]
 SMALL_SITES = [(2, 32, 32, 16, 32), (2, 16, 16, 64, 64), (2, 8, 8, 64, 64), (2, 4, 4, 128, 64)]
+# the same rows of yolo-somi-s (its width 0.5 / depth 0.67) at 640 px, batch 8
+SOMI_S_SITES = [(8, 320, 320, 32, 64), (8, 160, 160, 128, 128), (8, 80, 80, 128, 128), (8, 40, 40, 256, 128)]
 # tests/test_torch_port_cuda.py's shapes: the odd ones, then the serving-like
 # bf16 cases with the plan each must reach
 CARD_ODD = [(3, 22, 38, 24, 72), (2, 16, 16, 8, 128), (1, 12, 20, 128, 256)]
 CARD_PLANS = {(2, 40, 40, 512, 256): (1, 8), (1, 64, 64, 64, 128): (0, 5), (2, 32, 32, 256, 256): (1, 8),
-              (8, 160, 160, 64, 128): (0, 1), (8, 80, 80, 256, 256): (1, 1)}
+              (8, 160, 160, 64, 128): (0, 1), (8, 80, 80, 256, 256): (1, 1), (2, 64, 64, 32, 64): (0, 5),
+              (2, 20, 20, 256, 128): (0, 8)}
 
 
 def test_site_lists_match_the_graph():
     assert _odconv_sites(1.0, 1.0, 640, 8) == SERVING_SITES
     assert _odconv_sites(0.25, 0.33, 64, 2) == SMALL_SITES
+    assert _odconv_sites(0.5, 0.67, 640, 8, "yolo-somi-s") == SOMI_S_SITES
 
 
-@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + CARD_ODD + list(CARD_PLANS))
+@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + SOMI_S_SITES + CARD_ODD + list(CARD_PLANS))
 def test_plan_tiles_cover_the_output_once_and_splits_partition_k(shape):
     B, H, W, cin, cout = shape
     M, K = (H // 2) * (W // 2), 9 * cin
@@ -188,6 +192,17 @@ def test_plans_of_the_serving_sites_and_the_card_cases():
     assert reached == {(0, False), (0, True), (1, False), (1, True)}
 
 
+def test_plans_of_yolo_somi_s_sites():
+    """Cout 64 and 128 take the 128x128 tiles (half of each idle at row 1);
+    rows 29 and 32 split K (104 and 32 tiles unsplit); row 1's K = 288 ends
+    in a half 64-channel step. dx: 128x64, 128x128, 128x128, 128x256
+    tiles; dwmix 128x128 tiles, its pixels split in 11, 3, 2 and 1."""
+    assert [_plan(*s) for s in SOMI_S_SITES] == [(0, 1), (0, 1), (0, 2), (0, 8)]
+    assert [_dx_plan(s[3]) for s in SOMI_S_SITES] == [0, 1, 1, 2]
+    assert [_dw_plan(*s) for s in SOMI_S_SITES] == [(0, 11), (0, 3), (0, 2), (0, 1)]
+    assert 9 * SOMI_S_SITES[0][3] % _BK == 32
+
+
 @pytest.mark.parametrize("cin,cout", [(12, 16), (16, 20), (4, 4)])
 def test_bf16_needs_channels_in_multiples_of_8_before_any_launch(cin, cout):
     x = torch.empty(2, 8, 8, cin, dtype=torch.bfloat16, device="meta")
@@ -215,7 +230,8 @@ CARD_BWD_PLANS = {(2, 32, 32, 64, 128): (0, (0, 2)), (2, 16, 16, 256, 256): (2, 
                   (2, 8, 8, 512, 256): (2, (1, 1)), (3, 22, 38, 24, 72): (0, (0, 4)),
                   (2, 320, 320, 64, 128): (0, (0, 16)), (2, 18, 26, 120, 40): (1, (0, 2)),
                   (1, 12, 20, 200, 136): (2, (1, 1)), (1, 96, 98, 256, 256): (2, (1, 4)),
-                  (2, 16, 16, 64, 64): (0, (0, 1))}
+                  (2, 16, 16, 64, 64): (0, (0, 1)), (2, 64, 64, 32, 64): (0, (0, 8)),
+                  (2, 20, 20, 256, 128): (2, (0, 1))}
 
 
 def _fits_an_sm(tiles: dict, cfg: int) -> None:
@@ -230,7 +246,7 @@ def _fits_an_sm(tiles: dict, cfg: int) -> None:
     assert min(255, 65536 // (256 * per_sm)) >= bn // 2 + 24
 
 
-@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + list(CARD_BWD_PLANS))
+@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + SOMI_S_SITES + list(CARD_BWD_PLANS))
 def test_dx_plan_covers_every_input_pixel_and_channel_once(shape):
     """The grid (ceil(M/128), ceil(Cin/BN), B*4) of the bf16 dx kernel: the
     block rows of each parity class (py, px) are its pixels (qy, qx) = (m //
@@ -252,7 +268,7 @@ def test_dx_plan_covers_every_input_pixel_and_channel_once(shape):
     _fits_an_sm(_DX_TILES, cfg)
 
 
-@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + list(CARD_BWD_PLANS))
+@pytest.mark.parametrize("shape", SERVING_SITES + SMALL_SITES + SOMI_S_SITES + list(CARD_BWD_PLANS))
 def test_dw_plan_covers_dwmix_once_and_splits_partition_the_pixels(shape):
     """The grid (ceil(9*Cin/128), ceil(Cout/BN), B*split) of the bf16 dwmix
     kernel writes every (tap, ci, co) of a sample once; the split's parts

@@ -13,9 +13,10 @@ names so each has an obvious counterpart:
 - data/    the val dataset, its label cache and its ordered, wrap-padded
            loader, and the inference sources LoadImages and LoadStreams
            (datasets.py); the letterbox (augment.py)
-- models/  flagship blocks (layers.py), the deformable blocks of
-           yolo-somi-dcn (dcn.py), DecoupledDetect (heads.py), the YAML
-           graph compiler (yolo.py)
+- models/  the detection family's blocks (layers.py), the deformable
+           blocks of yolo-somi-dcn (dcn.py), DecoupledDetect and the
+           coupled Detect (heads.py), the YAML graph compiler with its
+           anchor presets (yolo.py)
 - ops/     the CUDA kernels' wrappers beside their plain versions: the
            per-sample ODConv conv (odconv.py, csrc/odconv_s2.cu) and the
            DCNv3/DCNv2 deformable sampling (dcn.py, csrc/dcn.cu); build.py

@@ -96,7 +96,7 @@ class Runner:
         if self.meta.head_type not in ANCHOR_HEADS:
             raise NotImplementedError(
                 f"head type {self.meta.head_type} decodes otherwise than the anchor grid; its decode is not "
-                "ported yet (ROADMAP queue A items 4 and 8)")
+                "ported yet (ROADMAP queue A item 8)")
 
     def upload(self, images: np.ndarray) -> torch.Tensor:
         """A (B, H, W, 3) batch -> the model's NCHW input on the device, in

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from yolosomi_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, Conv, FlaxBatchNorm2d
+from yolosomi_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, C2f, C3, Conv, FlaxBatchNorm2d
 from yolosomi_tpu_torch.ops.dcn import dcnv2_columns, dcnv3_sampling
 
 
@@ -123,39 +123,18 @@ class BottleneckDCN(nn.Module):
         return x + y if self.add else y
 
 
-class C3_DCN(nn.Module):
+class C3_DCN(C3):
     """C3 with deformable bottlenecks."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
-        super().__init__()
-        c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, 1, 1)
-        self.cv2 = Conv(c1, c_, 1, 1)
-        self.cv3 = Conv(2 * c_, c2, 1, 1)
-        self.m = nn.ModuleList(BottleneckDCN(c_, c_, shortcut, g, e=1.0) for _ in range(n))
-
-    def forward(self, x):
-        y1 = self.cv1(x)
-        for m in self.m:
-            y1 = m(y1)
-        return self.cv3(torch.cat([y1, self.cv2(x)], 1))
+        super().__init__(c1, c2, n, e=e, block=lambda c: BottleneckDCN(c, c, shortcut, g, e=1.0))
 
 
-class C2f_DCN(nn.Module):
+class C2f_DCN(C2f):
     """C2f with deformable bottlenecks."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1, e: float = 0.5):
-        super().__init__()
-        self.c = int(c2 * e)
-        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
-        self.cv2 = Conv((2 + n) * self.c, c2, 1)
-        self.m = nn.ModuleList(BottleneckDCN(self.c, self.c, shortcut, g, e=1.0) for _ in range(n))
-
-    def forward(self, x):
-        ys = list(self.cv1(x).split(self.c, 1))
-        for m in self.m:
-            ys.append(m(ys[-1]))
-        return self.cv2(torch.cat(ys, 1))
+        super().__init__(c1, c2, n, e=e, block=lambda c: BottleneckDCN(c, c, shortcut, g, e=1.0))
 
 
 @torch.no_grad()

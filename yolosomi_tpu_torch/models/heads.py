@@ -1,5 +1,5 @@
-"""The SOMI detection head and the grid decode (counterparts of
-yolosomi_tpu/models/heads.py:29-180).
+"""The anchor-grid detection heads, the SOMI head and YOLOv5's coupled
+one, and the grid decode (counterparts of yolosomi_tpu/models/heads.py:29-180).
 
 Heads emit raw per-level maps (B, ny, nx, na, no) with no = nc + 5 and the
 [xy, wh, obj, cls] layout of the JAX package. Decode math:
@@ -25,6 +25,24 @@ def decouple_taper(c_: int, na5: int) -> list:
     step = np.float32(1) / np.float32(3)
     vals = (np.float32(1), np.float32(1) - step, step, np.float32(0))
     return [int(np.float32(c_ - na5) * v + np.float32(na5)) for v in vals]
+
+
+class Detect(nn.Module):
+    """YOLOv5's coupled head: one 1x1 conv with bias per level, na * (nc+5)
+    outputs in [anchor][xywh, obj, cls] order."""
+
+    def __init__(self, nc: int, na: int, ch: Sequence[int]):
+        super().__init__()
+        self.na, self.no = na, nc + 5
+        self.m = nn.ModuleList(nn.Conv2d(c, na * self.no, 1) for c in ch)
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        out = []
+        for m, x in zip(self.m, xs):
+            y = m(x).permute(0, 2, 3, 1)  # NHWC view
+            b, ny, nx, _ = y.shape
+            out.append(y.reshape(b, ny, nx, self.na, self.no))
+        return out
 
 
 class Decouple(nn.Module):

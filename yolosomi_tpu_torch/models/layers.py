@@ -1,4 +1,6 @@
-"""The flagship's blocks (counterparts of yolosomi_tpu/models/layers.py).
+"""The detection family's blocks (counterparts of
+yolosomi_tpu/models/layers.py): the flagship's, and the YOLOv5 / YOLOv8
+blocks of the other model configs.
 
 Modules are NCHW and run in `torch.channels_last` memory format, so a
 tensor's memory is NHWC like the JAX package's arrays. Submodule names
@@ -21,7 +23,7 @@ Numerical conventions kept from the JAX package:
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -64,15 +66,19 @@ class FlaxBatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     pass
 
 
-def autopad(k: int, p: Optional[int] = None) -> int:
-    return k // 2 if p is None else p
+def autopad(k, p: Optional[int] = None):
+    """'same' padding for an odd kernel size, an int or an (h, w) pair."""
+    if p is not None:
+        return p
+    return k // 2 if isinstance(k, int) else tuple(x // 2 for x in k)
 
 
 class Conv(nn.Module):
-    """Conv2d (no bias) + BatchNorm(eps 1e-3) + SiLU."""
+    """Conv2d (no bias) + BatchNorm(eps 1e-3) + SiLU. `k` is an int or an
+    (h, w) pair."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1,
-                 act: bool = True):
+    def __init__(self, c1: int, c2: int, k: Union[int, Tuple[int, int]] = 1, s: int = 1, p: Optional[int] = None,
+                 g: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -80,6 +86,99 @@ class Conv(nn.Module):
 
     def forward(self, x):
         return self.act(self.bn(self.conv(x)))
+
+
+class Focus(nn.Module):
+    """Space-to-depth by 2, then Conv. The pixel order is the JAX package's
+    (layers.py:289): (even, even), (odd, even), (even, odd), (odd, odd)
+    over (H, W), each block of input channels whole."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1,
+                 act: bool = True):
+        super().__init__()
+        self.conv = Conv(4 * c1, c2, k, s, p, g, act)
+
+    def forward(self, x):
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2], x[..., ::2, 1::2], x[..., 1::2, 1::2]], 1))
+
+
+class Bottleneck(nn.Module):
+    """Conv k[0], Conv k[1] (grouped by g), and the residual where
+    `shortcut` and c1 == c2. k[i] is an int or an (h, w) pair."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k: Sequence = (3, 3), e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck: cv1 and n bottlenecks, then the bare 1x1 conv cv3, in
+    parallel with the bare 1x1 conv cv2 of the input; one BatchNorm
+    (eps 1e-3) and SiLU over their concatenation; then cv4."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
+        self.bn = FlaxBatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.SiLU()
+        self.cv4 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], 1)
+        return self.cv4(self.act(self.bn(y)))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with three convs: cv1 and n bottlenecks beside cv2,
+    concatenated into cv3. `block(c)` makes one bottleneck of c channels:
+    by default Bottleneck with k 1x1 then 3x3 and e 1.0."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5,
+                 block: Optional[Callable[[int], nn.Module]] = None):
+        super().__init__()
+        c_ = int(c2 * e)
+        block = block or (lambda c: Bottleneck(c, c, shortcut, g, k=((1, 1), (3, 3)), e=1.0))
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1, 1)
+        self.m = nn.Sequential(*(block(c_) for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C2f(nn.Module):
+    """YOLOv8's split CSP block: cv1 to 2c channels, split in halves, n
+    bottlenecks chained on the last piece, every piece concatenated into
+    cv2. `block(c)` makes one bottleneck of c channels: by default
+    Bottleneck with k 3x3 then 3x3 and e 1.0. The C2f variants of the
+    flagship and of yolo-somi-dcn are this skeleton with their own block."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1, e: float = 0.5,
+                 block: Optional[Callable[[int], nn.Module]] = None):
+        super().__init__()
+        self.c = int(c2 * e)
+        block = block or (lambda c: Bottleneck(c, c, shortcut, g, k=((3, 3), (3, 3)), e=1.0))
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(block(self.c) for _ in range(n))
+
+    def forward(self, x):
+        ys = list(self.cv1(x).split(self.c, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -143,24 +242,13 @@ class CBAMBottleneck(CBAM):
         return x + y if self.add else y
 
 
-class C2fCBAM(nn.Module):
+class C2fCBAM(C2f):
     """C2f whose bottlenecks carry CBAM (ratio 16, 7x7 spatial gate)."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5,
                  kernel_size: int = 7):
-        super().__init__()
-        self.c = int(c2 * e)
-        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
-        self.cv2 = Conv((2 + n) * self.c, c2, 1)
-        self.m = nn.ModuleList(
-            CBAMBottleneck(self.c, self.c, shortcut, e=1.0, ratio=16, kernel_size=kernel_size) for _ in range(n)
-        )
-
-    def forward(self, x):
-        ys = list(self.cv1(x).split(self.c, 1))
-        for m in self.m:
-            ys.append(m(ys[-1]))
-        return self.cv2(torch.cat(ys, 1))
+        super().__init__(c1, c2, n, e=e, block=lambda c: CBAMBottleneck(c, c, shortcut, e=1.0, ratio=16,
+                                                                          kernel_size=kernel_size))
 
 
 # ---------------------------------------------------------------------------
@@ -240,26 +328,32 @@ class EMACBAMBottleneck(nn.Module):
         return self.gn(gy)
 
 
-class C2fEMACBAM(nn.Module):
+class C2fEMACBAM(C2f):
     """C2f with EMA-CBAM bottlenecks (the YAML's `C2fEACBAM` rows alias it)."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5):
-        super().__init__()
-        self.c = int(c2 * e)
-        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
-        self.cv2 = Conv((2 + n) * self.c, c2, 1)
-        self.m = nn.ModuleList(EMACBAMBottleneck(self.c, self.c, e=0.5, factor=8) for _ in range(n))
-
-    def forward(self, x):
-        ys = list(self.cv1(x).split(self.c, 1))
-        for m in self.m:
-            ys.append(m(ys[-1]))
-        return self.cv2(torch.cat(ys, 1))
+        super().__init__(c1, c2, n, e=e, block=lambda c: EMACBAMBottleneck(c, c, e=0.5, factor=8))
 
 
 # ---------------------------------------------------------------------------
 # Pooling, resampling, fusion
 # ---------------------------------------------------------------------------
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: cv1, then the map beside its stride-1
+    max-pools of each size in k, concatenated into cv2."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(k) + 1), c2, 1, 1)
+        self.k = tuple(k)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [F.max_pool2d(y, k, 1, k // 2) for k in self.k], 1))
 
 
 class SPPF(nn.Module):
@@ -289,6 +383,31 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return F.interpolate(x, scale_factor=self.scale_factor, mode="nearest")
+
+
+class Concat(nn.Module):
+    """Concatenation along the channels."""
+
+    def forward(self, xs: List[torch.Tensor]):
+        return torch.cat(xs, 1)
+
+
+class Contract(nn.Module):
+    """Space-to-depth by `gain`: (B, C, H, W) -> (B, C*g*g, H/g, W/g). The
+    channel order is the JAX package's NHWC one, (gy, gx, c): output
+    channel (gy*g + gx)*C + c holds input channel c at (g*y + gy, g*x + gx).
+    The work runs on the NHWC view, so a channels_last input gives a
+    channels_last output."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        g = self.gain
+        y = x.permute(0, 2, 3, 1).reshape(b, h // g, g, w // g, g, c).transpose(2, 3)
+        return y.reshape(b, h // g, w // g, g * g * c).permute(0, 3, 1, 2)
 
 
 class BiFPN(nn.Module):

@@ -3,10 +3,17 @@
 
 The same `[from, repeats, module, args]` rows compile into torch modules
 through an explicit registry, with the JAX package's channel, repeat and
-analytic stride propagation. The registry holds the modules of the
-flagship graph (configs/models/yolo-somi.yaml) and the deformable family
-of its DCN variant (configs/models/yolo-somi-dcn.yaml); a row outside it
-raises KeyError naming ROADMAP queue A item 8.
+analytic stride propagation, and its named anchor presets
+(configs/models/hub/anchors.yaml). The registry holds the anchor-grid
+detection family: the flagship (configs/models/yolo-somi.yaml), its DCN
+variant, yolo-somi-s / -t / -t-p3 / -t-p3s / -t-p3s8, the ablation
+configs, yolov5n/s/m/l/x, yolov5s-p2 and yolov5s6, and the hub configs
+yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet and
+yolov3 / yolov3-spp. A row outside it raises KeyError naming ROADMAP queue
+A item 8: yolov3-tiny (nn.MaxPool2d, nn.ZeroPad2d), yolov5s-ghost
+(GhostConv, C3Ghost), yolov5s-transformer (C3TR), yolov10 (C2fCIB, SCDown,
+PSA), classifier.yaml (Classify), and the rest of the JAX package's zoo
+and heads.
 """
 
 from __future__ import annotations
@@ -18,10 +25,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import yaml
 
 from yolosomi_tpu_torch.models import dcn as D
 from yolosomi_tpu_torch.models import heads as H
 from yolosomi_tpu_torch.models import layers as L
+from yolosomi_tpu_torch.utils.config import find_config
 from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_device
 
 # Kind controls how parse_model rewrites args:
@@ -30,10 +39,20 @@ from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_dev
 #   seam    : channel-preserving (c2 forced to c1)
 #   upsample: [size, scale, mode]
 #   fuse    : equal-shape fusion; c2 = channels of the first input
+#   concat  : c2 = the sum of the inputs' channels
+#   contract: space-to-depth by args[0]; c2 = c1 * g * g, stride * g
 #   dcnv3   : channel-preserving (c2 = channels of the input), cls(c2, *args[1:])
 #   head    : detection head
 _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "Conv": (L.Conv, "conv"),
+    "Focus": (L.Focus, "conv"),
+    "Bottleneck": (L.Bottleneck, "conv"),
+    "SPP": (L.SPP, "conv"),
+    "BottleneckCSP": (L.BottleneckCSP, "csp"),
+    "C3": (L.C3, "csp"),
+    "C2f": (L.C2f, "csp"),
+    "Concat": (L.Concat, "concat"),
+    "Contract": (L.Contract, "contract"),
     "ODConv_3rd": (L.ODConv, "conv"),
     "ODConv": (L.ODConv, "conv"),
     "SPPF": (L.SPPF, "conv"),
@@ -49,6 +68,7 @@ _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "DCNv3": (D.DCNv3, "dcnv3"),
     "C3_DCN": (D.C3_DCN, "csp"),
     "C2f_DCN": (D.C2f_DCN, "csp"),
+    "Detect": (H.Detect, "head"),
     "DecoupledDetect": (H.DecoupledDetect, "head"),
     "DecoupledDetect1": (H.DecoupledDetect, "head"),
     "Decoupled_Detect": (H.DecoupledDetect, "head"),
@@ -57,6 +77,9 @@ _REGISTRY: Dict[str, Tuple[Any, str]] = {
 # positional index of the stride arg (after c2) of conv-kind modules; DCNv2
 # is left out, as in the JAX package, so its stride never reaches the graph
 _STRIDE_ARG_POS = {"Conv": 2, "ODConv": 2, "ODConv_3rd": 2}
+# conv-kind modules whose graph stride is 2 by construction, whatever their
+# stride arg (Focus's space-to-depth)
+_FIXED_STRIDE2 = {"Focus"}
 
 # default pixel anchors for `anchors: <int>`: nl=4 is the SOMI VisDrone set,
 # nl=3 the stock YOLOv5 set
@@ -101,9 +124,25 @@ class ModelMeta:
     head_type: str = "DecoupledDetect"
 
 
+def _anchor_preset(name: str):
+    """A named anchor set of configs/models/hub/anchors.yaml (per-level
+    pixel lists), for `anchors: <preset-name>` in a model YAML."""
+    path = find_config("hub/anchors", kind="models")
+    with open(path) as f:
+        presets = yaml.safe_load(f)
+    if name not in presets:
+        raise KeyError(f"anchor preset {name!r} not in {path} (have: {sorted(presets)})")
+    return presets[name]
+
+
 def _resolve_anchors(anchors, nl: int) -> np.ndarray:
     """(nl, na, 2) pixel anchors from a YAML anchors field: explicit lists,
-    or an integer count per level (the default set, resampled to na)."""
+    a preset name, or an integer count per level (the default set,
+    resampled to na)."""
+    if isinstance(anchors, str):
+        anchors = _anchor_preset(anchors)
+        if len(anchors) != nl:
+            raise ValueError(f"anchor preset has {len(anchors)} levels, model has {nl}")
     if isinstance(anchors, int):
         base = _DEFAULT_ANCHORS.get(nl)
         if base is not None and len(base[0]) // 2 == anchors:
@@ -123,6 +162,8 @@ def _resolve_anchors(anchors, nl: int) -> np.ndarray:
 def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
     """Compile YAML rows into (modules, ModelMeta)."""
     anchors, nc = cfg["anchors"], cfg["nc"]
+    if isinstance(anchors, str):
+        anchors = _anchor_preset(anchors)
     gd = cfg.get("depth_multiple", 1.0)
     gw = cfg.get("width_multiple", 1.0)
     na = (len(anchors[0]) // 2) if isinstance(anchors, list) else int(anchors)
@@ -172,6 +213,8 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
             if kind == "conv" and spos is not None and len(margs) > spos and isinstance(margs[spos], int) \
                     and not isinstance(margs[spos], bool):
                 stride *= margs[spos]
+            if mname in _FIXED_STRIDE2:
+                stride *= 2
         elif kind == "upsample":
             c2 = in_ch(f)
             scale = args[1] if len(args) > 1 else 2
@@ -182,6 +225,14 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         elif kind == "fuse":
             c2 = in_ch(f[0])
             mod = cls(len(f))
+        elif kind == "concat":
+            c2 = sum(in_ch(x) for x in f)
+            mod = cls()
+        elif kind == "contract":
+            g = args[0] if args else 2
+            c2 = in_ch(f) * g * g
+            mod = cls(g)
+            stride *= g
         elif kind == "dcnv3":
             c2 = in_ch(f)
             mod = cls(c2, *args[1:])
@@ -192,8 +243,10 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
             c2 = 0
             head_name = mname
             stride = 0.0
-        if n_rep > 1:
-            raise NotImplementedError(f"repeated non-csp module {mname} (row {i})")
+        if n_rep > 1:  # a row repeated in sequence (JAX's _Repeat); the copies after the first take c2 in
+            if kind != "conv":
+                raise NotImplementedError(f"repeated {kind}-kind module {mname} (row {i})")
+            mod = nn.Sequential(mod, *(cls(c2, *margs) for _ in range(n_rep - 1)))
 
         modules.append(mod)
         specs.append(LayerSpec(i, f, n_rep, mname, args, int(c2), stride))
@@ -284,8 +337,14 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
     nc, na = meta.nc, meta.na
     cls_prior = math.log(0.6 / (nc - 0.99999)) if nc > 1 else 0.0
     for s, mi in zip(meta.strides, head.m):
-        mi.b3.bias.view(na, 5)[:, 4] += math.log(8.0 / (640.0 / s) ** 2)
-        mi.c3.bias += cls_prior
+        obj_prior = math.log(8.0 / (640.0 / s) ** 2)
+        if isinstance(head, H.DecoupledDetect):
+            mi.b3.bias.view(na, 5)[:, 4] += obj_prior
+            mi.c3.bias += cls_prior
+        else:  # the coupled Detect's conv, [xywh, obj, cls] per anchor
+            b = mi.bias.view(na, nc + 5)
+            b[:, 4] += obj_prior
+            b[:, 5:] += cls_prior
 
 
 def build_model(cfg: dict, nc: Optional[int] = None, device=None, dtype: torch.dtype = torch.float32,

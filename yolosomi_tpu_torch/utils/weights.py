@@ -5,8 +5,10 @@ as nested dicts of numpy arrays (the caller does the device_get; this
 module never imports jax). Each flax leaf path maps to the reference
 checkpoint key that the port's modules are named after
 (counterpart of yolosomi_tpu/utils/torch_convert.py:39-175, for the rules
-the flagship and yolo-somi-dcn need), and each value is transposed to
-torch layout (counterpart of yolosomi_tpu/utils/onnx_export.py:35-51).
+the detection family the port serves needs; a repeated row's flax copies
+`mods_<i>` are the <i>th module of its nn.Sequential), and each value is
+transposed to torch layout (counterpart of
+yolosomi_tpu/utils/onnx_export.py:35-51).
 DCNv3's Dense layers, depthwise conv and LayerNorm map by name; DCNv2's
 3-D (P, C, c2) weight keeps its flax layout in the port (models/dcn.py),
 so it passes through untransposed.
@@ -41,6 +43,9 @@ def _path_to_key(path: List[str], collection: str) -> str:
     for p in path[:-1]:
         if p.startswith("layers_"):
             parts.append(f"model.{p.split('_')[1]}")
+            continue
+        if p.startswith("mods_"):  # the copies of a repeated row (JAX's _Repeat): an nn.Sequential
+            parts.append(p.split("_")[1])
             continue
         m = _LIST_RE.match(p)
         parts.append(f"{m.group(1)}.{m.group(2)}" if m else p)
@@ -152,6 +157,7 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> Tuple[List[st
 # module that holds a leaf (the inverse of _path_to_key's rewrites)
 _INVERSE_RE = (
     (re.compile(r"^model\.(\d+)"), lambda m: f"layers_{m.group(1)}"),
+    (re.compile(r"^(layers_\d+)\.(\d+)"), lambda m: f"{m.group(1)}.mods_{m.group(2)}"),
     (re.compile(r"\.DCovN\.(\d+)\.0\.fn\.0$"), lambda m: f".dw{int(m.group(1)) - 3}"),
     (re.compile(r"\.DCovN\.(\d+)\.0\.fn\.2$"), lambda m: f".bn_dw{int(m.group(1)) - 3}"),
     (re.compile(r"\.DCovN\.0$"), lambda m: ".dcov_patch"),
