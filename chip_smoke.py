@@ -120,6 +120,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     backward behind the same forward, as 8(b), the repeat held to the same
     limits. (d) train.run as 8(c): 4 + 9 + 1 forward and 4 + 4 + 9 + 1
     gradient launches per train step, 4 + 9 + 1 per val forward
+10. the rest of the training recipe, on the same set (one epoch of train.run
+    each, hyp.visdrone, b8, bf16, full width, autoanchor off; every step
+    synchronised, timed and its peak memory read; STEP_LAUNCHES per step and
+    the forward kernels per val forward, every launch a kernel's): (a) the
+    flagship with --multi-scale (416-832 px squares), --image-weights,
+    --cache ram and --rep; (b) with --rect (480x640 batches); (c) with
+    --quad (b2 at 1280 px); (d) yolo-somi-dcn with --cache device (the
+    slab, mosaic and mixup, HSV and flips on the device) and
+    --multi-scale; (e) one b8 flagship step from the same state with
+    --remat 4 and without: peak memory and time of each, the forward kernel
+    launched twice a site under remat, BatchNorm statistics and EMA the same
+    bits, gradients within the bf16 witness's limits. With phase 3: all
+    seven kernels against their plain versions, forward and backward, f32
+    and bf16, at the recipe's shapes (a 480x640 batch, an 832 px one, a
+    quad 1280 px one of 2), timed with fewer calls (RECIPE_REPS); their
+    bf16 sums go into the kernels line as each entry's "recipe" object
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -151,7 +167,7 @@ from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset, LoadI
 from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
 from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.runner import EnsembleRunner, Runner, attempt_load
-from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step, upload_images
+from yolosomi_tpu_torch.engine.trainer import TrainStep, create_train_state, make_train_step, upload_images
 from yolosomi_tpu_torch.losses import ComputeLoss
 from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d, ODConv2d
 from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
@@ -265,12 +281,18 @@ STEP_MEDIAN_RATIO = 2.0
 # ODConvs turn the few gradient elements that round the other way into
 # percent-level gradient differences, largest in sums that cancel to 1e-4
 # of the largest gradient (CBAM's spatial-attention convs, ODConv's
-# attention fc), and another process may differ again (cuDNN's bf16
-# backward lies as far from the f32-rounded one). With a floor of 1e-4 of
-# the largest gradient, the least limit that passed was 0.06 to 0.60 over
-# seeds 0-4 in two runs, and the limit is 1: it catches a wrong gradient,
-# not rounding. The tight bf16 checks are the median over the parameters,
-# 2.0e-2 to 3.9e-2 in those runs (cuDNN's: 1.8e-2 to 2.9e-2), held to
+# attention fc); cuDNN's bf16 backward lies as far from the f32-rounded
+# one. The reference is computed with cuDNN's deterministic algorithms
+# (plain_backward): with the default ones its bits changed from one process
+# to the next while the kernels' step and cuDNN's bf16 one did not, and a
+# spatial-attention bias's distance changed with them (seed 0's
+# model.2.m.1.spatial_attention.cv1.bias: within the limit in one run, 0.33
+# from a 0.04 norm, over it, in another). With a floor of 1e-4 of the
+# largest gradient, the least limit that passes the deterministic
+# reference is 0.06 to 0.23 over seeds 0-4, the same bits in every
+# process, and the limit is 1: it catches a wrong gradient, not rounding.
+# The tight bf16 checks are the median over the parameters, 1.9e-2 to
+# 3.0e-2 (cuDNN's bf16 backward: 1.8e-2 to 2.9e-2), held to
 # WITNESS_MEDIAN_TOL (a kernel composed wrongly into the step moves it to
 # order 1), the kernels' step repeated bitwise, and each gradient kernel's
 # output in the step within GRAD_TOL of the plain version on its own inputs
@@ -294,9 +316,10 @@ def gpu_line() -> str:
 
 
 _FLUSH = []
+TIME_REPS = [20]  # timed calls of time_ms; phase 10 times its extra shapes with fewer (recipe_kernels)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = None, warmup: int = 3) -> float:
     """Median CUDA-event time of one call, after warm-up. Before each timed
     call, outside its events, a 256 MB buffer (5x the H100's 50 MB L2) is
     zeroed, so every call reads its inputs from HBM as the serving path's
@@ -310,7 +333,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     pairs = []
-    for _ in range(reps):
+    for _ in range(reps or TIME_REPS[0]):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(1 << 22)
         _FLUSH[0].zero_()
@@ -322,14 +345,16 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def odconv_sites(meta, batch: int, imgsz: int):
-    """(row, x shape, wmix shape) of every ODConv row of the graph."""
+def odconv_sites(meta, batch: int, imgsz):
+    """(row, x shape, wmix shape) of every ODConv row of the graph on a
+    batch of `imgsz` (a side, or (h, w))."""
+    h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
     sites = []
     for spec in meta.specs:
         if spec.name in ("ODConv", "ODConv_3rd"):
             src = meta.specs[spec.i + spec.f if spec.f < 0 else spec.f]
-            hw = int(imgsz / src.stride)
-            sites.append((spec.i, (batch, hw, hw, src.c2), (batch, 3, 3, src.c2, spec.c2)))
+            xs = (batch, int(h / src.stride), int(w / src.stride), src.c2)
+            sites.append((spec.i, xs, (batch, 3, 3, src.c2, spec.c2)))
     return sites
 
 
@@ -412,10 +437,12 @@ def check_kernel(sites, gen: torch.Generator, cfg_name: str = "yolo-somi") -> di
 DCN_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 
 
-def dcn_sites(cfg_name: str, batch: int, imgsz: int):
+def dcn_sites(cfg_name: str, batch: int, imgsz):
     """The DCNv2 sites (row, launches per batch, x shape, k, s, p) and the
-    DCNv3 sites (row, 1, input shape, G, k, s, pad, dil) of a graph, read
-    from its modules (built on the meta device, so nothing is allocated)."""
+    DCNv3 sites (row, 1, input shape, G, k, s, pad, dil) of a graph on a
+    batch of `imgsz` (a side, or (h, w)), read from its modules (built on
+    the meta device, so nothing is allocated)."""
+    h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
     with torch.device("meta"):
         modules, meta = parse_model(load_model_cfg(find_config(cfg_name)))
     v2, v3 = [], []
@@ -423,15 +450,15 @@ def dcn_sites(cfg_name: str, batch: int, imgsz: int):
         if not isinstance(spec.f, int) or spec.i + spec.f < 0:  # fusion rows, the image
             continue
         src = meta.specs[spec.i + spec.f if spec.f < 0 else spec.f]
-        hw = int(imgsz / src.stride)
+        hw = (int(h / src.stride), int(w / src.stride))
         convs = [m for m in mod.modules() if isinstance(m, DCNv2)]
         if convs:
             geometry = {(m.conv_offset_mask.in_channels, m.k, m.s, m.p) for m in convs}
             assert len(geometry) == 1, geometry
             c, k, s, p = geometry.pop()
-            v2.append((spec.i, len(convs), (batch, hw, hw, c), k, s, p))
+            v2.append((spec.i, len(convs), (batch, *hw, c), k, s, p))
         if isinstance(mod, DCNv3):
-            v3.append((spec.i, 1, (batch, hw, hw, src.c2), mod.group, mod.k, mod.stride, mod.pad, mod.dilation))
+            v3.append((spec.i, 1, (batch, *hw, src.c2), mod.group, mod.k, mod.stride, mod.pad, mod.dilation))
     return v2, v3
 
 
@@ -1560,10 +1587,18 @@ def plain_backward(ctx, dy):
     """OdconvS2Function's backward with autograd of the plain version in
     place of the gradient kernels, computed as the kernels compute: in f32
     on the saved operands, rounded to their dtype once (train_step_witness;
-    in f32 that is the plain version as it runs)."""
+    in f32 that is the plain version as it runs). cuDNN's deterministic
+    algorithms: the default choice for this f32 grouped-conv backward sums
+    with atomics, so the reference, and with it every bf16 gradient behind
+    it, would differ from one process to the next."""
     x, wmix = ctx.saved_tensors
-    grads = odconv_s2_backward_reference(x.float(), wmix.float(), dy.contiguous().float(), ctx.needs_input_grad[0],
-                                         ctx.needs_input_grad[1])
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = odconv_s2_backward_reference(x.float(), wmix.float(), dy.contiguous().float(), ctx.needs_input_grad[0],
+                                             ctx.needs_input_grad[1])
+    finally:
+        torch.backends.cudnn.deterministic = kept
     return tuple(None if g is None else g.to(x.dtype) for g in grads)
 
 
@@ -1897,12 +1932,13 @@ def train_run(gpu: str, tmp: Path, data: Path, cfg_name: str, labels: tuple) -> 
 
 
 def training(gpu: str) -> dict:
-    """Phases 8 and 9, on one self-drawn set: the gradient kernels (8a and
-    9a, in main); for the flagship one full-width f32 step against
+    """Phases 8, 9 and 10, on one self-drawn set: the gradient kernels (8a
+    and 9a, in main); for the flagship one full-width f32 step against
     plain_version() and the b8 witnesses (8b), train.run (8c); for
     yolo-somi-dcn the f32 step with random and with zero offset heads (9b),
-    the b8 witnesses (9c), train.run (9d). Returns each train.run's launch
-    counts by config."""
+    the b8 witnesses (9c), train.run (9d); the recipe's train.run cases and
+    the remat step (10, its kernel checks in main). Returns each phase 8c /
+    9d train.run's launch counts by config."""
     t_phase = time.perf_counter()
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1929,6 +1965,199 @@ def training(gpu: str) -> dict:
         t_c = time.perf_counter()
         runs["yolo-somi-dcn"] = train_run(gpu, tmp, data, "yolo-somi-dcn", labels)
         print(f"training yolo-somi-dcn on {gpu}: phase 9 {time.perf_counter() - t_8:.1f} s (9b-c {t_c - t_8:.1f} s)")
+        recipe(gpu, tmp, data)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the training recipe
+# ---------------------------------------------------------------------------
+
+# train.run's options of each case, one epoch of TRAIN_IMAGES // BATCH steps
+RECIPE = (
+    ("a", "yolo-somi", dict(multi_scale=True, image_weights=True, cache="ram", rep=True)),
+    ("b", "yolo-somi", dict(rect=True)),
+    ("c", "yolo-somi", dict(quad=True)),
+    ("d", "yolo-somi-dcn", dict(cache="device", multi_scale=True)),
+)
+SCALES = sorted({max(int(IMGSZ * f) // 32 * 32, 32) for f in train.MULTI_SCALE})  # --multi-scale's sides
+RECT_HW = (IMGSZ * 3 // 4, IMGSZ)  # the rect batch of the 640x480 set
+# the kernels' shapes that only the recipe gives them: a rect batch (H != W
+# at every site), the largest multi-scale square, and quad's images of
+# twice the side at a quarter of the batch
+RECIPE_SHAPES = ((f"{RECT_HW[0]}x{RECT_HW[1]}", BATCH, RECT_HW), (f"{SCALES[-1]}", BATCH, SCALES[-1]),
+                 (f"quad_{2 * IMGSZ}", BATCH // 4, 2 * IMGSZ))
+RECIPE_REPS = 5  # time_ms's timed calls at RECIPE_SHAPES
+REMAT_SEGMENTS = 4
+
+
+def recipe_kernels(meta, gen: torch.Generator) -> dict:
+    """Phase 10's kernel checks: all seven kernels against their plain
+    versions at RECIPE_SHAPES, forward and backward, f32 and bf16, by the
+    checks of phases 3, 8a and 9a at these sites, timed with RECIPE_REPS
+    calls. Returns {shape label: {kernel name: bf16 summary}}."""
+    out = {}
+    reps, TIME_REPS[0] = TIME_REPS[0], RECIPE_REPS
+    try:
+        for label, batch, size in RECIPE_SHAPES:
+            sites = odconv_sites(meta, batch, size)
+            v2, v3 = dcn_sites("yolo-somi-dcn", batch, size)
+            fwd = check_kernel(sites, gen, f"yolo-somi {label}")
+            dx, dw = check_backward(sites, gen, f"yolo-somi {label}")
+            v2f, v3f = check_dcnv2(v2, gen), check_dcnv3(v3, gen)
+            v2b, v3b = check_dcn_backward(v2, v3, gen)
+            out[label] = dict(odconv_s2=fwd, odconv_s2_dx=dx, odconv_s2_dwmix=dw, dcnv2_im2col=v2f,
+                              dcnv3_core=v3f, dcnv2_im2col_bwd=v2b, dcnv3_core_bwd=v3b)
+    finally:
+        TIME_REPS[0] = reps
+    return out
+
+
+def recipe_run(gpu: str, tmp: Path, data: Path, label: str, cfg_name: str, opts: dict) -> dict:
+    """Phase 10(a)-(d): one epoch of train.run of the full-width `cfg_name`
+    (hyp.visdrone, 640 px, b8, bf16, autoanchor off) with `opts`, every
+    train step synchronised, timed and its peak memory read: every logged
+    loss finite, no step skipped, every step's model input of the shape
+    the options give, STEP_LAUNCHES[cfg_name] launches per step and the
+    forward kernels' per val forward (two a batch). Prints each shape's
+    first step apart from the median of its later ones. Returns the
+    shapes drawn and the launch counts."""
+    shapes, times, peaks = [], [], []
+    inputs, call = TrainStep.inputs, TrainStep.__call__
+
+    def seen(self, state, images, targets):
+        x, t = inputs(self, state, images, targets)
+        shapes.append(tuple(x.shape))
+        return x, t
+
+    def timed(self, state, images, targets):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = call(self, state, images, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    t_run = time.perf_counter()
+    TrainStep.inputs, TrainStep.__call__ = seen, timed
+    reset_counts()
+    try:
+        train.run(cfg=cfg_name, data=str(data), hyp="hyp.visdrone", batch_size=BATCH, imgsz=IMGSZ, epochs=1,
+                  noautoanchor=True, project=str(tmp / "runs"), name=f"recipe_{label}", workers=8, device="cuda",
+                  **opts)
+    finally:
+        TrainStep.inputs, TrainStep.__call__ = inputs, call
+    launches = launch_counts()
+    log = json.loads((tmp / "runs" / f"recipe_{label}" / "train_log.jsonl").read_text().splitlines()[0])
+    nb = TRAIN_IMAGES // BATCH
+    assert log["steps"] == nb == len(times) == len(shapes), (log["steps"], len(times), len(shapes))
+    assert log["skipped_logged"] == 0 and all(np.isfinite(v) for row in log["logged_losses"] for v in row[1:])
+    val_forwards = 2 * -(-VAL_IMAGES // BATCH)
+    want = {k: n * (nb + (val_forwards if k in PER_BATCH[cfg_name] else 0)) for k, n in STEP_LAUNCHES[cfg_name].items()}
+    assert launches == only(**want), (label, launches, want)
+    if opts.get("multi_scale"):
+        assert all(b == BATCH and h == w and h in SCALES for b, _, h, w in shapes), shapes
+    elif opts.get("rect"):
+        assert all(shp == (BATCH, 3, *RECT_HW) for shp in shapes), shapes
+    elif opts.get("quad"):
+        assert all(shp == (BATCH // 4, 3, 2 * IMGSZ, 2 * IMGSZ) for shp in shapes), shapes
+    by_shape = {}
+    for shp, t, peak in zip(shapes, times, peaks):
+        by_shape.setdefault(shp, []).append((t, peak))
+    # a shape's first step carries a one-off cost, so it prints apart from the later steps
+    per = "; ".join(f"{shp[2]}x{shp[3]} b{shp[0]}: first step {v[0][0] * 1e3:.1f} ms"
+                    + (f", then median {statistics.median(t for t, _ in v[1:]) * 1e3:.1f} ms of {len(v) - 1}"
+                       if len(v) > 1 else "")
+                    + f", peak {max(pk for _, pk in v) / 1e9:.2f} GB" for shp, v in sorted(by_shape.items()))
+    print(f"recipe ({label}) on {gpu}: train.run of full-width {cfg_name} {opts}, hyp.visdrone, b{BATCH}, bf16, "
+          f"1 epoch of {nb} synchronised steps in {time.perf_counter() - t_run:.1f} s (build, val and weights "
+          f"files included); shapes in draw order {[f'{h}x{w}' for _, _, h, w in shapes]}; {per}; launches {launches} "
+          f"({', '.join(f'{k} {n}' for k, n in STEP_LAUNCHES[cfg_name].items())} a step, every one a kernel's)")
+    return {"launches": launches, "shapes": shapes}
+
+
+def remat_step(gpu: str, root: Path) -> None:
+    """Phase 10(e): one b8 bf16 step of the full-width flagship from the same
+    state (seed-0 weights, one augmented batch) with --remat REMAT_SEGMENTS
+    and without: the peak memory and the time of each; the forward kernel
+    launched twice a site under remat (the recompute), the gradient
+    kernels once; the BatchNorm statistics and the EMA after the step the
+    same bits; every gradient within the bf16 witness's limits of the
+    step without remat (WITNESS_TOL and WITNESS_FLOOR, the median within
+    WITNESS_MEDIAN_TOL); then the median of 3 more steps of each."""
+    cfg = load_model_cfg(find_config("yolo-somi"))
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
+    images, targets, _, _ = next(iter(DataLoader(ds, BATCH, shuffle=True, drop_last=True)))
+    runs = {}
+    for segs in (0, REMAT_SEGMENTS):
+        model, meta = build_model(cfg, nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
+        opt = make_optimizer(hyp, nb=TRAIN_IMAGES // BATCH, epochs=1, batch_size=BATCH)
+        grads, update = [], opt.update
+
+        def keep(opt_state, params, g, *args, **kwargs):  # the gradients the optimizer is handed
+            grads.extend(x.detach().clone() for x in g)
+            return update(opt_state, params, g, *args, **kwargs)
+
+        opt.update = keep
+        state = create_train_state(model, opt)
+        step = make_train_step(ComputeLoss(meta, hyp), opt, amp_dtype=torch.bfloat16, remat_segments=segs)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step(state, images, targets)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = launch_counts()
+        opt.update = update
+        run = dict(first=first, peak=peak, launches=launches, loss=m["loss"].item(), grads=grads[:],
+                   bn=bn_stats(model), ema=[t.detach().clone() for t in state.ema.ema.state_dict().values()])
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, images, targets)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        run["median"] = statistics.median(times)
+        runs[segs] = run
+        del model, state, step, opt
+        torch.cuda.empty_cache()
+    plain, remat = runs[0], runs[REMAT_SEGMENTS]
+    assert plain["launches"] == only(**STEP_LAUNCHES["yolo-somi"]), plain["launches"]
+    doubled = dict(STEP_LAUNCHES["yolo-somi"], odconv_s2=2 * STEP_LAUNCHES["yolo-somi"]["odconv_s2"])
+    assert remat["launches"] == only(**doubled), remat["launches"]
+    assert len(plain["grads"]) == len(remat["grads"]) > 0
+    floor = WITNESS_FLOOR[torch.bfloat16] * max(g.norm().item() for g in plain["grads"])
+    rel = [(a.float() - b.float()).norm().item() / max(b.float().norm().item(), 1e-30)
+           for a, b in zip(remat["grads"], plain["grads"])]
+    over = [i for i, (a, b) in enumerate(zip(remat["grads"], plain["grads"]))
+            if (a.float() - b.float()).norm().item() > WITNESS_TOL[torch.bfloat16] * b.float().norm().item() + floor]
+    bitwise = all(torch.equal(a, b) for a, b in zip(remat["grads"], plain["grads"]))
+    print(f"remat on {gpu}: full-width yolo-somi b{BATCH} {IMGSZ} px bf16, one step from the same state: without "
+          f"remat {plain['first'] * 1e3:.1f} ms, peak {plain['peak'] / 1e9:.2f} GB; --remat {REMAT_SEGMENTS} "
+          f"{remat['first'] * 1e3:.1f} ms, peak {remat['peak'] / 1e9:.2f} GB ({remat['peak'] / plain['peak']:.3f} of "
+          f"it); median of 3 more steps {plain['median'] * 1e3:.1f} / {remat['median'] * 1e3:.1f} ms; loss "
+          f"{plain['loss']:.7f} / {remat['loss']:.7f}; gradients {'the same bits' if bitwise else 'not bitwise'}, "
+          f"relative distance median {statistics.median(rel):.2e} max {max(rel):.2e}; launches "
+          f"{plain['launches']} / {remat['launches']}")
+    assert not over and statistics.median(rel) <= WITNESS_MEDIAN_TOL, (over[:5], statistics.median(rel))
+    assert all(torch.equal(a, b) for a, b in zip(plain["bn"], remat["bn"])), "remat moved the statistics otherwise"
+    assert all(torch.equal(a, b) for a, b in zip(plain["ema"], remat["ema"])), "remat changed the EMA"
+
+
+def recipe(gpu: str, tmp: Path, data: Path) -> dict:
+    """Phase 10 on phase 8's set: train.run with the recipe's options
+    (RECIPE), then the remat step. Returns each case's sizes and counts."""
+    t0 = time.perf_counter()
+    runs = {label: recipe_run(gpu, tmp, data, label, cfg_name, opts) for label, cfg_name, opts in RECIPE}
+    remat_step(gpu, data.parent)
+    print(f"training recipe on {gpu}: phase 10 runs {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -1991,6 +2220,9 @@ def main() -> int:
     dx_summary, dw_summary = check_backward(odconv_sites(meta, BATCH, IMGSZ), gen)
     s_dx_summary, s_dw_summary = check_backward(odconv_sites(meta_s, BATCH, IMGSZ), gen, "yolo-somi-s")
     v2b_summary, v3b_summary = check_dcn_backward(v2_sites, v3_sites, gen)
+    t0 = time.perf_counter()
+    at_recipe = recipe_kernels(meta, gen)
+    print(f"training recipe on {gpu}: phase 10 kernel checks {time.perf_counter() - t0:.1f} s")
     print("per served batch or train step (bf16, sites times launches): " + "; ".join(
         f"{name} kernel_ms {sm['ms']:.4f} plain_ms {sm['plain_ms']:.4f} library_ms {sm['library_ms']:.4f} "
         f"bound_ms {sm['bound_ms']:.4f} x bound {sm['ms'] / sm['bound_ms']:.1f}"
@@ -2034,6 +2266,8 @@ def main() -> int:
                launches_per_train_step=trained["yolo-somi-dcn"][name] // steps)
           for name, summary in (("dcnv2_im2col_bwd", v2b_summary), ("dcnv3_core_bwd", v3b_summary))),
     ]
+    for entry in kernels:  # phase 10's shapes, bf16, sites times their launches on such a batch or step
+        entry["recipe"] = {label: summary_fields(sums[entry["name"]]) for label, sums in at_recipe.items()}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

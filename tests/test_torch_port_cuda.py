@@ -662,3 +662,160 @@ def test_a_train_step_on_cuda_goes_through_the_gradient_kernels(cuda, amp):
             odconv_s2_dwmix.launches - before[2]) == (8, 8, 8)
     assert bool(m["grads_finite"]) and torch.isfinite(m["loss"])
     assert len(banks) == 4 and all(not torch.equal(b, b0) for b, b0 in zip(banks, bank0))
+
+
+# ---------------------------------------------------------------------------
+# the training recipe's shapes and device paths (--rect, --multi-scale,
+# --quad, --cache device, --remat)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 240, 320, 64, 128), (8, 30, 40, 512, 256), (2, 640, 640, 64, 128)],
+                         ids=["rect_row1", "rect_row32", "quad_row1"])
+def test_odconv_s2_kernels_at_the_recipe_shapes(cuda, dtype, shape):
+    """Full-width sites no serving batch reaches: row 1's and row 32's
+    inputs of a 480x640 rect batch (H != W) and row 1's of a quad batch
+    (b2 at 1280 px). The forward against the plain version, both
+    gradients against autograd of it (GRAD_TOL), each kernel twice,
+    bitwise."""
+    b, h, w, cin, cout = shape
+    x = torch.randn(b, h, w, cin, device="cuda", generator=cuda).to(dtype)
+    wmix = (torch.randn(b, 3, 3, cin, cout, device="cuda", generator=cuda) * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+    dy = torch.randn(b, h // 2, w // 2, cout, device="cuda", generator=cuda).to(dtype)
+    y, dx, dw = odconv_s2(x, wmix), odconv_s2_dx(dy, wmix, h, w), odconv_s2_dwmix(x, dy)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=0.15, rtol=0.03)
+    torch.testing.assert_close(y.float(), odconv_s2_reference(x.float(), wmix.float()), **tol)
+    rdx, rdw = odconv_s2_backward_reference(x.float(), wmix.float(), dy.float())
+    assert _rel(dx, rdx) <= GRAD_TOL[dtype] and _rel(dw, rdw) <= GRAD_TOL[dtype], (_rel(dx, rdx), _rel(dw, rdw))
+    assert torch.equal(odconv_s2(x, wmix), y)
+    assert torch.equal(odconv_s2_dx(dy, wmix, h, w), dx) and torch.equal(odconv_s2_dwmix(x, dy), dw)
+
+
+def _dcnv2_site(row: int, size: int):
+    """(C, k, s, p, H, W) of yolo-somi-dcn's DCNv2 convolutions at graph row
+    `row` on a `size` px square, read from the graph on the meta device."""
+    from yolosomi_tpu_torch.models.dcn import DCNv2
+    from yolosomi_tpu_torch.models.yolo import parse_model
+
+    with torch.device("meta"):
+        modules, meta = parse_model(load_model_cfg(find_config("yolo-somi-dcn")))
+    conv = next(m for m in modules[row].modules() if isinstance(m, DCNv2))
+    hw = int(size / meta.specs[row - 1].stride)
+    return conv.conv_offset_mask.in_channels, conv.k, conv.s, conv.p, hw, hw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row", [6, 8])
+def test_dcnv2_kernels_at_the_832_px_training_sites(cuda, dtype, row):
+    """dcnv2_im2col and dcnv2_im2col_bwd at the maps of rows 6 and 8 of
+    yolo-somi-dcn on an 832 px batch (--multi-scale's largest square), b2,
+    offsets up to +-4 px: the columns against the plain version, the
+    gradients against autograd of it (GRAD_TOL), the offset and mask
+    gradients the same bits twice."""
+    c, k, s, p, h, w = _dcnv2_site(row, 832)
+    n, ho, wo = 2, (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    x = torch.randn(n, h, w, c, device="cuda", generator=cuda)
+    oy, ox = ((torch.rand(2, n, ho, wo, k * k, device="cuda", generator=cuda) - 0.5) * 8).unbind(0)
+    mask = torch.sigmoid(torch.randn(n, ho, wo, k * k, device="cuda", generator=cuda))
+    dcols = torch.randn(n, ho * wo, k * k * c, device="cuda", generator=cuda)
+    x, oy, ox, mask, dcols = (t.to(dtype) for t in (x, oy, ox, mask, dcols))
+    cols = dcnv2_im2col(x, oy, ox, mask, k, s, p)
+    torch.cuda.synchronize()
+    ref = dcnv2_im2col_reference(x.float(), oy.float(), ox.float(), mask.float(), k, s, p)
+    torch.testing.assert_close(cols.float(), ref, **_DCN_TOL[dtype])
+    rgrads = dcnv2_im2col_backward_reference(x.float(), oy.float(), ox.float(), mask.float(), dcols.float(), k, s, p)
+    calls = [dcnv2_im2col_bwd(x, oy, ox, mask, dcols, k, s, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    for got in calls:
+        assert all(_rel(g, r) <= GRAD_TOL[dtype] for g, r in zip(got, rgrads)), [_rel(g, r) for g, r in zip(got, rgrads)]
+    assert all(torch.equal(a, b) for a, b in zip(calls[0][1:], calls[1][1:]))
+
+
+@pytest.mark.cuda
+def test_device_mosaic_on_cuda_matches_its_cpu_form(cuda, tmp_path):
+    """mosaic_mixup_batch from a slab on the card and on the CPU, the same
+    plans (mosaic 0.5, mixup 1.0: letterbox, mosaic and mixed rows): within
+    1e-4 on the 0-255 scale."""
+    import random
+
+    from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset
+    from yolosomi_tpu_torch.ops.mosaic_device import build_device_cache, mosaic_mixup_batch
+
+    _write_shapes(tmp_path / "ds", 8)
+    hyp = dict(load_hyp(find_config("hyp.visdrone", "hyps")), mosaic=0.5, mixup=1.0)
+    random.seed(0)
+    np.random.seed(0)
+    ds = DetectionDataset(str(tmp_path / "ds" / "images"), img_size=96, augment=True, hyp=hyp)
+    slab, _ = build_device_cache(ds)
+    for plan, _, _, _ in DataLoader(ds, 4, shuffle=True, prefetch=0, plan=True):
+        got = mosaic_mixup_batch(torch.from_numpy(slab).cuda(), plan, 96)
+        want = mosaic_mixup_batch(torch.from_numpy(slab), plan, 96)
+        assert got.is_cuda and got.shape == (4, 96, 96, 3)
+        torch.testing.assert_close(got.cpu() * 255, want * 255, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_multi_scale_resize_on_cuda_matches_the_cpu(cuda):
+    """The step's antialiased bilinear resize of a uint8 batch, down and up,
+    on the card against the CPU (whose parity with jax.image.resize
+    tests/test_torch_port_recipe.py holds): within 2e-6."""
+    from types import SimpleNamespace
+
+    u8 = np.random.default_rng(0).integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
+    for size in (64, 128):
+        step = make_train_step(None, None, scale_to=size)
+        got, _ = step.inputs(SimpleNamespace(params=[torch.zeros(1, device="cuda")], step=0), u8, np.zeros((2, 1, 5)))
+        want, _ = step.inputs(SimpleNamespace(params=[torch.zeros(1)], step=0), u8, np.zeros((2, 1, 5)))
+        assert got.is_cuda and got.shape == (2, 3, size, size)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_remat_step_on_cuda_moves_batchnorm_statistics_once(cuda, amp):
+    """The small flagship, b2, 64 px, one step from the same seed with
+    --remat 3 and without: the loss and the BatchNorm statistics the same
+    bits (a recompute that moved them would put them ~3% away), the EMA
+    too in bf16. In f32 the EMA within 1e-4 relative: the f32 step's
+    backward on the card is not bitwise repeatable even without remat
+    (chip_smoke.py's f32 witness: a median 2e-6 relative between two
+    runs), and the ODConv bias banks, updated at the warmup bias LR 0.05,
+    carry that noise into the EMA (2.1e-5 relative on an H100 80GB HBM3); a
+    wrong gradient would move them by percents. The forward kernel
+    launched twice a site under remat (the recompute), the gradient
+    kernels once."""
+    from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d
+
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    t = np.full((2, 8, 5), -1, np.float32)
+    t[..., 1:] = 0
+    t[:, :2] = [[0, 0.3, 0.4, 0.2, 0.3], [2, 0.6, 0.6, 0.1, 0.1]]
+    images = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    runs = []
+    for segs in (0, 3):
+        model, meta = build_model(cfg, nc=3, device="cuda", seed=0, compute_dtype=amp)
+        opt = make_optimizer(hyp, nb=2, epochs=1, batch_size=2)
+        state = create_train_state(model, opt)
+        before = (odconv_s2.launches, odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+        m = make_train_step(ComputeLoss(meta, hyp), opt, amp_dtype=amp, remat_segments=segs)(state, images, t)
+        torch.cuda.synchronize()
+        launches = (odconv_s2.launches - before[0], odconv_s2_dx.launches - before[1],
+                    odconv_s2_dwmix.launches - before[2])
+        bn = [b.clone() for mod in model.modules() if isinstance(mod, (FlaxBatchNorm1d, FlaxBatchNorm2d))
+              for b in (mod.running_mean, mod.running_var)]
+        runs.append((m["loss"], launches, bn, [v.clone() for v in state.ema.ema.state_dict().values()]))
+    (loss0, l0, bn0, ema0), (loss3, l3, bn3, ema3) = runs
+    assert l0 == (4, 4, 4) and l3 == (8, 4, 4), (l0, l3)
+    assert torch.equal(loss0, loss3)
+    assert all(torch.equal(a, b) for a, b in zip(bn0, bn3))
+    for a, b in zip(ema0, ema3):
+        if amp is None:
+            torch.testing.assert_close(b, a, atol=1e-6, rtol=1e-4)
+        else:
+            assert torch.equal(a, b)

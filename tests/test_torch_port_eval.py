@@ -229,15 +229,6 @@ def test_dataset_and_loader_equal_jax(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_dataset_refuses_training_features(tmp_path):
-    """Rect batches are not ported, with or without the augmenting branch
-    (which is, tests/test_torch_port_train.py)."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        datasets.DetectionDataset(str(tmp_path), augment=True, rect=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        datasets.DetectionDataset(str(tmp_path), rect=True)
-
-
 def test_loader_raises_a_failed_item(tmp_path):
     (tmp_path / "images").mkdir()
     _write_image(tmp_path / "images" / "a.png", np.random.default_rng(0), 32, 32)

@@ -613,10 +613,12 @@ def test_eval_outputs_are_those_of_torch_batchnorm(jax_run):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape", [(2, 16), (2, 8, 5, 3)], ids=["1d_batch_2", "2d"])
+@pytest.mark.parametrize("shape", [(2, 16), (1, 16), (2, 8, 5, 3)], ids=["1d_batch_2", "1d_batch_1", "2d"])
 def test_train_mode_batchnorm_keeps_flax_running_statistics(shape):
     """flax.linen.BatchNorm updates its running variance with the biased
-    batch variance (at batch 2, torch's unbiased update is twice it)."""
+    batch variance (at batch 2, torch's unbiased update is twice it), and
+    normalizes a batch of one value per channel (ODConv's attention trunk
+    under --quad at batch 4), where torch's batch_norm refuses."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal(shape).astype(np.float32) * 3 + 1
     c = shape[1]
@@ -766,9 +768,8 @@ def test_val_run_reports_the_mean_loss_of_the_eval_forward(jax_run, hyp, tmp_pat
     assert all(v > 0 for v in results[4:6])
 
 
-@pytest.mark.parametrize("flag", ["--multi-scale", "--rect", "--quad", "--rep", "--image-weights", "--remat 2",
-                                  "--evolve 3", "--sync-bn", "--cache ram", "--device-preprocess",
-                                  "--teacher w.ckpt"])
+@pytest.mark.parametrize("flag", ["--evolve 3", "--sync-bn", "--teacher w.ckpt", "--teacher-cfg yolo-somi",
+                                  "--distill 0.5", "--distill-hint 0.1"])
 def test_train_refuses_what_is_not_ported(flag, tmp_path):
     opt = train.parse_opt(["--project", str(tmp_path), "--device", "cpu", *flag.split()])
     with pytest.raises(NotImplementedError, match="item [56]"):

@@ -1,13 +1,15 @@
 """The training and eval dataset and its loader, and the inference sources
-(counterparts of yolosomi_tpu/data/datasets.py:40-350, :486-630, :632-701
-and :824-866, and yolosomi_tpu/losses.py:365 pad_targets).
+(counterparts of yolosomi_tpu/data/datasets.py:40-606, :632-701 and
+:824-866, and yolosomi_tpu/losses.py:365 pad_targets).
 
 Images decode and resize with cv2, exactly as the JAX loader does.
 Batches collate to fixed shapes: images (B, H, W, 3) uint8 BGR NHWC and
 targets (B, max_labels, 5) [cls, xc, yc, w, h] normalized, padded with
 cls = -1. The loader pads the last batch by wrapping to the start of the
-dataset (or drops it), and shuffles with numpy's generator of
-seed + epoch.
+dataset (or drops it), except under rect, where the last batch stays
+short; it shuffles, or draws the images with replacement by
+`sample_weights` (--image-weights), with numpy's generator of seed +
+epoch.
 
 The training branch (`augment=True`): a 4-image mosaic with probability
 `mosaic` (copy-reduce-paste, then the perspective warp that crops the 2s
@@ -17,7 +19,17 @@ HSV jitter and the flips. It draws from Python's `random` and numpy's
 global `np.random` in the JAX package's order, so with one item thread
 (`workers=1`) and no prefetch thread the two loaders give the same bytes
 from the same seeds; with several threads the draws interleave, as in
-the JAX loader. Rect batches (`rect`) raise NotImplementedError.
+the JAX loader.
+
+The rest of the JAX training recipe's input side:
+- `rect`: the images sorted by aspect ratio, each batch letterboxed to its
+  own stride-multiple shape (`batch_shapes`), no mosaic;
+- `cache_images` (--cache ram): every image decoded and resized once;
+- `plan_item` / `collate_plan_batch` (--cache device): the same random
+  draws and label geometry as a sample, without pixels, as a plan for
+  ops/mosaic_device.py to composite on the device;
+- `collate_batch4` (--quad): each group of 4 samples becomes one image of
+  twice the size.
 
 The label cache is the port's own file, `<dir>.somi-torch.cache.json`
 beside the image directory (or list file): JSON, so loading it runs no
@@ -50,7 +62,7 @@ import numpy as np
 
 from yolosomi_tpu_torch.data import augment as A
 from yolosomi_tpu_torch.data.augment import letterbox
-from yolosomi_tpu_torch.utils.boxes import xywhn2xyxy, xyxy2xywhn
+from yolosomi_tpu_torch.utils.boxes import letterbox_params, xywhn2xyxy, xyxy2xywhn
 from yolosomi_tpu_torch.utils.general import LOGGER
 
 IMG_FORMATS = ("bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp")
@@ -59,8 +71,8 @@ CACHE_VERSION = "yolosomi-tpu-torch-0.1"
 CACHE_SUFFIX = ".somi-torch.cache.json"
 MAX_LABELS = 300  # target rows per image in a batch
 PREFETCH = 2  # batches the loader keeps ready
-RECT_NOT_PORTED = "rect batches (--rect) are not ported yet (ROADMAP queue A item 5)"
 _END = object()  # the prefetch queue's end marker
+PLAN_KEYS = ("idx", "center", "offs", "srect", "minv")  # a plan's per-composite arrays, besides mixw
 
 
 def img2label_paths(img_paths: List[str]) -> List[str]:
@@ -139,17 +151,22 @@ def verify_image_label(im_file: str, lb_file: str):
 class DetectionDataset:
     """An image list, its validated labels, and samples at `img_size`:
     letterboxed (eval), or augmented as the training set (`augment`, with
-    the hyp's gains and probabilities)."""
+    the hyp's gains and probabilities). `rect` letterboxes each batch of
+    `batch_size` aspect-sorted images to its own shape, a multiple of
+    `stride` with `pad` strides to spare; `cache_images` decodes every
+    image once and keeps it."""
 
     def __init__(self, path, img_size: int = 640, augment: bool = False, hyp: Optional[dict] = None,
-                 rect: bool = False, max_labels: int = MAX_LABELS):
-        if rect:
-            raise NotImplementedError(RECT_NOT_PORTED)
+                 rect: bool = False, max_labels: int = MAX_LABELS, batch_size: int = 16, stride: int = 32,
+                 pad: float = 0.0, cache_images: bool = False):
         self.img_size = img_size
         self.augment = augment
         self.hyp = hyp or {}
+        self.rect = rect
+        self.stride = stride
+        self.pad = pad
         self.max_labels = max_labels
-        self.mosaic = augment
+        self.mosaic = augment and not rect
         self.mosaic_border = [-img_size // 2, -img_size // 2]
         self.albumentations = A.Albumentations() if augment else None
         self.img_files = list_images(path)
@@ -159,6 +176,13 @@ class DetectionDataset:
         self.shapes = np.array([cache[f][1] for f in self.img_files], np.float64)  # (n, 2) (w, h)
         self.n = len(self.img_files)
         self.indices = np.arange(self.n)
+        self.batch = np.floor(np.arange(self.n) / batch_size).astype(int)
+        if rect:
+            self._setup_rect()
+        self.ims: List[Optional[np.ndarray]] = [None] * self.n
+        if cache_images:
+            for i in range(self.n):
+                self.ims[i], _, _ = self.load_image(i)
 
     # -- caching --------------------------------------------------------
 
@@ -205,12 +229,39 @@ class DetectionDataset:
             LOGGER.warning(f"cache not written to {cache_path}: {e}")
         return cache
 
+    def _setup_rect(self) -> None:
+        """Sort the images by aspect ratio h / w and give each batch the
+        shape that holds its images' ratios: [h, w] in pixels, multiples
+        of `stride`."""
+        nb = self.batch[-1] + 1
+        s = self.shapes  # (w, h)
+        ar = s[:, 1] / s[:, 0]
+        irect = ar.argsort()
+        self.img_files = [self.img_files[i] for i in irect]
+        self.label_files = [self.label_files[i] for i in irect]
+        self.labels = [self.labels[i] for i in irect]
+        self.shapes = s[irect]
+        ar = ar[irect]
+        shapes = [[1.0, 1.0]] * nb
+        for i in range(nb):
+            ari = ar[self.batch == i]
+            mini, maxi = ari.min(), ari.max()
+            if maxi < 1:
+                shapes[i] = [maxi, 1.0]
+            elif mini > 1:
+                shapes[i] = [1.0, 1.0 / mini]
+        self.batch_shapes = np.ceil(np.array(shapes) * self.img_size / self.stride + self.pad).astype(int) * self.stride
+
     # -- samples ----------------------------------------------------------
 
     def load_image(self, i: int):
         """Image i as loaded, its long side resized to img_size (INTER_AREA
-        when shrinking an eval image, else INTER_LINEAR). Returns (image,
-        (h0, w0), (h, w))."""
+        when shrinking an eval image, else INTER_LINEAR), or as cached.
+        Returns (image, (h0, w0), (h, w))."""
+        im = self.ims[i]
+        if im is not None:
+            w0, h0 = self.shapes[i]
+            return im, (int(h0), int(w0)), im.shape[:2]
         im = cv2.imread(self.img_files[i])
         if im is None:
             raise FileNotFoundError(f"image not found {self.img_files[i]}")
@@ -285,7 +336,8 @@ class DetectionDataset:
                 img, labels = A.mixup(img, labels, *self.load_mosaic(random.randint(0, self.n - 1)))
         else:
             img, (h0, w0), (h, w) = self.load_image(index)
-            img, ratio, pad = letterbox(img, self.img_size, auto=False, scaleup=self.augment)
+            shape = self.batch_shapes[self.batch[index]] if self.rect else self.img_size
+            img, ratio, pad = letterbox(img, shape, auto=False, scaleup=self.augment)
             shapes = (h0, w0), ((h / h0, w / w0), pad)
             labels = self.labels[index].copy()
             if labels.size:
@@ -310,6 +362,94 @@ class DetectionDataset:
                     labels[:, 1] = 1 - labels[:, 1]
         return np.ascontiguousarray(img), labels.astype(np.float32), self.img_files[index], shapes
 
+    # -- device-cache plans -------------------------------------------------
+
+    def resized_hw(self, i: int):
+        """(h, w) of image i after load_image's long-side resize, from the
+        cached shapes without loading it."""
+        w0, h0 = self.shapes[i]
+        r = self.img_size / max(h0, w0)
+        return (int(h0 * r), int(w0 * r)) if r != 1 else (int(h0), int(w0))
+
+    def _warp_params(self, size: int, border):
+        hyp = self.hyp
+        return A.perspective_params(size, size, degrees=hyp.get("degrees", 0.0), translate=hyp.get("translate", 0.1),
+                                    scale=hyp.get("scale", 0.5), shear=hyp.get("shear", 0.0),
+                                    perspective=hyp.get("perspective", 0.0), border=border)
+
+    def _plan_mosaic(self, index: int):
+        """load_mosaic's draws and label geometry without pixels (the same
+        draws in the same order). Returns (idx4, center, offs, srect, minv,
+        labels xyxy), where offs (4, 2) holds each tile's (padw, padh),
+        srect (4, 4) its source rectangle and minv the inverse warp."""
+        s = self.img_size
+        yc, xc = (int(random.uniform(-x, 2 * s + x)) for x in self.mosaic_border)
+        indices = [index] + random.choices(list(self.indices), k=3)
+        random.shuffle(indices)
+        labels4 = []
+        offs = np.zeros((4, 2), np.float32)
+        srect = np.zeros((4, 4), np.float32)
+        for i, idx in enumerate(indices):
+            h, w = self.resized_hw(idx)
+            (x1a, y1a, x2a, y2a), (x1b, y1b, x2b, y2b) = self._mosaic_tile_rects(i, xc, yc, w, h, s)
+            padw, padh = x1a - x1b, y1a - y1b
+            offs[i] = (padw, padh)
+            srect[i] = (x1b, y1b, x2b, y2b)
+            labels = self.labels[idx].copy()
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy(labels[:, 1:], w, h, padw, padh)
+            labels4.append(labels)
+        labels4 = np.concatenate(labels4, 0)
+        labels4[:, 1:] = labels4[:, 1:].clip(0, 2 * s)
+        M, sc, width, height = self._warp_params(2 * s, self.mosaic_border)
+        labels4 = A.warp_labels(labels4, M, sc, width, height, self.hyp.get("perspective", 0.0))
+        return (np.asarray(indices, np.int32), np.asarray([xc, yc], np.float32), offs, srect,
+                np.linalg.inv(M).astype(np.float32), labels4)
+
+    def _plan_letterbox(self, index: int):
+        """The letterbox branch as a one-tile plan. The letterbox's resize
+        (a ratio of S / (S - 1) where load_image truncated the long side)
+        and pad are folded into the plan's matrix, so the pixels line up
+        with the labels, which keep the host's ratio-based formula."""
+        h, w = self.resized_hw(index)
+        ratio, new_unpad, (dw, dh) = letterbox_params((h, w), self.img_size, scaleup=self.augment, auto=False)
+        top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+        labels = self.labels[index].copy()
+        if labels.size:
+            labels[:, 1:] = xywhn2xyxy(labels[:, 1:], ratio[0] * w, ratio[1] * h, padw=dw, padh=dh)
+        M, sc, width, height = self._warp_params(self.img_size, (0, 0))
+        labels = A.warp_labels(labels, M, sc, width, height, self.hyp.get("perspective", 0.0))
+        # cv2.resize to the rounded new_unpad maps centre-aligned pixels (dst = s * src + 0.5 * s - 0.5)
+        sx, sy = new_unpad[0] / w, new_unpad[1] / h
+        L = np.asarray([[sx, 0.0, 0.5 * sx - 0.5 + left], [0.0, sy, 0.5 * sy - 0.5 + top], [0.0, 0.0, 1.0]],
+                       np.float64)
+        center = np.asarray([1e9, 1e9], np.float32)  # tile 0 owns every pixel
+        offs = np.zeros((4, 2), np.float32)
+        srect = np.zeros((4, 4), np.float32)
+        srect[0] = (0, 0, w, h)
+        return (np.full(4, index, np.int32), center, offs, srect, np.linalg.inv(M @ L).astype(np.float32),
+                labels)
+
+    def plan_item(self, index: int):
+        """__getitem__ for --cache device: every random draw and the label
+        geometry on the host, in __getitem__'s order, and no pixels; the
+        HSV jitter and the flips are drawn on the device. Returns (plan,
+        labels xywhn, path, None); the plan's arrays have a leading pair
+        axis, the second mosaic that mixup blends in (mixw 1: none)."""
+        use_mosaic = self.mosaic and random.random() < self.hyp.get("mosaic", 0.0)
+        first = self._plan_mosaic(index) if use_mosaic else self._plan_letterbox(index)
+        labels, second, mixw = first[5], first[:5], 1.0
+        if use_mosaic and random.random() < self.hyp.get("mixup", 0.0):
+            *second, labels2 = self._plan_mosaic(random.randint(0, self.n - 1))
+            mixw = float(np.random.beta(32.0, 32.0))
+            labels = np.concatenate([labels, labels2], 0)
+        if len(labels):
+            labels = labels.copy()
+            labels[:, 1:5] = xyxy2xywhn(labels[:, 1:5], w=self.img_size, h=self.img_size, clip=True, eps=1e-3)
+        plan = {key: np.stack([a, b], 0) for key, a, b in zip(PLAN_KEYS, first[:5], second)}
+        plan["mixw"] = np.float32(mixw)
+        return plan, labels.astype(np.float32), self.img_files[index], None
+
 
 def pad_targets(label_list, max_labels: int = MAX_LABELS) -> np.ndarray:
     """Per-image (n, 5) [cls, x, y, w, h] arrays -> (B, max_labels, 5),
@@ -330,22 +470,69 @@ def collate_batch(samples, max_labels: int = MAX_LABELS):
     return np.stack(imgs, 0), pad_targets(list(labels), max_labels), list(paths), list(shapes)
 
 
+def collate_plan_batch(samples, max_labels: int = MAX_LABELS):
+    """Plan samples -> (plan of (B, 2, ...) arrays and mixw (B,), targets
+    (B, max_labels, 5), paths, shapes)."""
+    plans, labels, paths, shapes = zip(*samples)
+    plan = {k: np.stack([p[k] for p in plans], 0) for k in plans[0]}
+    return plan, pad_targets(list(labels), max_labels), list(paths), list(shapes)
+
+
+def collate_batch4(samples, max_labels: int = MAX_LABELS, rng: Optional[np.random.Generator] = None):
+    """The quad collate: each group of 4 samples becomes one image of twice
+    the size, with probability 1/2 (an `rng.random()` draw per group) the
+    first image upscaled 2x (INTER_LINEAR), else the four pasted 2 x 2 (i
+    top left, i + 1 below it, i + 2 right, i + 3 diagonal), the labels
+    shifted and halved. Returns images (B / 4, 2H, 2W, 3) uint8, targets
+    (B / 4, 4 max_labels, 5), and the first B / 4 paths and shapes."""
+    rng = rng or np.random.default_rng()
+    imgs, labels, paths, shapes = zip(*samples)
+    n = len(imgs) // 4
+    imgs4, labels4 = [], []
+    for g in range(n):
+        i = g * 4
+        if rng.random() < 0.5:
+            h, w = imgs[i].shape[:2]
+            imgs4.append(cv2.resize(imgs[i], (2 * w, 2 * h), interpolation=cv2.INTER_LINEAR))
+            labels4.append(labels[i])
+        else:
+            imgs4.append(np.concatenate([np.concatenate([imgs[i], imgs[i + 1]], 0),
+                                         np.concatenate([imgs[i + 2], imgs[i + 3]], 0)], 1))
+            merged = []
+            for k, (ox, oy) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+                lk = np.asarray(labels[i + k], np.float32).reshape(-1, 5).copy()
+                lk[:, 1] = (lk[:, 1] + ox) * 0.5
+                lk[:, 2] = (lk[:, 2] + oy) * 0.5
+                lk[:, 3:5] *= 0.5
+                merged.append(lk)
+            labels4.append(np.concatenate(merged, 0))
+    return np.stack(imgs4, 0), pad_targets(labels4, 4 * max_labels), list(paths[:n]), list(shapes[:n])
+
+
 class DataLoader:
-    """Batches of a DetectionDataset: in order, or shuffled by numpy's
-    generator of seed + epoch (the epoch counts the loader's iterations,
-    from 1). Items load on a pool of `workers` threads (cv2 releases the
-    GIL while it decodes and warps; default up to 8; 1 loads them in
-    order on the batch thread) and a prefetch thread keeps `prefetch`
-    batches ready (0: the batches are made in the consumer's thread). The
-    last batch is filled up by wrapping to the start, or dropped with
-    `drop_last`."""
+    """Batches of a DetectionDataset: in order, shuffled, or, where
+    `sample_weights` is set (--image-weights), drawn with replacement by
+    those weights, by numpy's generator of seed + epoch (the epoch counts
+    the loader's iterations, from 1). Items load on a pool of `workers`
+    threads (cv2 releases the GIL while it decodes and warps; default up
+    to 8; 1 loads them in order on the batch thread) and a prefetch thread
+    keeps `prefetch` batches ready (0: the batches are made in the
+    consumer's thread). The last batch is filled up by wrapping to the
+    start (a rect dataset's stays short), or dropped with `drop_last`.
+    `quad` (with a batch size that 4 divides) collates each batch by
+    collate_batch4 with the same generator; `plan` yields the dataset's
+    plans (plan_item, on the batch thread, whose draws stay in order)."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int, shuffle: bool = False, prefetch: int = PREFETCH,
-                 drop_last: bool = False, seed: int = 0, workers: Optional[int] = None):
+                 drop_last: bool = False, seed: int = 0, workers: Optional[int] = None, quad: bool = False,
+                 plan: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle, self.prefetch, self.drop_last, self.seed = shuffle, prefetch, drop_last, seed
         self.workers = workers if workers is not None else min(8, os.cpu_count() or 1)
+        self.quad = quad and batch_size % 4 == 0
+        self.plan = plan
+        self.sample_weights = None
         self.epoch = 0
 
     def __len__(self):
@@ -353,19 +540,31 @@ class DataLoader:
         return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
 
     def _batches(self):
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        n = len(self.dataset)
+        idx = np.arange(n)
+        rng = np.random.default_rng(self.seed + self.epoch)
+        if self.sample_weights is not None:
+            w = np.asarray(self.sample_weights, np.float64)
+            idx = rng.choice(n, size=n, p=w / w.sum())
+        elif self.shuffle:
+            rng.shuffle(idx)
         max_labels = getattr(self.dataset, "max_labels", MAX_LABELS)
-        pool = ThreadPoolExecutor(max_workers=self.workers) if self.workers > 1 else None
+        rect = getattr(self.dataset, "rect", False)
+        pool = ThreadPoolExecutor(max_workers=self.workers) if self.workers > 1 and not self.plan else None
+        getter = self.dataset.plan_item if self.plan else self.dataset.__getitem__
         try:
             for b in range(len(self)):
                 sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-                if len(sel) < self.batch_size:
+                if len(sel) < self.batch_size and not rect:
                     sel = np.concatenate([sel, idx[: self.batch_size - len(sel)]])
                 sel = [int(i) for i in sel]
-                items = list(pool.map(self.dataset.__getitem__, sel)) if pool else [self.dataset[i] for i in sel]
-                yield collate_batch(items, max_labels)
+                items = list(pool.map(getter, sel)) if pool else [getter(i) for i in sel]
+                if self.plan:
+                    yield collate_plan_batch(items, max_labels)
+                elif self.quad:
+                    yield collate_batch4(items, max_labels, rng)
+                else:
+                    yield collate_batch(items, max_labels)
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)

@@ -15,6 +15,19 @@ optimizer, then the EMA, all on the device.
 - `freeze` N: the gradients and the updates of graph rows 0..N-1 are
   zero (their optimizer buffers still move under weight decay, as in the
   JAX package, which masks the updates and not the state).
+
+What the step is fed, in the JAX step's order (make_train_step's options):
+`device_mosaic` composites the batch from the device slab and the host's
+plan (ops/mosaic_device.py, already / 255); `device_preprocess` (the hyp)
+jitters HSV and flips on the device (ops/preprocess.py), drawing from a
+CPU generator seeded from (seed, step); a uint8 batch is divided by 255;
+`scale_to` resizes to a square of that side (multi-scale) where it is
+not the batch's height, bilinear with antialiasing, as jax.image.resize
+does. `remat_segments` N cuts the graph's rows into N segments
+(round(n k / N)) under torch.utils.checkpoint: only the boundary
+activations and the skip tensors crossing a boundary are kept, and each
+segment's forward runs again in the backward, with its BatchNorms'
+running statistics frozen, so they move once a step, as without remat.
 """
 
 from __future__ import annotations
@@ -26,10 +39,14 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from yolosomi_tpu_torch.engine.ema import ModelEMA
 from yolosomi_tpu_torch.engine.optim import OptState, YoloOptimizer, named_param_groups
-from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d
+from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d, frozen_running_stats
+from yolosomi_tpu_torch.ops.mosaic_device import mosaic_mixup_batch
+from yolosomi_tpu_torch.ops.preprocess import normalize, preprocess_train_batch
 
 
 @dataclass
@@ -66,37 +83,78 @@ def create_train_state(model: nn.Module, optimizer: YoloOptimizer, accumulate: i
 def upload_images(images, device: torch.device) -> torch.Tensor:
     """A (B, H, W, 3) uint8 (or [0, 1] float) NHWC batch -> the model's
     float32 NCHW input (NHWC in memory) on `device`."""
+    return normalize(_nhwc(images, device)).permute(0, 3, 1, 2)
+
+
+def _nhwc(images, device: torch.device) -> torch.Tensor:
     x = torch.as_tensor(np.ascontiguousarray(images) if isinstance(images, np.ndarray) else images)
-    x = x.to(device, non_blocking=True).permute(0, 3, 1, 2)
-    return x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    return x.to(device, non_blocking=True)
+
+
+def remat_forward(model: nn.Module, x: torch.Tensor, n_segments: int):
+    """The model's forward as `n_segments` checkpointed row ranges, cut at
+    round(n k / n_segments) of its n rows; the recompute runs with the
+    running statistics frozen."""
+    n = len(model.model)
+    cuts = sorted({int(round(n * k / n_segments)) for k in range(n_segments + 1)} | {0, n})
+    saved = {}
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        x, saved = checkpoint(model.run_range, x, saved, lo, hi, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats(model)))
+    return x
 
 
 class TrainStep:
     """`step(state, images, targets)` -> metrics, device tensors: loss,
-    lbox, lobj, lcls and grads_finite. `images` (B, H, W, 3) uint8 NHWC,
+    lbox, lobj, lcls and grads_finite. `images` (B, H, W, 3) uint8 NHWC
+    (or [0, 1] float), or with `device_mosaic` the pair (slab, plan);
     `targets` (B, M, 5) padded with cls = -1."""
 
     def __init__(self, loss_fn: Callable, optimizer: YoloOptimizer, accumulate: int = 1, freeze: int = 0,
-                 amp_dtype: Optional[torch.dtype] = None):
+                 amp_dtype: Optional[torch.dtype] = None, scale_to: Optional[int] = None,
+                 device_preprocess: Optional[dict] = None, device_mosaic: Optional[int] = None,
+                 remat_segments: int = 0):
         self.loss_fn, self.optimizer = loss_fn, optimizer
         self.accumulate, self.freeze, self.amp_dtype = accumulate, freeze, amp_dtype
+        self.scale_to, self.device_preprocess = scale_to, device_preprocess
+        self.device_mosaic, self.remat_segments = device_mosaic, remat_segments
 
     def frozen(self, state: TrainState) -> List[bool]:
         prefixes = tuple(f"model.{i}." for i in range(self.freeze))
         return [n.startswith(prefixes) for n in state.names] if self.freeze > 0 else [False] * len(state.names)
 
+    def inputs(self, state: TrainState, images, targets):
+        """The batch as the model takes it (float32 NCHW, NHWC in memory,
+        on the parameters' device) and its targets, after the device
+        mosaic, the device preprocess and the resize."""
+        dev = state.params[0].device
+        t = torch.as_tensor(targets, dtype=torch.float32).to(dev, non_blocking=True)
+        if self.device_mosaic is not None:
+            slab, plan = images
+            x = mosaic_mixup_batch(slab, plan, self.device_mosaic)
+        else:
+            x = _nhwc(images, dev)
+        if self.device_preprocess is not None:
+            # a stream per (seed, step): a resumed run replays the same draws
+            gen = torch.Generator().manual_seed(int(self.device_preprocess.get("seed", 0)) * 2**32 + state.step)
+            x, t = preprocess_train_batch(x, t, gen, self.device_preprocess)
+        x = normalize(x).permute(0, 3, 1, 2)
+        if self.scale_to is not None and self.scale_to != x.shape[2]:  # the height alone, as the JAX step tests
+            x = F.interpolate(x, size=(self.scale_to, self.scale_to), mode="bilinear", align_corners=False,
+                              antialias=True)
+        return x, t
+
     def __call__(self, state: TrainState, images, targets) -> dict:
         model = state.model
         dev = state.params[0].device
         model.train()
-        x = upload_images(images, dev)
-        t = torch.as_tensor(targets, dtype=torch.float32).to(dev, non_blocking=True)
+        x, t = self.inputs(state, images, targets)
         bn = state.bn_buffers
         bn_old = torch.cat([b.reshape(-1) for b in bn]) if bn else None
         amp = (torch.autocast(device_type=dev.type, dtype=self.amp_dtype) if self.amp_dtype is not None
                else contextlib.nullcontext())
         with amp:
-            preds = model(x)
+            preds = remat_forward(model, x, self.remat_segments) if self.remat_segments > 0 else model(x)
         loss, comps = self.loss_fn(preds, t)
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads)]
@@ -125,8 +183,11 @@ class TrainStep:
 
 
 def make_train_step(loss_fn: Callable, optimizer: YoloOptimizer, accumulate: int = 1, freeze: int = 0,
-                    amp_dtype: Optional[torch.dtype] = None) -> TrainStep:
+                    amp_dtype: Optional[torch.dtype] = None, scale_to: Optional[int] = None,
+                    device_preprocess: Optional[dict] = None, device_mosaic: Optional[int] = None,
+                    remat_segments: int = 0) -> TrainStep:
     """The train step; `amp_dtype` torch.bfloat16 runs the forward under
-    autocast (None: float32 throughout)."""
-    return TrainStep(loss_fn, optimizer, accumulate, freeze, amp_dtype)
-
+    autocast (None: float32 throughout). The other options are the JAX
+    make_train_step's (the module docstring)."""
+    return TrainStep(loss_fn, optimizer, accumulate, freeze, amp_dtype, scale_to, device_preprocess, device_mosaic,
+                     remat_segments)

@@ -15,11 +15,15 @@ point of the reference's IoU-sorted scatter.
 Options: label smoothing, FocalLoss (`fl_gamma`), SlideLoss
 (`slide_ratio`), the NWD blend of the box loss (`nwdloss`, `shapeloss`,
 and `nwd_ref_defect` to feed NWD the reference's xywh boxes as if they
-were xyxy). The repulsion terms are not ported (train.py refuses --rep).
+were xyxy), and `rep` (--rep): the repulsion terms RepGT and RepBox over
+each image's first 256 positives, added to the total. As in the JAX
+package both box sets are cut from the graph, so the repulsion term
+moves the loss's value and adds no gradient.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -153,13 +157,18 @@ class ComputeLoss:
         self.shape_nwd = float(hyp.get("shapeloss", 0))
         self.nwd_ref_defect = bool(hyp.get("nwd_ref_defect", False))
         self.anchor_t = float(hyp.get("anchor_t", 4.0))
+        self.rep = False  # the trainer's --rep
+        self.rep_alpha = float(hyp.get("alpha", 0.01))
+        self.rep_beta = float(hyp.get("beta", 0.1))
+        self.rep_deta = float(hyp.get("deta", 0.5))
+        self.rep_nms = float(hyp.get("Rp_nms", 0.1))
 
     def __call__(self, preds: Sequence[torch.Tensor], targets: torch.Tensor):
         dev = preds[0].device
         targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
         anchors = self.anchors_grid.to(dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        lbox, lobj, lcls = zero, zero, zero
+        lbox, lobj, lcls, lrep = zero, zero, zero, zero
         bs = preds[0].shape[0]
         for i, pi in enumerate(preds):
             pi = pi.float()
@@ -208,9 +217,73 @@ class ComputeLoss:
             if self.slide_ratio > 0:
                 oloss = slide_modulation(oloss, tobj, auto_iou)
             lobj = lobj + oloss.mean() * self.balance[i]
+            if self.rep:
+                lrep = lrep + self.repulsion(pbox, lt).mean()
 
         lbox = lbox * self.hyp["box"]
         lobj = lobj * self.hyp["obj"]
         lcls = lcls * self.hyp["cls"]
         total = lbox + lobj + lcls
+        if self.rep:
+            total = total + lrep
         return total * bs, torch.stack([lbox, lobj, lcls]).detach()
+
+    @torch.no_grad()
+    def repulsion(self, pbox: torch.Tensor, lt: LevelTargets, cap: int = 256) -> torch.Tensor:
+        """Each image's RepGT and RepBox, alpha * RepGT + beta * RepBox, over
+        its first `cap` positives in candidate order. pbox (B, K, 4) xywh
+        in grid units relative to the cell. Returns (B,), without a
+        gradient."""
+        B, K = lt.mask.shape
+        cap = min(cap, K)
+        idx = torch.argsort((~lt.mask).to(torch.uint8), dim=1, stable=True)[:, :cap]  # positives first, in order
+        m = torch.gather(lt.mask, 1, idx)
+        cell = torch.stack([torch.gather(lt.gi, 1, idx), torch.gather(lt.gj, 1, idx)], -1).float()
+        shift = torch.cat([cell, torch.zeros_like(cell)], -1)
+        take = idx[..., None].expand(-1, -1, 4)
+        pb = torch.where(m[..., None], xywh2xyxy(torch.gather(pbox, 1, take) + shift), -1e4)
+        gb = torch.where(m[..., None], xywh2xyxy(torch.gather(lt.tbox, 1, take) + shift), -1e4)
+
+        pair_ok = m[:, :, None] & m[:, None, :]
+        same_gt = (torch.abs(gb[:, :, None] - gb[:, None, :]) < 1e-6).all(-1)
+        keep = (pair_ok & ~same_gt).float()
+
+        # RepGT: each positive against its second-best ground truth
+        pg = _iou_matrix(pb, gb) * keep
+        max_iou, sec = pg.max(2)
+        iog = _iog(torch.gather(gb, 1, sec[..., None].expand(-1, -1, 4)), pb)
+        active = ((max_iou > 0.0) & m).float()
+        repgt = (_smooth_ln(iog, self.rep_deta) * active).sum(1) / (active.sum(1) + 1e-9)
+
+        # RepBox: positives of different ground truths against each other
+        pp = _iou_matrix(pb, pb) * keep
+        pair_active = (pp > self.rep_nms).float() * torch.tril(torch.ones_like(pp[0]), diagonal=-1)
+        repbox = (_smooth_ln(pp, 0.0) * pair_active).sum((1, 2)) / (pair_active.sum((1, 2)) + 1e-9)
+        return self.rep_alpha * repgt + self.rep_beta * repbox
+
+
+def _iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, N, 4) x (B, M, 4) xyxy -> (B, N, M) IoU."""
+    lt = torch.maximum(a[:, :, None, :2], b[:, None, :, :2])
+    rb = torch.minimum(a[:, :, None, 2:], b[:, None, :, 2:])
+    inter = torch.clamp(rb - lt, min=0).prod(-1)
+    aa = torch.clamp(a[..., 2:] - a[..., :2], min=0).prod(-1)
+    ab = torch.clamp(b[..., 2:] - b[..., :2], min=0).prod(-1)
+    return inter / (aa[:, :, None] + ab[:, None, :] - inter + 1e-9)
+
+
+def _smooth_ln(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """The repulsion smooth-ln: -ln(1 - x) up to sigma, linear beyond."""
+    x = torch.clamp(x, 0.0, 1.0 - 1e-4)
+    sig = min(max(sigma, 0.0), 1.0 - 1e-4)
+    return torch.where(x <= sig, -torch.log1p(-x), (x - sig) / (1.0 - sig) - math.log(1.0 - sig))
+
+
+def _iog(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """Intersection over the ground truth's area, (..., 4) xyxy pairs."""
+    x1 = torch.maximum(gt[..., 0], pred[..., 0])
+    y1 = torch.maximum(gt[..., 1], pred[..., 1])
+    x2 = torch.minimum(gt[..., 2], pred[..., 2])
+    y2 = torch.minimum(gt[..., 3], pred[..., 3])
+    inter = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    return inter / torch.clamp((gt[..., 2] - gt[..., 0]) * (gt[..., 3] - gt[..., 1]), min=1e-6)

@@ -23,6 +23,7 @@ Numerical conventions kept from the JAX package:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -41,20 +42,33 @@ class _FlaxRunningStats:
     running = (1 - momentum) * running + momentum * batch statistic, with
     the biased variance. The batch statistics come from the same fused
     batch_norm call (momentum 1 into scratch buffers, which receive the
-    mean and the unbiased variance); the variance is rescaled by (n-1)/n."""
+    mean and the unbiased variance); the variance is rescaled by (n-1)/n.
+    With `update_stats` False (frozen_running_stats) it normalizes the same
+    way and leaves the running statistics alone."""
+
+    update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.ones_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
+        if n == 1:  # one value a channel (ODConv's trunk under --quad at batch 4), which torch refuses:
+            # flax's mean is the value and its variance 0, so the output is the bias
+            mean = x.detach().reshape(-1)
+            y = x * 0 + self.bias.view(1, -1, *([1] * (x.dim() - 2)))
+        else:
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.ones_like(self.running_var)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
+            self.running_var.mul_(1.0 - m)
+            if n > 1:
+                self.running_var.add_(var, alpha=m * (n - 1) / n)
         return y
 
 
@@ -64,6 +78,21 @@ class FlaxBatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
 
 class FlaxBatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     pass
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Train-mode BatchNorms of `model` that leave their running statistics
+    alone: the recompute of a checkpointed segment runs its forward a
+    second time, which would move them twice."""
+    bns = [m for m in model.modules() if isinstance(m, _FlaxRunningStats)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 def autopad(k, p: Optional[int] = None):
@@ -325,6 +354,8 @@ class EMACBAMBottleneck(nn.Module):
         gate_h = gate_s[..., :h].reshape(b, g, 1, h, 1)
         gate_w = gate_s[..., h:].reshape(b, g, 1, 1, w)
         gy = (gy * gate_h * gate_w).reshape(b, c, h, w)
+        if h * w == 1:  # one value a group (torch refuses it at batch 1): flax's output is the bias
+            return gy * 0 + self.gn.bias.view(1, -1, 1, 1)
         return self.gn(gy)
 
 

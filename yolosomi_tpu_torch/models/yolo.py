@@ -290,11 +290,19 @@ class DetectionModel(nn.Module):
         self.head_from = meta.head_from
 
     def forward(self, x):
-        saved: Dict[int, torch.Tensor] = {}
+        return self.run_range(x, {}, 0, len(self.model))[0]
+
+    def run_range(self, x, saved_in: Dict[int, torch.Tensor], lo: int, hi: int):
+        """Run rows [lo, hi) from the boundary activation `x` and the skip
+        tensors `saved_in` of earlier rows. Returns (out, saved): the
+        boundary activation for row hi (the head's maps where the range
+        ends with the head) and the skip tensors with this range's added."""
+        saved = dict(saved_in)
         n = len(self.model)
-        for i, (m, f) in enumerate(zip(self.model, self.froms)):
+        for i in range(lo, hi):
+            m, f = self.model[i], self.froms[i]
             if i == n - 1:  # the head consumes its `from` list
-                return m([saved[j] for j in self.head_from])
+                return m([saved[j] for j in self.head_from]), saved
             if isinstance(f, int):
                 inp = x if f == -1 else saved[f if f >= 0 else i + f]
             else:
@@ -302,7 +310,7 @@ class DetectionModel(nn.Module):
             x = m(inp)
             if i in self.save:
                 saved[i] = x
-        raise AssertionError("graph has no head")
+        return x, saved
 
 
 def _trunc_normal(t: torch.Tensor, fan: int, scale: float, g: torch.Generator):

@@ -4,9 +4,11 @@
         [--epochs 300 --batch-size 16 --imgsz 640] [--device cpu] [--no-bf16]
 
 The loop: autoanchor (unless --noautoanchor), the augmenting loader
-(mosaic, mixup, perspective, HSV, flips), the train step (bf16 under
-autocast by default, f32 with --no-bf16; the finite guard, --accumulate,
---freeze), validation of the EMA weights every epoch with the val losses,
+(mosaic, mixup, perspective, HSV, flips; --rect, --quad, --image-weights,
+--cache ram), the train step (bf16 under autocast by default, f32 with
+--no-bf16; the finite guard, --accumulate, --freeze, --multi-scale,
+--remat, --rep, --device-preprocess, and --cache device, whose mosaic is
+composited on the device), validation of the EMA weights every epoch with the val losses,
 results.csv, and weights/last.ckpt and best.ckpt (the JAX package's
 checkpoint layout, written on a background thread) stripped at the end
 to last.msgpack and best.msgpack. --resume continues a run from its
@@ -47,33 +49,47 @@ from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.utils.autoanchor import check_anchors
 from yolosomi_tpu_torch.utils.callbacks import Callbacks
 from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg, load_hyp, load_model_cfg, save_yaml
-from yolosomi_tpu_torch.utils.general import LOGGER, check_img_size, get_latest_run, increment_path, resolve_device
+from yolosomi_tpu_torch.ops.mosaic_device import build_device_cache
+from yolosomi_tpu_torch.utils.general import (LOGGER, check_img_size, get_latest_run, increment_path,
+                                              labels_to_class_weights, labels_to_image_weights, resolve_device)
 from yolosomi_tpu_torch.utils.loggers import ResultsCSV
 from yolosomi_tpu_torch.utils.metrics import fitness
 from yolosomi_tpu_torch.utils.weights import load_matching_params
 
 # options of the JAX CLI this port does not have yet: (attribute, when it is on, what and its ROADMAP item)
+_ITEM5 = "ROADMAP queue A item 5, where distillation, --evolve and the trained-weights gate remain"
 NOT_PORTED = (
-    ("multi_scale", lambda v: v, "--multi-scale (jax.image.resize antialiases on downsampling; it needs its own "
-                                 "parity test) is not ported yet (ROADMAP queue A item 5)"),
-    ("device_preprocess", lambda v: v, "--device-preprocess is not ported yet (ROADMAP queue A item 5)"),
-    ("cache", lambda v: bool(v), "--cache (ram and device) is not ported yet (ROADMAP queue A item 5)"),
-    ("remat", lambda v: v > 0, "--remat is not ported yet (ROADMAP queue A item 5)"),
-    ("teacher", lambda v: bool(v), "--teacher (distillation) is not ported yet (ROADMAP queue A item 5)"),
-    ("evolve", lambda v: bool(v), "--evolve is not ported yet (ROADMAP queue A item 5)"),
+    ("teacher", lambda v: bool(v), f"--teacher (distillation) is not ported yet ({_ITEM5})"),
+    ("teacher_cfg", lambda v: bool(v), f"--teacher-cfg (distillation) is not ported yet ({_ITEM5})"),
+    ("distill", lambda v: v != 1.0, f"--distill (distillation) is not ported yet ({_ITEM5})"),
+    ("distill_hint", lambda v: v > 0, f"--distill-hint (distillation) is not ported yet ({_ITEM5})"),
+    ("evolve", lambda v: bool(v), f"--evolve is not ported yet ({_ITEM5})"),
     ("sync_bn", lambda v: v, "--sync-bn and multi-GPU training are not ported yet (ROADMAP queue A item 6)"),
-    ("image_weights", lambda v: v, "--image-weights is not ported yet (ROADMAP queue A item 5)"),
-    ("rep", lambda v: v, "--rep (the repulsion loss) is not ported yet (ROADMAP queue A item 5)"),
-    ("quad", lambda v: v, "--quad is not ported yet (ROADMAP queue A item 5)"),
-    ("rect", lambda v: v, "--rect is not ported yet (ROADMAP queue A item 5)"),
     ("upload_dataset", lambda v: v, "--upload-dataset (Weights & Biases) is not ported"),
 )
+MULTI_SCALE = (0.67, 0.83, 1.0, 1.17, 1.33)  # --multi-scale's factors of imgsz
 
 
 def _refuse_unported(opt) -> None:
+    defaults = vars(parse_opt([]))
     for attr, on, what in NOT_PORTED:
-        if on(getattr(opt, attr, None) or 0):
+        if on(getattr(opt, attr, defaults[attr])):
             raise NotImplementedError(what)
+
+
+def _cache_mode(opt, hyp: dict) -> str:
+    """'', 'ram' or 'device'; 'device' with a blocker on warns and loads on
+    the host, as the JAX CLI does."""
+    mode = "ram" if opt.cache is True else (opt.cache or "")  # an older opt.yaml stored a bool
+    if mode not in ("", "ram", "device"):
+        raise ValueError(f"--cache {mode!r}: expected 'ram' or 'device'")
+    if mode == "device":  # its composite draws square mosaics and letterboxes from one slab
+        blockers = [k for k, on in (("rect", opt.rect), ("quad", opt.quad),
+                                    ("copy_paste", hyp.get("copy_paste", 0.0) > 0)) if on]
+        if blockers:
+            LOGGER.warning(f"--cache device does not support {blockers}; using host pipeline")
+            return ""
+    return mode
 
 
 def _mean_losses(logged: list) -> np.ndarray:
@@ -83,6 +99,7 @@ def _mean_losses(logged: list) -> np.ndarray:
 def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
     """One training run; returns the best fitness."""
     _refuse_unported(opt)
+    cache_mode = _cache_mode(opt, hyp)
     callbacks = callbacks or Callbacks()
     random.seed(opt.seed)
     np.random.seed(opt.seed)
@@ -110,8 +127,20 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
     hyp["cls"] *= nc / 80.0 * 3.0 / meta.nl
     hyp["obj"] *= (imgsz / 640) ** 2 * 3.0 / meta.nl
 
-    train_ds = DetectionDataset(data_dict["train"], img_size=imgsz, augment=True, hyp=hyp, max_labels=opt.max_labels)
-    train_loader = DataLoader(train_ds, opt.batch_size, shuffle=True, drop_last=True, workers=opt.workers)
+    device_cache = cache_mode == "device"
+    if device_cache:  # the mosaic, the warp and mixup on the device, then HSV and flips in the step
+        opt.device_preprocess = True
+        LOGGER.info("--cache device: the Albumentations plane (Blur/MedianBlur/ToGray/CLAHE) runs on the host only "
+                    "and is inactive in this mode")
+    ds_hyp = dict(hyp)
+    if opt.device_preprocess:  # HSV and flips move into the train step: not twice
+        for k in ("hsv_h", "hsv_s", "hsv_v", "fliplr", "flipud"):
+            ds_hyp[k] = 0.0
+    train_ds = DetectionDataset(data_dict["train"], img_size=imgsz, augment=True, hyp=ds_hyp, rect=opt.rect,
+                                max_labels=opt.max_labels, batch_size=opt.batch_size, stride=gs,
+                                cache_images=cache_mode == "ram")
+    train_loader = DataLoader(train_ds, opt.batch_size, shuffle=not opt.rect, drop_last=True, workers=opt.workers,
+                              quad=opt.quad, plan=device_cache)
     nb = len(train_loader)
     if nb == 0:
         raise ValueError(f"{len(train_ds)} training images make no batch of {opt.batch_size}")
@@ -145,7 +174,20 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
         state.step = start_epoch * nb
         LOGGER.info(f"resuming at epoch {start_epoch}, optimizer step {int(state.opt_state.step)}")
     loss_fn = ComputeLoss(meta, hyp)
-    train_step = make_train_step(loss_fn, optimizer, accumulate=accumulate, freeze=opt.freeze, amp_dtype=amp_dtype)
+    loss_fn.rep = opt.rep
+    # one step per size; multi-scale picks one per batch with Python's random, as the JAX loop does
+    sizes = sorted({max(int(imgsz * f) // gs * gs, gs) for f in MULTI_SCALE}) if opt.multi_scale else [imgsz]
+    train_steps = {s: make_train_step(loss_fn, optimizer, accumulate=accumulate, freeze=opt.freeze,
+                                      amp_dtype=amp_dtype, scale_to=s if opt.multi_scale else None,
+                                      device_preprocess=dict(hyp, seed=opt.seed) if opt.device_preprocess else None,
+                                      device_mosaic=imgsz if device_cache else None, remat_segments=opt.remat)
+                   for s in sizes}
+    if opt.multi_scale:
+        LOGGER.info(f"multi-scale sizes: {sizes}")
+    slab = None
+    if device_cache:
+        slab = torch.from_numpy(build_device_cache(train_ds)[0]).to(device)
+        LOGGER.info(f"--cache device: {slab.numel() / 1e9:.2f} GB train slab on {device}")
 
     # validation: the EMA weights, copied each epoch into a model of the
     # compute dtype, decoded with the run's anchors
@@ -167,11 +209,15 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
     t0 = time.time()
     final_epoch = start_epoch
     prev_best = best_fitness
+    maps = np.zeros(nc)  # per-class mAP of the last validation, for --image-weights
     try:
         for epoch in range(start_epoch, opt.epochs):
             final_epoch = epoch
             callbacks.run("on_train_epoch_start")
             t_ep = time.perf_counter()
+            if opt.image_weights:  # sampling weighted to the classes the model finds hard
+                cw = labels_to_class_weights(train_ds.labels, nc) * (1 - maps) ** 2 / nc
+                train_loader.sample_weights = labels_to_image_weights(train_ds.labels, nc, cw)
             logged, losses, n_skipped = [], [], 0
             t_wait = 0.0
             pending = None  # (batch index, metrics) read after the next step is queued
@@ -180,7 +226,8 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                 t_a = time.perf_counter()
                 images, targets, _, _ = next(it)
                 t_wait += time.perf_counter() - t_a
-                metrics = train_step(state, images, targets)
+                step = train_steps[random.choice(sizes)]
+                metrics = step(state, (slab, images) if device_cache else images, targets)
                 if pending is not None:
                     logged.append(_log_step(epoch, opt.epochs, nb, *pending, losses))
                     n_skipped += not logged[-1]
@@ -203,7 +250,7 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
             results = (0.0,) * 7
             if val_ran:
                 val_runner.model.load_state_dict(state.ema.ema.state_dict())
-                results, _, _ = validate.run(data_dict, batch_size=opt.batch_size, imgsz=imgsz, runner=val_runner,
+                results, maps, _ = validate.run(data_dict, batch_size=opt.batch_size, imgsz=imgsz, runner=val_runner,
                                              project=str(save_dir), name="val", exist_ok=True, names=names,
                                              single_cls=opt.single_cls, compute_loss=loss_fn, dataloader=val_loader)
             t_val = time.perf_counter() - t_val
@@ -267,11 +314,12 @@ def parse_opt(argv=None):
     parser.add_argument("--epochs", type=int, default=300)
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--imgsz", "--img", "--img-size", type=int, default=640)
-    parser.add_argument("--rect", action="store_true", help="not ported yet")
-    parser.add_argument("--multi-scale", action="store_true", help="not ported yet")
+    parser.add_argument("--rect", action="store_true", help="aspect-sorted rectangular batches, no mosaic")
+    parser.add_argument("--multi-scale", action="store_true",
+                        help="each batch resized to one of imgsz x (0.67, 0.83, 1, 1.17, 1.33), stride multiples")
     parser.add_argument("--accumulate", action="store_true", help="gradient accumulation to nominal batch 64")
-    parser.add_argument("--image-weights", action="store_true", help="not ported yet")
-    parser.add_argument("--quad", action="store_true", help="not ported yet")
+    parser.add_argument("--image-weights", action="store_true", help="class-error-weighted image sampling")
+    parser.add_argument("--quad", action="store_true", help="quad collate: each 4 images -> one of twice the size")
     parser.add_argument("--resume", nargs="?", const=True, default=False)
     parser.add_argument("--evolve", type=int, nargs="?", const=300, default=0, help="not ported yet")
     parser.add_argument("--noval", action="store_true")
@@ -282,8 +330,9 @@ def parse_opt(argv=None):
     parser.add_argument("--adam", action="store_true")
     parser.add_argument("--linear-lr", action="store_true")
     parser.add_argument("--single-cls", action="store_true")
-    parser.add_argument("--rep", action="store_true", help="repulsion loss (not ported yet)")
-    parser.add_argument("--device-preprocess", action="store_true", help="not ported yet")
+    parser.add_argument("--rep", action="store_true", help="add the repulsion loss")
+    parser.add_argument("--device-preprocess", action="store_true",
+                        help="HSV jitter and flips on the device, in the train step")
     parser.add_argument("--label-smoothing", type=float, default=0.0)
     parser.add_argument("--patience", type=int, default=100)
     parser.add_argument("--project", default="runs/train")
@@ -295,13 +344,19 @@ def parse_opt(argv=None):
     parser.add_argument("--no-bf16", action="store_true", help="train in f32 (default: bf16 under autocast)")
     parser.add_argument("--freeze", type=int, default=0, help="freeze the first N layers")
     parser.add_argument("--teacher", type=str, default="", help="distillation (not ported yet)")
+    parser.add_argument("--teacher-cfg", type=str, default="", help="distillation (not ported yet)")
+    parser.add_argument("--distill", type=float, default=1.0, help="distillation (not ported yet)")
+    parser.add_argument("--distill-hint", type=float, default=0.0, help="distillation (not ported yet)")
     parser.add_argument("--ckpt-period", type=int, default=1,
                         help="save last/best every N epochs (and on improvements and the final epoch)")
     parser.add_argument("--save-period", type=int, default=-1, help="also save a checkpoint every N epochs")
     parser.add_argument("--nosave", action="store_true", help="only save the final checkpoint")
-    parser.add_argument("--cache", type=str, nargs="?", const="ram", default="", help="not ported yet")
+    parser.add_argument("--cache", type=str, nargs="?", const="ram", default="",
+                        help="image cache: ram (decoded once on the host) or device (one slab on the device, "
+                             "mosaic, warp and mixup composited there)")
     parser.add_argument("--workers", type=int, default=8, help="loader item threads")
-    parser.add_argument("--remat", type=int, default=0, metavar="N", help="not ported yet")
+    parser.add_argument("--remat", type=int, default=0, metavar="N",
+                        help="recompute the forward in N checkpointed segments in the backward")
     parser.add_argument("--upload-dataset", action="store_true", help="not ported")
     parser.add_argument("--sync-bn", action="store_true", help="not ported yet")
     return parser.parse_args(argv)

@@ -1,6 +1,7 @@
 """General helpers: logger, channel rounding, image-size check, run
-directories, the latest run, device resolution (counterparts of
-yolosomi_tpu/utils/general.py:23-108)."""
+directories, the latest run, device resolution, and the class and image
+weights of --image-weights (counterparts of
+yolosomi_tpu/utils/general.py:23-108, :117-141)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import math
 import os
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -73,3 +75,24 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+def labels_to_class_weights(labels, nc: int = 80) -> np.ndarray:
+    """Inverse class frequencies over a list of (n, 5) label arrays,
+    normalized to sum 1 (a class without labels counts once)."""
+    if len(labels) == 0:
+        return np.ones(nc)
+    classes = np.concatenate([lb[:, 0] for lb in labels], 0).astype(int)
+    weights = np.bincount(classes, minlength=nc).astype(float)
+    weights[weights == 0] = 1
+    weights = 1.0 / weights
+    return weights / weights.sum()
+
+
+def labels_to_image_weights(labels, nc: int = 80, class_weights=None) -> np.ndarray:
+    """Each image's sampling weight: its label count per class times the
+    class weights (default 1), summed."""
+    if class_weights is None:
+        class_weights = np.ones(nc)
+    class_counts = np.array([np.bincount(lb[:, 0].astype(int), minlength=nc) for lb in labels])
+    return (class_weights.reshape(1, nc) * class_counts).sum(1)
