@@ -4,8 +4,8 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
  1. device: needs CUDA; prints the card's name and power limit; TF32 off
- 2. build: compiles every CUDA source of the serving and training paths
-    from csrc/, one nvcc per source, all started together
+ 2. build: compiles every CUDA source of the serving, training and int8
+    paths from csrc/, one nvcc per source, all started together
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the serving paths give it (f32 and bf16), with kernel, plain-version,
     library-call and bound times and the kernel's multiple of its bound:
@@ -136,6 +136,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     and bf16, at the recipe's shapes (a 480x640 batch, an 832 px one, a
     quad 1280 px one of 2), timed with fewer calls (RECIPE_REPS); their
     bf16 sums go into the kernels line as each entry's "recipe" object
+11. distillation and evolve, on the same set (hyp.visdrone, b8, bf16,
+    full width, autoanchor off): (a) train.run of yolo-somi-t-p3 with
+    --teacher (the flagship from seed 0, written as a weights file)
+    --teacher-cfg yolo-somi --distill 1.0 --distill-hint 0.5 for one epoch
+    and one more from --resume: odconv_s2 4 launches a step (the teacher's
+    forward), no gradient kernel, the teacher the same bits after the run,
+    the adapters moved, every loss finite, last.ckpt carrying
+    kd_adapter_<i>, the resumed run continuing its optimizer step; its
+    steps timed beside phase 8's flagship step; (b) the student's step
+    alone and distilled, timed and profiled (what the teacher adds); (c)
+    --evolve 2 --epochs 1 of the flagship: a row a generation in
+    evolve.csv, hyps other than hyp.visdrone's inside META's bounds, 4 + 4
+    + 4 launches a step
+12. int8, on phase 6's self-labelled set (the flagship, bf16, head
+    tempered): (a) conv_int8 against its plain version at every distinct
+    ConvRaw shape of a b8 batch, on the batch's own operands, the int32
+    sums and the bf16 outputs the same bits, timed beside the plain
+    version, torch._int_mm after an int8 im2col (ungrouped shapes) and
+    the bound; (b) val.run(int8=True) per tensor, per channel, and per
+    channel with the head in bf16, through the kernels, with conv_int8's
+    plain version in the kernel's place (the same calibration: mAP@.5
+    within 0.01) and under plain_version() (its ODConv moves the
+    calibration's absmax, and with it every quantization step, so its mAP
+    is printed, not held; the bf16 model's mAP on the f32 labels is itself
+    0.04); conv_int8 once per quantized ConvRaw a batch, odconv_s2 4 a
+    batch and 4 for the calibration's forward, none under plain_version();
+    (c) the seed-0 flagship served in
+    int8 through quantized_infer_fn (b8 uint8 batches), timed beside phase
+    4's bf16 batch, one batch profiled
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -146,6 +175,7 @@ import contextlib
 import copy
 import json
 import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -165,6 +195,8 @@ import yaml
 from yolosomi_tpu_torch import detect, hubconf, train, val
 from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset, LoadImages
 from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
+from yolosomi_tpu_torch.engine.distill import plant_adapters, wrap_loss_with_distillation
+from yolosomi_tpu_torch.engine.evolve import META
 from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.runner import EnsembleRunner, Runner, attempt_load
 from yolosomi_tpu_torch.engine.trainer import TrainStep, create_train_state, make_train_step, upload_images
@@ -173,11 +205,12 @@ from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d, O
 from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
 from yolosomi_tpu_torch.models.heads import decode
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
-from yolosomi_tpu_torch.ops import build
+from yolosomi_tpu_torch.ops import build, quant
 from yolosomi_tpu_torch.ops.dcn import (Dcnv2Im2colFunction, Dcnv3CoreFunction, _v2_bwd_plan, _v3_bwd_plan,
                                         dcnv2_im2col, dcnv2_im2col_backward_reference, dcnv2_im2col_bwd,
                                         dcnv2_im2col_reference, dcnv3_core, dcnv3_core_backward_reference,
                                         dcnv3_core_bwd, dcnv3_core_reference, dcnv3_points)
+from yolosomi_tpu_torch.ops.int8 import conv_int8, conv_int8_reference
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
 from yolosomi_tpu_torch.ops.odconv import (OdconvS2Function, _dw_plan, _dw_split, _dx_plan, _plan, odconv_s2,
                                            odconv_s2_backward_reference, odconv_s2_dwmix, odconv_s2_dx,
@@ -187,17 +220,18 @@ from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.config import find_config, load_hyp, load_model_cfg
 from yolosomi_tpu_torch.utils.general import LOGGER
 from yolosomi_tpu_torch.utils.msgpack import msgpack_restore
-from yolosomi_tpu_torch.utils.weights import export_jax_variables
+from yolosomi_tpu_torch.utils.weights import conv_raw_paths, export_jax_variables
 
 IMGSZ = 640
 BATCH = 8
 N_REQUESTS = 10
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 without them, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, f32 without them, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 OUT = Path("chiprun_out")
-SOURCES = ("odconv_s2.cu", "dcn.cu", "odconv_s2_bwd.cu", "dcn_bwd.cu")
-KERNELS = (odconv_s2, dcnv2_im2col, dcnv3_core, odconv_s2_dx, odconv_s2_dwmix, dcnv2_im2col_bwd, dcnv3_core_bwd)
+SOURCES = ("odconv_s2.cu", "dcn.cu", "odconv_s2_bwd.cu", "dcn_bwd.cu", "conv_int8.cu")
+KERNELS = (odconv_s2, dcnv2_im2col, dcnv3_core, odconv_s2_dx, odconv_s2_dwmix, dcnv2_im2col_bwd, dcnv3_core_bwd,
+           conv_int8)
 # launches per served batch on each path; any other config launches none
 PER_BATCH = {
     "yolo-somi": {"odconv_s2": 4},
@@ -306,6 +340,12 @@ WITNESS_MEDIAN_TOL = 0.1
 # plain coordinates, an ulp apart, floor to different corners (one in
 # ~1e5 at random offsets), where doffset jumps
 DCN_WITNESS_SEEDS = {torch.float32: (), torch.bfloat16: (0, 1)}
+
+
+# numbers later phases print beside their own: phase 4's serving latency
+# (s per batch) by config, phase 8's train step (s) and train.run peak
+# memory (bytes) by config
+RECORD = {}
 
 
 def gpu_line() -> str:
@@ -823,6 +863,7 @@ def serve(gpu: str, cfg_name: str) -> dict:
     launches = launch_counts()
     assert launches == {name: per_batch.get(name, 0) * N_REQUESTS for name in launches}, launches
     med = statistics.median(lat)
+    RECORD[f"serve {cfg_name}"] = med
     per = ", ".join(f"{name} {n // N_REQUESTS}/batch" for name, n in launches.items() if n)
     print(f"serving {cfg_name} published width/depth {width[0]}/{width[1]} ({n_params / 1e6:.2f} M params, "
           f"nc {runner.meta.nc}) 640 px bf16 conf {conf:g} "
@@ -1008,14 +1049,16 @@ def eval_split(name: str, runner: Runner, loader: DataLoader) -> None:
           f"median {statistics.median(post) * 1e3:.2f} ms/batch ({len(fwd)} batches)")
 
 
-def evaluate(gpu: str, cfg_name: str = "yolo-somi", offsets: str = "random") -> None:
+def evaluate(gpu: str, cfg_name: str = "yolo-somi", offsets: str = "random", workdir: Path = None) -> tuple:
     """val.run of the full-width `cfg_name` on a set it labels itself: f32
     through the kernels against f32 under plain_version(), then bf16
     through the kernels, timed. DCN offset heads are randomised, or left
-    at their zero init with offsets="zero"."""
+    at their zero init with offsets="zero". The set is written under
+    `workdir` when one is given (phase 12 evaluates on it again), else in a
+    temporary directory. Returns the bf16 run's results."""
     t_phase = time.perf_counter()
     title = cfg_name if offsets == "random" else f"{cfg_name} ({offsets} offsets)"
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(str(workdir)) if workdir else tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "ds"  # the loader's label cache lands in tmp, beside ds
         (root / "images").mkdir(parents=True)
         (root / "labels").mkdir()
@@ -1076,7 +1119,7 @@ def evaluate(gpu: str, cfg_name: str = "yolo-somi", offsets: str = "random") -> 
         runner(next(iter(loader))[0], **EVAL_NMS)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
-        run("bf16-kernels", runner)
+        bf16 = run("bf16-kernels", runner)
         assert launch_counts() == launches, launch_counts()
         reset_counts()
         with plain_version():  # what bf16 itself costs against the f32 labels
@@ -1084,6 +1127,7 @@ def evaluate(gpu: str, cfg_name: str = "yolo-somi", offsets: str = "random") -> 
         assert not any(launch_counts().values()), launch_counts()
         eval_split(f"{title} bf16", runner, loader)
     print(f"eval {title} on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return bf16
 
 
 # ---------------------------------------------------------------------------
@@ -1866,6 +1910,7 @@ def profile_train_step(gpu: str, root: Path, cfg_name: str = "yolo-somi") -> Non
     path = OUT / f"chip_smoke_profile_train_{cfg_name}.txt"
     path.write_text(f"{gpu}\n{events.table(sort_by='self_device_time_total', row_limit=50)}\n")
     med = statistics.median(times)
+    RECORD[f"step {cfg_name}"] = med
     print(f"train step on {gpu}: full-width {cfg_name} bf16 b{BATCH} {IMGSZ} px, median of 5 {med * 1e3:.1f} ms "
           f"({BATCH / med:.1f} img/s; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); one profiled step: "
           f"wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
@@ -1913,6 +1958,7 @@ def train_run(gpu: str, tmp: Path, data: Path, cfg_name: str, labels: tuple) -> 
     out = runner(images, conf_thres=0.001)
     assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), out.shape
     peak = max(r.get("max_memory_allocated", 0) for r in log)
+    RECORD[f"peak {cfg_name}"] = peak
     per = ", ".join(f"{k} {n}" for k, n in per_step.items())
     print(f"train.run on {gpu}: full-width {cfg_name}, hyp.visdrone (mosaic 1.0, mixup 0.2), {IMGSZ} px, b{BATCH}, "
           f"bf16, autoanchor on; {TRAIN_IMAGES} train / {VAL_IMAGES} val 640x480 images ({labels[0]} / {labels[1]} "
@@ -1932,13 +1978,14 @@ def train_run(gpu: str, tmp: Path, data: Path, cfg_name: str, labels: tuple) -> 
 
 
 def training(gpu: str) -> dict:
-    """Phases 8, 9 and 10, on one self-drawn set: the gradient kernels (8a
-    and 9a, in main); for the flagship one full-width f32 step against
+    """Phases 8, 9, 10 and 11, on one self-drawn set: the gradient kernels
+    (8a and 9a, in main); for the flagship one full-width f32 step against
     plain_version() and the b8 witnesses (8b), train.run (8c); for
     yolo-somi-dcn the f32 step with random and with zero offset heads (9b),
     the b8 witnesses (9c), train.run (9d); the recipe's train.run cases and
-    the remat step (10, its kernel checks in main). Returns each phase 8c /
-    9d train.run's launch counts by config."""
+    the remat step (10, its kernel checks in main); the distilled student
+    and --evolve (11). Returns each phase 8c / 9d train.run's launch counts
+    by config."""
     t_phase = time.perf_counter()
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1966,6 +2013,11 @@ def training(gpu: str) -> dict:
         runs["yolo-somi-dcn"] = train_run(gpu, tmp, data, "yolo-somi-dcn", labels)
         print(f"training yolo-somi-dcn on {gpu}: phase 9 {time.perf_counter() - t_8:.1f} s (9b-c {t_c - t_8:.1f} s)")
         recipe(gpu, tmp, data)
+        t_11 = time.perf_counter()
+        distill_run(gpu, tmp, data)
+        distill_step_cost(gpu, root)
+        evolve_run(gpu, tmp, data)
+        print(f"distillation and evolve on {gpu}: phase 11 {time.perf_counter() - t_11:.1f} s")
     return runs
 
 
@@ -2023,22 +2075,13 @@ def recipe_run(gpu: str, tmp: Path, data: Path, label: str, cfg_name: str, opts:
     first step apart from the median of its later ones. Returns the
     shapes drawn and the launch counts."""
     shapes, times, peaks = [], [], []
-    inputs, call = TrainStep.inputs, TrainStep.__call__
+    inputs = TrainStep.inputs
+    call, timed = timed_steps(times, peaks)
 
     def seen(self, state, images, targets):
         x, t = inputs(self, state, images, targets)
         shapes.append(tuple(x.shape))
         return x, t
-
-    def timed(self, state, images, targets):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = call(self, state, images, targets)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        peaks.append(torch.cuda.max_memory_allocated())
-        return out
 
     t_run = time.perf_counter()
     TrainStep.inputs, TrainStep.__call__ = seen, timed
@@ -2161,6 +2204,417 @@ def recipe(gpu: str, tmp: Path, data: Path) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 11: distillation and evolve
+# ---------------------------------------------------------------------------
+
+STUDENT = "yolo-somi-t-p3"  # the light server of configs/models/yolo-somi-t-p3.yaml's recipe
+DISTILL = dict(teacher_cfg="yolo-somi", distill=1.0, distill_hint=0.5)
+EVOLVE_GENERATIONS = 2
+
+
+def timed_steps(times: list, peaks: list):
+    """A TrainStep.__call__ that synchronises, times and reads the peak
+    memory of every step into `times` and `peaks`."""
+    call = TrainStep.__call__
+
+    def timed(self, state, images, targets, aux=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = call(self, state, images, targets, aux)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    return call, timed
+
+
+def check_log(log: list) -> None:
+    assert all(r["skipped_logged"] == 0 for r in log), "a step was skipped on non-finite gradients"
+    assert all(np.isfinite(v) for r in log for row in r["logged_losses"] for v in row[1:])
+
+
+def distill_run(gpu: str, tmp: Path, data: Path) -> None:
+    """Phase 11(a): train.run of the full-width yolo-somi-t-p3 student with
+    --teacher (the flagship from seed 0, written as a weights file)
+    --teacher-cfg yolo-somi --distill 1.0 --distill-hint 0.5 for one epoch,
+    then one more from --resume: odconv_s2 4 launches a step (the
+    teacher's forward) and no gradient kernel, the teacher's parameters
+    and statistics the same bits after the run, the adapters moved, every
+    logged loss finite, last.ckpt carrying kd_adapter_<i> and the resumed
+    run continuing its optimizer step; steps timed against phase 8's
+    flagship step."""
+    teacher_path = tmp / "teacher.msgpack"
+    save_model(teacher_path, "yolo-somi", seed=0)
+    seen = {}
+    make_teacher, plant = train._teacher, train.plant_adapters
+
+    def teacher_spy(*args, **kwargs):
+        out = make_teacher(*args, **kwargs)
+        seen.setdefault("teacher", (out[0], {k: v.detach().clone() for k, v in out[0].state_dict().items()}))
+        return out
+
+    def plant_spy(model, *args, **kwargs):
+        shapes = plant(model, *args, **kwargs)
+        seen.setdefault("adapters", [getattr(model, f"kd_adapter_{i}").weight.detach().t().cpu().clone()
+                                     for i in range(len(shapes))])
+        return shapes
+
+    times, peaks = [], []
+    call, timed = timed_steps(times, peaks)
+    kw = dict(cfg=STUDENT, data=str(data), hyp="hyp.visdrone", batch_size=BATCH, imgsz=IMGSZ, noautoanchor=True,
+              project=str(tmp / "runs"), name="distill", workers=8, device="cuda", teacher=str(teacher_path),
+              **DISTILL)
+    run_dir = tmp / "runs" / "distill"
+    nb = TRAIN_IMAGES // BATCH
+    t_run = time.perf_counter()
+    train._teacher, train.plant_adapters, TrainStep.__call__ = teacher_spy, plant_spy, timed
+    reset_counts()
+    try:
+        train.run(epochs=1, **kw)
+        launches = launch_counts()
+        first = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
+        ckpt = msgpack_restore((run_dir / "weights" / "last.ckpt").read_bytes())
+        reset_counts()
+        train.run(epochs=2, weights=str(run_dir / "weights" / "last.ckpt"), resume=True, exist_ok=True, **kw)
+        resumed = launch_counts()
+    finally:
+        train._teacher, train.plant_adapters, TrainStep.__call__ = make_teacher, plant, call
+    t_run = time.perf_counter() - t_run
+    log = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
+    check_log(log)
+    assert [r["opt_step"] for r in log] == [nb, 2 * nb], "the resumed run did not continue the step"
+    assert launches == resumed == only(odconv_s2=4 * nb), (launches, resumed)  # the student has no kernel site
+    teacher, before = seen["teacher"]
+    assert all(torch.equal(v, before[k]) for k, v in teacher.state_dict().items()), "the teacher changed"
+    kernels = [np.asarray(ckpt["params"][f"kd_adapter_{i}"]["kernel"]) for i in range(len(seen["adapters"]))]
+    moved = [float(np.abs(k - a.numpy()).max()) for k, a in zip(kernels, seen["adapters"])]
+    assert all(m > 0 for m in moved) and all(f"kd_adapter_{i}" in ckpt["ema_params"] for i in range(len(moved)))
+    assert [k.shape for k in kernels] == [tuple(a.shape) for a in seen["adapters"]]
+    later = times[1:nb] + times[nb + 1:]
+    step = statistics.median(later)
+    print(f"distill on {gpu}: train.run of full-width {STUDENT} from the full-width flagship (seed 0, a weights "
+          f"file) {DISTILL}, hyp.visdrone, b{BATCH}, {IMGSZ} px, bf16: 1 epoch then 1 from --resume (optimizer step "
+          f"{first[-1]['opt_step']} -> {log[-1]['opt_step']}) in {t_run:.1f} s; odconv_s2 {launches['odconv_s2'] // nb}"
+          f" a step (the teacher's forward), no gradient kernel; teacher the same bits; adapters "
+          f"{[k.shape for k in kernels]} moved by max {['%.3e' % m for m in moved]}; step median "
+          f"{step * 1e3:.1f} ms (first {times[0] * 1e3:.1f} ms), peak {max(peaks) / 1e9:.2f} GB; phase 8's undistilled "
+          f"flagship step {RECORD['step yolo-somi'] * 1e3:.1f} ms, its train.run peak "
+          f"{RECORD['peak yolo-somi'] / 1e9:.2f} GB")
+
+
+def distill_step_cost(gpu: str, root: Path) -> None:
+    """Phase 11(b): what the teacher adds to a step. The full-width student
+    alone and distilled (hint 0.5) from the same state on one augmented
+    b8 batch: the median of 3 synchronised steps each and one profiled
+    step each (the device's kernel time)."""
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
+    images, targets, _, _ = next(iter(DataLoader(ds, BATCH, shuffle=True, drop_last=True)))
+    teacher, t_meta = build_model(load_model_cfg(find_config("yolo-somi")), nc=10, device="cuda", seed=0,
+                                  compute_dtype=torch.bfloat16)
+    teacher.requires_grad_(False)
+    level_map = (1, 2, 3)
+    out = {}
+    for name in ("alone", "distilled"):
+        model, meta = build_model(load_model_cfg(find_config(STUDENT)), nc=10, device="cuda", seed=0,
+                                  compute_dtype=torch.bfloat16)
+        assert tuple(t_meta.strides.index(s) for s in meta.strides) == level_map
+        loss_fn = ComputeLoss(meta, hyp)
+        if name == "distilled":
+            plant_adapters(model, meta, t_meta, level_map, 0)
+
+            def teacher_apply(t, im):
+                with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                    return t(im, features=True)
+
+            loss_fn = wrap_loss_with_distillation(loss_fn, teacher_apply, meta, teacher_anchors_px=t_meta.anchors_px[
+                list(level_map)], level_map=level_map, hint=DISTILL["distill_hint"])
+        opt = make_optimizer(hyp, nb=TRAIN_IMAGES // BATCH, epochs=1, batch_size=BATCH)
+        state = create_train_state(model, opt)
+        step = make_train_step(loss_fn, opt, amp_dtype=torch.bfloat16)
+        for _ in range(2):
+            step(state, images, targets, aux=teacher)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, images, targets, aux=teacher)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step(state, images, targets, aux=teacher)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[name] = (statistics.median(times), sum(e.self_device_time_total for e in kernels) / 1e3)
+        del model, state, step, opt
+    (wa, da), (wd, dd) = out["alone"], out["distilled"]
+    print(f"distill step on {gpu}: full-width {STUDENT} b{BATCH} {IMGSZ} px bf16, one augmented batch: alone "
+          f"{wa * 1e3:.1f} ms wall, {da:.1f} ms device; distilled from the flagship (hint "
+          f"{DISTILL['distill_hint']}) {wd * 1e3:.1f} ms wall, {dd:.1f} ms device: the teacher adds "
+          f"{(wd - wa) * 1e3:.1f} ms wall and {dd - da:.1f} ms device a step")
+
+
+def evolve_run(gpu: str, tmp: Path, data: Path) -> None:
+    """Phase 11(c): train.run --evolve 2 --epochs 1 of the full-width
+    flagship: evolve.csv with a row a generation, each generation's hyps
+    other than hyp.visdrone's and inside META's bounds, the runs named
+    <name>_gen<i>, and 4 + 4 + 4 launches a step (4 a val forward)."""
+    project = tmp / "evolve_runs"
+    nb = TRAIN_IMAGES // BATCH
+    t0 = time.perf_counter()
+    reset_counts()
+    best = train.run(cfg="yolo-somi", data=str(data), hyp="hyp.visdrone", batch_size=BATCH, imgsz=IMGSZ, epochs=1,
+                     noautoanchor=True, project=str(project), name="evo", workers=8, device="cuda",
+                     evolve=EVOLVE_GENERATIONS)
+    launches = launch_counts()
+    rows = (project / "evolve" / "evolve.csv").read_text().splitlines()
+    assert len(rows) == EVOLVE_GENERATIONS + 1 and rows[0].startswith("fitness,"), rows
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    keys = rows[0].split(",")[1:]
+    for row in rows[1:]:
+        vals = dict(zip(keys, (float(v) for v in row.split(",")[1:])))
+        assert all(META[k][1] <= v <= META[k][2] for k, v in vals.items()), row
+        assert any(abs(v - hyp[k]) > 1e-6 * max(abs(hyp[k]), 1e-9) for k, v in vals.items()), row
+    for g in range(EVOLVE_GENERATIONS):
+        check_log([json.loads(line) for line in (project / f"evo_gen{g}" / "train_log.jsonl").read_text().splitlines()])
+    val_forwards = 2 * -(-VAL_IMAGES // BATCH)
+    per_gen = {k: n * (nb + (val_forwards if k in PER_BATCH["yolo-somi"] else 0))
+               for k, n in STEP_LAUNCHES["yolo-somi"].items()}
+    assert launches == only(**{k: n * EVOLVE_GENERATIONS for k, n in per_gen.items()}), launches
+    print(f"evolve on {gpu}: train.run --evolve {EVOLVE_GENERATIONS} --epochs 1 of the full-width flagship, b{BATCH}, "
+          f"{IMGSZ} px, bf16, in {time.perf_counter() - t0:.1f} s; best fitness {best:.5f}; evolve.csv rows "
+          f"{[r.split(',')[:4] for r in rows[1:]]} (fitness, lr0, lrf); launches {launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: int8
+# ---------------------------------------------------------------------------
+
+INT8_MODES = (("per-tensor", False, ()), ("per-channel", True, ()), ("per-channel, head in bf16", True, ("head",)))
+# each int8 val.run three ways: through the kernels; with conv_int8's plain
+# version in the kernel's place and every other op as served (the same
+# calibration, so the same bits: the kernel's check); under plain_version(),
+# whose ODConv rounds otherwise, so the calibration's absmax and with it
+# every quantization step move (printed beside the others)
+INT8_ROUTES = ("kernels", "conv_int8-plain", "plain_version")
+
+
+@contextlib.contextmanager
+def int8_route(route: str):
+    if route == "plain_version":
+        with plain_version():
+            yield
+    elif route == "conv_int8-plain":
+        kernel, quant.int8_conv = quant.int8_conv, conv_int8_reference
+        try:
+            yield
+        finally:
+            quant.int8_conv = kernel
+    else:
+        yield
+
+
+def flat_scales(tree: dict, prefix: str = ""):
+    """(flax path, a_scale) of every leaf of a `quant` tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_scales(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, np.asarray(v)
+INT8_REPS = 5  # time_ms's timed calls at each distinct conv_int8 shape
+
+
+def conv_int8_calls(runner: Runner, images: np.ndarray, exclude=()) -> dict:
+    """Every conv_int8 call of one int8 forward of `runner` (calibrated on
+    `images`): {shape key: (calls a forward, the first call's operands)}."""
+    calls = {}
+    orig = quant.int8_conv
+
+    def spy(x_q, w_q, scale, bias, stride, padding, dilation, groups, out_dtype):
+        key = (tuple(x_q.shape), tuple(w_q.shape), tuple(stride), tuple(padding), tuple(dilation), groups,
+               bias is not None, out_dtype)
+        n, ops = calls.get(key, (0, None))
+        calls[key] = (n + 1, ops or (x_q, w_q, scale, bias))
+        return orig(x_q, w_q, scale, bias, stride, padding, dilation, groups, out_dtype=out_dtype)
+
+    quant.int8_conv = spy
+    try:
+        quant.quantized_infer_fn(runner, images, exclude=exclude, **EVAL_NMS)(images)
+    finally:
+        quant.int8_conv = orig
+    return calls
+
+
+def int8_library(x_q, w_q, stride, padding, dilation):
+    """The library yardstick of an ungrouped conv: an im2col of int8 views
+    (F.unfold refuses int8) and cuBLASLt's int8 GEMM, torch._int_mm, with
+    K and N padded to its multiples of 8 where they are not. Returns
+    (fn, the padding it needed)."""
+    B, H, W, C = x_q.shape
+    N, kh, kw, _ = w_q.shape
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    K = kh * kw * C
+    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+    w2 = torch.zeros((Np, Kp), dtype=torch.int8, device=w_q.device)
+    w2[:N, :K] = w_q.reshape(N, K)
+    xp = F.pad(x_q, (0, 0, pw, pw, ph, ph))
+    Ho, Wo = (H + 2 * ph - dh * (kh - 1) - 1) // sh + 1, (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+
+    def fn():
+        cols = torch.stack([xp[:, ky * dh: ky * dh + (Ho - 1) * sh + 1: sh, kx * dw: kx * dw + (Wo - 1) * sw + 1: sw]
+                            for ky in range(kh) for kx in range(kw)], 3).reshape(B * Ho * Wo, K)
+        if Kp != K:
+            cols = F.pad(cols, (0, Kp - K))
+        return torch._int_mm(cols, w2.t())
+
+    return fn, [f"K {K}->{Kp}"] * (Kp != K) + [f"N {N}->{Np}"] * (Np != N)
+
+
+def check_conv_int8(calls: dict) -> dict:
+    """conv_int8 against its plain version at every distinct shape of one
+    int8 forward, on the forward's own operands: the int32 accumulators and
+    the bf16 outputs the same bits; kernel, plain-version, library and
+    bound times (bf16 output, INT8_REPS timed calls, cold L2). The summary
+    sums each shape's times by its calls a forward; library_ms covers the
+    ungrouped shapes only (torch._int_mm has no groups), and
+    `kernel_ms_where_library` is the kernel's time over the same shapes."""
+    summary = dict(new_summary(), kernel_ms_where_library=0.0, shapes=len(calls), library_padded=[])
+    reps, TIME_REPS[0] = TIME_REPS[0], INT8_REPS
+    try:
+        for key, (count, (x_q, w_q, scale, bias)) in sorted(calls.items(), key=lambda kv: -kv[0][0][1]):
+            xs, ws, stride, padding, dilation, groups, _, out_dtype = key
+            kw = dict(stride=stride, padding=padding, dilation=dilation, groups=groups)
+            acc = conv_int8(x_q, w_q, out_dtype=torch.int32, **kw)
+            torch.cuda.synchronize()
+            ref = conv_int8_reference(x_q, w_q, out_dtype=torch.int32, **kw)
+            assert torch.equal(acc, ref), (key, (acc.double() - ref.double()).abs().max().item())
+            got = conv_int8(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw)
+            assert torch.equal(got, conv_int8_reference(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw)), key
+            kernel_ms = time_ms(lambda: conv_int8(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw))
+            plain_ms = time_ms(lambda: conv_int8_reference(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw))
+            library_ms, pad = None, []
+            if groups == 1:
+                lib, pad = int8_library(x_q, w_q, stride, padding, dilation)
+                library_ms = time_ms(lib)
+                summary["kernel_ms_where_library"] += count * kernel_ms
+                summary["library_padded"] += pad
+            B, Ho, Wo, N = got.shape
+            ops = 2.0 * B * Ho * Wo * N * ws[1] * ws[2] * ws[3]
+            nbytes = x_q.numel() + w_q.numel() + got.numel() * got.element_size()
+            bound = roofline(nbytes, ops, PEAK_FLOPS[torch.int8])
+            add_site(summary, count, kernel_ms, plain_ms, library_ms or 0.0, bound, 0.0)
+            lib = f"{library_ms:.4f}" + (f" ({', '.join(pad)})" if pad else "") if library_ms is not None else \
+                "none (grouped)"
+            print(f"conv_int8 yolo-somi x{xs} w{ws} s{stride} p{padding} d{dilation} g{groups} x{count}/batch: "
+                  f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} bound_ms {bound[0]:.4f} "
+                  f"({bound[1]}) x bound {kernel_ms / bound[0]:.1f}; int32 and bf16 the same bits")
+    finally:
+        TIME_REPS[0] = reps
+    return summary
+
+
+def int8_serve(gpu: str) -> dict:
+    """Phase 12(c): the full-width flagship (bf16, seed 0) served in int8
+    through quantized_infer_fn, calibrated on the first of N_REQUESTS + 1
+    b8 uint8 batches: latency and img/s beside phase 4's bf16 serving,
+    conv_int8 once per ConvRaw and odconv_s2 4 times a batch, one batch
+    profiled. Returns the launch counts of the served batches."""
+    runner = Runner("yolo-somi", dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    n_convs = len(conv_raw_paths(runner.model))
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
+    fn = quant.quantized_infer_fn(runner, batches[0], conf_thres=0.25, iou_thres=0.45, max_det=300)
+    fn(batches[0])  # warm-up: the weights quantized once, the allocator
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for images in batches[1:]:
+        t0 = time.perf_counter()
+        out = fn(images)  # ends in a device->host copy of the detections
+        lat.append(time.perf_counter() - t0)
+        assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), out.shape
+    launches = launch_counts()
+    assert launches == only(odconv_s2=4 * N_REQUESTS, conv_int8=n_convs * N_REQUESTS), launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn(batches[1])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    int8_ms = sum(e.self_device_time_total for e in kernels if "conv_int8" in e.key) / 1e3
+    path = OUT / "chip_smoke_profile_yolo-somi_int8.txt"
+    path.write_text(f"{gpu}\n{events.table(sort_by='self_device_time_total', row_limit=40)}\n")
+    med, bf16 = statistics.median(lat), RECORD["serve yolo-somi"]
+    print(f"serving int8 yolo-somi (quantized_infer_fn, per-tensor, {n_convs} ConvRaws in int8) 640 px b{BATCH} "
+          f"conf 0.25, {N_REQUESTS} requests on {gpu}: latency median {med * 1e3:.2f} ms/batch (min "
+          f"{min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), {BATCH / med:.1f} img/s; phase 4's bf16 "
+          f"{bf16 * 1e3:.2f} ms/batch, {BATCH / bf16:.1f} img/s; launches conv_int8 {n_convs}/batch, odconv_s2 "
+          f"4/batch; profiled batch: wall {wall_ms:.2f} ms, device kernels {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% busy), conv_int8 kernels {int8_ms:.3f} ms; table in {path}")
+    return launches
+
+
+def int8_phase(gpu: str, workdir: Path, bf16: tuple) -> tuple:
+    """Phase 12 on phase 6's self-labelled set (its bf16 flagship, head
+    tempered): (a) conv_int8 against its plain version at every distinct
+    ConvRaw shape of a b8 batch; (b) val.run(int8=True) per tensor, per
+    channel and per channel with the head in bf16, each through the kernels,
+    with conv_int8's plain version and the rest as served (INT8_ROUTES),
+    and under plain_version(): the first two with the same calibration and
+    mAP@.5 within 0.01; conv_int8 once per quantized ConvRaw per batch and
+    odconv_s2 4 times a batch and once for the calibration's forward,
+    nothing under plain_version(), whose calibration drift is printed;
+    (c) int8 serving (int8_serve). Returns (conv_int8's summary, the
+    launches of the served batches)."""
+    t_phase = time.perf_counter()
+    root = workdir / "ds"
+    runner = Runner("yolo-somi", nc=10, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    temper_head(runner.model, HEAD_TEMPER)
+    loader = DataLoader(DetectionDataset(str(root / "images"), img_size=IMGSZ), BATCH)
+    first = next(iter(loader))[0]
+    t0 = time.perf_counter()
+    summary = check_conv_int8(conv_int8_calls(runner, first))
+    t_kernels = time.perf_counter() - t0
+    paths = [p for p, _ in conv_raw_paths(runner.model)]
+    head = f"^layers_{len(runner.model.model) - 1}/"
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    kw = dict(data=str(root / "data.yaml"), batch_size=BATCH, imgsz=IMGSZ, project=str(workdir / "runs"),
+              exist_ok=True, dataloader=loader, runner=runner, int8=True)
+    for title, per_channel, exclude in INT8_MODES:
+        quantized = sum(not any(re.search(head if p == "head" else p, path) for p in exclude) for path in paths)
+        runs = {}
+        for route in INT8_ROUTES:
+            reset_counts()
+            t0 = time.perf_counter()
+            with int8_route(route):
+                res, _, speed = val.run(name=f"int8-{route}", int8_per_channel=per_channel, int8_exclude=exclude, **kw)
+            runs[route] = (res, speed, time.perf_counter() - t0, launch_counts(),
+                           {k: v for k, v in flat_scales(quant.export_quant_scales(runner.model))})
+        (k, ks, kt, kl, k_scales), (c, _, ct, cl, c_scales), (p, _, pt, pl, p_scales) = (runs[r] for r in INT8_ROUTES)
+        assert kl == only(odconv_s2=4 * (n_batches + 1), conv_int8=quantized * n_batches), kl
+        assert cl == only(odconv_s2=4 * (n_batches + 1)), cl
+        assert not any(pl.values()), pl
+        assert all(np.array_equal(c_scales[name], v) for name, v in k_scales.items()), "the calibration moved"
+        assert abs(k[2] - c[2]) <= 0.01, (title, k[2], c[2])
+        drift = [float(np.abs(p_scales[name] / np.maximum(v, 1e-30) - 1).max()) for name, v in k_scales.items()]
+        print(f"eval int8 yolo-somi {title} ({quantized} of {len(paths)} ConvRaws in int8): kernels mAP@.5 "
+              f"{k[2]:.5f} mAP@.5:.95 {k[3]:.5f}; conv_int8's plain version (the rest as served) mAP@.5 {c[2]:.5f} "
+              f"mAP@.5:.95 {c[3]:.5f}; plain_version() mAP@.5 {p[2]:.5f} mAP@.5:.95 {p[3]:.5f}, its calibration "
+              f"against the kernels' {sum(d > 0 for d in drift)} of {len(drift)} scales moved, by up to "
+              f"{max(drift):.2e}; bf16 (phase 6) mAP@.5 {bf16[2]:.5f} mAP@.5:.95 {bf16[3]:.5f}; kernels "
+              f"{EVAL_IMAGES / kt:.1f} img/s ({ks[1]:.2f} ms inference+NMS per image), conv_int8 plain "
+              f"{EVAL_IMAGES / ct:.1f}, plain_version() {EVAL_IMAGES / pt:.1f} img/s; launches {kl}")
+    launches = int8_serve(gpu)
+    print(f"int8 on {gpu}: phase 12 {time.perf_counter() - t_phase:.1f} s (conv_int8 checks {t_kernels:.1f} s)")
+    return summary, launches
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     def one(source):
@@ -2240,12 +2694,17 @@ def main() -> int:
     sweep(gpu)
     for name in PARITY:
         parity(name)
-    evaluate(gpu)
+    eval_dir = tempfile.TemporaryDirectory()  # phase 6's flagship set, evaluated again in int8 by phase 12
+    bf16_eval = evaluate(gpu, workdir=Path(eval_dir.name))
     evaluate(gpu, "yolo-somi-dcn")
     evaluate(gpu, "yolo-somi-dcn", offsets="zero")  # where the random offsets' mAP@.5:.95 gap comes from
     entry_points(gpu)
     trained = training(gpu)
     steps = TRAIN_IMAGES // BATCH * (TRAIN_EPOCHS + 1)
+    try:
+        int8_summary, int8_served = int8_phase(gpu, Path(eval_dir.name), bf16_eval)
+    finally:
+        eval_dir.cleanup()
 
     kernels = [
         dict(kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111",
@@ -2265,8 +2724,16 @@ def main() -> int:
         *(dict(kernel_entry(name, "dcn_bwd.cu", "yolosomi_tpu/ops/dcn.py:34", trained["yolo-somi-dcn"][name], summary),
                launches_per_train_step=trained["yolo-somi-dcn"][name] // steps)
           for name, summary in (("dcnv2_im2col_bwd", v2b_summary), ("dcnv3_core_bwd", v3b_summary))),
+        # no Pallas counterpart: it replaces XLA's int8 conv_general_dilated of ConvRaw's int8 branch; its
+        # numbers sum the distinct shapes of one served b8 batch times their calls; library_ms covers the
+        # ungrouped shapes only, beside the kernel's time over the same shapes
+        dict(kernel_entry("conv_int8", "conv_int8.cu", "yolosomi_tpu/models/layers.py:238",
+                          int8_served["conv_int8"], int8_summary),
+             launches_per_batch=int8_served["conv_int8"] // N_REQUESTS, shapes=int8_summary["shapes"],
+             kernel_ms_where_library=int8_summary["kernel_ms_where_library"],
+             library_padded=sorted(set(int8_summary["library_padded"]))),
     ]
-    for entry in kernels:  # phase 10's shapes, bf16, sites times their launches on such a batch or step
+    for entry in kernels[:-1]:  # phase 10's shapes, bf16, sites times their launches on such a batch or step
         entry["recipe"] = {label: summary_fields(sums[entry["name"]]) for label, sums in at_recipe.items()}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu)

@@ -819,3 +819,97 @@ def test_remat_step_on_cuda_moves_batchnorm_statistics_once(cuda, amp):
             torch.testing.assert_close(b, a, atol=1e-6, rtol=1e-4)
         else:
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# conv_int8 (ops/csrc/conv_int8.cu)
+# ---------------------------------------------------------------------------
+
+# (B, H, W, C, N, (kh, kw), stride, padding, dilation, groups): the first
+# conv's C = 3, depthwise, 7x1, dilation 2, stride 2, H != W, C a multiple
+# of 16 (the 16-byte gathers) and not, ragged tiles of M, N and K
+INT8_SHAPES = {
+    "cin3_s2": (2, 33, 47, 3, 64, (3, 3), (2, 2), (1, 1), (1, 1), 1),
+    "depthwise": (2, 20, 13, 64, 64, (3, 3), (1, 1), (1, 1), (1, 1), 64),
+    "7x1": (16, 26, 1, 8, 1, (7, 1), (1, 1), (3, 0), (1, 1), 1),
+    "dilated_2": (1, 17, 23, 32, 40, (3, 3), (1, 1), (2, 2), (2, 2), 1),
+    "stride_2_vec": (2, 40, 30, 256, 256, (3, 3), (2, 2), (1, 1), (1, 1), 1),
+    "1x1_wide_k": (2, 10, 12, 1024, 72, (1, 1), (1, 1), (0, 0), (1, 1), 1),
+    "grouped": (2, 9, 11, 48, 24, (3, 3), (1, 1), (1, 1), (1, 1), 4),
+    "7x7_cin2": (2, 19, 21, 2, 1, (7, 7), (1, 1), (3, 3), (1, 1), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(INT8_SHAPES))
+def test_conv_int8_kernel_matches_plain_version_bitwise(cuda, name):
+    """The int32 accumulators the same bits as the f64 plain version's, at
+    full-range int8 operands (sums past 2**24 at the wide K); the f32 and
+    bf16 dequant the same bits; two calls the same bits."""
+    from yolosomi_tpu_torch.ops.int8 import conv_int8, conv_int8_reference
+
+    B, H, W, C, N, k, s, p, d, g = INT8_SHAPES[name]
+    x = torch.randint(-127, 128, (B, H, W, C), device="cuda", generator=cuda, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, *k, C // g), device="cuda", generator=cuda, dtype=torch.int8)
+    scale = torch.rand(N, device="cuda", generator=cuda) / 1000
+    bias = torch.randn(N, device="cuda", generator=cuda)
+    kw = dict(stride=s, padding=p, dilation=d, groups=g)
+    before = conv_int8.launches
+    acc = conv_int8(x, w, out_dtype=torch.int32, **kw)
+    torch.cuda.synchronize()
+    ref = conv_int8_reference(x, w, out_dtype=torch.int32, **kw)
+    assert torch.equal(acc, ref), (acc.double() - ref.double()).abs().max().item()
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (bias, None):
+            got = conv_int8(x, w, scale, b, out_dtype=dtype, **kw)
+            assert torch.equal(got, conv_int8_reference(x, w, scale, b, out_dtype=dtype, **kw)), (name, dtype)
+    assert torch.equal(conv_int8(x, w, out_dtype=torch.int32, **kw), acc)
+    assert conv_int8.launches == before + 6
+
+
+@pytest.mark.cuda
+def test_conv_int8_kernel_rejects_what_it_does_not_take(cuda):
+    from yolosomi_tpu_torch.ops.int8 import conv_int8
+
+    x = torch.zeros(1, 8, 8, 16, device="cuda", dtype=torch.int8)
+    w = torch.zeros(8, 3, 3, 16, device="cuda", dtype=torch.int8)
+    with pytest.raises(TypeError, match="int8"):
+        conv_int8(x.float(), w)
+    with pytest.raises(ValueError, match="scale"):
+        conv_int8(x, w, padding=(1, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_int8(x.permute(0, 2, 1, 3), w, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="groups"):
+        conv_int8(x, w, out_dtype=torch.int32, groups=3)
+
+
+@pytest.mark.cuda
+def test_int8_model_launches_conv_int8_per_convraw(cuda):
+    """yolo-somi-t-p3 at width 0.25 in int8 (bf16 Runner; it has no other
+    kernel site, so plain_version() changes only the int8 convs): one
+    conv_int8 launch per ConvRaw a forward, none under plain_version(),
+    and the same detections there, bit for bit."""
+    from yolosomi_tpu_torch.ops.int8 import conv_int8
+    from yolosomi_tpu_torch.ops.quant import quantized_infer_fn
+    from yolosomi_tpu_torch.utils.weights import conv_raw_paths
+
+    cfg = load_model_cfg(find_config("yolo-somi-t-p3"))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "somi-t-p3-small.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        runner = Runner(str(path), nc=3, dtype=torch.bfloat16, device="cuda", seed=0)
+    images = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    fn = quantized_infer_fn(runner, images, conf_thres=0.001, iou_thres=0.6, multi_label=True, exact=True,
+                            max_nms=30000)
+    before = conv_int8.launches
+    out = fn(images)
+    assert conv_int8.launches - before == len(conv_raw_paths(runner.model))
+    with plain_version():
+        ref = fn(images)
+    assert conv_int8.launches - before == len(conv_raw_paths(runner.model))
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    np.testing.assert_array_equal(out, ref)

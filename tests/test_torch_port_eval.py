@@ -464,8 +464,8 @@ def test_val_run_single_cls_counts_every_label_as_class_0(flagship, tmp_path):
     assert _table(lines)[0] == ("all", "3", "3"), lines
 
 
-@pytest.mark.parametrize("kw", [dict(int8=True), dict(augment=True), dict(plots=True), dict(shard_spatial=2)],
-                         ids=["int8", "augment", "plots", "shard"])
+@pytest.mark.parametrize("kw", [dict(augment=True), dict(plots=True), dict(shard_spatial=2)],
+                         ids=["augment", "plots", "shard"])
 def test_val_run_refuses_what_is_not_ported(kw, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         val.run("coco128", project=str(tmp_path), **kw)

@@ -768,8 +768,7 @@ def test_val_run_reports_the_mean_loss_of_the_eval_forward(jax_run, hyp, tmp_pat
     assert all(v > 0 for v in results[4:6])
 
 
-@pytest.mark.parametrize("flag", ["--evolve 3", "--sync-bn", "--teacher w.ckpt", "--teacher-cfg yolo-somi",
-                                  "--distill 0.5", "--distill-hint 0.1"])
+@pytest.mark.parametrize("flag", ["--sync-bn"])
 def test_train_refuses_what_is_not_ported(flag, tmp_path):
     opt = train.parse_opt(["--project", str(tmp_path), "--device", "cpu", *flag.split()])
     with pytest.raises(NotImplementedError, match="item [56]"):

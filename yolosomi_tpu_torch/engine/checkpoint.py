@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from yolosomi_tpu_torch.utils.msgpack import msgpack_restore, msgpack_serialize
-from yolosomi_tpu_torch.utils.weights import export_jax_variables, export_param_tree, import_param_tree, load_jax_variables
+from yolosomi_tpu_torch.utils.weights import (export_jax_variables, export_param_tree, import_param_tree,
+                                              load_jax_variables, without_adapters)
 
 
 def load_checkpoint(path) -> dict:
@@ -152,14 +153,22 @@ def save_checkpoint(path, state, epoch: int = -1, best_fitness: float = 0.0, met
 
 
 @torch.no_grad()
-def restore_train_state(state, ckpt: dict) -> None:
+def restore_train_state(state, ckpt: dict, fresh: tuple = ()) -> list:
     """Load a checkpoint of either package into a TrainState in place: the
     model's parameters and BatchNorm statistics, the EMA (weights and
     update count), the optimizer state (buffers and step) and the step
     count. The JAX package's resume restores the parameters but keeps the
-    BatchNorm statistics of the fresh model; the port restores them too."""
+    BatchNorm statistics of the fresh model; the port restores them too.
+    Distillation's adapters (`params/kd_adapter_*`) in the checkpoint of a
+    hint-distilled run are dropped where the model has none. Parameters
+    whose names start with a `fresh` prefix may be missing from the
+    checkpoint: they keep their values and their optimizer buffers; their
+    names are returned."""
     unmatched, unused = load_jax_variables(state.model, {"params": ckpt["params"],
                                                          "batch_stats": ckpt.get("batch_stats", {})})
+    kept = [k for k in unmatched if fresh and k.startswith(fresh)]
+    unmatched = [k for k in unmatched if k not in kept]
+    unused = without_adapters(unused)
     if unmatched or unused:
         raise ValueError(f"checkpoint does not fit the model: unmatched {unmatched[:5]}, unused {unused[:5]}")
     if ckpt.get("ema_params"):
@@ -169,12 +178,16 @@ def restore_train_state(state, ckpt: dict) -> None:
     opt = ckpt.get("opt_state")
     if opt is not None:
         state.opt_state.step.fill_(int(np.asarray(opt["step"])))
+        restored = [i for i, name in enumerate(state.names) if name not in kept]
+        names = [state.names[i] for i in restored]
         for key in ("momentum_buf", "adam_mu", "adam_nu"):
             bufs = getattr(state.opt_state, key)
             if bufs is not None and opt.get(key) is not None:
-                torch._foreach_copy_(bufs, [t.to(b.device) for t, b in
-                                            zip(import_param_tree(state.model, state.names, opt[key]), bufs)])
+                dst = [bufs[i] for i in restored]
+                torch._foreach_copy_(dst, [t.to(b.device) for t, b in
+                                           zip(import_param_tree(state.model, names, opt[key]), dst)])
     state.step = int(ckpt.get("step", state.step))
+    return kept
 
 
 class AsyncCheckpointer:

@@ -20,7 +20,7 @@ from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.general import LOGGER
-from yolosomi_tpu_torch.utils.weights import load_jax_variables
+from yolosomi_tpu_torch.utils.weights import load_jax_variables, without_adapters
 
 # the head types whose raw maps decode with the anchor grid, and which the
 # JAX Runner serves through the fused postprocess (runner.py:196-200)
@@ -78,6 +78,7 @@ class Runner:
         self.dtype = dtype
         if variables is not None:
             unmatched, unused = load_jax_variables(self.model, variables)
+            unused = without_adapters(unused)
             if unmatched or unused:
                 raise ValueError(f"variables do not fit the model: unmatched {unmatched[:5]}, unused {unused[:5]}")
             if weights is not None:

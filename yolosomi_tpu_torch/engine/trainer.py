@@ -28,6 +28,13 @@ does. `remat_segments` N cuts the graph's rows into N segments
 activations and the skip tensors crossing a boundary are kept, and each
 segment's forward runs again in the backward, with its BatchNorms'
 running statistics frozen, so they move once a step, as without remat.
+
+A loss that advertises `needs_images` / `needs_aux` / `needs_features`
+(engine/distill.py) gets the step's model input, the step's `aux` (the
+teacher), and with `needs_features` the head-input maps of a
+`features=True` forward and the model (its adapters), as the JAX step
+passes them (trainer.py:118-171). The teacher runs in the loss, outside
+the remat segments; the hint's features and remat do not go together.
 """
 
 from __future__ import annotations
@@ -105,10 +112,11 @@ def remat_forward(model: nn.Module, x: torch.Tensor, n_segments: int):
 
 
 class TrainStep:
-    """`step(state, images, targets)` -> metrics, device tensors: loss,
-    lbox, lobj, lcls and grads_finite. `images` (B, H, W, 3) uint8 NHWC
-    (or [0, 1] float), or with `device_mosaic` the pair (slab, plan);
-    `targets` (B, M, 5) padded with cls = -1."""
+    """`step(state, images, targets, aux=None)` -> metrics, device
+    tensors: loss, lbox, lobj, lcls and grads_finite. `images` (B, H, W, 3)
+    uint8 NHWC (or [0, 1] float), or with `device_mosaic` the pair (slab,
+    plan); `targets` (B, M, 5) padded with cls = -1; `aux` what a
+    distillation loss takes (the teacher)."""
 
     def __init__(self, loss_fn: Callable, optimizer: YoloOptimizer, accumulate: int = 1, freeze: int = 0,
                  amp_dtype: Optional[torch.dtype] = None, scale_to: Optional[int] = None,
@@ -144,7 +152,7 @@ class TrainStep:
                               antialias=True)
         return x, t
 
-    def __call__(self, state: TrainState, images, targets) -> dict:
+    def __call__(self, state: TrainState, images, targets, aux=None) -> dict:
         model = state.model
         dev = state.params[0].device
         model.train()
@@ -153,9 +161,22 @@ class TrainStep:
         bn_old = torch.cat([b.reshape(-1) for b in bn]) if bn else None
         amp = (torch.autocast(device_type=dev.type, dtype=self.amp_dtype) if self.amp_dtype is not None
                else contextlib.nullcontext())
+        needs_feats = getattr(self.loss_fn, "needs_features", False)
+        feats = None
         with amp:
-            preds = remat_forward(model, x, self.remat_segments) if self.remat_segments > 0 else model(x)
-        loss, comps = self.loss_fn(preds, t)
+            if self.remat_segments > 0:
+                if needs_feats:
+                    raise ValueError("--distill-hint is incompatible with --remat")
+                preds = remat_forward(model, x, self.remat_segments)
+            elif needs_feats:
+                preds, feats = model(x, features=True)
+            else:
+                preds = model(x)
+        if getattr(self.loss_fn, "needs_images", False):  # distillation: the teacher runs in the loss
+            kw = {"feats": feats, "params": model} if needs_feats else {}
+            loss, comps = self.loss_fn(preds, t, images=x, aux=aux, **kw)
+        else:
+            loss, comps = self.loss_fn(preds, t)
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads)]
         frozen = self.frozen(state)

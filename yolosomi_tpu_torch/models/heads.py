@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from yolosomi_tpu_torch.models.layers import Conv
+from yolosomi_tpu_torch.models.layers import Conv, ConvRaw
 
 
 def decouple_taper(c_: int, na5: int) -> list:
@@ -34,7 +34,7 @@ class Detect(nn.Module):
     def __init__(self, nc: int, na: int, ch: Sequence[int]):
         super().__init__()
         self.na, self.no = na, nc + 5
-        self.m = nn.ModuleList(nn.Conv2d(c, na * self.no, 1) for c in ch)
+        self.m = nn.ModuleList(ConvRaw(c, na * self.no, 1) for c in ch)
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         out = []
@@ -58,10 +58,10 @@ class Decouple(nn.Module):
         self.a = Conv(c1, c_, 1)
         self.b1 = Conv(c_, taper[1], 3)
         self.b2 = Conv(taper[1], taper[2], 3)
-        self.b3 = nn.Conv2d(taper[2], na5, 1)
+        self.b3 = ConvRaw(taper[2], na5, 1)
         self.c1 = Conv(c_, c_, 1)
         self.c2 = Conv(c_, c_, 1)
-        self.c3 = nn.Conv2d(c_, na * nc, 1)
+        self.c3 = ConvRaw(c_, na * nc, 1)
 
     def forward(self, x):
         stem = self.a(x)
@@ -84,17 +84,30 @@ class DecoupledDetect(nn.Module):
         return [m(x) for m, x in zip(self.m, xs)]
 
 
+def _grid_boxes(y: torch.Tensor, anchors_px: torch.Tensor, stride: float) -> torch.Tensor:
+    """Sigmoided maps (B, ny, nx, na, >=4) -> pixel xywh (B, ny, nx, na, 4)."""
+    _, ny, nx, na = y.shape[:4]
+    gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32, device=y.device),
+                            torch.arange(nx, dtype=torch.float32, device=y.device), indexing="ij")
+    mesh = torch.stack([gx, gy], -1)[None, :, :, None, :]
+    xy = (y[..., 0:2] * 2.0 - 0.5 + mesh) * stride
+    wh = torch.square(y[..., 2:4] * 2.0) * anchors_px.reshape(1, 1, 1, na, 2)
+    return torch.cat([xy, wh], -1)
+
+
+def decode_boxes_level(p4: torch.Tensor, anchors_px: torch.Tensor, stride: float) -> torch.Tensor:
+    """The box decode of one raw level map (B, ny, nx, na, >=4) -> pixel
+    xywh (B, ny, nx, na, 4) (heads.py:138): the geometry the eval decode
+    and the distillation's box imitation share."""
+    return _grid_boxes(torch.sigmoid(p4[..., :4].float()), anchors_px, stride)
+
+
 def decode_level(p: torch.Tensor, anchors_px: torch.Tensor, stride: float) -> torch.Tensor:
     """One raw level map (B, ny, nx, na, no) -> (B, ny*nx*na, no) rows
     [xc, yc, w, h, obj, cls...] in pixels, with sigmoid applied to obj and cls."""
     b, ny, nx, na, no = p.shape
     y = torch.sigmoid(p.float())
-    gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32, device=p.device),
-                            torch.arange(nx, dtype=torch.float32, device=p.device), indexing="ij")
-    mesh = torch.stack([gx, gy], -1)[None, :, :, None, :]
-    xy = (y[..., 0:2] * 2.0 - 0.5 + mesh) * stride
-    wh = torch.square(y[..., 2:4] * 2.0) * anchors_px.reshape(1, 1, 1, na, 2)
-    return torch.cat([xy, wh, y[..., 4:]], -1).reshape(b, ny * nx * na, no)
+    return torch.cat([_grid_boxes(y, anchors_px, stride), y[..., 4:]], -1).reshape(b, ny * nx * na, no)
 
 
 def decode(preds: Sequence[torch.Tensor], anchors_px, strides) -> torch.Tensor:

@@ -95,6 +95,37 @@ def frozen_running_stats(model: nn.Module):
             m.update_stats = True
 
 
+# int8 serving (ops/quant.py): None, or the function that runs every
+# ConvRaw in place of its float forward while a quant mode is active
+# (calibration, or the int8 conv), as the JAX package's trace-time
+# QUANT_MODE switches ConvRaw's branch (layers.py:44-89)
+QUANT_HOOK: list = [None]
+
+
+class ConvRaw(nn.Conv2d):
+    """nn.Conv2d where the JAX package builds a ConvRaw (layers.py:104):
+    Conv's conv, BottleneckCSP's cv2 / cv3, the CBAM spatial gate, SEAM's
+    depthwise and pointwise convs, EMA-CBAM's cv1 / cv2 / conv_spatial and
+    the heads' output convs. These are the convs int8 serving calibrates
+    and quantizes; the other Conv2d (EMA-CBAM's Dense pair, the DCN offset
+    and depthwise convs) are flax nn.Conv or Dense there and stay float.
+    The float forward is nn.Conv2d's unless ops.quant has a mode active.
+    `a_scale` is the calibrated activation absmax (a scalar, or (Cin,)
+    per channel: the JAX package's `quant` collection entry), None until
+    ops.quant.load_quant_scales sets it; `quant_path` is the flax path that
+    int8 exclusion patterns match."""
+
+    quant_path = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_buffer("a_scale", None, persistent=False)
+
+    def forward(self, x):
+        hook = QUANT_HOOK[0]
+        return super().forward(x) if hook is None else hook(self, x)
+
+
 def autopad(k, p: Optional[int] = None):
     """'same' padding for an odd kernel size, an int or an (h, w) pair."""
     if p is not None:
@@ -109,7 +140,7 @@ class Conv(nn.Module):
     def __init__(self, c1: int, c2: int, k: Union[int, Tuple[int, int]] = 1, s: int = 1, p: Optional[int] = None,
                  g: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
+        self.conv = ConvRaw(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act else nn.Identity()
 
@@ -157,8 +188,8 @@ class BottleneckCSP(nn.Module):
         c_ = int(c2 * e)
         self.cv1 = Conv(c1, c_, 1, 1)
         self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
-        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
-        self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
+        self.cv3 = ConvRaw(c_, c_, 1, bias=False)
+        self.cv2 = ConvRaw(c1, c_, 1, bias=False)
         self.bn = FlaxBatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU()
         self.cv4 = Conv(2 * c_, c2, 1, 1)
@@ -235,7 +266,7 @@ class SpatialAttentionModule(nn.Module):
 
     def __init__(self, kernel_size: int = 7):
         super().__init__()
-        self.cv1 = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2)
+        self.cv1 = ConvRaw(2, 1, kernel_size, padding=kernel_size // 2)
 
     def forward(self, x):
         stats = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
@@ -307,11 +338,11 @@ class SEAM(nn.Module):
         gelu = lambda: nn.GELU(approximate="tanh" if approx_gelu else "none")  # noqa: E731
         bn = lambda: FlaxBatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)  # noqa: E731
         self.DCovN = nn.Sequential(
-            nn.Conv2d(c, c, 3, 1, 1, groups=c), gelu(), bn(),
+            ConvRaw(c, c, 3, 1, 1, groups=c), gelu(), bn(),
             *[
                 nn.Sequential(
-                    _Residual(nn.Sequential(nn.Conv2d(c, c, 3, 1, 1, groups=c), gelu(), bn())),
-                    nn.Conv2d(c, c, 1), gelu(), bn(),
+                    _Residual(nn.Sequential(ConvRaw(c, c, 3, 1, 1, groups=c), gelu(), bn())),
+                    ConvRaw(c, c, 1), gelu(), bn(),
                 )
                 for _ in range(n)
             ],
@@ -334,10 +365,10 @@ class EMACBAMBottleneck(nn.Module):
         c_ = int(c2 * e)
         self.factor = factor
         gch = max(c2 // factor, 1)
-        self.cv1 = nn.Conv2d(c1, c_, 3, 1, 1)
-        self.cv2 = nn.Conv2d(c_, c2, 3, 1, 1)
+        self.cv1 = ConvRaw(c1, c_, 3, 1, 1)
+        self.cv2 = ConvRaw(c_, c2, 3, 1, 1)
         self.fc = nn.Sequential(nn.Conv2d(c2, gch, 1, bias=False), nn.ReLU(), nn.Conv2d(gch, c2, 1, bias=False))
-        self.conv_spatial = nn.Conv2d(gch, 1, (7, 1), padding=(3, 0), bias=False)
+        self.conv_spatial = ConvRaw(gch, 1, (7, 1), padding=(3, 0), bias=False)
         self.gn = nn.GroupNorm(c2, c2, eps=1e-5)
 
     def forward(self, x):

@@ -280,7 +280,10 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
 class DetectionModel(nn.Module):
     """The parsed graph under reference indexing (`model.<i>`), with the
     from/save forward walk. `forward` takes an NCHW batch and returns the
-    head's raw per-level maps [(B, ny, nx, na, no), ...]."""
+    head's raw per-level maps [(B, ny, nx, na, no), ...]. Distillation's
+    `kd_adapter_<i>` (nn.Linear, engine/distill.py) hang on the model when
+    a run plants them, so the optimizer, the EMA and the checkpoints carry
+    them as the JAX package's params tree does; the forward ignores them."""
 
     def __init__(self, modules: List[nn.Module], meta: ModelMeta):
         super().__init__()
@@ -289,8 +292,12 @@ class DetectionModel(nn.Module):
         self.save = set(meta.save)
         self.head_from = meta.head_from
 
-    def forward(self, x):
-        return self.run_range(x, {}, 0, len(self.model))[0]
+    def forward(self, x, features: bool = False):
+        """The head's raw maps; with `features` also the head's per-level
+        input maps (NCHW, in head_from order): the hint plane of feature
+        distillation (the JAX Model's `features=True`, yolo.py:709-743)."""
+        preds, saved = self.run_range(x, {}, 0, len(self.model))
+        return (preds, tuple(saved[j] for j in self.head_from)) if features else preds
 
     def run_range(self, x, saved_in: Dict[int, torch.Tensor], lo: int, hi: int):
         """Run rows [lo, hi) from the boundary activation `x` and the skip

@@ -1,8 +1,9 @@
 """The port's kernels and their plain PyTorch versions.
 
 One switch, `plain_version()`, sends every kernel call of the model
-(odconv_s2, dcnv3_core, dcnv2_im2col) to its plain version inside the
-block, so a whole model can be compared against its plain form. It is
+(odconv_s2, dcnv3_core, dcnv2_im2col, and conv_int8 in int8 mode) to its
+plain version inside the block, so a whole model can be compared against
+its plain form. It is
 re-exported as `yolosomi_tpu_torch.ops.odconv.plain_version`.
 """
 

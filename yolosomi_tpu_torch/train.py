@@ -8,13 +8,17 @@ The loop: autoanchor (unless --noautoanchor), the augmenting loader
 --cache ram), the train step (bf16 under autocast by default, f32 with
 --no-bf16; the finite guard, --accumulate, --freeze, --multi-scale,
 --remat, --rep, --device-preprocess, and --cache device, whose mosaic is
-composited on the device), validation of the EMA weights every epoch with the val losses,
+composited on the device), distillation from a frozen teacher (--teacher,
+--teacher-cfg, --distill, --distill-hint; engine/distill.py), validation
+of the EMA weights every epoch with the val losses,
 results.csv, and weights/last.ckpt and best.ckpt (the JAX package's
 checkpoint layout, written on a background thread) stripped at the end
 to last.msgpack and best.msgpack. --resume continues a run from its
 last.ckpt: weights, BatchNorm statistics, EMA, optimizer state and epoch.
 --weights starts from another run's parameters wherever path and shape
-match.
+match. --evolve N runs N generations of the hyperparameter search
+(engine/evolve.py), each a training run named <name>_gen<i>, logged to
+<project>/evolve/evolve.csv; it returns the best fitness.
 
 Runs on CUDA unless --device names another device. Options of the JAX
 CLI that are not ported raise NotImplementedError naming their ROADMAP
@@ -27,6 +31,7 @@ host-clock timings.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import random
 import time
@@ -38,9 +43,11 @@ import yaml
 
 from yolosomi_tpu_torch import val as validate
 from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset
-from yolosomi_tpu_torch.engine.checkpoint import (AsyncCheckpointer, load_checkpoint, restore_train_state,
-                                                  strip_checkpoint)
+from yolosomi_tpu_torch.engine.checkpoint import (AsyncCheckpointer, load_artifact, load_checkpoint,
+                                                  restore_train_state, strip_checkpoint)
+from yolosomi_tpu_torch.engine.distill import plant_adapters, wrap_loss_with_distillation
 from yolosomi_tpu_torch.engine.ema import EarlyStopping
+from yolosomi_tpu_torch.engine.evolve import log_generation, mutate
 from yolosomi_tpu_torch.engine.optim import current_lr, make_optimizer
 from yolosomi_tpu_torch.engine.runner import Runner
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
@@ -54,20 +61,16 @@ from yolosomi_tpu_torch.utils.general import (LOGGER, check_img_size, get_latest
                                               labels_to_class_weights, labels_to_image_weights, resolve_device)
 from yolosomi_tpu_torch.utils.loggers import ResultsCSV
 from yolosomi_tpu_torch.utils.metrics import fitness
-from yolosomi_tpu_torch.utils.weights import load_matching_params
+from yolosomi_tpu_torch.utils.weights import load_jax_variables, load_matching_params, without_adapters
 
 # options of the JAX CLI this port does not have yet: (attribute, when it is on, what and its ROADMAP item)
-_ITEM5 = "ROADMAP queue A item 5, where distillation, --evolve and the trained-weights gate remain"
 NOT_PORTED = (
-    ("teacher", lambda v: bool(v), f"--teacher (distillation) is not ported yet ({_ITEM5})"),
-    ("teacher_cfg", lambda v: bool(v), f"--teacher-cfg (distillation) is not ported yet ({_ITEM5})"),
-    ("distill", lambda v: v != 1.0, f"--distill (distillation) is not ported yet ({_ITEM5})"),
-    ("distill_hint", lambda v: v > 0, f"--distill-hint (distillation) is not ported yet ({_ITEM5})"),
-    ("evolve", lambda v: bool(v), f"--evolve is not ported yet ({_ITEM5})"),
     ("sync_bn", lambda v: v, "--sync-bn and multi-GPU training are not ported yet (ROADMAP queue A item 6)"),
     ("upload_dataset", lambda v: v, "--upload-dataset (Weights & Biases) is not ported"),
 )
 MULTI_SCALE = (0.67, 0.83, 1.0, 1.17, 1.33)  # --multi-scale's factors of imgsz
+# heads whose DFL soft targets distillation does not cover, in the JAX package either
+_ANCHOR_FREE = ("DetectYOLOv8", "DetectYOLO8Head", "DetectV8", "DetectYolov11", "DetectV11")
 
 
 def _refuse_unported(opt) -> None:
@@ -90,6 +93,41 @@ def _cache_mode(opt, hyp: dict) -> str:
             LOGGER.warning(f"--cache device does not support {blockers}; using host pipeline")
             return ""
     return mode
+
+
+def _teacher(opt, meta, nc: int, device, amp_dtype):
+    """--teacher: the frozen teacher (its file's weights and anchors,
+    --teacher-cfg's graph or the student's; eval mode, no gradients,
+    float32 weights run under the student's autocast), its meta, and the
+    level map: student level i learns from the teacher level of the same
+    stride, so a P3-P5 student distills from the P2-P5 flagship
+    (JAX train.py:235-271)."""
+    if meta.head_type in _ANCHOR_FREE:
+        raise SystemExit("--teacher: distillation supports anchor-based heads only "
+                         "(anchor-free DFL soft targets not implemented)")
+    t_vars, t_anchors = load_artifact(opt.teacher)
+    t_cfg = opt.teacher_cfg or opt.cfg
+    teacher, t_meta = build_model(load_model_cfg(find_config(t_cfg)), nc=nc, device=device, seed=opt.seed,
+                                  anchors=t_anchors.reshape(len(t_anchors), -1).tolist() if t_anchors is not None
+                                  else None, compute_dtype=amp_dtype)
+    unmatched, unused = load_jax_variables(teacher, t_vars)
+    unused = without_adapters(unused)  # a hint-distilled student as the teacher
+    if unmatched or unused:
+        raise ValueError(f"--teacher {opt.teacher} does not fit {t_cfg}: unmatched {unmatched[:5]}, "
+                         f"unused {unused[:5]}")
+    teacher.requires_grad_(False)
+    t_strides = [int(s) for s in t_meta.strides]
+    try:
+        level_map = tuple(t_strides.index(int(s)) for s in meta.strides)
+    except ValueError:
+        raise SystemExit(f"--teacher: student strides {[int(s) for s in meta.strides]} are not a subset of teacher "
+                         f"strides {t_strides} — no level mapping exists")
+    if t_meta.anchors_px.shape[1] != meta.anchors_px.shape[1]:
+        raise SystemExit(f"--teacher: anchors-per-level differ between teacher ({t_meta.anchors_px.shape[1]}) and "
+                         f"student ({meta.anchors_px.shape[1]}) — soft targets are per-anchor")
+    if level_map != tuple(range(meta.nl)):
+        LOGGER.info(f"distillation: level map student->teacher = {list(level_map)} (teacher strides {t_strides})")
+    return teacher, t_meta, level_map
 
 
 def _mean_losses(logged: list) -> np.ndarray:
@@ -156,6 +194,12 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                               compute_dtype=amp_dtype)
     meta.names = names
     anchors_out = np.asarray(meta.anchors_px, np.float32).reshape(meta.nl, -1)
+    teacher, hint = None, float(opt.distill_hint or 0.0)
+    if opt.teacher:
+        teacher, t_meta, level_map = _teacher(opt, meta, nc, device, amp_dtype)
+        if hint > 0:  # the FitNets adapters, before the checkpoint, the optimizer and the EMA see the model
+            shapes = plant_adapters(model, meta, t_meta, level_map, opt.seed)
+            LOGGER.info(f"distillation: hint={hint} adapters {shapes}")
 
     start_epoch, best_fitness = 0, 0.0
     if ckpt is not None:
@@ -170,11 +214,24 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                                accumulate=accumulate, adam=opt.adam, linear_lr=opt.linear_lr)
     state = create_train_state(model, optimizer, accumulate=accumulate)
     if start_epoch > 0:
-        restore_train_state(state, ckpt)
+        if restore_train_state(state, ckpt, fresh=("kd_adapter_",) if hint > 0 else ()):
+            LOGGER.warning("--distill-hint with --resume: the checkpoint has no adapters; they start from their "
+                           "seed draw and their optimizer state from zero")
         state.step = start_epoch * nb
         LOGGER.info(f"resuming at epoch {start_epoch}, optimizer step {int(state.opt_state.step)}")
     loss_fn = ComputeLoss(meta, hyp)
     loss_fn.rep = opt.rep
+    if teacher is not None:
+        amp = (lambda: torch.autocast(device.type, dtype=amp_dtype)) if amp_dtype else contextlib.nullcontext
+
+        def teacher_apply(t, images):  # at the step's own input (its multi-scale size), outside any remat
+            with torch.no_grad(), amp():
+                return t(images, features=hint > 0)
+
+        loss_fn = wrap_loss_with_distillation(loss_fn, teacher_apply, meta, alpha=opt.distill,
+                                              teacher_anchors_px=t_meta.anchors_px[list(level_map)],
+                                              level_map=level_map, hint=hint)
+        LOGGER.info(f"distillation: teacher={opt.teacher} alpha={opt.distill}")
     # one step per size; multi-scale picks one per batch with Python's random, as the JAX loop does
     sizes = sorted({max(int(imgsz * f) // gs * gs, gs) for f in MULTI_SCALE}) if opt.multi_scale else [imgsz]
     train_steps = {s: make_train_step(loss_fn, optimizer, accumulate=accumulate, freeze=opt.freeze,
@@ -227,7 +284,7 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                 images, targets, _, _ = next(it)
                 t_wait += time.perf_counter() - t_a
                 step = train_steps[random.choice(sizes)]
-                metrics = step(state, (slab, images) if device_cache else images, targets)
+                metrics = step(state, (slab, images) if device_cache else images, targets, aux=teacher)
                 if pending is not None:
                     logged.append(_log_step(epoch, opt.epochs, nb, *pending, losses))
                     n_skipped += not logged[-1]
@@ -249,7 +306,8 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
             val_ran = (not opt.noval and epoch % max(opt.val_period, 1) == 0) or epoch == opt.epochs - 1
             results = (0.0,) * 7
             if val_ran:
-                val_runner.model.load_state_dict(state.ema.ema.state_dict())
+                val_runner.model.load_state_dict({k: v for k, v in state.ema.ema.state_dict().items()
+                                                  if not k.startswith("kd_adapter_")})
                 results, maps, _ = validate.run(data_dict, batch_size=opt.batch_size, imgsz=imgsz, runner=val_runner,
                                              project=str(save_dir), name="val", exist_ok=True, names=names,
                                              single_cls=opt.single_cls, compute_loss=loss_fn, dataloader=val_loader)
@@ -321,7 +379,8 @@ def parse_opt(argv=None):
     parser.add_argument("--image-weights", action="store_true", help="class-error-weighted image sampling")
     parser.add_argument("--quad", action="store_true", help="quad collate: each 4 images -> one of twice the size")
     parser.add_argument("--resume", nargs="?", const=True, default=False)
-    parser.add_argument("--evolve", type=int, nargs="?", const=300, default=0, help="not ported yet")
+    parser.add_argument("--evolve", type=int, nargs="?", const=300, default=0,
+                        help="evolve the hyps for N generations (default 300)")
     parser.add_argument("--noval", action="store_true")
     parser.add_argument("--val-period", type=int, default=1, metavar="N",
                         help="validate every N epochs (always on the final epoch)")
@@ -343,10 +402,11 @@ def parse_opt(argv=None):
     parser.add_argument("--max-labels", type=int, default=300)
     parser.add_argument("--no-bf16", action="store_true", help="train in f32 (default: bf16 under autocast)")
     parser.add_argument("--freeze", type=int, default=0, help="freeze the first N layers")
-    parser.add_argument("--teacher", type=str, default="", help="distillation (not ported yet)")
-    parser.add_argument("--teacher-cfg", type=str, default="", help="distillation (not ported yet)")
-    parser.add_argument("--distill", type=float, default=1.0, help="distillation (not ported yet)")
-    parser.add_argument("--distill-hint", type=float, default=0.0, help="distillation (not ported yet)")
+    parser.add_argument("--teacher", type=str, default="", help="distill from this weights file or checkpoint")
+    parser.add_argument("--teacher-cfg", type=str, default="", help="the teacher's model config (default --cfg)")
+    parser.add_argument("--distill", type=float, default=1.0, help="weight of the distillation term")
+    parser.add_argument("--distill-hint", type=float, default=0.0,
+                        help="weight of the feature hint term (FitNets adapters; 0 = off)")
     parser.add_argument("--ckpt-period", type=int, default=1,
                         help="save last/best every N epochs (and on improvements and the final epoch)")
     parser.add_argument("--save-period", type=int, default=-1, help="also save a checkpoint every N epochs")
@@ -378,6 +438,22 @@ def main(opt):
     hyp = load_hyp(find_config(opt.hyp, "hyps"))
     if opt.label_smoothing:
         hyp["label_smoothing"] = opt.label_smoothing
+    if opt.evolve:
+        # the genetic search (JAX train.py:688-711): mutate, train, log the fitness, repeat
+        evolve_dir = Path(opt.project) / "evolve"
+        evolve_dir.mkdir(parents=True, exist_ok=True)
+        evolve_csv = evolve_dir / "evolve.csv"
+        opt.noval, opt.exist_ok = False, True
+        base_name, best = opt.name, 0.0
+        for gen in range(int(opt.evolve)):
+            hyp_g = mutate(hyp, evolve_csv)
+            opt.name = f"{base_name}_gen{gen}"
+            fi = train(dict(hyp_g), opt)
+            log_generation(evolve_csv, hyp_g, fi)
+            best = max(best, fi)
+        LOGGER.warning("plot_evolve is not ported (utils/plots.py, ROADMAP queue A item 9): no evolve.png")
+        LOGGER.info(f"evolution complete: best fitness {best:.4f} ({evolve_csv})")
+        return best
     return train(hyp, opt)
 
 

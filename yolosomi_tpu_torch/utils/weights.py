@@ -202,6 +202,28 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
     return collection, [p for p in path.split(".") if p] + [name], layout
 
 
+def without_adapters(unused: List[str]) -> List[str]:
+    """Flax leaves a model left unused, less distillation's FitNets adapters
+    (`params/kd_adapter_<i>`, engine/distill.py): training-only leaves of a
+    hint-distilled student's file, which flax's apply ignores too."""
+    return [u for u in unused if not u.startswith("params/kd_adapter_")]
+
+
+def conv_raw_paths(model: nn.Module) -> List[Tuple[str, nn.Module]]:
+    """[(flax path, module)] of the model's ConvRaws, in module order: the
+    slash-joined path of the JAX package's ConvRaw (its kernel's flax path
+    without `conv/kernel`), which int8 exclusion patterns and the `quant`
+    collection are keyed by (e.g. `layers_3/cv`, `layers_35/m0/b3`)."""
+    out = []
+    for name, m in model.named_modules():
+        if isinstance(m, L.ConvRaw):
+            path = _flax_leaf(model, f"{name}.weight")[1]
+            if path[-2:] != ["conv", "kernel"]:
+                raise ValueError(f"{name} maps to {'/'.join(path)}, not a ConvRaw's conv/kernel")
+            out.append(("/".join(path[:-2]), m))
+    return out
+
+
 def _host_copy(t: torch.Tensor) -> np.ndarray:
     """A contiguous float32 numpy copy of `t` on the host. Always a copy:
     `.float().cpu().contiguous()` returns the tensor itself for a

@@ -15,9 +15,12 @@ loaded by the Runner), `variables` (the JAX package's flax variables as
 nested numpy dicts), a built `runner`, or none of these (random weights
 from seed 0). `compute_loss` (a losses.ComputeLoss) adds the val
 losses, the mean [box, obj, cls] of the loss on the eval-mode forward,
-as results[4:7]. int8 (item 7), TTA (`augment`, item 9), plots
-(matplotlib, item 9) and spatial sharding (item 6) raise
-NotImplementedError.
+as results[4:7]. `int8` evaluates through the int8 convs
+(ops/quant.py: calibrated on the first val batch; `int8_exclude` regexes
+of flax paths kept in float, `head` meaning the detect head;
+`int8_per_channel` per-channel activation scales) under the same eval
+protocol. TTA (`augment`, ROADMAP queue A item 9), plots (matplotlib,
+item 9) and spatial sharding (item 6) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset
 from yolosomi_tpu_torch.engine.runner import Runner
+from yolosomi_tpu_torch.ops.quant import quantized_infer_fn
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xywh2xyxy
 from yolosomi_tpu_torch.utils.cocoeval import COCOEvaluator
 from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg
@@ -106,6 +110,8 @@ def run(
     plots=False,
     shard_spatial=1,
     int8=False,
+    int8_exclude=(),
+    int8_per_channel=False,
     device=None,
     variables=None,
     runner: Runner = None,
@@ -117,8 +123,7 @@ def run(
     loss), per-class mAP@.5:.95 (nc,), (pre, inference+NMS, post) ms per
     image); the losses are 0 without `compute_loss`. `half` builds the
     Runner in bf16, else f32; a given `runner` keeps its own."""
-    for flag, what in ((int8, "int8 eval (ROADMAP queue A item 7)"), (augment, "TTA (ROADMAP queue A item 9)"),
-                       (plots, "plots (matplotlib; ROADMAP queue A item 9)"),
+    for flag, what in ((augment, "TTA (ROADMAP queue A item 9)"), (plots, "plots (matplotlib; ROADMAP queue A item 9)"),
                        (shard_spatial > 1, "spatial sharding (ROADMAP queue A item 6)")):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -140,6 +145,16 @@ def run(
         dataset = DetectionDataset(data_dict[task], img_size=imgsz)
         dataloader = DataLoader(dataset, batch_size)
 
+    # the eval protocol: multi-label, exact top-k over max_nms 30000 candidates
+    protocol = dict(conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det, max_nms=30000, multi_label=True,
+                    exact=True)
+    infer = lambda x: runner(x, **protocol)  # noqa: E731
+    if int8:
+        # the same protocol through the int8 convs, so the mAP gap is the
+        # quantization's; "head" names the detect head's rows
+        exclude = tuple(rf"^layers_{len(runner.model.model) - 1}/" if p == "head" else p for p in int8_exclude)
+        infer = quantized_infer_fn(runner, next(iter(dataloader))[0], exclude=exclude,
+                                   per_channel=int8_per_channel, **protocol)
     loss_fn_batch = runner.val_loss_fn(compute_loss) if compute_loss is not None else None
     val_losses = np.zeros(3)
     n_loss_batches = 0
@@ -156,9 +171,7 @@ def run(
         t0 = time.time()
         x = images  # uint8; normalized on the device
         t1 = time.time()
-        # the eval protocol: multi-label, exact top-k over max_nms 30000 candidates
-        out = runner(x, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det, max_nms=30000,
-                     multi_label=True, exact=True)
+        out = infer(x)
         if loss_fn_batch is not None:
             val_losses += loss_fn_batch(x, targets)
             n_loss_batches += 1
@@ -284,7 +297,11 @@ def parse_opt(argv=None):
                         help="bf16 (default) or, with --no-half, f32")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:1 or cpu")
     parser.add_argument("--alpha-iou", action="store_true")
-    parser.add_argument("--int8", action="store_true", help="int8 eval (not ported yet)")
+    parser.add_argument("--int8", action="store_true", help="int8 eval (calibrates on the first val batch)")
+    parser.add_argument("--int8-exclude", nargs="+", default=[], metavar="REGEX",
+                        help="flax path regexes kept in float under --int8 ('head' = the detect head)")
+    parser.add_argument("--int8-per-channel", action="store_true",
+                        help="per-channel activation scales under --int8")
     parser.add_argument("--shard-spatial", type=int, default=1, help="split activations along H (not ported yet)")
     parser.add_argument("--plots", action="store_true", help="PR curves and confusion matrix (not ported yet)")
     return parser.parse_args(argv)
