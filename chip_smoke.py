@@ -150,11 +150,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     evolve.csv, hyps other than hyp.visdrone's inside META's bounds, 4 + 4
     + 4 launches a step
 12. int8, on phase 6's self-labelled set (the flagship, bf16, head
-    tempered): (a) conv_int8 against its plain version at every distinct
-    ConvRaw shape of a b8 batch, on the batch's own operands, the int32
-    sums and the bf16 outputs the same bits, timed beside the plain
-    version, torch._int_mm after an int8 im2col (ungrouped shapes) and
-    the bound; (b) val.run(int8=True) per tensor, per channel, and per
+    tempered): (a) conv_int8 at every distinct ConvRaw shape of a b8 batch,
+    on the batch's own operands, per tensor and per channel: the fused
+    entry (conv_int8_fused, the quantize in the kernel's loads) against
+    conv_int8_fused_reference and the int8-input entry against
+    conv_int8_reference, the int32 sums and the bf16 outputs the same bits;
+    timed (per tensor) beside the fused plain version, torch._int_mm on the
+    int8 operands (on x_q's (M, C) view for a 1x1 conv, after an int8
+    im2col otherwise; grouped shapes have none) and each entry's bound (the
+    fused one reads x in bf16), summed by shape class; (b)
+    val.run(int8=True) per tensor, per channel, and per
     channel with the head in bf16, through the kernels, with conv_int8's
     plain version in the kernel's place (the same calibration: mAP@.5
     within 0.01) and under plain_version() (its ODConv moves the
@@ -164,7 +169,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     batch and 4 for the calibration's forward, none under plain_version();
     (c) the seed-0 flagship served in
     int8 through quantized_infer_fn (b8 uint8 batches), timed beside phase
-    4's bf16 batch, one batch profiled
+    4's bf16 batch, one batch profiled: conv_int8 once per ConvRaw, and
+    aten::div, round and clamp each fewer calls than ConvRaws (the quantize
+    passes PyTorch ran before each conv until the kernel took them in)
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -210,7 +217,8 @@ from yolosomi_tpu_torch.ops.dcn import (Dcnv2Im2colFunction, Dcnv3CoreFunction, 
                                         dcnv2_im2col, dcnv2_im2col_backward_reference, dcnv2_im2col_bwd,
                                         dcnv2_im2col_reference, dcnv3_core, dcnv3_core_backward_reference,
                                         dcnv3_core_bwd, dcnv3_core_reference, dcnv3_points)
-from yolosomi_tpu_torch.ops.int8 import conv_int8, conv_int8_reference
+from yolosomi_tpu_torch.ops.int8 import (_conv_int8_plan, conv_int8, conv_int8_fused, conv_int8_fused_reference,
+                                         conv_int8_reference, quantize_activation)
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
 from yolosomi_tpu_torch.ops.odconv import (OdconvS2Function, _dw_plan, _dw_split, _dx_plan, _plan, odconv_s2,
                                            odconv_s2_backward_reference, odconv_s2_dwmix, odconv_s2_dx,
@@ -2409,11 +2417,11 @@ def int8_route(route: str):
         with plain_version():
             yield
     elif route == "conv_int8-plain":
-        kernel, quant.int8_conv = quant.int8_conv, conv_int8_reference
+        kernel, quant.int8_conv_fused = quant.int8_conv_fused, conv_int8_fused_reference
         try:
             yield
         finally:
-            quant.int8_conv = kernel
+            quant.int8_conv_fused = kernel
     else:
         yield
 
@@ -2428,32 +2436,35 @@ def flat_scales(tree: dict, prefix: str = ""):
 INT8_REPS = 5  # time_ms's timed calls at each distinct conv_int8 shape
 
 
-def conv_int8_calls(runner: Runner, images: np.ndarray, exclude=()) -> dict:
-    """Every conv_int8 call of one int8 forward of `runner` (calibrated on
-    `images`): {shape key: (calls a forward, the first call's operands)}."""
+def conv_int8_calls(runner: Runner, images: np.ndarray, exclude=(), per_channel: bool = False) -> dict:
+    """Every conv_int8_fused call of one int8 forward of `runner`
+    (calibrated on `images`): {shape key: (calls a forward, the first call's
+    operands)}. The operands hold x's view (and so its storage) as the
+    forward handed it over."""
     calls = {}
-    orig = quant.int8_conv
+    orig = quant.int8_conv_fused
 
-    def spy(x_q, w_q, scale, bias, stride, padding, dilation, groups, out_dtype):
-        key = (tuple(x_q.shape), tuple(w_q.shape), tuple(stride), tuple(padding), tuple(dilation), groups,
+    def spy(x, s_a, w_q, scale, bias, stride, padding, dilation, groups, out_dtype, packed):
+        key = (tuple(x.shape), tuple(w_q.shape), tuple(stride), tuple(padding), tuple(dilation), groups,
                bias is not None, out_dtype)
         n, ops = calls.get(key, (0, None))
-        calls[key] = (n + 1, ops or (x_q, w_q, scale, bias))
-        return orig(x_q, w_q, scale, bias, stride, padding, dilation, groups, out_dtype=out_dtype)
+        calls[key] = (n + 1, ops or (x, s_a, w_q, packed, scale, bias))
+        return orig(x, s_a, w_q, scale, bias, stride, padding, dilation, groups, out_dtype=out_dtype, packed=packed)
 
-    quant.int8_conv = spy
+    quant.int8_conv_fused = spy
     try:
-        quant.quantized_infer_fn(runner, images, exclude=exclude, **EVAL_NMS)(images)
+        quant.quantized_infer_fn(runner, images, exclude=exclude, per_channel=per_channel, **EVAL_NMS)(images)
     finally:
-        quant.int8_conv = orig
+        quant.int8_conv_fused = orig
     return calls
 
 
 def int8_library(x_q, w_q, stride, padding, dilation):
-    """The library yardstick of an ungrouped conv: an im2col of int8 views
-    (F.unfold refuses int8) and cuBLASLt's int8 GEMM, torch._int_mm, with
-    K and N padded to its multiples of 8 where they are not. Returns
-    (fn, the padding it needed)."""
+    """The library yardstick of an ungrouped conv on int8 operands: cuBLASLt's
+    int8 GEMM, torch._int_mm, on x_q's (M, C) view for a 1x1 conv at stride
+    1 without padding, else after an im2col of int8 views (F.unfold refuses
+    int8); K and N padded to its multiples of 8 where they are not (then x
+    is copied). Returns (fn, the padding it needed)."""
     B, H, W, C = x_q.shape
     N, kh, kw, _ = w_q.shape
     (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
@@ -2461,8 +2472,12 @@ def int8_library(x_q, w_q, stride, padding, dilation):
     Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
     w2 = torch.zeros((Np, Kp), dtype=torch.int8, device=w_q.device)
     w2[:N, :K] = w_q.reshape(N, K)
-    xp = F.pad(x_q, (0, 0, pw, pw, ph, ph))
     Ho, Wo = (H + 2 * ph - dh * (kh - 1) - 1) // sh + 1, (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    pad = [f"K {K}->{Kp}"] * (Kp != K) + [f"N {N}->{Np}"] * (Np != N)
+    if (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0) and Kp == K:
+        cols = x_q.view(B * H * W, C)
+        return (lambda: torch._int_mm(cols, w2.t())), pad
+    xp = F.pad(x_q, (0, 0, pw, pw, ph, ph))
 
     def fn():
         cols = torch.stack([xp[:, ky * dh: ky * dh + (Ho - 1) * sh + 1: sh, kx * dw: kx * dw + (Wo - 1) * sw + 1: sw]
@@ -2471,49 +2486,93 @@ def int8_library(x_q, w_q, stride, padding, dilation):
             cols = F.pad(cols, (0, Kp - K))
         return torch._int_mm(cols, w2.t())
 
-    return fn, [f"K {K}->{Kp}"] * (Kp != K) + [f"N {N}->{Np}"] * (Np != N)
+    return fn, pad
 
 
-def check_conv_int8(calls: dict) -> dict:
-    """conv_int8 against its plain version at every distinct shape of one
-    int8 forward, on the forward's own operands: the int32 accumulators and
-    the bf16 outputs the same bits; kernel, plain-version, library and
-    bound times (bf16 output, INT8_REPS timed calls, cold L2). The summary
-    sums each shape's times by its calls a forward; library_ms covers the
-    ungrouped shapes only (torch._int_mm has no groups), and
-    `kernel_ms_where_library` is the kernel's time over the same shapes."""
-    summary = dict(new_summary(), kernel_ms_where_library=0.0, shapes=len(calls), library_padded=[])
+def int8_class(xs, ws, groups) -> str:
+    """The shape class conv_int8's sums are kept by: depthwise, the
+    1x1 and the other convs over C % 16 == 0 channels, the head's C = 177
+    convs, the one-channel gates, and C = 3 and 98."""
+    C, (N, kh, kw, _) = xs[-1], ws
+    if groups > 1:
+        return "depthwise"
+    if C % 16 == 0 and N > 1:
+        return "1x1" if kh * kw == 1 else "3x3"
+    if C == 177:
+        return "C=177"
+    return "gates N=1" if N == 1 else "C=3, C=98"
+
+
+def check_conv_int8(calls: dict, calls_pc: dict) -> dict:
+    """conv_int8 at every distinct shape of one int8 forward, on the
+    forward's own operands, per tensor (`calls`) and per channel
+    (`calls_pc`): conv_int8_fused against conv_int8_fused_reference, and
+    the int8-input conv_int8 on the same quantized x against
+    conv_int8_reference, the int32 sums and the outputs the same bits; then
+    (per tensor, INT8_REPS timed calls, cold L2) the fused kernel, the
+    int8-input kernel, the fused plain version, the library on the int8
+    operands (ungrouped shapes) and each function's bound: the fused one
+    reads x in its own dtype, the int8-input one x_q. The summary sums each
+    shape's times by its calls a forward, also by shape class (int8_class);
+    library_ms covers the ungrouped shapes only, `kernel_ms_where_library`
+    is the fused kernel's time over the same shapes."""
+    summary = dict(new_summary(), kernel_ms_where_library=0.0, int8_input_ms=0.0, int8_input_bound_ms=0.0,
+                   shapes=len(calls), library_padded=[], classes={})
+    assert calls.keys() == calls_pc.keys(), "per-channel forward called other shapes"
     reps, TIME_REPS[0] = TIME_REPS[0], INT8_REPS
     try:
-        for key, (count, (x_q, w_q, scale, bias)) in sorted(calls.items(), key=lambda kv: -kv[0][0][1]):
+        for key, (count, (x, s_a, w_q, packed, scale, bias)) in sorted(calls.items(), key=lambda kv: -kv[0][0][1]):
             xs, ws, stride, padding, dilation, groups, _, out_dtype = key
             kw = dict(stride=stride, padding=padding, dilation=dilation, groups=groups)
-            acc = conv_int8(x_q, w_q, out_dtype=torch.int32, **kw)
-            torch.cuda.synchronize()
-            ref = conv_int8_reference(x_q, w_q, out_dtype=torch.int32, **kw)
-            assert torch.equal(acc, ref), (key, (acc.double() - ref.double()).abs().max().item())
-            got = conv_int8(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw)
-            assert torch.equal(got, conv_int8_reference(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw)), key
-            kernel_ms = time_ms(lambda: conv_int8(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw))
-            plain_ms = time_ms(lambda: conv_int8_reference(x_q, w_q, scale, bias, out_dtype=out_dtype, **kw))
+            for ops in ((x, s_a, w_q, packed, scale, bias), calls_pc[key][1]):
+                xo, so, wo, po = ops[:4]
+                for dtype, sc, b in ((torch.int32, None, None), (out_dtype, ops[4], ops[5])):
+                    got = conv_int8_fused(xo, so, wo, sc, b, out_dtype=dtype, packed=po, **kw)
+                    torch.cuda.synchronize()
+                    ref = conv_int8_fused_reference(xo, so, wo, sc, b, out_dtype=dtype, **kw)
+                    assert torch.equal(got, ref), (key, so.dim(), dtype)
+            x_q = quantize_activation(x, s_a).contiguous()
+            for dtype, sc, b in ((torch.int32, None, None), (out_dtype, scale, bias)):
+                got = conv_int8(x_q, w_q, sc, b, out_dtype=dtype, packed=packed, **kw)
+                assert torch.equal(got, conv_int8_reference(x_q, w_q, sc, b, out_dtype=dtype, **kw)), (key, dtype)
+            fused_ms = time_ms(lambda: conv_int8_fused(x, s_a, w_q, scale, bias, out_dtype=out_dtype, packed=packed,
+                                                       **kw))
+            int8_ms = time_ms(lambda: conv_int8(x_q, w_q, scale, bias, out_dtype=out_dtype, packed=packed, **kw))
+            plain_ms = time_ms(lambda: conv_int8_fused_reference(x, s_a, w_q, scale, bias, out_dtype=out_dtype, **kw))
             library_ms, pad = None, []
             if groups == 1:
                 lib, pad = int8_library(x_q, w_q, stride, padding, dilation)
                 library_ms = time_ms(lib)
-                summary["kernel_ms_where_library"] += count * kernel_ms
+                summary["kernel_ms_where_library"] += count * fused_ms
                 summary["library_padded"] += pad
             B, Ho, Wo, N = got.shape
             ops = 2.0 * B * Ho * Wo * N * ws[1] * ws[2] * ws[3]
-            nbytes = x_q.numel() + w_q.numel() + got.numel() * got.element_size()
-            bound = roofline(nbytes, ops, PEAK_FLOPS[torch.int8])
-            add_site(summary, count, kernel_ms, plain_ms, library_ms or 0.0, bound, 0.0)
+            out_bytes = got.numel() * got.element_size()
+            bound = roofline(x.numel() * x.element_size() + w_q.numel() + out_bytes, ops, PEAK_FLOPS[torch.int8])
+            bound_q = roofline(x_q.numel() + w_q.numel() + out_bytes, ops, PEAK_FLOPS[torch.int8])
+            add_site(summary, count, fused_ms, plain_ms, library_ms or 0.0, bound, 0.0)
+            summary["int8_input_ms"] += count * int8_ms
+            summary["int8_input_bound_ms"] += count * bound_q[0]
+            cls = summary["classes"].setdefault(int8_class(xs, ws, groups), dict(
+                launches=0, ms=0.0, int8_input_ms=0.0, bound_ms=0.0, int8_input_bound_ms=0.0, library_ms=0.0))
+            for k, v in (("launches", 1), ("ms", fused_ms), ("int8_input_ms", int8_ms), ("bound_ms", bound[0]),
+                         ("int8_input_bound_ms", bound_q[0]), ("library_ms", library_ms or 0.0)):
+                cls[k] += count * v
             lib = f"{library_ms:.4f}" + (f" ({', '.join(pad)})" if pad else "") if library_ms is not None else \
-                "none (grouped)"
-            print(f"conv_int8 yolo-somi x{xs} w{ws} s{stride} p{padding} d{dilation} g{groups} x{count}/batch: "
-                  f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} bound_ms {bound[0]:.4f} "
-                  f"({bound[1]}) x bound {kernel_ms / bound[0]:.1f}; int32 and bf16 the same bits")
+                "none: PyTorch has no int8 grouped conv on CUDA"
+            plan = _conv_int8_plan(xs, ws, stride, padding, dilation, groups)
+            tiles = f"64x{plan.bn}" if plan.route == "gemm" else f"{plan.th}x{plan.tw}x{plan.cb}"
+            print(f"conv_int8 yolo-somi x{xs} {str(x.dtype)[6:]} w{ws} s{stride} p{padding} d{dilation} g{groups} "
+                  f"x{count}/batch ({plan.route} {tiles}): fused_ms {fused_ms:.4f} int8_input_ms {int8_ms:.4f} "
+                  f"plain_ms {plain_ms:.4f} library_ms {lib} bound_ms fused {bound[0]:.4f} ({bound[1]}) int8 input "
+                  f"{bound_q[0]:.4f} ({bound_q[1]}) x bound {fused_ms / bound[0]:.1f}; per tensor and per channel, "
+                  f"int32 and {str(out_dtype)[6:]} the same bits")
     finally:
         TIME_REPS[0] = reps
+    print("conv_int8 by shape class, per batch: " + "; ".join(
+        f"{name} x{c['launches']}: fused {c['ms']:.3f} ms (bound {c['bound_ms']:.3f}), int8 input "
+        f"{c['int8_input_ms']:.3f} ms (bound {c['int8_input_bound_ms']:.3f}), library {c['library_ms']:.3f} ms"
+        for name, c in summary["classes"].items()))
     return summary
 
 
@@ -2540,23 +2599,39 @@ def int8_serve(gpu: str) -> dict:
     launches = launch_counts()
     assert launches == only(odconv_s2=4 * N_REQUESTS, conv_int8=n_convs * N_REQUESTS), launches
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn(batches[1])
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    # one warm-up step before the recorded one: a window that starts recording with the batch misses its
+    # first kernels (one of the 175 conv_int8 launches)
+    with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                                                  repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn(batches[1])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            prof.step()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device's events but the step's own annotation, which spans the whole batch
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and
+               not e.key.startswith("ProfilerStep")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     int8_ms = sum(e.self_device_time_total for e in kernels if "conv_int8" in e.key) / 1e3
+    int8_n = sum(e.count for e in kernels if "conv_int8" in e.key)
+    # the quantize passes PyTorch ran before each conv until the quantize moved into the kernel: each of these
+    # ops ran at least once per ConvRaw then
+    passes = {name: next(((e.self_device_time_total / 1e3, e.count) for e in events if e.key == name), (0.0, 0))
+              for name in ("aten::copy_", "aten::div", "aten::round", "aten::clamp")}
     path = OUT / "chip_smoke_profile_yolo-somi_int8.txt"
     path.write_text(f"{gpu}\n{events.table(sort_by='self_device_time_total', row_limit=40)}\n")
+    assert int8_n == n_convs, (int8_n, n_convs, [(e.key[:90], e.count) for e in kernels if "conv_int8" in e.key])
+    assert all(passes[name][1] < n_convs for name in ("aten::div", "aten::round", "aten::clamp")), passes
     med, bf16 = statistics.median(lat), RECORD["serve yolo-somi"]
     print(f"serving int8 yolo-somi (quantized_infer_fn, per-tensor, {n_convs} ConvRaws in int8) 640 px b{BATCH} "
           f"conf 0.25, {N_REQUESTS} requests on {gpu}: latency median {med * 1e3:.2f} ms/batch (min "
           f"{min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), {BATCH / med:.1f} img/s; phase 4's bf16 "
           f"{bf16 * 1e3:.2f} ms/batch, {BATCH / bf16:.1f} img/s; launches conv_int8 {n_convs}/batch, odconv_s2 "
           f"4/batch; profiled batch: wall {wall_ms:.2f} ms, device kernels {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% busy), conv_int8 kernels {int8_ms:.3f} ms; table in {path}")
+          f"({100 * busy_ms / wall_ms:.1f}% busy), conv_int8 kernels {int8_ms:.3f} ms in {int8_n} launches; "
+          + ", ".join(f"{name} {t:.3f} ms in {n} calls" for name, (t, n) in passes.items()) + f"; table in {path}")
     return launches
 
 
@@ -2579,7 +2654,7 @@ def int8_phase(gpu: str, workdir: Path, bf16: tuple) -> tuple:
     loader = DataLoader(DetectionDataset(str(root / "images"), img_size=IMGSZ), BATCH)
     first = next(iter(loader))[0]
     t0 = time.perf_counter()
-    summary = check_conv_int8(conv_int8_calls(runner, first))
+    summary = check_conv_int8(conv_int8_calls(runner, first), conv_int8_calls(runner, first, per_channel=True))
     t_kernels = time.perf_counter() - t0
     paths = [p for p, _ in conv_raw_paths(runner.model)]
     head = f"^layers_{len(runner.model.model) - 1}/"
@@ -2724,14 +2799,16 @@ def main() -> int:
         *(dict(kernel_entry(name, "dcn_bwd.cu", "yolosomi_tpu/ops/dcn.py:34", trained["yolo-somi-dcn"][name], summary),
                launches_per_train_step=trained["yolo-somi-dcn"][name] // steps)
           for name, summary in (("dcnv2_im2col_bwd", v2b_summary), ("dcnv3_core_bwd", v3b_summary))),
-        # no Pallas counterpart: it replaces XLA's int8 conv_general_dilated of ConvRaw's int8 branch; its
-        # numbers sum the distinct shapes of one served b8 batch times their calls; library_ms covers the
-        # ungrouped shapes only, beside the kernel's time over the same shapes
+        # no Pallas counterpart: it replaces the quantize and XLA's int8 conv_general_dilated of ConvRaw's int8
+        # branch; its numbers (the fused entry's, bf16 x) sum the distinct shapes of one served b8 batch times
+        # their calls; library_ms (torch._int_mm on the int8 operands) covers the ungrouped shapes only, beside
+        # the kernel's time over the same shapes; int8_input_* time and bound the int8-input entry
         dict(kernel_entry("conv_int8", "conv_int8.cu", "yolosomi_tpu/models/layers.py:238",
                           int8_served["conv_int8"], int8_summary),
              launches_per_batch=int8_served["conv_int8"] // N_REQUESTS, shapes=int8_summary["shapes"],
              kernel_ms_where_library=int8_summary["kernel_ms_where_library"],
-             library_padded=sorted(set(int8_summary["library_padded"]))),
+             library_padded=sorted(set(int8_summary["library_padded"])),
+             **{k: int8_summary[k] for k in ("int8_input_ms", "int8_input_bound_ms", "classes")}),
     ]
     for entry in kernels[:-1]:  # phase 10's shapes, bf16, sites times their launches on such a batch or step
         entry["recipe"] = {label: summary_fields(sums[entry["name"]]) for label, sums in at_recipe.items()}

@@ -913,3 +913,105 @@ def test_int8_model_launches_conv_int8_per_convraw(cuda):
     assert conv_int8.launches - before == len(conv_raw_paths(runner.model))
     assert out.shape == ref.shape and np.isfinite(out).all()
     np.testing.assert_array_equal(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# conv_int8_fused: the activation's quantize inside conv_int8's loads
+# ---------------------------------------------------------------------------
+
+# (B, H, W, C, N, (kh, kw), stride, padding, dilation, groups, channels of
+# the tensor x is sliced from (0: x is its own tensor)): the decoupled
+# head's C = 177 -> 98 and 256 -> 177 3x3 convs, the spatial gates (7x7 over
+# C = 2, 7x1 over C = 16, N = 1), SEAM's depthwise 3x3 over 256, the first
+# conv's C = 3 at stride 2, and a dilated conv with ragged M read in place
+# from a channel slice of a wider tensor; "wide_k" sums 2048 products of
+# up to 127 * 127, past 2**24
+FUSED_SHAPES = {
+    "c177_n98": (2, 20, 20, 177, 98, (3, 3), (1, 1), (1, 1), (1, 1), 1, 0),
+    "c256_n177": (2, 12, 14, 256, 177, (3, 3), (1, 1), (1, 1), (1, 1), 1, 0),
+    "7x7_c2_n1": (2, 19, 21, 2, 1, (7, 7), (1, 1), (3, 3), (1, 1), 1, 0),
+    "7x1_c16_n1": (16, 26, 1, 16, 1, (7, 1), (1, 1), (3, 0), (1, 1), 1, 0),
+    "depthwise_256": (2, 20, 13, 256, 256, (3, 3), (1, 1), (1, 1), (1, 1), 256, 0),
+    "c3_s2": (2, 33, 47, 3, 64, (3, 3), (2, 2), (1, 1), (1, 1), 1, 0),
+    "dilated_slice": (1, 17, 23, 32, 40, (3, 3), (1, 1), (2, 2), (2, 2), 1, 96),
+    "wide_k": (2, 10, 12, 2048, 72, (1, 1), (1, 1), (0, 0), (1, 1), 1, 0),
+}
+
+
+def fused_operands(gen, name, dtype, per_channel):
+    """x (a view when the case slices it), s_a, w_q, scale and bias for a
+    FUSED_SHAPES case: x spread per channel, s_a at 80% of its absmax (some
+    values clip at +-127), full-range weights."""
+    B, H, W, C, N, k, s, p, d, g, wide = FUSED_SHAPES[name]
+    spread = torch.rand(C, device="cuda", generator=gen) * 3 + 0.2
+    if wide:
+        x = (torch.randn(B, H, W, wide, device="cuda", generator=gen) * 2).to(dtype)[..., 32:32 + C]
+    else:
+        x = (torch.randn(B, H, W, C, device="cuda", generator=gen) * spread).to(dtype)
+    w = torch.randint(-127, 128, (N, *k, C // g), device="cuda", generator=gen, dtype=torch.int8)
+    if name == "wide_k":  # positive x near its absmax and output channel 0's weights at 127: its sums pass 2**24
+        x = (x.abs() * 0.1 + 4).to(dtype)
+        w[0] = 127
+    absmax = x.float().abs().amax(dim=(0, 1, 2)) if per_channel else x.float().abs().amax()
+    s_a = torch.clamp(absmax * 0.8, min=1e-8) / 127.0
+    scale = torch.rand(N, device="cuda", generator=gen) / 1000
+    bias = torch.randn(N, device="cuda", generator=gen)
+    return x, s_a, w, scale, bias, dict(stride=s, padding=p, dilation=d, groups=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_channel", [False, True], ids=["per_tensor", "per_channel"])
+@pytest.mark.parametrize("name", list(FUSED_SHAPES))
+def test_conv_int8_fused_matches_plain_version_bitwise(cuda, name, per_channel):
+    """The fused kernel against quantize_activation + the f64 plain conv:
+    the int32 sums and the dequantized output (in x's dtype, f32 and bf16)
+    the same bits, packed weights or not; one launch a call."""
+    from yolosomi_tpu_torch.ops.int8 import conv_int8, conv_int8_fused, conv_int8_fused_reference, \
+        pack_conv_int8_weights
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, s_a, w, scale, bias, kw = fused_operands(cuda, name, dtype, per_channel)
+        packed = pack_conv_int8_weights(w, kw["groups"])
+        before = conv_int8.launches
+        acc = conv_int8_fused(x, s_a, w, None, out_dtype=torch.int32, packed=packed, **kw)
+        torch.cuda.synchronize()
+        assert conv_int8.launches == before + 1
+        ref = conv_int8_fused_reference(x, s_a, w, None, out_dtype=torch.int32, **kw)
+        assert torch.equal(acc, ref), (name, dtype, (acc.double() - ref.double()).abs().max().item())
+        for b in (bias, None):
+            got = conv_int8_fused(x, s_a, w, scale, b, **kw)
+            assert got.dtype == dtype
+            assert torch.equal(got, conv_int8_fused_reference(x, s_a, w, scale, b, **kw)), (name, dtype)
+        assert conv_int8.launches == before + 3
+    if name == "wide_k":
+        assert ref.abs().max().item() > 2 ** 24
+
+
+@pytest.mark.cuda
+def test_conv_int8_fused_refuses_what_it_does_not_take(cuda):
+    from yolosomi_tpu_torch.ops.int8 import conv_int8_fused, pack_conv_int8_weights
+
+    x = torch.randn(1, 8, 8, 16, device="cuda", generator=cuda)
+    w = torch.zeros(8, 3, 3, 16, device="cuda", dtype=torch.int8)
+    s_a = torch.tensor(0.01, device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv_int8_fused(x.to(torch.int8), s_a, w, None, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="s_a"):
+        conv_int8_fused(x, torch.ones(17, device="cuda"), w, None, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="s_a"):
+        conv_int8_fused(x, s_a.double(), w, None, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="channels contiguous"):  # the NHWC view of an NCHW-contiguous x
+        conv_int8_fused(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), s_a, w, None, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="packed"):
+        conv_int8_fused(x, s_a, w, None, out_dtype=torch.int32, packed=pack_conv_int8_weights(w[:4]))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        conv_int8_fused(x, s_a.cpu(), w, None, out_dtype=torch.int32)
+
+
+@pytest.mark.cuda
+def test_conv_int8_gemm_tiles_match_the_kernel(cuda):
+    """ops/int8.py's tile table and shared-memory sizes are the kernel's."""
+    from yolosomi_tpu_torch.ops.int8 import _BN_WIDTHS, _gemm_smem, gemm_smem_of_kernel
+
+    assert [gemm_smem_of_kernel(i) for i in range(len(_BN_WIDTHS))] == [_gemm_smem(bn) for bn in _BN_WIDTHS]
+    assert gemm_smem_of_kernel(len(_BN_WIDTHS)) == -1

@@ -42,7 +42,7 @@ from yolosomi_tpu_torch import val
 from yolosomi_tpu_torch.engine.runner import Runner
 from yolosomi_tpu_torch.models.layers import ConvRaw
 from yolosomi_tpu_torch.ops import quant
-from yolosomi_tpu_torch.ops.int8 import conv_int8, conv_int8_reference
+from yolosomi_tpu_torch.ops.int8 import conv_int8, conv_int8_reference, quantize_activation
 from yolosomi_tpu_torch.utils.weights import _leaves, conv_raw_paths
 
 
@@ -111,14 +111,15 @@ def test_one_convraw_in_int8_matches_jax(name, monkeypatch):
             conv.bias.copy_(torch.tensor(v["params"]["conv"]["bias"]))
     conv.a_scale = torch.tensor(a_scale)
     got_ops = {}
-    int8_conv = quant.int8_conv
+    int8_conv_fused = quant.int8_conv_fused
 
-    def port_spy(x_q, w_q, *args, **kwargs):
+    def port_spy(x_nhwc, s_a, w_q, *args, **kwargs):
+        x_q = quantize_activation(x_nhwc, s_a)  # the fused entry's quantize
         got_ops.update(x_q=x_q.numpy(), w_q=w_q.numpy(), acc=conv_int8_reference(
-            x_q, w_q, None, None, *args[2:], **dict(kwargs, out_dtype=torch.int32)).numpy())
-        return int8_conv(x_q, w_q, *args, **kwargs)
+            x_q, w_q, None, None, *args[2:], out_dtype=torch.int32).numpy())
+        return int8_conv_fused(x_nhwc, s_a, w_q, *args, **kwargs)
 
-    monkeypatch.setattr(quant, "int8_conv", port_spy)
+    monkeypatch.setattr(quant, "int8_conv_fused", port_spy)
     with quant.quant_mode("int8"), torch.no_grad():
         got = conv(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
     np.testing.assert_array_equal(got_ops["x_q"], seen["x_q"])
@@ -222,8 +223,8 @@ def test_int8_exclude_selects_the_jax_convs(small, exclude, monkeypatch):
     runner = small["runner"]
     quant.load_quant_scales(runner.model, small["calib"][False])
     launched = []
-    int8_conv = quant.int8_conv
-    monkeypatch.setattr(quant, "int8_conv", lambda *a, **k: launched.append(1) or int8_conv(*a, **k))
+    int8_conv_fused = quant.int8_conv_fused
+    monkeypatch.setattr(quant, "int8_conv_fused", lambda *a, **k: launched.append(1) or int8_conv_fused(*a, **k))
     with quant.quant_mode("int8", exclude=pats):
         runner.forward(batches(1)[0][:1])
     assert len(launched) == sum(calls) == len(paths) - len(want)

@@ -5,7 +5,8 @@ yolosomi_tpu/models/layers.py:44-89, :131-160, :192-246).
 Symmetric int8: a per-tensor activation scale calibrated from
 representative batches (or one per input channel, folded into the weights),
 per-output-channel weight scales, int32 accumulation in the hand-written
-conv_int8 kernel (ops/int8.py). Every models.layers.ConvRaw takes part; the
+conv_int8 kernel (ops/int8.py), which quantizes each conv's float input on
+its way into shared memory (conv_int8_fused): no int8 copy of x is made. Every models.layers.ConvRaw takes part; the
 rest of the graph (ODConv, the DCN blocks, pooling, attention's Dense
 layers) stays in the float dtype, as in the JAX package.
 
@@ -40,7 +41,7 @@ import torch
 import torch.nn as nn
 
 from yolosomi_tpu_torch.models import layers as L
-from yolosomi_tpu_torch.ops.int8 import int8_conv
+from yolosomi_tpu_torch.ops.int8 import int8_conv_fused, pack_conv_int8_weights
 from yolosomi_tpu_torch.ops.nms import non_max_suppression
 from yolosomi_tpu_torch.utils.weights import conv_raw_paths
 
@@ -69,9 +70,10 @@ def _hook(m: L.ConvRaw, x: torch.Tensor) -> torch.Tensor:
 
 
 def _int8_operands(m: L.ConvRaw):
-    """(w_q (N, kh, kw, C/g) int8, the output scale (N,), the activation
-    scale s_a (scalar or (C,)), bias or None), all float32 but w_q, from
-    the module's weights and calibrated scale (layers.py:192-223)."""
+    """(w_q (N, kh, kw, C/g) int8, w_q packed for the kernel, the output
+    scale (N,), the activation scale s_a (scalar or (C,)), bias or None),
+    all float32 but the weights, from the module's weights and calibrated
+    scale (layers.py:192-223)."""
     a_scale = m.a_scale.float()
     w = m.weight.float()  # (N, C/g, kh, kw)
     if a_scale.dim() == 1:
@@ -92,21 +94,26 @@ def _int8_operands(m: L.ConvRaw):
         s_a = torch.clamp(a_scale, min=1e-8) / 127.0
         scale = s_a * w_scale
     bias = m.bias.float() if m.bias is not None else None
-    return w_q.permute(0, 2, 3, 1).contiguous(), scale, s_a, bias
+    w_q = w_q.permute(0, 2, 3, 1).contiguous()
+    return w_q, pack_conv_int8_weights(w_q, m.groups), scale, s_a, bias
 
 
 def _int8_forward(m: L.ConvRaw, x: torch.Tensor) -> torch.Tensor:
+    """The quantize, the int8 conv and the dequant in one call of the
+    fused kernel, on x's NHWC view (a view of a channels_last x; any other
+    layout is made channels-last first)."""
     cache = _STATE["cache"]
     ops = cache.get(m) if cache is not None else None
     if ops is None:
         ops = _int8_operands(m)
         if cache is not None:
             cache[m] = ops
-    w_q, scale, s_a, bias = ops
-    s = s_a[None, :, None, None] if s_a.dim() == 1 else s_a
-    x_q = torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
-    y = int8_conv(x_q.permute(0, 2, 3, 1).contiguous(), w_q, scale, bias, m.stride, m.padding, m.dilation,
-                  m.groups, out_dtype=x.dtype)
+    w_q, packed, scale, s_a, bias = ops
+    x_nhwc = x.permute(0, 2, 3, 1)
+    if x_nhwc.stride(3) != 1:
+        x_nhwc = x_nhwc.contiguous()
+    y = int8_conv_fused(x_nhwc, s_a, w_q, scale, bias, m.stride, m.padding, m.dilation, m.groups,
+                        out_dtype=x.dtype, packed=packed)
     return y.permute(0, 3, 1, 2)
 
 
