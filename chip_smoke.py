@@ -172,6 +172,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     4's bf16 batch, one batch profiled: conv_int8 once per ConvRaw, and
     aten::div, round and clamp each fewer calls than ConvRaws (the quantize
     passes PyTorch ran before each conv until the kernel took them in)
+13. data and pipeline parallelism (parallel/; one card stands in for
+    several, so placement itself is not seen): (a) the full-width flagship
+    at 640 px, seed-0 weights, head tempered, on DP_WORLD = 2 gloo ranks
+    sharing cuda:0 (parallel.mesh.spawn_local): first the semantics, one
+    optimizer step through make_train_step(group=) in float64 under
+    plain_version() on a global b4, the loss, the momentum buffers and the
+    parameter updates within 1e-6 relative of one process's (the loss
+    rounds in f32); then, each rank holding b4 of a global b8, 2 steps in f32 and
+    then 2 in bf16 under autocast, then one yolo-somi-dcn bf16 step; each
+    against one process's b8 steps from the same weights (the first loss
+    within 2e-4 relative in f32, 1e-1 in bf16, the first step's moves of
+    the first 2 BatchNorms' statistics within 1e-4; the gradient, update and
+    parameter distances printed: the seed-0 full-width step amplifies the
+    forwards' different rounding past any fixed limit, DP_LOSS's comment);
+    both ranks the same parameter bits, each rank launching
+    odconv_s2, odconv_s2_dx and odconv_s2_dwmix 4 times a step (DCN: 9 + 1
+    forward and backward too), the counts set to 0 just before each job;
+    (b) torchrun --standalone --nproc_per_node 1 -m yolosomi_tpu_torch.train
+    over NCCL, one epoch of the flagship on phase 8's set: one last.ckpt,
+    the epoch's kernel launches from train_log.jsonl; (c) PipelineTrainer
+    of the full-width flagship in 2 stages on cuda:0: at microbatch 8 its
+    loss and gradients against one process's f32 step (1e-5; phase 8's f32
+    witness limits), at microbatch 2 a finite step with the optimizer and
+    its per-stage parameter bytes, and pipeline_infer against the model's
+    forward of the same microbatches; step times beside the card's name
+    and power limit
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -180,6 +206,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import logging
 import re
@@ -200,7 +227,7 @@ import torch.nn.functional as F
 import yaml
 
 from yolosomi_tpu_torch import detect, hubconf, train, val
-from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset, LoadImages
+from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset, LoadImages, pad_targets
 from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
 from yolosomi_tpu_torch.engine.distill import plant_adapters, wrap_loss_with_distillation
 from yolosomi_tpu_torch.engine.evolve import META
@@ -223,6 +250,8 @@ from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
 from yolosomi_tpu_torch.ops.odconv import (OdconvS2Function, _dw_plan, _dw_split, _dx_plan, _plan, odconv_s2,
                                            odconv_s2_backward_reference, odconv_s2_dwmix, odconv_s2_dx,
                                            odconv_s2_reference, plain_version)
+from yolosomi_tpu_torch.parallel import mesh
+from yolosomi_tpu_torch.parallel.pipeline import PipelineTrainer, pipeline_infer
 from yolosomi_tpu_torch.serve import DetectionServer
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.config import find_config, load_hyp, load_model_cfg
@@ -2690,6 +2719,408 @@ def int8_phase(gpu: str, workdir: Path, bf16: tuple) -> tuple:
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2  # gloo ranks sharing cuda:0: one card stands in for two
+DP_STEPS = 2
+# (config, autocast dtype, steps) of phase 13(a)'s kernel jobs, run by every rank in turn
+DP_JOBS = (("yolo-somi", None, DP_STEPS), ("yolo-somi", torch.bfloat16, DP_STEPS), ("yolo-somi-dcn", torch.bfloat16, 1))
+DP_F64_BATCH = 4  # the float64 semantics job's global batch (2 images a rank)
+# the float64 job against one process: ComputeLoss takes the maps in f32, so
+# the loss and the maps' gradient round at f32's 6e-8 (the CPU test's limits)
+DP_F64_TOL, DP_F64_FLOOR = 1e-6, 1e-9
+# the kernel jobs against one process's steps on the global batch. The
+# first step's loss within DP_LOSS relative: the CPU test's 2e-4 in f32. In
+# bf16 every layer rounds at 2**-9 and the b4 and b8 forwards round apart
+# so far (probe_data_parallel.py, seeds 0-2: -5.4e-3 to -3.4e-2 for the
+# program's BatchNorm and for the earlier two-pass form) that per-rank
+# BatchNorm statistics, a fault, land among them (-5.8e-2 to +7.5e-3; in
+# f32 1.9e-3 to 2.9e-2, which 2e-4 catches): bf16's 1e-1 catches only a
+# gross fault (a normaliser off by W). The sharp bf16 check is DP_BN_TOL:
+# the running statistics moved by the first step, in the first DP_BN_HELD
+# BatchNorms, within DP_BN_TOL relative norm distance of one process's;
+# there the forwards have not yet rounded apart (the program's forms: at
+# most 7e-8 in bf16 and f32; per-rank statistics 3.1e-3 to 1.3e-2; the
+# probe, seeds 0-2). From the fifth BatchNorm on, bf16's rounding shows
+# (1.5e-4 to 5.9e-4 there, 0.1 at the last). The rest is printed, not
+# held: the seed-0 full-width step amplifies rounding so far (phase 8b: the
+# kernels' forward against the plain one moves f32 gradients by a median 3e-2 to
+# 1.2e-1 at b8) that the ranks' and the one process's first-step gradients,
+# whose forwards round apart at every BatchNorm, lie a median 0.14 apart in
+# f32 and 1.4 in bf16 (measured), while the float64 step above agrees to
+# 1e-11: the per-element parameter limits of the CPU test (5e-3 relative
+# plus 3e-3) and phase 8's bf16 witness limits (each gradient within 1.0
+# relative norm plus 1e-4 of the largest, the median within 0.1) cannot
+# tell a fault from that rounding here
+DP_LOSS = {torch.float32: 2e-4, torch.bfloat16: 1e-1}
+DP_BN_HELD, DP_BN_TOL = 2, 1e-4
+PIPE_STAGES, PIPE_MICRO = 2, 2
+PIPE_TOL = 1e-6  # pipeline_infer against the forward of the same microbatches, relative to each level's largest value
+
+
+def dp_batch(n: int = BATCH, seed: int = 0):
+    """A global batch of n synthetic IMGSZ-square images (uint8 NHWC) and
+    their targets (n, 64, 5)."""
+    rng = np.random.default_rng(seed)
+    images, rows = [], []
+    for _ in range(n):
+        im, boxes = synthetic_shapes(rng, IMGSZ, IMGSZ)
+        images.append(im)
+        rows.append(np.concatenate([boxes[:, :1], xyxy2xywhn(boxes[:, 1:5], w=IMGSZ, h=IMGSZ)], 1))
+    return np.stack(images), pad_targets(rows, 64)
+
+
+def dp_model(cfg_name: str, group, amp_dtype=None, dtype=torch.float32):
+    """The full-width `cfg_name` from seed 0 (head tempered, DCN offset heads
+    randomised), as every rank and the one process build it; broadcast from
+    rank 0 under a group, as train.py does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, meta = build_model(load_model_cfg(find_config(cfg_name)), nc=10, device="cuda", seed=0, dtype=dtype,
+                              compute_dtype=amp_dtype)
+    temper_head(model, HEAD_TEMPER)
+    if cfg_name == "yolo-somi-dcn":
+        randomize_offset_heads(model, seed=0)
+    if group is not None:
+        mesh.replicate_(model)
+    return model, meta
+
+
+def rel_distances(got: list, want: list, tol: float, floor_share: float) -> dict:
+    """Each pair's relative norm distance; how many exceed tol x |want| +
+    floor_share x the largest |want|."""
+    dist = [(g - w).norm().item() for g, w in zip(got, want)]
+    norm = [w.norm().item() for w in want]
+    floor = floor_share * max(norm)
+    rel = sorted((d / n for d, n in zip(dist, norm) if n > 0), reverse=True)
+    return dict(over=sum(d > tol * n + floor for d, n in zip(dist, norm)), median=statistics.median(rel),
+                max_rel=rel[0], floor=floor, n=len(want))
+
+
+def dp_step64(group, images: np.ndarray, targets: np.ndarray, ref_path: str) -> dict:
+    """Phase 13(a)'s semantics job: one optimizer step of the full-width
+    flagship in float64 under plain_version() (the kernels take f32 and
+    bf16) through make_train_step(group=group), so the step's own global
+    BatchNorm, loss normalisers, flat gradient all-reduce, finite guard and
+    update run: on this rank's rows with a group, or on the global batch in
+    one process, whose loss, first momentum buffers (the gradients plus
+    the decay term) and parameter updates go to `ref_path`; the ranks hold
+    theirs against that file's on the card. The counts are set to 0 just
+    before the step and returned."""
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    model, meta = dp_model("yolo-somi", group, dtype=torch.float64)
+    model.register_forward_pre_hook(lambda m, args: (args[0].double(), *args[1:]))  # the step feeds f32
+    before = [p.detach().clone() for p in model.parameters()]
+    opt = make_optimizer(hyp, nb=1, epochs=1, batch_size=DP_F64_BATCH)
+    state = create_train_state(model, opt)
+    step = make_train_step(ComputeLoss(meta, hyp), opt, group=group)
+    reset_counts()
+    with plain_version():
+        m = step(state, mesh.shard_batch(images, rank, world), mesh.shard_batch(targets, rank, world))
+    launches = launch_counts()
+    assert bool(m["grads_finite"]), "the float64 step was not finite"
+    loss = m["loss"].item()
+    bufs = list(state.opt_state.momentum_buf)
+    updates = [p.detach() - b for p, b in zip(model.parameters(), before)]
+    if group is None:
+        torch.save(dict(loss=loss, bufs=[b.cpu() for b in bufs], updates=[u.cpu() for u in updates]), ref_path)
+        return dict(loss=loss, launches=launches)
+    ref = torch.load(ref_path, map_location="cuda")
+    out = dict(loss=loss, loss_rel=abs(loss / ref["loss"] - 1), launches=launches,
+               bufs=rel_distances(bufs, ref["bufs"], DP_F64_TOL, DP_F64_FLOOR),
+               updates=rel_distances(updates, ref["updates"], DP_F64_TOL, DP_F64_FLOOR))
+    del model, state, step, bufs, updates, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_job(group, cfg_name: str, amp_dtype, steps: int, images: np.ndarray, targets: np.ndarray,
+           ref_path: str) -> dict:
+    """`steps` train steps of the full-width `cfg_name` (dp_model), each on
+    this rank's rows of the global batch under `group`, or on all of it with
+    none. With no group the parameters after the steps, the first step's
+    gradients and its moves of the BatchNorm statistics go to `ref_path`;
+    with one they are held against that file's on the card and only the
+    distances return. Every count is set to 0 just before the steps and read
+    just after."""
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    model, meta = dp_model(cfg_name, group, amp_dtype)
+    before = [p.detach().clone() for p in model.parameters()]
+    opt = make_optimizer(hyp, nb=steps, epochs=1, batch_size=BATCH)
+    state = create_train_state(model, opt)
+    bn_before = [b.clone() for b in state.bn_buffers[:2 * DP_BN_HELD]]
+    step = make_train_step(ComputeLoss(meta, hyp), opt, amp_dtype=amp_dtype, group=group)
+    x, t = mesh.shard_batch(images, rank, world), mesh.shard_batch(targets, rank, world)
+    losses, times, finite = [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = step(state, x, t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        finite.append(bool(m["grads_finite"]))
+        if i == 0:  # the first step's gradients: SGD's momentum buffers start at 0, less the decay term
+            grads = [b - opt.decay * p if g == "weight" else b.clone()
+                     for b, p, g in zip(state.opt_state.momentum_buf, before, state.groups)]
+            moved = [b - b0 for b, b0 in zip(state.bn_buffers, bn_before)]  # (mean, var) of each BatchNorm
+            bn_moves = [torch.cat(moved[k:k + 2]) for k in range(0, len(moved), 2)]
+    launches = launch_counts()
+    params = [p.detach() for p in model.parameters()]
+    out = dict(losses=losses, times=times, finite=finite, launches=launches, batch=len(x))
+    if group is None:
+        torch.save(dict(params=[p.cpu() for p in params], grads=[g.cpu() for g in grads],
+                        bn_moves=[m.cpu() for m in bn_moves]), ref_path)
+        return out
+    ref = torch.load(ref_path, map_location="cuda")
+    excess = max(((p - r).abs() - (3e-3 + 5e-3 * r.abs())).max().item() for p, r in zip(params, ref["params"]))
+    digest = hashlib.sha256()
+    for p in params:
+        digest.update(p.cpu().numpy().tobytes())
+    bn = [((m - r).norm() / r.norm()).item() for m, r in zip(bn_moves, ref["bn_moves"])]
+    out.update(excess=excess, digest=digest.hexdigest(), bn=bn,
+               grads=rel_distances(grads, ref["grads"], WITNESS_TOL[torch.bfloat16], WITNESS_FLOOR[torch.bfloat16]),
+               **rel_distances([p - b for p, b in zip(params, before)],
+                               [r - b for r, b in zip(ref["params"], before)],
+                               WITNESS_TOL[torch.bfloat16], WITNESS_FLOOR[torch.bfloat16]))
+    del model, state, step, ref, params, before, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_ranks(group, f64: dict, jobs: list) -> tuple:
+    return dp_step64(group, **f64), [dp_job(group, **job) for job in jobs]
+
+
+def data_parallel(gpu: str, tmp: Path) -> dict:
+    """Phase 13(a): the float64 semantics job (dp_step64) and each DP_JOBS
+    entry in one process on the global batch, then on DP_WORLD gloo ranks
+    sharing cuda:0 (spawn_local), each rank on its half: the float64
+    step's loss, momentum buffers and parameter updates within DP_F64_TOL; for the kernel jobs every rank's launches
+    per step, the ranks' parameters and losses the same bits, every step
+    finite, and the first step's loss and BatchNorm moves against the one
+    process's (DP_LOSS, DP_BN_TOL; the gradient, update and parameter
+    distances printed). Returns rank 0's
+    launches per job."""
+    t_phase = time.perf_counter()
+    images, targets = dp_batch()
+    f64 = dict(images=images[:DP_F64_BATCH], targets=targets[:DP_F64_BATCH], ref_path=str(tmp / "dp_ref64.pt"))
+    t0 = time.perf_counter()
+    ref64 = dp_step64(None, **f64)
+    t_ref64 = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    jobs, refs = [], []
+    for i, (cfg_name, amp_dtype, steps) in enumerate(DP_JOBS):
+        job = dict(cfg_name=cfg_name, amp_dtype=amp_dtype, steps=steps, images=images, targets=targets,
+                   ref_path=str(tmp / f"dp_ref{i}.pt"))
+        refs.append(dp_job(None, **job))
+        jobs.append(job)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = mesh.spawn_local(DP_WORLD, dp_ranks, f64, jobs, backend="gloo", timeout=900, threads=4)
+    t_spawned = time.perf_counter() - t0
+    g64 = [r[0] for r in per_rank]
+    print(f"data parallel float64 on {gpu}: full-width yolo-somi under plain_version(), global b{DP_F64_BATCH} at "
+          f"{IMGSZ} px on {DP_WORLD} gloo ranks on cuda:0 against one process, one optimizer step through "
+          f"make_train_step(group=): loss {g64[0]['loss']:.10f} / {ref64['loss']:.10f} (relative "
+          f"{g64[0]['loss_rel']:.2e}); momentum buffers' relative norm distance median {g64[0]['bufs']['median']:.2e}, "
+          f"max {g64[0]['bufs']['max_rel']:.2e} ({g64[0]['bufs']['over']} of {g64[0]['bufs']['n']} over "
+          f"{DP_F64_TOL:.0e} plus {g64[0]['bufs']['floor']:.2e}); parameter updates median "
+          f"{g64[0]['updates']['median']:.2e}, max {g64[0]['updates']['max_rel']:.2e} ({g64[0]['updates']['over']} "
+          f"over); launches {g64[0]['launches']}; one process {t_ref64:.1f} s")
+    assert all(r["bufs"]["over"] == 0 and r["updates"]["over"] == 0 and r["loss_rel"] <= DP_F64_TOL
+               for r in g64), g64
+    assert all(r["launches"] == only() for r in g64 + [ref64]), [r["launches"] for r in g64 + [ref64]]
+    launches = {}
+    for job, ref, ranks in zip(jobs, refs, zip(*[r[1] for r in per_rank])):
+        cfg_name, amp_dtype, steps = job["cfg_name"], job["amp_dtype"], job["steps"]
+        want = only(**{k: n * steps for k, n in STEP_LAUNCHES[cfg_name].items()})
+        assert ref["launches"] == want, (ref["launches"], want)
+        assert all(r["launches"] == want for r in ranks), [r["launches"] for r in ranks]
+        assert all(r["digest"] == ranks[0]["digest"] for r in ranks), "the ranks' parameters differ"
+        assert all(r["losses"] == ranks[0]["losses"] for r in ranks) and all(all(r["finite"]) for r in ranks)
+        r0 = ranks[0]
+        first_rel = abs(r0["losses"][0] / ref["losses"][0] - 1)
+        dtype = amp_dtype or torch.float32
+        title = f"{cfg_name} {'bf16 autocast' if amp_dtype else 'f32'}"
+        print(f"data parallel {title} on {gpu}: {DP_WORLD} gloo ranks on cuda:0, b{r0['batch']} each of a global "
+              f"b{BATCH} at {IMGSZ} px (full width, seed-0 weights, head tempered by {HEAD_TEMPER}), {steps} "
+              f"step(s) against one process's b{BATCH}: losses {['%.7f' % v for v in r0['losses']]} / "
+              f"{['%.7f' % v for v in ref['losses']]} (first relative {first_rel:.2e}, limit "
+              f"{DP_LOSS[dtype]:.0e}); the "
+              f"first step's moves of the first {DP_BN_HELD} BatchNorms' statistics, relative norm distance "
+              f"{['%.1e' % v for v in r0['bn']]} (limit {DP_BN_TOL:.0e}); "
+              f"printed, not held (DP_LOSS's comment): the first step's gradients, relative norm distance: median "
+              f"{r0['grads']['median']:.2e}, max {r0['grads']['max_rel']:.2e} ({r0['grads']['over']} over "
+              f"{WITNESS_TOL[torch.bfloat16]:.0e} plus {r0['grads']['floor']:.2e}); each parameter's update over the "
+              f"steps, "
+              f"relative norm distance: median {r0['median']:.2e}, max {r0['max_rel']:.2e} ({r0['over']} of "
+              f"{r0['n']} over {WITNESS_TOL[torch.bfloat16]:.0e} plus {r0['floor']:.2e}); the parameters' largest "
+              f"excess over 5e-3 x |p| + 3e-3: {r0['excess']:.2e}; step times rank 0 "
+              f"{['%.1f ms' % (v * 1e3) for v in r0['times']]}, rank 1 "
+              f"{['%.1f ms' % (v * 1e3) for v in ranks[1]['times']]}"
+              f", one process {['%.1f ms' % (v * 1e3) for v in ref['times']]}; launches per rank {r0['launches']}")
+        assert first_rel <= DP_LOSS[dtype], first_rel
+        assert all(max(r["bn"]) <= DP_BN_TOL for r in ranks), [r["bn"] for r in ranks]
+        launches[f"{cfg_name} {'bf16' if amp_dtype else 'f32'}"] = r0["launches"]
+    print(f"data parallel on {gpu}: phase 13a {time.perf_counter() - t_phase:.1f} s (ranks {t_spawned:.1f} s)")
+    return launches
+
+
+def torchrun_epoch(gpu: str, tmp: Path) -> None:
+    """Phase 13(b): torchrun --standalone --nproc_per_node 1 -m
+    yolosomi_tpu_torch.train over NCCL, one epoch of the full-width
+    flagship on phase 8's set (hyp.visdrone, b8, bf16, autoanchor on):
+    one run directory with one last.ckpt, and the epoch's kernel launches
+    (train_log.jsonl) STEP_LAUNCHES per step plus odconv_s2 per val
+    forward."""
+    t0 = time.perf_counter()
+    root = tmp / "shapes"
+    rng = np.random.default_rng(0)
+    write_shapes_split(root, "train", TRAIN_IMAGES, rng)
+    write_shapes_split(root, "val", VAL_IMAGES, rng)
+    data = root / "data.yaml"
+    data.write_text(yaml.safe_dump({"path": str(root), "train": "train/images", "val": "val/images", "nc": 10,
+                                    "names": [f"class{i}" for i in range(10)]}))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
+           "yolosomi_tpu_torch.train", "--cfg", "yolo-somi", "--data", str(data), "--hyp", "hyp.visdrone",
+           "--epochs", "1", "--batch-size", str(BATCH), "--imgsz", str(IMGSZ), "--workers", "8",
+           "--project", str(tmp / "runs"), "--name", "ddp"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    (OUT / "chip_smoke_torchrun.log").write_text(proc.stdout + proc.stderr)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "1 data-parallel ranks of 8 images" in proc.stderr, proc.stderr[-2000:]
+    run = tmp / "runs" / "ddp"
+    assert sorted(p.name for p in (tmp / "runs").iterdir()) == ["ddp"]
+    assert sorted(p.name for p in (run / "weights").glob("*.ckpt")) == ["best.ckpt", "last.ckpt"]
+    log = [json.loads(line) for line in (run / "train_log.jsonl").read_text().splitlines()]
+    nb = TRAIN_IMAGES // BATCH
+    val_forwards = 2 * -(-VAL_IMAGES // BATCH)
+    want = {k: n * (nb + (val_forwards if k in PER_BATCH["yolo-somi"] else 0))
+            for k, n in STEP_LAUNCHES["yolo-somi"].items()}
+    got = {k: v for k, v in log[0]["kernel_launches"].items() if v}
+    assert len(log) == 1 and got == want and log[0]["skipped_logged"] == 0, (log[0]["kernel_launches"], want)
+    assert all(np.isfinite(v) for row in log[0]["logged_losses"] for v in row[1:])
+    r = log[0]
+    print(f"torchrun on {gpu}: --standalone --nproc_per_node 1 -m yolosomi_tpu_torch.train over NCCL, full-width "
+          f"yolo-somi, hyp.visdrone, b{BATCH}, {IMGSZ} px, bf16, autoanchor on, {TRAIN_IMAGES} images: 1 epoch, "
+          f"{r['steps']} steps in {r['train_s']:.2f} s ({r['train_s'] / r['steps'] * 1e3:.1f} ms/step), val "
+          f"{r['val_s']:.2f} s; kernel launches {got} ({nb} steps, {val_forwards} val forwards); "
+          f"last.ckpt written once; process {time.perf_counter() - t0:.1f} s; log in chip_smoke_torchrun.log")
+
+
+def pipeline(gpu: str) -> None:
+    """Phase 13(c): the full-width flagship (f32, seed 0, head tempered) in
+    PIPE_STAGES stages, all on cuda:0. At microbatch = batch (b8) the
+    pipeline's loss and gradients against one process's step (the loss
+    within 1e-5 relative, each gradient at phase 8's f32 witness limits),
+    the forward kernel twice a site (the recompute) and each gradient
+    kernel once; at microbatch PIPE_MICRO one step with the optimizer,
+    finite, and its per-stage parameter bytes; pipeline_infer against the
+    model's forward of the same microbatches (PIPE_TOL; the b8 forward
+    rounds otherwise, printed)."""
+    t_phase = time.perf_counter()
+    images, targets = dp_batch()
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    model, meta = build_model(load_model_cfg(find_config("yolo-somi")), nc=10, device="cuda", seed=0)
+    temper_head(model, HEAD_TEMPER)
+    loss_fn = ComputeLoss(meta, hyp)
+    ref = copy.deepcopy(model)
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = step_grads(ref, loss_fn, images, targets)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    ref_grads = dict(zip([n for n, _ in ref.named_parameters()], ref_grads))
+    del ref
+    devices = ["cuda:0"] * PIPE_STAGES
+    trainer = PipelineTrainer(model, loss_fn, PIPE_STAGES, devices=devices, microbatch=BATCH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = trainer.step(images, targets)
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    launches = launch_counts()
+    got = {k: v for g in trainer.grads for k, v in g.items()}
+    t0 = time.perf_counter()
+    trainer.step(images, targets)  # again, timed: the first step carries the stages' one-off costs
+    torch.cuda.synchronize()
+    t_pipe2 = time.perf_counter() - t0
+    assert set(got) == set(ref_grads)
+    norm = {k: g.norm().item() for k, g in ref_grads.items()}
+    floor = WITNESS_FLOOR[torch.float32] * max(norm.values())
+    dist = {k: (got[k] - g).norm().item() for k, g in ref_grads.items()}
+    rel = sorted((d / max(norm[k], 1e-30) for k, d in dist.items()), reverse=True)
+    over = [k for k, d in dist.items() if d > WITNESS_TOL[torch.float32] * norm[k] + floor]
+    loss_rel = abs(loss - ref_loss.item()) / abs(ref_loss.item())
+    bounds = trainer.bounds
+    del trainer, got, ref_grads
+    torch.cuda.empty_cache()
+    micro = PipelineTrainer(model, loss_fn, PIPE_STAGES, devices=devices, microbatch=PIPE_MICRO,
+                            optimizer=make_optimizer(hyp, nb=1, epochs=1, batch_size=BATCH))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss_micro = micro.step(images, targets)
+    torch.cuda.synchronize()
+    t_micro = time.perf_counter() - t0
+    launches_micro = launch_counts()
+    per_stage = micro.per_device_param_bytes()
+    del micro
+    torch.cuda.empty_cache()
+    x = upload_images(images, torch.device("cuda"))
+    infer = pipeline_infer(model.eval(), devices, bounds[1], PIPE_MICRO)
+    reset_counts()
+    maps = infer(x)
+    torch.cuda.synchronize()
+    launches_infer = launch_counts()
+    with torch.no_grad():  # the same microbatches through the whole model, and the batch at once
+        per_micro = [torch.cat(level) for level in zip(*(model(x[i:i + PIPE_MICRO])
+                                                          for i in range(0, BATCH, PIPE_MICRO)))]
+        whole = model(x)
+
+    def err(a, b):
+        return max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(a, b))
+
+    infer_err, batch_err = err(maps, per_micro), err(maps, whole)
+    n_micro = BATCH // PIPE_MICRO
+    print(f"pipeline on {gpu}: full-width yolo-somi f32 in {PIPE_STAGES} stages on {devices} (rows {bounds}), b{BATCH} "
+          f"{IMGSZ} px: at microbatch {BATCH} loss {loss:.7f} / one process {ref_loss.item():.7f} (relative "
+          f"{loss_rel:.2e}), gradients' relative norm distance median {statistics.median(rel):.2e}, max {rel[0]:.2e} "
+          f"({len(over)} over {WITNESS_TOL[torch.float32]:.0e} plus {floor:.2e}), step {t_pipe * 1e3:.1f} ms (again "
+          f"{t_pipe2 * 1e3:.1f} ms) against {t_ref * 1e3:.1f} ms (forward and backward, one process), launches "
+          f"{launches}; at microbatch "
+          f"{PIPE_MICRO} ({n_micro} microbatches, optimizer on) loss {loss_micro:.7f}, step {t_micro * 1e3:.1f} ms, "
+          f"launches {launches_micro}, parameter bytes per stage {per_stage}; pipeline_infer at microbatch "
+          f"{PIPE_MICRO}: against the same microbatches through the model {infer_err:.2e} of the level's largest "
+          f"value, "
+          f"against the b{BATCH} forward {batch_err:.2e} (printed), launches {launches_infer}")
+    assert loss_rel <= 1e-5 and not over, (loss_rel, over[:5])
+    assert launches == only(odconv_s2=8, odconv_s2_dx=4, odconv_s2_dwmix=4), launches
+    assert np.isfinite(loss_micro)
+    assert launches_micro == only(odconv_s2=8 * n_micro, odconv_s2_dx=4 * n_micro, odconv_s2_dwmix=4 * n_micro)
+    assert launches_infer == only(odconv_s2=4 * n_micro), launches_infer
+    assert infer_err <= PIPE_TOL, infer_err
+    print(f"pipeline on {gpu}: phase 13c {time.perf_counter() - t_phase:.1f} s")
+
+
+def parallelism(gpu: str) -> dict:
+    """Phase 13: (a) data_parallel, (b) torchrun_epoch, (c) pipeline.
+    Returns (a)'s launches per rank by job."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = data_parallel(gpu, Path(tmp))
+        torchrun_epoch(gpu, Path(tmp))
+    pipeline(gpu)
+    print(f"data and pipeline parallelism on {gpu}: phase 13 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     def one(source):
@@ -2780,6 +3211,7 @@ def main() -> int:
         int8_summary, int8_served = int8_phase(gpu, Path(eval_dir.name), bf16_eval)
     finally:
         eval_dir.cleanup()
+    parallel = parallelism(gpu)
 
     kernels = [
         dict(kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111",
@@ -2812,6 +3244,10 @@ def main() -> int:
     ]
     for entry in kernels[:-1]:  # phase 10's shapes, bf16, sites times their launches on such a batch or step
         entry["recipe"] = {label: summary_fields(sums[entry["name"]]) for label, sums in at_recipe.items()}
+    for entry in kernels:  # phase 13(a): rank 0's launches in each data-parallel job
+        per_job = {job: counts[entry["name"]] for job, counts in parallel.items() if counts.get(entry["name"])}
+        if per_job:
+            entry["data_parallel_launches"] = per_job
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,192 @@
+"""Rank functions of the port's data-parallel tests, run on local ranks by
+yolosomi_tpu_torch.parallel.mesh.spawn_local (or in one process with no
+group, as the reference). This module imports neither jax nor
+tests/_torch_port_common.py (which imports jax), so a spawned rank never
+loads JAX, and it runs on a machine that has only PyTorch."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from yolosomi_tpu_torch.engine.optim import make_optimizer
+from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
+from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.models.yolo import build_model
+from yolosomi_tpu_torch.ops.odconv import odconv_s2, odconv_s2_dwmix, odconv_s2_dx
+from yolosomi_tpu_torch.parallel.mesh import shard_batch
+from yolosomi_tpu_torch.utils.weights import _leaves, export_jax_variables, load_jax_variables
+
+
+KERNELS = (odconv_s2, odconv_s2_dx, odconv_s2_dwmix)  # the kernels a flagship train step launches on CUDA
+
+
+def flat(tree) -> dict:
+    """A flax variable tree as {"a/b/c": array}."""
+    return {"/".join(p): np.asarray(v) for p, v in _leaves(tree)}
+
+
+def snapshot(state) -> dict:
+    """Parameters, BatchNorm statistics and the EMA of a TrainState, as
+    flat flax-layout numpy copies, and its optimizer step."""
+    v, e = export_jax_variables(state.model), export_jax_variables(state.ema.ema)
+    return dict(params=flat(v["params"]), batch_stats=flat(v["batch_stats"]), ema=flat(e["params"]),
+                opt_step=int(state.opt_state.step), ema_updates=int(state.ema.updates))
+
+
+def train_steps(group, cfg: dict, nc: int, variables: dict, hyp: dict, opt_kw: dict, batches: list,
+                accumulate: int = 1, device: str = "cpu", amp_dtype=None, snapshots: bool = True) -> list:
+    """The port's train step from `variables` (flax layout) over `batches`
+    [(images (B, H, W, 3), targets (B, M, 5))], global batches: with a
+    group each rank steps on its rows of each, else one process on all of
+    them. Returns per batch the metrics and (with `snapshots`) the state
+    after it; without, the state after the last batch only."""
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    if device.startswith("cuda"):  # full f32, as the card tests compare
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    model, meta = build_model(cfg, nc=nc, device=device)
+    unmatched, unused = load_jax_variables(model, variables)
+    assert not unmatched and not unused, (unmatched[:3], unused[:3])
+    opt = make_optimizer(dict(hyp), accumulate=accumulate, **opt_kw)
+    state = create_train_state(model, opt, accumulate=accumulate)
+    step = make_train_step(ComputeLoss(meta, dict(hyp)), opt, accumulate=accumulate, amp_dtype=amp_dtype, group=group)
+    out = []
+    for i, (images, targets) in enumerate(batches):
+        before = {k.__name__: k.launches for k in KERNELS}
+        m = step(state, shard_batch(images, rank, world), shard_batch(targets, rank, world))
+        rec = {"metrics": {k: float(v) for k, v in m.items()},
+               "launches": {k.__name__: k.launches - before[k.__name__] for k in KERNELS
+                            if k.launches != before[k.__name__]}}
+        if snapshots or i == len(batches) - 1:
+            rec.update(snapshot(state))
+        out.append(rec)
+    return out
+
+
+def step_grads(group, cfg: dict, nc: int, hyp: dict, images: np.ndarray, targets: np.ndarray,
+               dtype=torch.float64) -> dict:
+    """One train-mode forward, ComputeLoss and backward of `cfg` (seed-0
+    weights) in `dtype`, on this rank's rows of the global batch inside
+    mesh.reducing(group), its gradients summed over the ranks: the global
+    batch's loss and gradients, by parameter name."""
+    from yolosomi_tpu_torch.engine.trainer import upload_images
+    from yolosomi_tpu_torch.parallel import mesh
+
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    model, meta = build_model(cfg, nc=nc, device="cpu", seed=0)
+    model = model.to(dtype).train()
+    x = upload_images(shard_batch(images, rank, world), torch.device("cpu")).to(dtype)
+    with mesh.reducing(group):
+        loss, _ = ComputeLoss(meta, dict(hyp))(model(x), torch.as_tensor(shard_batch(targets, rank, world)))
+        names, params = zip(*model.named_parameters())
+        grads = list(torch.autograd.grad(loss, params))
+    loss = loss.detach()
+    if group is not None:
+        *grads, loss = mesh.all_reduce_flat(grads + [loss])
+    return dict(loss=loss.item(), grads={n: g.numpy().copy() for n, g in zip(names, grads)})
+
+
+def distill_grads(group, cfg: dict, nc: int, hyp: dict, images: np.ndarray, targets: np.ndarray,
+                  hint: float = 0.5, dtype=torch.float64) -> dict:
+    """step_grads with the distillation loss: `cfg` as the student (seed
+    0, FitNets adapters planted) and as the teacher (seed 1, its
+    objectness biases raised by 4 so that it is confident where the
+    soft-box and hint terms look), alpha 1 and `hint`."""
+    from yolosomi_tpu_torch.engine.distill import plant_adapters, wrap_loss_with_distillation
+    from yolosomi_tpu_torch.engine.trainer import upload_images
+    from yolosomi_tpu_torch.parallel import mesh
+
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    model, meta = build_model(cfg, nc=nc, device="cpu", seed=0)
+    teacher, t_meta = build_model(cfg, nc=nc, device="cpu", seed=1)
+    with torch.no_grad():
+        for level in teacher.model[-1].m:
+            level.b3.bias.view(t_meta.na, 5)[:, 4] += 4.0
+    level_map = tuple(range(meta.nl))
+    plant_adapters(model, meta, t_meta, level_map, seed=0)
+    model, teacher = model.to(dtype).train(), teacher.to(dtype).eval()
+    loss_fn = wrap_loss_with_distillation(ComputeLoss(meta, dict(hyp)), lambda t, im: t(im, features=hint > 0),
+                                          meta, alpha=1.0, teacher_anchors_px=t_meta.anchors_px[list(level_map)],
+                                          level_map=level_map, hint=hint)
+    x = upload_images(shard_batch(images, rank, world), torch.device("cpu")).to(dtype)
+    t = torch.as_tensor(shard_batch(targets, rank, world))
+    with mesh.reducing(group):
+        preds, feats = model(x, features=True)
+        loss, _ = loss_fn(preds, t, images=x, aux=teacher, feats=feats, params=model)
+        names, params = zip(*model.named_parameters())
+        grads = list(torch.autograd.grad(loss, params))
+    loss = loss.detach()
+    if group is not None:
+        *grads, loss = mesh.all_reduce_flat(grads + [loss])
+    return dict(loss=loss.item(), grads={n: g.numpy().copy() for n, g in zip(names, grads)})
+
+
+def train_run(group, kwargs: dict) -> dict:
+    """train.run(**kwargs) on this rank; returns its fitness and the final
+    state's parameters, BatchNorm statistics and EMA."""
+    from yolosomi_tpu_torch import train
+
+    states = []
+    create = train.create_train_state
+
+    def keep(*a, **kw):
+        states.append(create(*a, **kw))
+        return states[-1]
+
+    train.create_train_state = keep
+    try:
+        fi = train.run(**kwargs)
+    finally:
+        train.create_train_state = create
+    return dict(fitness=fi, **snapshot(states[-1]), rank=group.rank if group is not None else 0)
+
+
+def bn_global(group, x: np.ndarray, momentum: float, eps: float) -> dict:
+    """A FlaxBatchNorm1d over this rank's rows of `x` inside a data-parallel
+    step: its output, the gradients of sum(y * w_out) (w_out = the row
+    index + 1, so each rank's loss differs) with respect to x, the scale
+    and the bias, and the running statistics after it."""
+    from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d
+    from yolosomi_tpu_torch.parallel import mesh
+
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    c = x.shape[1]
+    bn = FlaxBatchNorm1d(c, eps=eps, momentum=momentum).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.linspace(0.5, 1.5, c))
+        bn.bias.copy_(torch.linspace(-0.2, 0.2, c))
+    xs = torch.from_numpy(np.ascontiguousarray(shard_batch(x, rank, world))).requires_grad_(True)
+    w_out = torch.arange(1, x.shape[0] + 1, dtype=torch.float32)[:, None].expand(-1, c)
+    with mesh.reducing(group):
+        y = bn(xs)
+        loss = (y * shard_batch(w_out, rank, world)).sum()
+        gx, gw, gb = torch.autograd.grad(loss, [xs, bn.weight, bn.bias])
+    if group is not None:
+        gw, gb = mesh.all_reduce_flat([gw, gb])
+    return dict(y=y.detach().numpy(), gx=gx.numpy(), gw=gw.numpy(), gb=gb.numpy(),
+                mean=bn.running_mean.numpy().copy(), var=bn.running_var.numpy().copy())
+
+
+def run_calls(group, calls: list) -> list:
+    """[fn(group, **kwargs) for fn, kwargs in calls]: several cases in one
+    spawn of the ranks."""
+    return [fn(group, **kwargs) for fn, kwargs in calls]
+
+
+def fail_on(group, rank: int) -> int:
+    """Raise on rank `rank`; the others return their rank."""
+    if group.rank == rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    return group.rank
+
+
+def hang(group, seconds: float) -> None:
+    """Rank 1 sleeps `seconds` while the others wait for it in a collective."""
+    import time
+
+    from yolosomi_tpu_torch.parallel import mesh
+
+    if group.rank == 1:
+        time.sleep(seconds)
+    mesh.barrier(group)

@@ -1015,3 +1015,93 @@ def test_conv_int8_gemm_tiles_match_the_kernel(cuda):
 
     assert [gemm_smem_of_kernel(i) for i in range(len(_BN_WIDTHS))] == [_gemm_smem(bn) for bn in _BN_WIDTHS]
     assert gemm_smem_of_kernel(len(_BN_WIDTHS)) == -1
+
+
+# ---------------------------------------------------------------------------
+# data and pipeline parallelism on one card (two ranks, two stages)
+# ---------------------------------------------------------------------------
+
+
+def _small_flagship_variables():
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    model, _ = build_model(cfg, nc=3, device="cpu", seed=0)
+    return cfg, export_jax_variables(model)
+
+
+def _global_batch(b: int = 4, size: int = 64):
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    t = np.full((b, 8, 5), -1, np.float32)
+    t[..., 1:] = 0
+    t[:, :2] = [[0, 0.3, 0.4, 0.2, 0.3], [2, 0.6, 0.6, 0.1, 0.1]]
+    return images, t
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_the_one_process_step(cuda):
+    """The small flagship, f32, global b4 at 64 px: two gloo ranks on
+    cuda:0 (b2 each) against one process's b4, two steps: the losses within
+    2e-4 relative (the CPU test's limit), both ranks the same parameter
+    bits, each rank launching the ODConv forward and both gradient kernels
+    4 times a step; every parameter's update within 1.0 relative norm of
+    one process's plus 1e-6 of the largest update, the median within 0.1
+    (the small flagship's f32 backward puts two f32 computations of one step
+    a median 3e-4 apart; the two runs agree to 5e-13 in f64 on the CPU)."""
+    import _torch_parallel_ranks as ranks  # tests/ is on the path under pytest, and so in the spawned ranks
+    from yolosomi_tpu_torch.parallel.mesh import spawn_local
+
+    cfg, variables = _small_flagship_variables()
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    batches = [_global_batch()] * 2
+    kw = dict(cfg=cfg, nc=3, variables=variables, hyp=hyp, opt_kw=dict(nb=2, epochs=1, batch_size=4),
+              batches=batches, device="cuda")
+    one = ranks.train_steps(None, **kw)
+    two = [r[0] for r in spawn_local(2, ranks.run_calls, [(ranks.train_steps, kw)], backend="gloo", timeout=300)]
+    for a, b in zip(two[0], two[1]):
+        assert a["metrics"] == b["metrics"] and a["launches"] == b["launches"]
+        for k, v in a["params"].items():
+            np.testing.assert_array_equal(b["params"][k], v, err_msg=k)
+    for got, want in zip(two[0], one):
+        np.testing.assert_allclose(got["metrics"]["loss"], want["metrics"]["loss"], rtol=2e-4)
+        assert got["launches"] == {"odconv_s2": 4, "odconv_s2_dx": 4, "odconv_s2_dwmix": 4}, got["launches"]
+    before = ranks.flat(variables["params"])
+    upd = {k: (two[0][-1]["params"][k] - v, one[-1]["params"][k] - v) for k, v in before.items()}
+    top = max(np.linalg.norm(w) for _, w in upd.values())
+    rel = [np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30) for g, w in upd.values() if np.linalg.norm(w) > 0]
+    assert all(np.linalg.norm(g - w) <= 1.0 * np.linalg.norm(w) + 1e-6 * top for g, w in upd.values())
+    assert np.median(rel) <= 0.1, np.median(rel)
+
+
+@pytest.mark.cuda
+def test_pipeline_trainer_on_one_card_matches_the_single_step(cuda):
+    """The small flagship in 2 stages on [cuda:0, cuda:0] at microbatch =
+    batch (b4, f32): the loss within 1e-5 relative of one process's step
+    and every gradient within 5e-5 relative norm plus 1e-6 of the largest
+    gradient's norm (chip_smoke's f32 witness limits: the same kernels on
+    the same operands, summed in another order), the forward kernel twice
+    a site (the recompute) and each gradient kernel once."""
+    from yolosomi_tpu_torch.engine.trainer import upload_images
+    from yolosomi_tpu_torch.parallel.pipeline import PipelineTrainer
+
+    cfg, _ = _small_flagship_variables()
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    model, meta = build_model(cfg, nc=3, device="cuda", seed=0)
+    ref = build_model(cfg, nc=3, device="cuda", seed=0)[0].train()
+    loss_fn = ComputeLoss(meta, hyp)
+    images, t = _global_batch()
+    ref_loss = loss_fn(ref(upload_images(images, torch.device("cuda"))), torch.as_tensor(t, device="cuda"))[0]
+    names, params = zip(*ref.named_parameters())
+    ref_grads = dict(zip(names, torch.autograd.grad(ref_loss, params)))
+    before = (odconv_s2.launches, odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+    trainer = PipelineTrainer(model, loss_fn, 2, devices=["cuda:0", "cuda:0"], microbatch=4)
+    loss = trainer.step(images, t)
+    torch.cuda.synchronize()
+    assert (odconv_s2.launches - before[0], odconv_s2_dx.launches - before[1],
+            odconv_s2_dwmix.launches - before[2]) == (8, 4, 4)
+    np.testing.assert_allclose(loss, ref_loss.item(), rtol=1e-5)
+    got = {k: v for g in trainer.grads for k, v in g.items()}
+    assert set(got) == set(ref_grads)
+    floor = 1e-6 * max(g.norm().item() for g in ref_grads.values())
+    for k, g in ref_grads.items():
+        assert (got[k] - g).norm().item() <= 5e-5 * g.norm().item() + floor, (k, _rel(got[k], g))

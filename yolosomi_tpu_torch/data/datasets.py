@@ -62,6 +62,7 @@ import numpy as np
 
 from yolosomi_tpu_torch.data import augment as A
 from yolosomi_tpu_torch.data.augment import letterbox
+from yolosomi_tpu_torch.parallel.mesh import shard_batch
 from yolosomi_tpu_torch.utils.boxes import letterbox_params, xywhn2xyxy, xyxy2xywhn
 from yolosomi_tpu_torch.utils.general import LOGGER
 
@@ -478,20 +479,20 @@ def collate_plan_batch(samples, max_labels: int = MAX_LABELS):
     return plan, pad_targets(list(labels), max_labels), list(paths), list(shapes)
 
 
-def collate_batch4(samples, max_labels: int = MAX_LABELS, rng: Optional[np.random.Generator] = None):
+def collate_batch4(samples, max_labels: int = MAX_LABELS, *, coins: np.ndarray):
     """The quad collate: each group of 4 samples becomes one image of twice
-    the size, with probability 1/2 (an `rng.random()` draw per group) the
-    first image upscaled 2x (INTER_LINEAR), else the four pasted 2 x 2 (i
-    top left, i + 1 below it, i + 2 right, i + 3 diagonal), the labels
-    shifted and halved. Returns images (B / 4, 2H, 2W, 3) uint8, targets
-    (B / 4, 4 max_labels, 5), and the first B / 4 paths and shapes."""
-    rng = rng or np.random.default_rng()
+    the size, with probability 1/2 (`coins[g]` < 0.5, the caller's draw per
+    group) the first image upscaled 2x (INTER_LINEAR), else the four pasted
+    2 x 2 (i top left, i + 1 below it, i + 2 right, i + 3 diagonal), the
+    labels shifted and halved. Returns images (B / 4, 2H, 2W, 3) uint8,
+    targets (B / 4, 4 max_labels, 5), and the first B / 4 paths and
+    shapes."""
     imgs, labels, paths, shapes = zip(*samples)
     n = len(imgs) // 4
     imgs4, labels4 = [], []
     for g in range(n):
         i = g * 4
-        if rng.random() < 0.5:
+        if coins[g] < 0.5:
             h, w = imgs[i].shape[:2]
             imgs4.append(cv2.resize(imgs[i], (2 * w, 2 * h), interpolation=cv2.INTER_LINEAR))
             labels4.append(labels[i])
@@ -520,18 +521,31 @@ class DataLoader:
     consumer's thread). The last batch is filled up by wrapping to the
     start (a rect dataset's stays short), or dropped with `drop_last`.
     `quad` (with a batch size that 4 divides) collates each batch by
-    collate_batch4 with the same generator; `plan` yields the dataset's
-    plans (plan_item, on the batch thread, whose draws stay in order)."""
+    collate_batch4 with coins from the same generator; `plan` yields the dataset's
+    plans (plan_item, on the batch thread, whose draws stay in order).
+
+    Data parallelism (`rank` of `world`): `batch_size` is the global
+    batch. Every rank draws the same order (or image-weight draw) from seed
+    + epoch and the same quad coins, and loads only its slice of each
+    global batch, rows [rank B / world, (rank + 1) B / world) (quad: whole
+    groups of 4, so the rank's quad images are those rows of the global
+    quad batch); a rect batch keeps the global batch's shape. A plan
+    loader yields the global batch's plans and targets on every rank (they
+    carry no pixels, and planning all of them keeps every rank's host
+    draws in the one-process order); the train step takes its rows."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int, shuffle: bool = False, prefetch: int = PREFETCH,
                  drop_last: bool = False, seed: int = 0, workers: Optional[int] = None, quad: bool = False,
-                 plan: bool = False):
+                 plan: bool = False, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"the global batch {batch_size} does not split over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle, self.prefetch, self.drop_last, self.seed = shuffle, prefetch, drop_last, seed
         self.workers = workers if workers is not None else min(8, os.cpu_count() or 1)
-        self.quad = quad and batch_size % 4 == 0
+        self.quad = quad and batch_size % (4 * world) == 0
         self.plan = plan
+        self.rank, self.world = rank, world
         self.sample_weights = None
         self.epoch = 0
 
@@ -557,12 +571,16 @@ class DataLoader:
                 sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
                 if len(sel) < self.batch_size and not rect:
                     sel = np.concatenate([sel, idx[: self.batch_size - len(sel)]])
+                coins = rng.random(len(sel) // 4) if self.quad else None  # the global batch's, in group order
+                if self.world > 1 and not self.plan:
+                    sel = shard_batch(sel, self.rank, self.world)
+                    coins = shard_batch(coins, self.rank, self.world) if coins is not None else None
                 sel = [int(i) for i in sel]
                 items = list(pool.map(getter, sel)) if pool else [getter(i) for i in sel]
                 if self.plan:
                     yield collate_plan_batch(items, max_labels)
                 elif self.quad:
-                    yield collate_batch4(items, max_labels, rng)
+                    yield collate_batch4(items, max_labels, coins=coins)
                 else:
                     yield collate_batch(items, max_labels)
         finally:

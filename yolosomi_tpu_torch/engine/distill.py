@@ -19,6 +19,10 @@ is normalized by the teacher map's own power. The adapters are the
 student model's `kd_adapter_<i>` modules (nn.Linear(Cs, Ct), the flax
 `params/kd_adapter_<i>/kernel` being its weight transposed), so the
 optimizer, the EMA and the checkpoints carry them (train.py plants them).
+Inside a data-parallel step (parallel.mesh.reducing) each rank returns its
+share of the global batch's terms, as ComputeLoss does: B is the global
+batch, the means are divided by the world size, and the normalisers of
+kd_cls, kd_box and the hint are all-reduced.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.nn as nn
 
 from yolosomi_tpu_torch.losses import bce_with_logits
 from yolosomi_tpu_torch.models.heads import decode_boxes_level
+from yolosomi_tpu_torch.parallel import mesh
 from yolosomi_tpu_torch.utils.iou import bbox_iou
 
 
@@ -41,6 +46,8 @@ def distill_loss(student_preds: Sequence[torch.Tensor], teacher_preds: Sequence[
     teacher-confident cells. `teacher_anchors_px` decodes the teacher's
     boxes with its own anchors (default: the student's)."""
     dev = student_preds[0].device
+    group = mesh.active()
+    world = group.world if group is not None else 1
     anchors_px = torch.as_tensor(np.asarray(anchors_px, np.float32), device=dev)
     t_anchors = (torch.as_tensor(np.asarray(teacher_anchors_px, np.float32), device=dev)
                  if teacher_anchors_px is not None else anchors_px)
@@ -49,15 +56,18 @@ def distill_loss(student_preds: Sequence[torch.Tensor], teacher_preds: Sequence[
         sp = sp.float()
         tp = tp.detach().float()
         t_obj = torch.sigmoid(tp[..., 4] / temp)
-        kd_obj = bce_with_logits(sp[..., 4] / temp, t_obj).mean()
+        kd_obj = bce_with_logits(sp[..., 4] / temp, t_obj).mean() / world
         t_cls = torch.sigmoid(tp[..., 5:] / temp)
         w = t_obj[..., None]
-        kd_cls = (bce_with_logits(sp[..., 5:] / temp, t_cls) * w).sum() / (w.sum() * max(sp.shape[-1] - 5, 1) + 1e-6)
+        m = (t_obj > obj_thr).float()
+        w_sum, m_sum = w.sum(), m.sum()
+        if group is not None:  # the global batch's normalisers, as values
+            w_sum, m_sum = mesh.all_reduce_flat([torch.stack([w_sum, m_sum])])[0]
+        kd_cls = (bce_with_logits(sp[..., 5:] / temp, t_cls) * w).sum() / (w_sum * max(sp.shape[-1] - 5, 1) + 1e-6)
         sb = decode_boxes_level(sp, anchors_px[i], float(strides[i]))
         tb = decode_boxes_level(tp, t_anchors[i], float(strides[i]))
-        m = (t_obj > obj_thr).float()
         ciou = bbox_iou(sb, tb, xywh=True, CIoU=True)
-        kd_box = ((1.0 - ciou) * m).sum() / (m.sum() + 1e-6)
+        kd_box = ((1.0 - ciou) * m).sum() / (m_sum + 1e-6)
         total = total + kd_obj + kd_cls + kd_box
     return total / max(len(student_preds), 1)
 
@@ -77,7 +87,10 @@ def hint_loss(student_feats: Sequence[torch.Tensor], teacher_feats: Sequence[tor
         t_obj = torch.sigmoid(tp[..., 4]).amax(-1)
         m = (t_obj > obj_thr).float()[..., None]
         num = (((proj - tf) ** 2) * m).sum()
-        den = ((tf ** 2) * m).sum() + 1e-6
+        den = ((tf ** 2) * m).sum()
+        if mesh.active() is not None:  # the global batch's teacher power, as a value
+            den = mesh.all_reduce_flat([den])[0]
+        den = den + 1e-6
         total = total + num / den
     return total / max(len(student_feats), 1)
 
@@ -135,12 +148,14 @@ def wrap_loss_with_distillation(base_loss: Callable, teacher_apply: Callable, me
                 t_feats = [t_feats[j] for j in level_map]
         kd = distill_loss(preds, t_preds, meta.anchors_px, meta.strides, obj_thr=obj_thr,
                           teacher_anchors_px=teacher_anchors_px)
-        total = total + alpha * kd * preds[0].shape[0]
+        group = mesh.active()
+        bs = preds[0].shape[0] * (group.world if group is not None else 1)  # the global batch
+        total = total + alpha * kd * bs
         if hint > 0.0 and feats is not None and t_feats is not None and params is not None:
             nhwc = lambda maps: [f.permute(0, 2, 3, 1) for f in maps]  # noqa: E731  (hint_loss takes JAX's layout)
             adapters = [getattr(params, f"kd_adapter_{i}").weight.t() for i in range(len(feats))]  # (Cs, Ct)
             h = hint_loss(nhwc(feats), nhwc(t_feats), adapters, t_preds, obj_thr=obj_thr)
-            total = total + hint * h * preds[0].shape[0]
+            total = total + hint * h * bs
         return total, comps
 
     loss_fn.needs_images = True

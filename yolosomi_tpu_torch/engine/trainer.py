@@ -35,6 +35,19 @@ teacher), and with `needs_features` the head-input maps of a
 `features=True` forward and the model (its adapters), as the JAX step
 passes them (trainer.py:118-171). The teacher runs in the loss, outside
 the remat segments; the hint's features and remat do not go together.
+
+`group` (parallel.mesh.DataGroup) makes the step one rank's part of a
+data-parallel step over a global batch of B = W b, equal to the
+one-process step on the global batch up to the order of f32 sums (JAX's
+mesh step, trainer.py:269-290): the forward, the loss and the backward
+run inside `mesh.reducing(group)` (global BatchNorm statistics, the
+loss's global normalisers), the gradients are summed over the ranks as one
+flat buffer per dtype right after autograd.grad, so the finite guard, the
+BatchNorm keep, --accumulate and the optimizer decide alike on every rank,
+and the metrics are the global batch's. The device preprocess draws for
+the global batch and keeps the rank's rows; with `device_mosaic` the
+loader hands every rank the global batch's plan and targets, and the step
+takes the rank's rows of both.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from yolosomi_tpu_torch.engine.optim import OptState, YoloOptimizer, named_param
 from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d, frozen_running_stats
 from yolosomi_tpu_torch.ops.mosaic_device import mosaic_mixup_batch
 from yolosomi_tpu_torch.ops.preprocess import normalize, preprocess_train_batch
+from yolosomi_tpu_torch.parallel import mesh
 
 
 @dataclass
@@ -121,11 +135,12 @@ class TrainStep:
     def __init__(self, loss_fn: Callable, optimizer: YoloOptimizer, accumulate: int = 1, freeze: int = 0,
                  amp_dtype: Optional[torch.dtype] = None, scale_to: Optional[int] = None,
                  device_preprocess: Optional[dict] = None, device_mosaic: Optional[int] = None,
-                 remat_segments: int = 0):
+                 remat_segments: int = 0, group: Optional[mesh.DataGroup] = None):
         self.loss_fn, self.optimizer = loss_fn, optimizer
         self.accumulate, self.freeze, self.amp_dtype = accumulate, freeze, amp_dtype
         self.scale_to, self.device_preprocess = scale_to, device_preprocess
         self.device_mosaic, self.remat_segments = device_mosaic, remat_segments
+        self.group = group
 
     def frozen(self, state: TrainState) -> List[bool]:
         prefixes = tuple(f"model.{i}." for i in range(self.freeze))
@@ -136,16 +151,19 @@ class TrainStep:
         on the parameters' device) and its targets, after the device
         mosaic, the device preprocess and the resize."""
         dev = state.params[0].device
+        rank, world = (self.group.rank, self.group.world) if self.group is not None else (0, 1)
         t = torch.as_tensor(targets, dtype=torch.float32).to(dev, non_blocking=True)
         if self.device_mosaic is not None:
             slab, plan = images
+            if world > 1:  # the global batch's plan and targets: this rank's rows
+                plan, t = mesh.shard_batch(plan, rank, world), mesh.shard_batch(t, rank, world)
             x = mosaic_mixup_batch(slab, plan, self.device_mosaic)
         else:
             x = _nhwc(images, dev)
         if self.device_preprocess is not None:
             # a stream per (seed, step): a resumed run replays the same draws
             gen = torch.Generator().manual_seed(int(self.device_preprocess.get("seed", 0)) * 2**32 + state.step)
-            x, t = preprocess_train_batch(x, t, gen, self.device_preprocess)
+            x, t = preprocess_train_batch(x, t, gen, self.device_preprocess, rank=rank, world=world)
         x = normalize(x).permute(0, 3, 1, 2)
         if self.scale_to is not None and self.scale_to != x.shape[2]:  # the height alone, as the JAX step tests
             x = F.interpolate(x, size=(self.scale_to, self.scale_to), mode="bilinear", align_corners=False,
@@ -163,22 +181,27 @@ class TrainStep:
                else contextlib.nullcontext())
         needs_feats = getattr(self.loss_fn, "needs_features", False)
         feats = None
-        with amp:
-            if self.remat_segments > 0:
-                if needs_feats:
-                    raise ValueError("--distill-hint is incompatible with --remat")
-                preds = remat_forward(model, x, self.remat_segments)
-            elif needs_feats:
-                preds, feats = model(x, features=True)
+        with mesh.reducing(self.group):
+            with amp:
+                if self.remat_segments > 0:
+                    if needs_feats:
+                        raise ValueError("--distill-hint is incompatible with --remat")
+                    preds = remat_forward(model, x, self.remat_segments)
+                elif needs_feats:
+                    preds, feats = model(x, features=True)
+                else:
+                    preds = model(x)
+            if getattr(self.loss_fn, "needs_images", False):  # distillation: the teacher runs in the loss
+                kw = {"feats": feats, "params": model} if needs_feats else {}
+                loss, comps = self.loss_fn(preds, t, images=x, aux=aux, **kw)
             else:
-                preds = model(x)
-        if getattr(self.loss_fn, "needs_images", False):  # distillation: the teacher runs in the loss
-            kw = {"feats": feats, "params": model} if needs_feats else {}
-            loss, comps = self.loss_fn(preds, t, images=x, aux=aux, **kw)
-        else:
-            loss, comps = self.loss_fn(preds, t)
-        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+                loss, comps = self.loss_fn(preds, t)
+            grads = torch.autograd.grad(loss, state.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads)]
+        loss = loss.detach()
+        if self.group is not None:  # the global batch's gradients, loss and components on every rank
+            *grads, summed = mesh.all_reduce_flat(grads + [torch.cat([loss.reshape(1), comps])])
+            loss, comps = summed[0], summed[1:]
         frozen = self.frozen(state)
         if self.freeze > 0:
             grads = [torch.zeros_like(g) if f else g for g, f in zip(grads, frozen)]
@@ -200,15 +223,16 @@ class TrainStep:
                 self.optimizer.update(state.opt_state, state.params, grads, state.groups, ok=finite, frozen=frozen)
                 state.ema.update(model, ok=finite)
         state.step += 1
-        return {"loss": loss.detach(), "lbox": comps[0], "lobj": comps[1], "lcls": comps[2], "grads_finite": finite}
+        return {"loss": loss, "lbox": comps[0], "lobj": comps[1], "lcls": comps[2], "grads_finite": finite}
 
 
 def make_train_step(loss_fn: Callable, optimizer: YoloOptimizer, accumulate: int = 1, freeze: int = 0,
                     amp_dtype: Optional[torch.dtype] = None, scale_to: Optional[int] = None,
                     device_preprocess: Optional[dict] = None, device_mosaic: Optional[int] = None,
-                    remat_segments: int = 0) -> TrainStep:
+                    remat_segments: int = 0, group: Optional[mesh.DataGroup] = None) -> TrainStep:
     """The train step; `amp_dtype` torch.bfloat16 runs the forward under
-    autocast (None: float32 throughout). The other options are the JAX
-    make_train_step's (the module docstring)."""
+    autocast (None: float32 throughout); `group` makes it a rank's part of a
+    data-parallel step. The other options are the JAX make_train_step's
+    (the module docstring)."""
     return TrainStep(loss_fn, optimizer, accumulate, freeze, amp_dtype, scale_to, device_preprocess, device_mosaic,
-                     remat_segments)
+                     remat_segments, group)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from yolosomi_tpu_torch.data.datasets import pad_targets  # noqa: F401  (the loss's target layout)
+from yolosomi_tpu_torch.parallel import mesh
 from yolosomi_tpu_torch.utils.boxes import xywh2xyxy
 from yolosomi_tpu_torch.utils.iou import bbox_iou, wasserstein, wasserstein_loss
 
@@ -141,7 +142,15 @@ class ComputeLoss:
     preds: the head's raw maps [(B, ny, nx, na, no), ...] (taken in f32,
     whatever their dtype); targets: (B, M, 5) padded as above, on the
     preds' device. `total` is the sum of the three gained terms times the
-    batch size; `components` is the detached (3,) [lbox, lobj, lcls]."""
+    batch size; `components` is the detached (3,) [lbox, lobj, lcls].
+
+    Inside a data-parallel step (parallel.mesh.reducing) each rank returns
+    its share of the global batch's loss, so that the shares and their
+    gradients sum to the one-process loss on the global batch: the
+    positives and the IoU sum behind the box and class normalisers and
+    SlideLoss's auto_iou are all-reduced (values), `bs` is the global
+    batch, and the per-rank means (objectness, repulsion) are divided by
+    the world size."""
 
     def __init__(self, meta, hyp: dict):
         self.na, self.nc, self.nl = meta.na, meta.nc, meta.nl
@@ -169,7 +178,9 @@ class ComputeLoss:
         anchors = self.anchors_grid.to(dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         lbox, lobj, lcls, lrep = zero, zero, zero, zero
-        bs = preds[0].shape[0]
+        group = mesh.active()  # a data-parallel step: this rank's share of the global batch's loss
+        world = group.world if group is not None else 1
+        bs = preds[0].shape[0] * world
         for i, pi in enumerate(preds):
             pi = pi.float()
             B, ny, nx, na, no = pi.shape
@@ -194,13 +205,15 @@ class ComputeLoss:
             tobj = torch.zeros((B, ny * nx * na), dtype=torch.float32, device=dev)
             tobj = tobj.scatter_reduce(1, cell, obj_val, "amax", include_self=True).reshape(B, ny, nx, na)
 
-            n_pos = maskf.sum()
+            n_pos, iou_sum = maskf.sum(), (iou_t * maskf).sum()
+            if group is not None:  # the global batch's positives and IoU sum, as values
+                n_pos, iou_sum = mesh.all_reduce_flat([torch.stack([n_pos, iou_sum])])[0]
             denom = n_pos + 1e-12
             if self.nwd > 0:
                 lbox = lbox + (1 - r) * ((1.0 - iou) * maskf).sum() / denom + r * ((1.0 - nwd) * maskf).sum() / denom
             else:
                 lbox = lbox + ((1.0 - iou) * maskf).sum() / denom
-            auto_iou = torch.where(n_pos > 0, (iou_t * maskf).sum() / denom, 0.5)
+            auto_iou = torch.where(n_pos > 0, iou_sum / denom, 0.5)
 
             if self.nc > 1:  # classification only with more than one class
                 t = torch.where(F.one_hot(lt.tcls, self.nc).bool(), self.cp, self.cn)
@@ -216,9 +229,9 @@ class ComputeLoss:
                 oloss = focal_modulation(oloss, pi[..., 4], tobj, self.fl_gamma)
             if self.slide_ratio > 0:
                 oloss = slide_modulation(oloss, tobj, auto_iou)
-            lobj = lobj + oloss.mean() * self.balance[i]
+            lobj = lobj + oloss.mean() / world * self.balance[i]
             if self.rep:
-                lrep = lrep + self.repulsion(pbox, lt).mean()
+                lrep = lrep + self.repulsion(pbox, lt).mean() / world
 
         lbox = lbox * self.hyp["box"]
         lobj = lobj * self.hyp["obj"]

@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from yolosomi_tpu_torch.ops.odconv import per_sample_conv
+from yolosomi_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
@@ -44,7 +45,17 @@ class _FlaxRunningStats:
     batch_norm call (momentum 1 into scratch buffers, which receive the
     mean and the unbiased variance); the variance is rescaled by (n-1)/n.
     With `update_stats` False (frozen_running_stats) it normalizes the same
-    way and leaves the running statistics alone."""
+    way and leaves the running statistics alone.
+
+    Inside a data-parallel train step (parallel.mesh.reducing) the
+    statistics are the global batch's, as under the JAX mesh: each rank
+    takes its exact two-pass moments in f32 (or the input's wider dtype),
+    the sum and the sum of squares about its own mean, and one
+    differentiable all-reduce of the stacked (2, C) float64 buffer
+    [sum, M2 + sum * mean] merges them into the global mean and biased
+    variance over n counted on every rank. Float64 keeps the merge free of
+    the cancellation that flax's one-pass E[x^2] - E[x]^2 suffers in f32
+    for a channel whose mean is far larger than its spread."""
 
     update_stats = True
 
@@ -52,6 +63,8 @@ class _FlaxRunningStats:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if mesh.active() is not None:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         if n == 1:  # one value a channel (ODConv's trunk under --quad at batch 4), which torch refuses:
             # flax's mean is the value and its variance 0, so the output is the bias
@@ -69,6 +82,28 @@ class _FlaxRunningStats:
             self.running_var.mul_(1.0 - m)
             if n > 1:
                 self.running_var.add_(var, alpha=m * (n - 1) / n)
+        return y
+
+    def _global_forward(self, x):
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1, *([1] * (x.dim() - 2)))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least f32, as flax reduces
+        n_r = x.numel() // x.shape[1]
+        s1 = xf.sum(dims)
+        d_r = xf - (s1 / n_r).view(shape)
+        s1, m2 = s1.double(), (d_r * d_r).sum(dims).double()
+        moments = mesh.all_reduce_sum(torch.stack([s1, m2 + s1 * s1 / n_r]))
+        n = float(n_r * mesh.active().world)
+        mean = moments[0] / n
+        var = moments[1] / n - mean * mean
+        mul = torch.rsqrt(var + self.eps) * self.weight.double()
+        y = ((xf - mean.to(xf.dtype).view(shape)) * mul.to(xf.dtype).view(shape)
+             + self.bias.to(xf.dtype).view(shape)).to(x.dtype)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach().to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach().to(self.running_var.dtype), alpha=m)
         return y
 
 

@@ -101,15 +101,20 @@ def affine_batch(images: torch.Tensor, mats: torch.Tensor, out_hw: Tuple[int, in
     return out
 
 
-def preprocess_train_batch(images: torch.Tensor, targets: torch.Tensor, gen: torch.Generator, hyp: dict):
+def preprocess_train_batch(images: torch.Tensor, targets: torch.Tensor, gen: torch.Generator, hyp: dict,
+                           rank: int = 0, world: int = 1):
     """normalize, then the HSV gains 1 + U(-1, 1) * (hsv_h, hsv_s, hsv_v),
     then flips with probabilities fliplr and flipud, each drawn per image
-    from `gen` (a CPU generator), in that order."""
-    B, dev = images.shape[0], images.device
+    from `gen` (a CPU generator), in that order. With `world` > 1 the
+    images are rank `rank`'s slice of a global batch of world x B: the
+    draws are the global batch's, and the slice takes its own rows."""
+    b, dev = images.shape[0], images.device
+    B = b * world
     images = normalize(images)
     gain = torch.tensor([hyp.get("hsv_h", 0.0), hyp.get("hsv_s", 0.0), hyp.get("hsv_v", 0.0)])
-    gains = 1.0 + (torch.rand((B, 3), generator=gen) * 2.0 - 1.0) * gain
-    do_lr = torch.rand(B, generator=gen) < hyp.get("fliplr", 0.0)
-    do_ud = torch.rand(B, generator=gen) < hyp.get("flipud", 0.0)
+    rows = slice(rank * b, (rank + 1) * b)
+    gains = (1.0 + (torch.rand((B, 3), generator=gen) * 2.0 - 1.0) * gain)[rows]
+    do_lr = (torch.rand(B, generator=gen) < hyp.get("fliplr", 0.0))[rows]
+    do_ud = (torch.rand(B, generator=gen) < hyp.get("flipud", 0.0))[rows]
     images = hsv_jitter(images, gains.to(dev, non_blocking=True))
     return flips(images, targets, do_lr.to(dev, non_blocking=True), do_ud.to(dev, non_blocking=True))

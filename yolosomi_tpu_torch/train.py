@@ -20,12 +20,26 @@ match. --evolve N runs N generations of the hyperparameter search
 (engine/evolve.py), each a training run named <name>_gen<i>, logged to
 <project>/evolve/evolve.csv; it returns the best fitness.
 
-Runs on CUDA unless --device names another device. Options of the JAX
+Runs on CUDA unless --device names another device. Data parallelism over
+N GPUs (the JAX CLI's mesh over every chip):
+
+    torchrun --standalone --nproc_per_node N -m yolosomi_tpu_torch.train ... --batch-size <global batch>
+
+--batch-size is the global batch, as in JAX; it must divide by N (by 4N
+under --quad). Each rank loads its slice of every global batch and the
+step is the one-process step on the global batch (parallel/mesh.py,
+engine/trainer.py): BatchNorm statistics are the global batch's, so
+--sync-bn changes nothing, as in JAX. Autoanchor runs on rank 0 and its
+anchors are broadcast; the multi-scale size comes from a generator seeded
+alike on every rank from (seed, epoch, batch); validation, results.csv,
+train_log.jsonl, the checkpoints and --evolve's mutation happen on rank 0,
+whose results every rank receives. Options of the JAX
 CLI that are not ported raise NotImplementedError naming their ROADMAP
 item. The DCN variant trains on CUDA through the sampling kernels' own
 gradient kernels (ops/dcn.py). Besides the JAX package's files, each run writes
-train_log.jsonl: one JSON object per epoch with its losses, metrics and
-host-clock timings.
+train_log.jsonl: one JSON object per epoch with its losses, metrics,
+host-clock timings and the launches of the hand-written kernels (this
+rank's train steps and, on rank 0, the val forwards).
 """
 
 from __future__ import annotations
@@ -56,19 +70,24 @@ from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.utils.autoanchor import check_anchors
 from yolosomi_tpu_torch.utils.callbacks import Callbacks
 from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg, load_hyp, load_model_cfg, save_yaml
+from yolosomi_tpu_torch.ops import dcn as dcn_ops, odconv as odconv_ops
 from yolosomi_tpu_torch.ops.mosaic_device import build_device_cache
+from yolosomi_tpu_torch.parallel import mesh
 from yolosomi_tpu_torch.utils.general import (LOGGER, check_img_size, get_latest_run, increment_path,
-                                              labels_to_class_weights, labels_to_image_weights, resolve_device)
+                                              labels_to_class_weights, labels_to_image_weights, log_rank,
+                                              resolve_device)
 from yolosomi_tpu_torch.utils.loggers import ResultsCSV
 from yolosomi_tpu_torch.utils.metrics import fitness
 from yolosomi_tpu_torch.utils.weights import load_jax_variables, load_matching_params, without_adapters
 
 # options of the JAX CLI this port does not have yet: (attribute, when it is on, what and its ROADMAP item)
 NOT_PORTED = (
-    ("sync_bn", lambda v: v, "--sync-bn and multi-GPU training are not ported yet (ROADMAP queue A item 6)"),
     ("upload_dataset", lambda v: v, "--upload-dataset (Weights & Biases) is not ported"),
 )
 MULTI_SCALE = (0.67, 0.83, 1.0, 1.17, 1.33)  # --multi-scale's factors of imgsz
+# the hand-written kernels a train step or a val forward may launch; each wrapper counts its launches
+TRAIN_KERNELS = ((odconv_ops, ("odconv_s2", "odconv_s2_dx", "odconv_s2_dwmix")),
+                 (dcn_ops, ("dcnv2_im2col", "dcnv3_core", "dcnv2_im2col_bwd", "dcnv3_core_bwd")))
 # heads whose DFL soft targets distillation does not cover, in the JAX package either
 _ANCHOR_FREE = ("DetectYOLOv8", "DetectYOLO8Head", "DetectV8", "DetectYolov11", "DetectV11")
 
@@ -130,23 +149,41 @@ def _teacher(opt, meta, nc: int, device, amp_dtype):
     return teacher, t_meta, level_map
 
 
+def _launches() -> dict:
+    return {name: getattr(mod, name).launches for mod, names in TRAIN_KERNELS for name in names}
+
+
 def _mean_losses(logged: list) -> np.ndarray:
     return np.mean(logged, 0) if logged else np.zeros(3)
 
 
 def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
-    """One training run; returns the best fitness."""
+    """One training run; returns the best fitness. Under a process group
+    (torchrun, or parallel.mesh.spawn_local) one rank of a data-parallel
+    run (the module docstring)."""
     _refuse_unported(opt)
     cache_mode = _cache_mode(opt, hyp)
-    callbacks = callbacks or Callbacks()
-    random.seed(opt.seed)
-    np.random.seed(opt.seed)
+    group = mesh.init_data_parallel()
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    main_rank = rank == 0
+    log_rank(rank)
+    if opt.batch_size % (world * (4 if opt.quad else 1)):
+        raise ValueError(f"--batch-size {opt.batch_size} (the global batch) must divide by {world} ranks"
+                         + (" times 4 under --quad" if opt.quad else ""))
+    callbacks = (callbacks or Callbacks()) if main_rank else Callbacks()
+    # the loader's host draws: a rank's own stream, except that plans (--cache device) are drawn alike on every rank
+    host_seed = opt.seed + (rank if cache_mode != "device" else 0)
+    random.seed(host_seed)
+    np.random.seed(host_seed)
     device = resolve_device(opt.device or None)
-    save_dir = increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok, mkdir=True)
-    (save_dir / "weights").mkdir(parents=True, exist_ok=True)
+    save_dir = increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok, mkdir=main_rank)
+    if group is not None:
+        save_dir = mesh.broadcast_object(save_dir, group)
     last, best = save_dir / "weights" / "last.ckpt", save_dir / "weights" / "best.ckpt"
-    save_yaml(save_dir / "hyp.yaml", hyp)
-    save_yaml(save_dir / "opt.yaml", vars(opt))
+    if main_rank:
+        (save_dir / "weights").mkdir(parents=True, exist_ok=True)
+        save_yaml(save_dir / "hyp.yaml", hyp)
+        save_yaml(save_dir / "opt.yaml", vars(opt))
     callbacks.run("on_pretrain_routine_start")
 
     data_dict = load_data_cfg(find_config(opt.data, "data"))
@@ -178,7 +215,10 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                                 max_labels=opt.max_labels, batch_size=opt.batch_size, stride=gs,
                                 cache_images=cache_mode == "ram")
     train_loader = DataLoader(train_ds, opt.batch_size, shuffle=not opt.rect, drop_last=True, workers=opt.workers,
-                              quad=opt.quad, plan=device_cache)
+                              quad=opt.quad, plan=device_cache, rank=rank, world=world)
+    if opt.sync_bn:
+        LOGGER.info("--sync-bn: BN statistics are always global-batch under the data-parallel step "
+                    "(SyncBN by construction)")
     nb = len(train_loader)
     if nb == 0:
         raise ValueError(f"{len(train_ds)} training images make no batch of {opt.batch_size}")
@@ -188,8 +228,14 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
     if opt.resume and ckpt is not None and ckpt.get("anchors") is not None:
         anchors = np.asarray(ckpt["anchors"], np.float32).reshape(meta.nl, -1).tolist()  # the run's own
     elif not opt.noautoanchor:
-        new = check_anchors(train_ds, meta, thr=hyp["anchor_t"], imgsz=imgsz, kmean=opt.kmean)
-        anchors = new.tolist() if new is not None else None
+        if main_rank:
+            new = check_anchors(train_ds, meta, thr=hyp["anchor_t"], imgsz=imgsz, kmean=opt.kmean)
+            anchors = new.tolist() if new is not None else None
+        if group is not None:
+            anchors = mesh.broadcast_object(anchors, group)
+    if group is not None and device_cache:  # rank 0's autoanchor drew from numpy: the plans' streams restart alike
+        random.setstate(mesh.broadcast_object(random.getstate(), group))
+        np.random.set_state(mesh.broadcast_object(np.random.get_state(), group))
     model, meta = build_model(cfg, nc=nc, device=device, dtype=torch.float32, seed=opt.seed, anchors=anchors,
                               compute_dtype=amp_dtype)
     meta.names = names
@@ -208,6 +254,10 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
         if opt.resume:
             start_epoch = int(ckpt.get("epoch", -1)) + 1
             best_fitness = float(ckpt.get("best_fitness", 0.0))
+    if group is not None:  # the same weights on every rank (replicate_tree)
+        mesh.replicate_(model)
+        if teacher is not None:
+            mesh.replicate_(teacher)
 
     accumulate = max(round(64 / opt.batch_size), 1) if opt.accumulate else 1
     optimizer = make_optimizer(hyp, nb=max(nb // accumulate, 1), epochs=opt.epochs, batch_size=opt.batch_size,
@@ -237,7 +287,8 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
     train_steps = {s: make_train_step(loss_fn, optimizer, accumulate=accumulate, freeze=opt.freeze,
                                       amp_dtype=amp_dtype, scale_to=s if opt.multi_scale else None,
                                       device_preprocess=dict(hyp, seed=opt.seed) if opt.device_preprocess else None,
-                                      device_mosaic=imgsz if device_cache else None, remat_segments=opt.remat)
+                                      device_mosaic=imgsz if device_cache else None, remat_segments=opt.remat,
+                                      group=group)
                    for s in sizes}
     if opt.multi_scale:
         LOGGER.info(f"multi-scale sizes: {sizes}")
@@ -246,20 +297,22 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
         slab = torch.from_numpy(build_device_cache(train_ds)[0]).to(device)
         LOGGER.info(f"--cache device: {slab.numel() / 1e9:.2f} GB train slab on {device}")
 
-    # validation: the EMA weights, copied each epoch into a model of the
-    # compute dtype, decoded with the run's anchors
-    val_runner = Runner(str(find_config(opt.cfg)), nc=nc, dtype=amp_dtype or torch.float32, imgsz=imgsz,
-                        device=device, seed=opt.seed)
-    val_runner.meta = meta
-    val_loader = DataLoader(DetectionDataset(data_dict["val"], img_size=imgsz), opt.batch_size)
-    results_csv = ResultsCSV(save_dir)
-    callbacks.register_action("on_fit_epoch_end", "results.csv", results_csv.log_epoch)
+    # validation on rank 0: the EMA weights, copied each epoch into a model
+    # of the compute dtype, decoded with the run's anchors
+    if main_rank:
+        val_runner = Runner(str(find_config(opt.cfg)), nc=nc, dtype=amp_dtype or torch.float32, imgsz=imgsz,
+                            device=device, seed=opt.seed)
+        val_runner.meta = meta
+        val_loader = DataLoader(DetectionDataset(data_dict["val"], img_size=imgsz), opt.batch_size)
+        results_csv = ResultsCSV(save_dir)
+        callbacks.register_action("on_fit_epoch_end", "results.csv", results_csv.log_epoch)
     stopper = EarlyStopping(patience=opt.patience)
-    ckpt_writer = AsyncCheckpointer()
+    ckpt_writer = AsyncCheckpointer() if main_rank else None
     log_every = max(nb // 10, 1)
     LOGGER.info(f"Image sizes {imgsz} train/val, {len(train_ds)} images, {nb} batches/epoch, device {device}, "
-                f"{'bf16' if amp_dtype else 'f32'}, accumulate {accumulate}. Starting training for {opt.epochs} "
-                f"epochs...")
+                f"{'bf16' if amp_dtype else 'f32'}, accumulate {accumulate}"
+                + (f", {world} data-parallel ranks of {opt.batch_size // world} images" if group else "")
+                + f". Starting training for {opt.epochs} epochs...")
     callbacks.run("on_pretrain_routine_end")
     callbacks.run("on_train_start")
 
@@ -272,6 +325,7 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
             final_epoch = epoch
             callbacks.run("on_train_epoch_start")
             t_ep = time.perf_counter()
+            launched = _launches()
             if opt.image_weights:  # sampling weighted to the classes the model finds hard
                 cw = labels_to_class_weights(train_ds.labels, nc) * (1 - maps) ** 2 / nc
                 train_loader.sample_weights = labels_to_image_weights(train_ds.labels, nc, cw)
@@ -283,7 +337,9 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                 t_a = time.perf_counter()
                 images, targets, _, _ = next(it)
                 t_wait += time.perf_counter() - t_a
-                step = train_steps[random.choice(sizes)]
+                # the same size on every rank: a generator seeded from (seed, epoch, batch)
+                size = sizes[int(np.random.default_rng((opt.seed, epoch, i)).integers(len(sizes)))]
+                step = train_steps[size]
                 metrics = step(state, (slab, images) if device_cache else images, targets, aux=teacher)
                 if pending is not None:
                     logged.append(_log_step(epoch, opt.epochs, nb, *pending, losses))
@@ -305,12 +361,14 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
             t_val = time.perf_counter()
             val_ran = (not opt.noval and epoch % max(opt.val_period, 1) == 0) or epoch == opt.epochs - 1
             results = (0.0,) * 7
-            if val_ran:
+            if val_ran and main_rank:
                 val_runner.model.load_state_dict({k: v for k, v in state.ema.ema.state_dict().items()
                                                   if not k.startswith("kd_adapter_")})
                 results, maps, _ = validate.run(data_dict, batch_size=opt.batch_size, imgsz=imgsz, runner=val_runner,
                                              project=str(save_dir), name="val", exist_ok=True, names=names,
                                              single_cls=opt.single_cls, compute_loss=loss_fn, dataloader=val_loader)
+            if val_ran and group is not None:  # rank 0's results decide best, early stopping and image weights
+                results, maps = mesh.broadcast_object((tuple(results), maps), group)
             t_val = time.perf_counter() - t_val
             fi = float(fitness(np.array(results[:4])))
             best_fitness = max(best_fitness, fi)
@@ -321,13 +379,15 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                       "opt_step": opt_step, "lr": current_lr(hyp, opt_step, max(nb // accumulate, 1), opt.epochs,
                                                              opt.linear_lr),
                       "loss": mloss.tolist(), "results": list(results),
-                      "fitness": fi, "train_s": t_train, "loader_wait_s": t_wait, "val_s": t_val}
+                      "fitness": fi, "train_s": t_train, "loader_wait_s": t_wait, "val_s": t_val,
+                      "kernel_launches": {k: v - launched[k] for k, v in _launches().items()}}
             if device.type == "cuda":
                 record["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
-            with open(save_dir / "train_log.jsonl", "a") as f:
-                f.write(json.dumps(record) + "\n")
+            if main_rank:
+                with open(save_dir / "train_log.jsonl", "a") as f:
+                    f.write(json.dumps(record) + "\n")
 
-            if not opt.nosave or epoch == opt.epochs - 1:
+            if (not opt.nosave or epoch == opt.epochs - 1) and main_rank:
                 improved = fi > prev_best
                 prev_best = max(prev_best, fi)
                 if epoch % max(opt.ckpt_period, 1) == 0 or improved or epoch == opt.epochs - 1:
@@ -338,17 +398,24 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                     callbacks.run("on_model_save", paths, epoch, fi)
             LOGGER.info(f"epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s (train {t_train:.1f}s, loader "
                         f"wait {t_wait:.1f}s, val {t_val:.1f}s) fitness {fi:.4f}")
+            if group is not None:
+                mesh.barrier(group)
             if val_ran and stopper(epoch, fi):
                 LOGGER.info(f"early stopping at epoch {epoch} (patience {opt.patience})")
-                ckpt_writer.save([last], state, epoch=epoch, best_fitness=best_fitness, anchors=anchors_out)
+                if main_rank:
+                    ckpt_writer.save([last], state, epoch=epoch, best_fitness=best_fitness, anchors=anchors_out)
                 break
     finally:
-        ckpt_writer.close()
+        if ckpt_writer is not None:
+            ckpt_writer.close()
     LOGGER.info(f"{final_epoch - start_epoch + 1} epochs in {(time.time() - t0) / 3600:.3f}h")
-    for f in (last, best):
-        if f.exists():
-            strip_checkpoint(f, f.with_suffix(".msgpack"))
+    if main_rank:
+        for f in (last, best):
+            if f.exists():
+                strip_checkpoint(f, f.with_suffix(".msgpack"))
     callbacks.run("on_train_end", last, best, final_epoch)
+    if group is not None:  # every rank returns once the run's files are written
+        mesh.barrier(group)
     return best_fitness
 
 
@@ -418,11 +485,25 @@ def parse_opt(argv=None):
     parser.add_argument("--remat", type=int, default=0, metavar="N",
                         help="recompute the forward in N checkpointed segments in the backward")
     parser.add_argument("--upload-dataset", action="store_true", help="not ported")
-    parser.add_argument("--sync-bn", action="store_true", help="not ported yet")
+    parser.add_argument("--sync-bn", action="store_true",
+                        help="accepted: BatchNorm statistics are always the global batch's, as in JAX")
     return parser.parse_args(argv)
 
 
 def main(opt):
+    """The CLI: --resume's options, --evolve's generations, or one run. Under
+    torchrun it initialises the process group from the environment and
+    ends it at the end."""
+    owned = mesh.current_group() is None
+    group = mesh.init_data_parallel()
+    try:
+        return _main(opt, group)
+    finally:
+        if group is not None and owned:
+            torch.distributed.destroy_process_group()
+
+
+def _main(opt, group):
     if opt.resume and not opt.weights:
         # a bare --resume: the newest run under --project, with its opt.yaml
         last = opt.resume if isinstance(opt.resume, str) else get_latest_run(opt.project)
@@ -446,10 +527,13 @@ def main(opt):
         opt.noval, opt.exist_ok = False, True
         base_name, best = opt.name, 0.0
         for gen in range(int(opt.evolve)):
-            hyp_g = mutate(hyp, evolve_csv)
+            hyp_g = mutate(hyp, evolve_csv) if group is None or group.is_main else None
+            if group is not None:  # rank 0's mutation on every rank
+                hyp_g = mesh.broadcast_object(hyp_g, group)
             opt.name = f"{base_name}_gen{gen}"
             fi = train(dict(hyp_g), opt)
-            log_generation(evolve_csv, hyp_g, fi)
+            if group is None or group.is_main:
+                log_generation(evolve_csv, hyp_g, fi)
             best = max(best, fi)
         LOGGER.warning("plot_evolve is not ported (utils/plots.py, ROADMAP queue A item 9): no evolve.png")
         LOGGER.info(f"evolution complete: best fitness {best:.4f} ({evolve_csv})")

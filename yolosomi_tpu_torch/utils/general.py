@@ -1,5 +1,5 @@
 """General helpers: logger, channel rounding, image-size check, run
-directories, the latest run, device resolution, and the class and image
+directories, the latest run, device resolution, per-rank logging, and the class and image
 weights of --image-weights (counterparts of
 yolosomi_tpu/utils/general.py:23-108, :117-141)."""
 
@@ -69,12 +69,21 @@ def get_latest_run(search_dir: str = ".") -> str:
 def resolve_device(device=None) -> torch.device:
     """Entry points run on CUDA unless the caller names another device.
     With no device given and no GPU present this raises instead of
-    silently running on the CPU."""
+    silently running on the CPU. Under torchrun (LOCAL_RANK set) CUDA is
+    the rank's own card, cuda:LOCAL_RANK."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
         device = "cuda"
+    if device == "cuda" and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
     return torch.device(device)
+
+
+def log_rank(rank: int) -> None:
+    """Rank 0 logs everything; the other ranks of a data-parallel run
+    only warnings."""
+    LOGGER.setLevel(logging.INFO if rank == 0 else logging.WARNING)
 
 
 def labels_to_class_weights(labels, nc: int = 80) -> np.ndarray:
