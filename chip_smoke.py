@@ -198,6 +198,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     its per-stage parameter bytes, and pipeline_infer against the model's
     forward of the same microbatches; step times beside the card's name
     and power limit
+14. spatial sharding (parallel/spatial.py; one card stands in for two):
+    dcnv2_im2col and dcnv3_core at yolo-somi-dcn's sites (b2, 640 px) on
+    the second strip's output rows (row0 half the rows) against their plain
+    versions at row0, bitwise the whole call's rows and in f32 against
+    grid_sample at the strip's points, timed beside the whole call and
+    grid_sample and bounded by the map rows the strip's points touch;
+    odconv_s2 against its plain version at the shapes each strip gives it
+    (its rows plus the two above); then the full-width flagship at b2
+    1280x1280 and
+    yolo-somi-dcn at b2 640 px (seed 0, head tempered, offset heads
+    randomised), each in f32 (TF32 off) and bf16, served in one process and
+    then over SP_WORLD = 2 H-strips on gloo ranks sharing cuda:0: every
+    rank's launches per forward (4; DCN 4 + 9 + 1), the counts set to 0
+    just before the forward; both ranks the same rows; in f32 and bf16 the
+    sharded head maps no further from the float64 model (under
+    plain_version()) than twice the unsharded model of the same dtype is
+    (phase 5's rule), in f32 the rows too, as many kept; per-rank peak
+    memory, batch times and the bytes each rank all-reduces, beside one
+    process's peak and its largest allocation
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -252,6 +271,7 @@ from yolosomi_tpu_torch.ops.odconv import (OdconvS2Function, _dw_plan, _dw_split
                                            odconv_s2_reference, plain_version)
 from yolosomi_tpu_torch.parallel import mesh
 from yolosomi_tpu_torch.parallel.pipeline import PipelineTrainer, pipeline_infer
+from yolosomi_tpu_torch.parallel.spatial import strip_plan
 from yolosomi_tpu_torch.serve import DetectionServer
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.config import find_config, load_hyp, load_model_cfg
@@ -3121,6 +3141,355 @@ def parallelism(gpu: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: spatial sharding
+# ---------------------------------------------------------------------------
+
+SP_WORLD = 2  # gloo ranks sharing cuda:0, one H-strip each (parallel/spatial.py)
+SP_BATCH, SP_REPS = 2, 3  # images a batch; timed batches a job, after one untimed
+SP_CONF = 0.25
+# the yardstick of both dtypes: the unsharded model in float64 under
+# plain_version() (phase 5's rule for the kernels' path): a sharded model's
+# head maps, level by level, no further from it than SP_RULE times the
+# unsharded model's of the same dtype, plus SP_FLOOR of the level's largest
+# value (f32 rounding a few hundred ulps deep: at 256 px on the CPU a
+# level of the sharded small flagship lay 4.4e-5 from float64 where the
+# unsharded one lay 2.1e-5; a wrong halo moves maps by a tenth of their
+# values). In f32 the rows too: as many kept as one process keeps, as many
+# left unmatched by the float64 rows, scores (plus SP_FLOOR) and boxes
+# (plus SP_BOX_FLOOR of the image side, px) no further from them than
+# SP_RULE times one process's: a box's largest distance is one row's, a
+# noisier yardstick than a level's (at 256 px on the CPU a sharded small
+# flagship's rows lay 0.0136 px from float64, the unsharded one's 0.0058;
+# a wrong halo moves a box by pixels). In bf16 the rows are
+# printed, not held: rounding there moves the kept set itself (the
+# unsharded bf16 flagship at 1280 px keeps 2 rows the float64 model does
+# not, and its matched scores lie up to 0.74 off, on an NVIDIA H100 80GB
+# HBM3 at 700 W)
+SP_RULE, SP_FLOOR, SP_BOX_FLOOR = 2.0, 1e-5, 1e-4
+# (config, dtype, image side) of the sharded serving jobs
+SP_JOBS = (("yolo-somi", torch.float32, 1280), ("yolo-somi", torch.bfloat16, 1280),
+           ("yolo-somi-dcn", torch.float32, 640), ("yolo-somi-dcn", torch.bfloat16, 640))
+
+
+def sp_runner(cfg_name: str, dtype, shards: int = 1) -> Runner:
+    """The full-width `cfg_name` from seed 0 (nc 10, head tempered, DCN
+    offset heads randomised) in `dtype` on cuda:0, TF32 off; sharded over
+    `shards` strips of the running process group when shards > 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runner = Runner(cfg_name, dtype=dtype, device="cuda", seed=0, spatial_shards=shards)
+    temper_head(runner.model, HEAD_TEMPER)
+    randomize_offset_heads(runner.model, seed=0)
+    return runner
+
+
+def sp_images(size: int) -> np.ndarray:
+    return np.random.default_rng(14).integers(0, 256, (SP_BATCH, size, size, 3), dtype=np.uint8)
+
+
+def level_errors(preds: list, ref: list) -> list:
+    """Each head level's largest |pred - ref| and largest |ref|."""
+    return [((p.double() - r.double()).abs().max().item(), r.double().abs().max().item()) for p, r in zip(preds, ref)]
+
+
+def row_distance(got: np.ndarray, want: np.ndarray) -> dict:
+    """Each valid row of `got` matched to the nearest free valid row of
+    `want` of its class (by its box): the rows left unmatched on either
+    side, and the largest box (px) and score distances of the matches."""
+    unmatched, box, score = 0, 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g[g[:, 4] > 0].astype(np.float64), w[w[:, 4] > 0].astype(np.float64)
+        unmatched += abs(len(g) - len(w))
+        free = np.ones(len(w), bool)
+        for row in g:
+            cand = np.flatnonzero(free & (w[:, 5] == row[5]))
+            if not len(cand):
+                continue
+            d = np.abs(w[cand, :4] - row[:4]).max(1)
+            j = cand[np.argmin(d)]
+            free[j] = False
+            box, score = max(box, d.min()), max(score, abs(w[j, 4] - row[4]))
+    return dict(unmatched=unmatched, box=box, score=score)
+
+
+def largest_allocation(runner: Runner, images: np.ndarray) -> tuple:
+    """(MB, maker) of the largest allocation of one forward, from the
+    caching allocator's history: the maker is the first frame of its stack
+    outside the allocator (a cuDNN plan's workspace shows as
+    at::native::run_conv_plan)."""
+    torch.cuda.memory._record_memory_history(max_entries=200000)
+    try:
+        runner.forward(images)
+        torch.cuda.synchronize()
+        snapshot = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    top = max((e for trace in snapshot["device_traces"] for e in trace if e["action"] == "alloc"),
+              key=lambda e: e["size"])
+    names = [f.get("name", "") for f in top.get("frames", [])]
+    maker = next((m for m in names if "Allocator" not in m and "unwind" not in m and "Traceback" not in m
+                  and "gather_with_cpp" not in m), "?")
+    return top["size"] / 1e6, re.split(r"[(<]", maker)[0]
+
+
+def odconv_strip_sites(cfg_name: str, size: int) -> list:
+    """odconv_s2's sites in `cfg_name`'s sharded forward of a SP_BATCH x
+    size-px batch over SP_WORLD strips, as ODConv2d's strip path calls it:
+    each distinct strip height's rows at the site's level plus the two rows
+    above them."""
+    with torch.device("meta"):
+        _, meta = parse_model(load_model_cfg(find_config(cfg_name)))
+    plan = strip_plan(size, SP_WORLD, int(max(meta.strides)))
+    heights = sorted({b - a for a, b in zip(plan.bounds, plan.bounds[1:])})
+    return [(row, (n, h + 2, w, c), ws) for px in heights
+            for row, (n, h, w, c), ws in odconv_sites(meta, SP_BATCH, (px, size))]
+
+
+def sp_ref64(cfg_name: str, size: int, ref_dir: str) -> None:
+    """The yardstick: sp_runner's model in float64 under plain_version(),
+    one image at a time; its head maps and rows go to `ref_dir`."""
+    runner = sp_runner(cfg_name, torch.float64)
+    images = sp_images(size)
+    with plain_version():
+        preds = [torch.cat(levels) for levels in zip(*(runner.forward(images[i:i + 1]) for i in range(SP_BATCH)))]
+        out = runner(images, conf_thres=SP_CONF)
+    torch.save(dict(preds=[p.cpu() for p in preds], out=torch.from_numpy(out)),
+               Path(ref_dir) / f"sp_{cfg_name.replace('/', '_')}_float64.pt")
+    del runner, preds
+    torch.cuda.empty_cache()
+
+
+def sp_job(group, cfg_name: str, dtype, size: int, ref_dir: str) -> dict:
+    """One serving job: sp_runner's model answers a b2 batch of size-px
+    uint8 images. In one process (no group) its head maps and rows go to
+    `ref_dir`; on a rank of a group the model runs sharded. Either way its
+    distances from the float64 yardstick's maps and rows in `ref_dir` are
+    returned, and a rank's from the unsharded model's too. Every count is
+    set to 0 just before the forward and read just after it; the peak
+    memory above the model's own bytes, the rows kept at SP_CONF and
+    SP_REPS timed batches (forward, gather, postprocess) are returned, and
+    in one process the largest allocation of a forward."""
+    shards = group.world if group is not None else 1
+    runner = sp_runner(cfg_name, dtype, shards)
+    images = sp_images(size)
+    runner(images, conf_thres=SP_CONF)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    preds = runner.forward(images)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    out = runner(images, conf_thres=SP_CONF)
+    assert out.shape == (SP_BATCH, 300, 6) and np.isfinite(out).all() and all(torch.isfinite(p).all() for p in preds)
+    times = []
+    for _ in range(SP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(images, conf_thres=SP_CONF)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    name = f"sp_{cfg_name.replace('/', '_')}"
+    ref64 = torch.load(Path(ref_dir) / f"{name}_float64.pt")
+    res = dict(launches=launches, peak=peak, model_bytes=base, times=times, kept=int((out[..., 4] > 0).sum()),
+               vs64=level_errors(preds, [r.cuda() for r in ref64["preds"]]),
+               rows64=row_distance(out, ref64["out"].numpy()))
+    if group is None:
+        res["largest"] = largest_allocation(runner, images)
+        torch.save(dict(preds=[p.cpu() for p in preds], out=torch.from_numpy(out)),
+                   Path(ref_dir) / f"{name}_{str(dtype)[6:]}.pt")
+    else:
+        ref = torch.load(Path(ref_dir) / f"{name}_{str(dtype)[6:]}.pt")
+        res.update(exchange=dict(runner.exchange), strip=runner.spatial.index, out=out,
+                   vs_one=level_errors(preds, [r.cuda() for r in ref["preds"]]),
+                   rows_one=row_distance(out, ref["out"].numpy()))
+    del runner, preds
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_ranks(group, jobs: list) -> list:
+    return [sp_job(group, **job) for job in jobs]
+
+
+def rows_read(py: torch.Tensor, H: int) -> int:
+    """Rows of an H-row map that bilinear samples at rows `py` touch: from
+    the lowest point's top corner row to the highest one's bottom corner
+    row, clipped to the map."""
+    y0 = py.floor()
+    return int((y0.max() + 1).clamp(0, H - 1)) - int(y0.min().clamp(0, H - 1)) + 1
+
+
+def check_row0(gen: torch.Generator) -> dict:
+    """dcnv2_im2col and dcnv3_core on the second strip's output rows (row0 =
+    half the rows) of yolo-somi-dcn's sites at SP_BATCH x 640 px, as a
+    sharded forward calls them: against their plain versions at row0
+    (DCN_TOL), bitwise against the whole call's rows and, in f32, against
+    grid_sample at the strip's points; the strip call timed beside the
+    whole call and grid_sample, and bounded by the map rows its points
+    touch. Returns each kernel's bf16 summary of the strip call, sites
+    times their launches."""
+    v2_sites, v3_sites = dcn_sites("yolo-somi-dcn", SP_BATCH, 640)
+    sums = {"dcnv2_im2col": new_summary(), "dcnv3_core": new_summary()}
+    for row, count, xs, k, s, p in v2_sites:
+        N, H, W, C = xs
+        Ho, Wo, P = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1, k * k
+        row0 = Ho // 2
+        x32 = torch.randn(xs, device="cuda", generator=gen)
+        oy32, ox32 = ((torch.rand((2, N, Ho, Wo, P), device="cuda", generator=gen) - 0.5) * 8).unbind(0)
+        m32 = torch.sigmoid(torch.randn((N, Ho, Wo, P), device="cuda", generator=gen))
+        for dtype in (torch.float32, torch.bfloat16):
+            x, oy, ox, m = (t.to(dtype).contiguous() for t in (x32, oy32, ox32, m32))
+            part = [t[:, row0:].contiguous() for t in (oy, ox, m)]
+            whole = dcnv2_im2col(x, oy, ox, m, k, s, p).view(N, Ho, Wo, -1)
+            got = dcnv2_im2col(x, *part, k, s, p, row0=row0)
+            torch.cuda.synchronize()
+            ref = dcnv2_im2col_reference(x.float(), *(t.float() for t in part), k, s, p, row0=row0)
+            err = (got.float() - ref).abs().max().item()
+            torch.testing.assert_close(got.float(), ref, **DCN_TOL[dtype])
+            assert torch.equal(got.view(N, Ho - row0, Wo, -1), whole[:, row0:]), f"dcnv2_im2col row {row} row0"
+            py = (torch.arange(row0, Ho, device="cuda") * s - p)[None, :, None, None] + torch.arange(
+                k, device="cuda").repeat_interleave(k) + part[0].float()
+            px = (torch.arange(Wo, device="cuda") * s - p)[None, None, :, None] + torch.arange(
+                k, device="cuda").repeat(k) + part[1].float()
+            # the library call: grid_sample over the strip's points of the whole map, as phase 3 times it
+            xin = x.permute(0, 3, 1, 2).contiguous()
+            grid = grid_of(px, py, H, W, dtype).reshape(N, (Ho - row0) * Wo, P, 2)
+            library = lambda: F.grid_sample(xin, grid, mode="bilinear", padding_mode="zeros",  # noqa: E731
+                                            align_corners=False)
+            if dtype == torch.float32:  # an independent check of the strip's sampling points
+                alt = (library() * part[2].reshape(N, 1, -1, P)).permute(0, 2, 3, 1).reshape(got.shape)
+                torch.testing.assert_close(got, alt, **DCN_TOL[dtype])
+            kernel_ms = time_ms(lambda: dcnv2_im2col(x, *part, k, s, p, row0=row0))
+            whole_ms = time_ms(lambda: dcnv2_im2col(x, oy, ox, m, k, s, p))
+            plain_ms = time_ms(lambda: dcnv2_im2col_reference(x, *part, k, s, p, row0=row0))
+            library_ms = time_ms(library)
+            nbytes = (N * rows_read(py, H) * W * C + 3 * part[0].numel() + got.numel()) * x.element_size()
+            bound = roofline(nbytes, 2.0 * C * valid_corners(px, py, H, W), PEAK_FLOPS[torch.float32])
+            print(f"row0 dcnv2_im2col row {row} x{tuple(xs)} output rows {row0}..{Ho - 1} of {Ho} {str(dtype)[6:]}: "
+                  f"kernel_ms {kernel_ms:.4f} (whole map's rows {whole_ms:.4f}) plain_ms {plain_ms:.4f} "
+                  f"library_ms {library_ms:.4f} (grid_sample, sampling only) bound_ms {bound[0]:.4f} ({bound[1]}; "
+                  f"x rows {rows_read(py, H)} of {H}) max_abs_err {err:.3e}; bitwise the whole call's rows")
+            if dtype == torch.bfloat16:
+                add_site(sums["dcnv2_im2col"], count, kernel_ms, plain_ms, library_ms, bound, err)
+                sums["dcnv2_im2col"]["whole_ms"] = sums["dcnv2_im2col"].get("whole_ms", 0.0) + count * whole_ms
+    for site in v3_sites:
+        row, count = site[:2]
+        d = dcnv3_site(site, gen)
+        N, H, W, G, Cg, Ho, Wo, P = d["shape"]
+        row0, args = Ho // 2, d["args"]
+        for dtype in (torch.float32, torch.bfloat16):
+            v, o, m = (d[key].to(dtype).contiguous() for key in ("v32", "o32", "m32"))
+            po, pm = o[:, row0:].contiguous(), m[:, row0:].contiguous()
+            whole = dcnv3_core(v, o, m, *args)
+            got = dcnv3_core(v, po, pm, *args, row0=row0)
+            torch.cuda.synchronize()
+            ref = dcnv3_core_reference(v.float(), po.float(), pm.float(), *args, row0=row0)
+            err = (got.float() - ref).abs().max().item()
+            torch.testing.assert_close(got.float(), ref, **DCN_TOL[dtype])
+            assert torch.equal(got, whole[:, row0:]), f"dcnv3_core row {row} row0"
+            px, py = d["px"][:, row0:], d["py"][:, row0:]
+            vin = v.reshape(N, H, W, G, Cg).permute(0, 3, 4, 1, 2).reshape(N * G, Cg, H, W).contiguous()
+            grid = grid_of(px, py, H, W, dtype).permute(0, 3, 1, 2, 4, 5).reshape(N * G, (Ho - row0) * Wo, P, 2)
+            library = lambda: F.grid_sample(vin, grid, mode="bilinear", padding_mode="zeros",  # noqa: E731
+                                            align_corners=False)
+            if dtype == torch.float32:  # an independent check of the strip's sampling points
+                mg = pm.reshape(N, -1, G, P).permute(0, 2, 1, 3).reshape(N * G, 1, -1, P)
+                alt = (library() * mg).sum(-1).reshape(N, G, Cg, Ho - row0, Wo).permute(0, 3, 4, 1, 2)
+                torch.testing.assert_close(got, alt.reshape(got.shape), **DCN_TOL[dtype])
+            kernel_ms = time_ms(lambda: dcnv3_core(v, po, pm, *args, row0=row0))
+            whole_ms = time_ms(lambda: dcnv3_core(v, o, m, *args))
+            plain_ms = time_ms(lambda: dcnv3_core_reference(v, po, pm, *args, row0=row0))
+            library_ms = time_ms(library)
+            nbytes = (N * rows_read(py, H) * W * G * Cg + po.numel() + pm.numel() + got.numel()) * v.element_size()
+            bound = roofline(nbytes, 2.0 * Cg * valid_corners(px, py, H, W), PEAK_FLOPS[torch.float32])
+            print(f"row0 dcnv3_core row {row} x{tuple(site[2])} output rows {row0}..{Ho - 1} of {Ho} "
+                  f"{str(dtype)[6:]}: kernel_ms {kernel_ms:.4f} (whole map's rows {whole_ms:.4f}) plain_ms "
+                  f"{plain_ms:.4f} library_ms {library_ms:.4f} (grid_sample, sampling only) bound_ms "
+                  f"{bound[0]:.4f} ({bound[1]}; value rows {rows_read(py, H)} of {H}) max_abs_err {err:.3e}; "
+                  "bitwise the whole call's rows")
+            if dtype == torch.bfloat16:
+                add_site(sums["dcnv3_core"], count, kernel_ms, plain_ms, library_ms, bound, err)
+                sums["dcnv3_core"]["whole_ms"] = sums["dcnv3_core"].get("whole_ms", 0.0) + count * whole_ms
+    return sums
+
+
+def spatial_sharding(gpu: str) -> dict:
+    """Phase 14: check_row0, and odconv_s2 against its plain version on
+    the strips a sharded forward gives it (check_kernel's tolerances); then
+    for each config the float64 yardstick
+    (sp_ref64) and each SP_JOBS job in one process, then the jobs on
+    SP_WORLD gloo ranks sharing cuda:0 (spawn_local), each rank holding one
+    H-strip of the batch: every rank's launches per forward PER_BATCH, the
+    ranks' rows the same bits, and in f32 and bf16 alike the sharded head
+    maps no further from the yardstick than SP_RULE times the unsharded
+    model's (plus SP_FLOOR); in f32 the rows too (SP_RULE's comment).
+    Prints per-rank peak memory, batch time and all-reduced bytes beside
+    one process's, and every job before any check can fail. Returns rank
+    0's launches per job and the row0 summaries."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it: the phase run alone compares in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    row0 = check_row0(gen)
+    for cfg_name, size in dict.fromkeys((c, z) for c, _, z in SP_JOBS):  # the kernel on the strips it is given
+        check_kernel(odconv_strip_sites(cfg_name, size), gen, f"{cfg_name} strip of {size} px")
+    t_row0 = time.perf_counter() - t_phase
+    jobs, refs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg_name, size in dict.fromkeys((c, z) for c, _, z in SP_JOBS):
+            sp_ref64(cfg_name, size, tmp)
+        for cfg_name, dtype, size in SP_JOBS:
+            job = dict(cfg_name=cfg_name, dtype=dtype, size=size, ref_dir=tmp)
+            refs.append(sp_job(None, **job))
+            jobs.append(job)
+        t0 = time.perf_counter()
+        per_rank = mesh.spawn_local(SP_WORLD, sp_ranks, jobs, backend="gloo", timeout=900, threads=4)
+        t_spawned = time.perf_counter() - t0
+    launches, failed = {}, []
+    for job, ref, ranks in zip(jobs, refs, zip(*per_rank)):
+        cfg_name, dtype, size = job["cfg_name"], job["dtype"], job["size"]
+        title = f"{cfg_name} {str(dtype)[6:]}"
+        want = only(**PER_BATCH[cfg_name])
+        r0 = ranks[0]
+        limits = [SP_RULE * e + SP_FLOOR * m for e, m in ref["vs64"]]
+        maps_ok = all(r["vs64"][i][0] <= lim for r in ranks for i, lim in enumerate(limits))
+        u = ref["rows64"]
+        rows_ok = dtype != torch.float32 or all(
+            r["rows64"]["unmatched"] == u["unmatched"]
+            and r["rows64"]["box"] <= SP_RULE * u["box"] + SP_BOX_FLOOR * size
+            and r["rows64"]["score"] <= SP_RULE * u["score"] + SP_FLOOR and r["kept"] == ref["kept"] > 0
+            for r in ranks)
+        ex = r0["exchange"]
+        print(f"spatial {title} on {gpu}: b{SP_BATCH} at {size}x{size} px over {SP_WORLD} H-strips (gloo ranks on "
+              f"cuda:0) against one process, both against the float64 model: head maps' largest distance by level "
+              f"{['%.3e' % e for e, _ in r0['vs64']]} (one process {['%.3e' % e for e, _ in ref['vs64']]}; largest "
+              f"|value| {['%.3e' % m for _, m in ref['vs64']]}), from one process's "
+              f"{['%.3e' % e for e, _ in r0['vs_one']]}"
+              f"; rows kept at conf {SP_CONF} {r0['kept']} (one process {ref['kept']}), from the float64 rows "
+              f"{r0['rows64']} (one process {u}), from one process's {r0['rows_one']}; peak memory above the model's "
+              f"{r0['model_bytes'] / 1e6:.1f} MB: rank 0 {r0['peak'] / 1e6:.1f} MB, rank 1 "
+              f"{ranks[1]['peak'] / 1e6:.1f} "
+              f"MB, one process {ref['peak'] / 1e6:.1f} MB (its largest allocation {ref['largest'][0]:.1f} MB by "
+              f"{ref['largest'][1]}); batch time rank 0 "
+              f"{['%.1f ms' % (t * 1e3) for t in r0['times']]}, one process "
+              f"{['%.1f ms' % (t * 1e3) for t in ref['times']]}; all-reduced a batch per rank: halo "
+              f"{ex['halo_bytes'] / 1e6:.2f} MB, gather (DCN maps, EMA profiles) {ex['gather_bytes'] / 1e6:.2f} MB, "
+              f"whole-map reductions {ex['reduce_bytes'] / 1e6:.3f} MB, head maps {ex['output_bytes'] / 1e6:.2f} MB "
+              f"in {ex['calls']} all-reduces; launches per rank {r0['launches']}")
+        checks = {"launches": ref["launches"] == want and all(r["launches"] == want for r in ranks),
+                  "strips": [r["strip"] for r in ranks] == list(range(SP_WORLD)),
+                  "same rows on every rank": all(np.array_equal(r["out"], r0["out"]) for r in ranks),
+                  "head maps": maps_ok, "rows": rows_ok}
+        failed += [f"{title}: {k}" for k, ok in checks.items() if not ok]
+        launches[title] = r0["launches"]
+    print(f"spatial sharding on {gpu}: phase 14 {time.perf_counter() - t_phase:.1f} s (kernel checks {t_row0:.1f} s, "
+          f"ranks {t_spawned:.1f} s)")
+    assert not failed, failed
+    return dict(launches=launches, row0=row0)
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     def one(source):
@@ -3212,6 +3581,7 @@ def main() -> int:
     finally:
         eval_dir.cleanup()
     parallel = parallelism(gpu)
+    sharded = spatial_sharding(gpu)
 
     kernels = [
         dict(kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111",
@@ -3248,6 +3618,14 @@ def main() -> int:
         per_job = {job: counts[entry["name"]] for job, counts in parallel.items() if counts.get(entry["name"])}
         if per_job:
             entry["data_parallel_launches"] = per_job
+        # phase 14: rank 0's launches per sharded forward; the DCN kernels' bf16 numbers on the second strip
+        per_job = {job: counts[entry["name"]] for job, counts in sharded["launches"].items()
+                   if counts.get(entry["name"])}
+        if per_job:
+            entry["spatial_launches_per_rank"] = per_job
+        if entry["name"] in sharded["row0"]:
+            sm = sharded["row0"][entry["name"]]
+            entry["row0"] = dict(summary_fields(sm), whole_rows_ms=sm["whole_ms"])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -190,3 +190,148 @@ def hang(group, seconds: float) -> None:
     if group.rank == 1:
         time.sleep(seconds)
     mesh.barrier(group)
+
+
+# ---------------------------------------------------------------------------
+# spatial sharding (parallel/spatial.py)
+# ---------------------------------------------------------------------------
+
+
+def match_rows(got: np.ndarray, want: np.ndarray, tol) -> None:
+    """Rows [values..., class]: as many in both, each row of `got` matched
+    by its own row of `want` of its class, every value within `tol` (the
+    same rows in any order: rounding apart may sort near-equal scores
+    apart)."""
+    assert len(got) == len(want) > 0, (len(got), len(want))
+    free = np.ones(len(want), bool)
+    for row in got:
+        close = free & (want[:, -1] == row[-1]) & (np.abs(want[:, :-1] - row[:-1]) <= np.asarray(tol)).all(1)
+        assert close.any(), row
+        free[np.argmax(close)] = False
+
+
+SPATIAL_ROWS, SPATIAL_UNIT = 28, 4  # the operator cases' map: 7 units of 4 rows (16 / 12 px over 2, 12 / 8 / 8 over 3)
+
+
+def spatial_case(name: str):
+    """(module in eval mode, NCHW input (2, C, 28, 20) channels_last) of one
+    operator case, from seed 0: random parameters and BatchNorm
+    statistics; the DCN offset heads randomised so samples cross strips;
+    the SPP / SPPF input convs biased to -3, so every pooled value is a
+    negative SiLU output and a zero edge row would win the max."""
+    from yolosomi_tpu_torch.models import dcn as D
+    from yolosomi_tpu_torch.models import layers as L
+
+    torch.manual_seed(0)
+    c = 16
+    make = {
+        "conv3_s1": lambda: L.Conv(c, c, 3, 1),
+        "conv3_s2": lambda: L.Conv(c, c, 3, 2),
+        "conv6_s2_p2": lambda: L.Conv(c, c, 6, 2, 2),
+        "conv3x1": lambda: L.Conv(c, c, (3, 1), 1),
+        "focus": lambda: L.Focus(c, c, 3),
+        "contract": lambda: L.Contract(2),
+        "sppf_negative": lambda: L.SPPF(c, c, 5),
+        "spp_negative": lambda: L.SPP(c, c, (5, 9, 13)),
+        "cbam": lambda: L.CBAM(c, 4, 7),
+        "seam": lambda: L.SEAM(c, 1, 4),
+        "ema_cbam": lambda: L.EMACBAMBottleneck(c, c),
+        "odconv": lambda: L.ODConv(c, 2 * c, 3, 2),
+        "dcnv2": lambda: D.DCNv2(c, c, 3, 1),
+        "dcnv3": lambda: D.DCNv3(c, 3, 1, 1, 1, 4),
+    }[name]
+    module = make()
+    g = torch.Generator().manual_seed(1)
+    norms = (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d, torch.nn.GroupNorm, torch.nn.LayerNorm)
+    with torch.no_grad():
+        for m in module.modules():
+            for pname, p in list(m.named_parameters(recurse=False)) + list(m.named_buffers(recurse=False)):
+                if not p.is_floating_point():
+                    continue
+                r = torch.randn(p.shape, generator=g)
+                if pname == "running_var":
+                    p.copy_(0.5 + r.abs())
+                elif isinstance(m, norms) and pname == "weight":
+                    p.copy_(1.0 + 0.1 * r)
+                elif p.dim() > 1:  # fan in: a conv's (Cin, kh, kw), ODConv's bank per candidate and output
+                    p.copy_(r * 0.5 / (p[0].numel() if p.dim() < 5 else p[0, 0].numel()) ** 0.5)
+                else:
+                    p.copy_(0.1 * r)
+        if name.endswith("_negative"):
+            module.cv1.bn.bias.fill_(-3.0)
+    D.randomize_offset_heads(module, seed=0)
+    module.eval()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, c, SPATIAL_ROWS, 20)).astype(np.float32))
+    return module, x.contiguous(memory_format=torch.channels_last)
+
+
+def spatial_operators(group, names: list) -> dict:
+    """Each case of `names` on this rank's strip of SPATIAL_ROWS rows split
+    over the group's ranks (one batch slice, unit SPATIAL_UNIT), under
+    spatial(); its whole output map gathered back along H."""
+    from yolosomi_tpu_torch.parallel.spatial import Strip, gather_h, spatial, strip_plan
+
+    out = {}
+    for name in names:
+        module, x = spatial_case(name)
+        strip = Strip(strip_plan(SPATIAL_ROWS, group.world, SPATIAL_UNIT), group.rank, 0, 1)
+        with torch.no_grad(), spatial(strip):
+            out[name] = gather_h(module(x[:, :, strip.rows])).numpy()
+    return out
+
+
+def spatial_runner(group, cfg: str, images: np.ndarray, shards: int, conf: float, weights: str = None,
+                   device: str = "cpu") -> dict:
+    """Runner(cfg, weights, f32, `device`, spatial_shards=shards) on the
+    global batch `images` (every rank is handed all of it): its head maps,
+    its (B, 300, 6) rows at `conf`, what it all-reduced and its kernel
+    launches."""
+    from yolosomi_tpu_torch.engine.runner import Runner
+    from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv3_core
+    from yolosomi_tpu_torch.ops.odconv import odconv_s2
+
+    if device.startswith("cuda"):  # full f32, as the card tests compare
+        torch.backends.cudnn.allow_tf32 = False
+    r = Runner(cfg, weights, dtype=torch.float32, device=device, spatial_shards=shards)
+    kernels = (odconv_s2, dcnv2_im2col, dcnv3_core)
+    before = [k.launches for k in kernels]
+    preds = [p.cpu().numpy() for p in r.forward(images)]
+    launches = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+    return dict(preds=preds, out=r(images, conf_thres=conf), exchange=dict(r.exchange), strip=r.spatial.index,
+                launches=launches)
+
+
+def spatial_entry_points(group, cfg: str, weights: list, data: dict, source: str, project: str, conf: float) -> dict:
+    """attempt_load with two weights and spatial_shards=2 (an unsharded
+    ensemble), val.run and detect.run with shard_spatial=2 on this rank,
+    both in f32 (detect's Runner through an f32 attempt_load)."""
+    import functools
+
+    from yolosomi_tpu_torch import detect, val
+    from yolosomi_tpu_torch.engine.runner import EnsembleRunner, attempt_load
+
+    detect.attempt_load = functools.partial(attempt_load, dtype=torch.float32)
+
+    ens = attempt_load(weights, cfg, dtype=torch.float32, device="cpu", spatial_shards=2)
+    (res, maps, _) = val.run(data, weights=weights[0], cfg=cfg, batch_size=2, imgsz=256, half=False, device="cpu",
+                             project=project, name="val", exist_ok=True, shard_spatial=2, save_txt=True)
+    run_dir = detect.run(weights=weights[0], cfg=cfg, source=source, imgsz=256, conf_thres=conf, save_txt=True,
+                         save_conf=True, project=project, name="detect", exist_ok=True, shard_spatial=2, device="cpu")
+    return dict(ensemble=type(ens) is EnsembleRunner, results=list(res), maps=maps, run_dir=str(run_dir))
+
+
+def spatial_refusals(group, cfg: str, weights: str, cases: list) -> list:
+    """For each (shards, (batch, size)) of `cases`: the message of the
+    ValueError that Runner(spatial_shards=shards) and its forward on that
+    batch raise, or None."""
+    from yolosomi_tpu_torch.engine.runner import Runner
+
+    msgs = []
+    for shards, (n, size) in cases:
+        try:
+            Runner(cfg, weights, dtype=torch.float32, device="cpu", spatial_shards=shards).forward(
+                np.zeros((n, size, size, 3), np.uint8))
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+    return msgs

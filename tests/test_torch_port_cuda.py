@@ -207,6 +207,51 @@ def test_dcnv2_im2col_kernel_matches_plain_version(cuda, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 12, 11, 4, 5, 3), (1, 20, 20, 8, 128, 7), (1, 10, 9, 16, 8, 4, 5)])
+def test_dcnv3_core_kernel_at_a_row_origin(cuda, dtype, case):
+    """A strip of output rows (row0 .. row0 + 4 of the whole output) of a
+    spatially sharded map: the kernel samples the whole value map at the
+    strip's rows, within the tolerance of its plain version at row0 and
+    bitwise the whole call's rows (the same arithmetic a pixel)."""
+    n, h, w, g, cg, row0 = case[:6]
+    k = case[6] if len(case) > 6 else 3
+    (value, offset, mask), args = _dcnv3_case(cuda, dtype, n, h, w, g, cg, 1, 1, k)
+    whole = dcnv3_core(value, offset, mask, *args)
+    rows = slice(row0, row0 + 4)
+    before = dcnv3_core.launches
+    got = dcnv3_core(value, offset[:, rows].contiguous(), mask[:, rows].contiguous(), *args, row0=row0)
+    torch.cuda.synchronize()
+    assert dcnv3_core.launches == before + 1 and got.shape == whole[:, rows].shape
+    ref = dcnv3_core_reference(value.float(), offset[:, rows].float(), mask[:, rows].float(), *args, row0=row0)
+    torch.testing.assert_close(got.float(), ref, **_DCN_TOL[dtype])
+    assert torch.equal(got, whole[:, rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 12, 10, 5, 1, 3), (1, 20, 20, 256, 1, 9), (1, 16, 14, 40, 2, 2)])
+def test_dcnv2_im2col_kernel_at_a_row_origin(cuda, dtype, case):
+    """As the DCNv3 case: output rows row0 .. row0 + 3 of the whole map x."""
+    n, h, w, c, s, row0 = case
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    x = torch.randn(n, h, w, c, device="cuda", generator=cuda)
+    oy, ox = ((torch.rand(2, n, ho, wo, 9, device="cuda", generator=cuda) - 0.5) * 8).unbind(0)
+    mask = torch.sigmoid(torch.randn(n, ho, wo, 9, device="cuda", generator=cuda))
+    x, oy, ox, mask = (t.to(dtype) for t in (x, oy, ox, mask))
+    whole = dcnv2_im2col(x, oy, ox, mask, 3, s, 1).view(n, ho, wo, -1)
+    rows = slice(row0, row0 + 3)
+    part = [t[:, rows].contiguous() for t in (oy, ox, mask)]
+    before = dcnv2_im2col.launches
+    got = dcnv2_im2col(x, *part, 3, s, 1, row0=row0)
+    torch.cuda.synchronize()
+    assert dcnv2_im2col.launches == before + 1
+    ref = dcnv2_im2col_reference(x.float(), *(t.float() for t in part), 3, s, 1, row0=row0)
+    torch.testing.assert_close(got.float(), ref, **_DCN_TOL[dtype])
+    assert torch.equal(got.view(n, 3, wo, -1), whole[:, rows])
+
+
+@pytest.mark.cuda
 def test_dcn_kernels_reject_what_they_do_not_take(cuda):
     (value, offset, mask), args = _dcnv3_case(cuda, torch.float32, 1, 6, 6, 2, 4, 1, 1)
     with pytest.raises(TypeError):
@@ -1071,6 +1116,81 @@ def test_two_gloo_ranks_on_one_card_match_the_one_process_step(cuda):
     rel = [np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30) for g, w in upd.values() if np.linalg.norm(w) > 0]
     assert all(np.linalg.norm(g - w) <= 1.0 * np.linalg.norm(w) + 1e-6 * top for g, w in upd.values())
     assert np.median(rel) <= 0.1, np.median(rel)
+
+
+@torch.no_grad()
+def _spread_random_weights(model: torch.nn.Module, seed: int = 0, gain: float = 10.0) -> None:
+    """The CPU spatial test's weights, drawn in torch: every parameter 0.1
+    x normal, BatchNorm running means 0.2 x normal and variances uniform in
+    [0.5, 2.5], LayerNorm scales 1 + 0.1 x normal, every norm scale then x
+    `gain`, the DCN offset heads randomised: scores that depend on the
+    image and spread over 0.4-0.9 at 256 px (a seed-0 model's saturate)."""
+    g = torch.Generator().manual_seed(seed)
+    norms = (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d, torch.nn.GroupNorm, torch.nn.LayerNorm)
+    for m in model.modules():
+        for n, p in list(m.named_parameters(recurse=False)) + list(m.named_buffers(recurse=False)):
+            if not p.is_floating_point():
+                continue
+            r = torch.randn(p.shape, generator=g, dtype=torch.float64)
+            if n == "running_var":
+                p.copy_(0.5 + 2 * torch.rand(p.shape, generator=g, dtype=torch.float64))
+            elif n == "running_mean":
+                p.copy_(0.2 * r)
+            elif isinstance(m, norms) and n == "weight":
+                p.copy_(gain * (1 + 0.1 * r if isinstance(m, torch.nn.LayerNorm) else 0.1 * r))
+            else:
+                p.copy_(0.1 * r)
+    randomize_offset_heads(model, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolo-somi", "yolo-somi-dcn"])
+def test_two_gloo_ranks_serve_a_spatially_sharded_batch_on_one_card(cuda, tmp_path, name):
+    """The small model (f32, TF32 off; the CPU test's spread random weights)
+    from a weights file, b2 at 256 px, conf 0.5, over two H-strips on two
+    gloo ranks sharing cuda:0, against the same Runner unsharded on the
+    card, both against the model in float64 under plain_version()
+    (chip_smoke.py phase 14's rule): each level's head maps no further from
+    it than twice the unsharded Runner's plus 1e-5 of the level's largest
+    value; the rows too (as many kept and unmatched, boxes within twice
+    plus 1e-4 of the side, scores twice plus 1e-5); both ranks the same
+    rows, and
+    each launching the model's kernels once a site."""
+    import _torch_parallel_ranks as ranks
+    from chip_smoke import row_distance
+    from yolosomi_tpu_torch.parallel.mesh import spawn_local
+
+    cfg = dict(load_model_cfg(find_config(name)))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    model, meta = build_model(cfg, nc=3, device="cpu", seed=0)
+    _spread_random_weights(model)
+    cfg_path, weights = tmp_path / "small.yaml", tmp_path / "small.msgpack"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    save_variables(weights, export_jax_variables(model), anchors=meta.anchors_px)
+    cfg, weights = str(cfg_path), str(weights)
+    images = np.random.default_rng(0).integers(0, 256, (2, 256, 256, 3), dtype=np.uint8)
+    runner = Runner(cfg, weights, dtype=torch.float32, device="cuda")
+    preds, out = runner.forward(images), runner(images, conf_thres=0.5)
+    with plain_version():
+        runner64 = Runner(cfg, weights, dtype=torch.float64, device="cuda")
+        preds64, out64 = runner64.forward(images), runner64(images, conf_thres=0.5)
+    got = spawn_local(2, ranks.run_calls, [(ranks.spatial_runner, dict(cfg=cfg, images=images, shards=2, conf=0.5,
+                                                                        weights=weights, device="cuda"))],
+                      backend="gloo", timeout=300)
+    want = {"odconv_s2": 4, "dcnv2_im2col": 3 if name == "yolo-somi-dcn" else 0,
+            "dcnv3_core": 1 if name == "yolo-somi-dcn" else 0}
+    one = row_distance(out, out64)
+    assert (out[..., 4] > 0).sum() > 0
+    for (r,) in got:
+        assert r["launches"] == want, r["launches"]
+        for p, p1, p64 in zip(r["preds"], preds, preds64):
+            p64 = p64.cpu().double().numpy()
+            limit = 2 * np.abs(p1.cpu().double().numpy() - p64).max() + 1e-5 * np.abs(p64).max()
+            assert np.abs(p - p64).max() <= limit, (np.abs(p - p64).max(), limit)
+        d = row_distance(r["out"], out64)
+        assert d["unmatched"] == one["unmatched"] and (r["out"][..., 4] > 0).sum() == (out[..., 4] > 0).sum(), (d, one)
+        assert d["box"] <= 2 * one["box"] + 1e-4 * 256 and d["score"] <= 2 * one["score"] + 1e-5, (d, one)
+        np.testing.assert_array_equal(r["out"], got[0][0]["out"])
 
 
 @pytest.mark.cuda

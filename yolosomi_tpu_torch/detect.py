@@ -3,6 +3,7 @@
 
     python -m yolosomi_tpu_torch.detect --weights somi.msgpack --source <images, dir, glob or video> \
         [--save-txt --save-conf --save-crop] [--device cpu]
+    torchrun --standalone --nproc-per-node <W> -m yolosomi_tpu_torch.detect --shard-spatial <S> --weights ... --source ...
 
 Each image (or video frame) is letterboxed, run through the Runner (one
 checkpoint) or the EnsembleRunner (several) at batch 1, and its boxes are
@@ -10,11 +11,14 @@ mapped back to the original frame: labels/*.txt (`cls xc yc w h [conf]`,
 normalized, %g), crops, and annotated images or an .mp4 per video go to
 the run directory. The reference's defaults: conf 0.4, IoU 0.2.
 
-Runs on CUDA unless `--device` names another device. TTA (`--augment`,
-ROADMAP queue A item 9), feature maps (`--visualize`, item 9), spatial
-sharding (`--shard-spatial` > 1, item 6) and a classifier given as
-`cfg:weights` (`Classify`, item 8) raise NotImplementedError; `run` takes a
-callable classifier.
+Runs on CUDA unless `--device` names another device. `--shard-spatial` S
+> 1 serves each frame H-sharded over the process group of W = D x S ranks
+(engine/runner.py; under torchrun, which raises without one; several
+weights serve unsharded, as in the JAX package): every rank reads the same
+frames and gets the whole detections, and rank 0 alone logs and writes.
+TTA (`--augment`, ROADMAP queue A item 9), feature maps (`--visualize`,
+item 9) and a classifier given as `cfg:weights` (`Classify`, item 8) raise
+NotImplementedError; `run` takes a callable classifier.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from yolosomi_tpu_torch.engine.runner import attempt_load
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.classifier import apply_classifier
 from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg
-from yolosomi_tpu_torch.utils.general import LOGGER, increment_path
+from yolosomi_tpu_torch.utils.general import LOGGER, increment_path, log_rank
 
 COLORS = [(56, 56, 255), (151, 157, 255), (31, 112, 255), (29, 178, 255), (49, 210, 207),
           (10, 249, 72), (23, 204, 146), (134, 219, 61), (52, 147, 26), (187, 212, 0),
@@ -95,7 +99,6 @@ def run(
     """Detect on every image and frame of `source`; returns the run directory."""
     for flag, what in ((augment, "TTA (augment; ROADMAP queue A item 9)"),
                        (visualize, "feature-map plots (visualize; ROADMAP queue A item 9)"),
-                       (shard_spatial > 1, "spatial sharding (ROADMAP queue A item 6)"),
                        (isinstance(classify, str), "a classifier from a config (Classify; ROADMAP queue A item 8)")):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -104,10 +107,16 @@ def run(
     save_img = not nosave
     if "*" not in str(source) and not Path(source).exists():  # before the model is built
         raise FileNotFoundError(f"source {source} does not exist")
-    save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)
-    (save_dir / "labels" if save_txt else save_dir).mkdir(parents=True, exist_ok=True)
+    runner = attempt_load(weights, cfg, imgsz=imgsz, device=device, spatial_shards=shard_spatial)
+    sharded = getattr(runner, "spatial", None)
+    main_rank = sharded is None or sharded.rank == 0
+    if not main_rank:  # rank 0 alone logs and writes
+        log_rank(sharded.rank)
+        save_img = save_txt = save_crop = False
+    save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=main_rank)
+    if main_rank:
+        (save_dir / "labels" if save_txt else save_dir).mkdir(parents=True, exist_ok=True)
 
-    runner = attempt_load(weights, cfg, imgsz=imgsz, device=device)
     names = names or runner.names
     dataset = LoadImages(source, img_size=imgsz, stride=runner.stride, auto=False)
     cls_mask = None
@@ -198,7 +207,8 @@ def parse_opt(argv=None):
     parser.add_argument("--name", default="exp")
     parser.add_argument("--exist-ok", action="store_true")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:1 or cpu")
-    parser.add_argument("--shard-spatial", type=int, default=1, help="split activations along H (not ported yet)")
+    parser.add_argument("--shard-spatial", type=int, default=1,
+                        help="H-strips a frame is split into, one a rank (run under torchrun with a multiple of it)")
     parser.add_argument("--hide-labels", action="store_true")
     parser.add_argument("--hide-conf", action="store_true")
     parser.add_argument("--line-thickness", type=int, default=2, help="annotation box line width (px)")

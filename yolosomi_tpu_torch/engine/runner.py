@@ -4,6 +4,14 @@ image batch -> normalize on the device -> model -> postprocess ->
 postprocess; multi-label or exact calls (val) decode every row and run
 `non_max_suppression`. Also the ensemble (EnsembleRunner, :251-321) and
 `attempt_load` (:324-330).
+
+With `spatial_shards` S > 1 the Runner serves H-sharded (the JAX Runner's
+spatial mesh, :36-47 and :227-238) over the process group of W = D x S
+ranks (torchrun, or parallel.mesh.spawn_local): every rank is handed the
+same batch, takes its batch slice r // S and its strip r % S of the rows
+(parallel.spatial), runs the model under `spatial(strip)`, and gathers the
+head's whole maps of the whole batch, so the postprocess runs as in one
+process and every rank returns the whole (B, max_det, 6).
 """
 
 from __future__ import annotations
@@ -16,8 +24,11 @@ import torch
 
 from yolosomi_tpu_torch.engine.checkpoint import load_artifact
 from yolosomi_tpu_torch.models.heads import decode
+from yolosomi_tpu_torch.models.layers import strip_halo
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
+from yolosomi_tpu_torch.parallel import mesh
+from yolosomi_tpu_torch.parallel.spatial import SpatialMesh, gather_level_outputs, spatial
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.general import LOGGER
 from yolosomi_tpu_torch.utils.weights import load_jax_variables, without_adapters
@@ -50,14 +61,19 @@ class Runner:
     replace the config's); else from `variables`, the JAX package's flax
     variables as nested dicts of numpy arrays; else, and when the `weights`
     path does not exist, from `seed`. `imgsz` is taken for the JAX Runner's
-    signature; nothing here depends on it. Spatial sharding (ROADMAP queue A
-    item 6) and TTA (item 9) raise NotImplementedError."""
+    signature; nothing here depends on it. `spatial_shards` > 1 serves
+    H-sharded over the process group, which must be up (torchrun or
+    spawn_local; SpatialMesh raises otherwise); `exchange` then holds the
+    last batch's all-reduced bytes by kind. TTA (ROADMAP queue A item 9)
+    raises NotImplementedError."""
 
     def __init__(self, cfg: str, weights: Optional[str] = None, nc: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16, imgsz: int = 640, device=None, seed: int = 0,
                  variables: Optional[dict] = None, spatial_shards: int = 1):
-        if spatial_shards != 1:
-            raise NotImplementedError("spatial sharding is not ported yet (ROADMAP queue A item 6)")
+        if spatial_shards < 1:
+            raise ValueError(f"spatial_shards {spatial_shards} < 1")
+        self.spatial = SpatialMesh(spatial_shards) if spatial_shards > 1 else None
+        self.exchange = None
         cfg_dict = load_model_cfg(find_config(cfg))
         anchors = None
         if weights is not None and Path(weights).exists():
@@ -83,6 +99,11 @@ class Runner:
                 raise ValueError(f"variables do not fit the model: unmatched {unmatched[:5]}, unused {unused[:5]}")
             if weights is not None:
                 LOGGER.info(f"loaded weights {weights}")
+        if self.spatial is not None:
+            sm = self.spatial
+            self.halo = strip_halo(self.model)
+            LOGGER.info(f"spatial sharding: {sm.world} ranks, {sm.slices} batch slices x {sm.shards} H-strips; rank "
+                        f"{sm.rank} holds slice {sm.batch_slice}, strip {sm.index}")
 
     @property
     def names(self):
@@ -115,8 +136,17 @@ class Runner:
     @torch.inference_mode()
     def forward(self, images: np.ndarray):
         """Raw head outputs [(B, ny, nx, na, no), ...] for a uint8 or float
-        NHWC batch."""
-        return self.model(self.upload(images))
+        NHWC batch; sharded spatially, the whole maps of the whole batch on
+        every rank."""
+        if self.spatial is None:
+            return self.model(self.upload(images))
+        images = np.asarray(images)
+        strip = self.spatial.strip(images.shape[1], self.stride, self.halo)
+        local = mesh.shard_batch(images, strip.batch_slice, strip.slices)[:, strip.rows]
+        with spatial(strip):
+            preds = gather_level_outputs(self.model(self.upload(local)), len(images))
+        self.exchange = strip.stats
+        return preds
 
     def val_loss_fn(self, compute_loss):
         """(images, targets) -> numpy (3,) [lbox, lobj, lcls] of
@@ -201,10 +231,12 @@ class EnsembleRunner:
 def attempt_load(weights, cfg, nc: Optional[int] = None, dtype: torch.dtype = torch.bfloat16, imgsz: int = 640,
                  spatial_shards: int = 1, device=None):
     """The reference's attempt_load: one checkpoint -> a Runner, several ->
-    an EnsembleRunner."""
+    an EnsembleRunner, which serves unsharded as the JAX package's does
+    (runner.py:325-326)."""
     if isinstance(weights, (list, tuple)) and len(weights) > 1:
-        if spatial_shards != 1:
-            raise NotImplementedError("spatial sharding is not ported yet (ROADMAP queue A item 6)")
+        if spatial_shards > 1:
+            LOGGER.info(f"an ensemble of {len(weights)} weights serves unsharded: spatial_shards={spatial_shards} "
+                        "is ignored, as the JAX package's attempt_load ignores it")
         return EnsembleRunner(cfg, list(weights), nc=nc, dtype=dtype, imgsz=imgsz, device=device)
     w = weights[0] if isinstance(weights, (list, tuple)) else weights
     return Runner(cfg, w, nc=nc, dtype=dtype, imgsz=imgsz, device=device, spatial_shards=spatial_shards)

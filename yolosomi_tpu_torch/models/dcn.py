@@ -18,6 +18,12 @@ Numerical conventions kept from the JAX package:
   no-op, so the f32 and the bf16 (serving) models are unchanged. DCNv2's
   operands (a conv, cuDNN's BatchNorm and a sigmoid of bf16) stay bf16
   under autocast.
+
+Under spatial sharding (parallel.spatial) the offsets are unbounded, so a
+strip gathers the layer's whole sampled map (DCNv2's x, DCNv3's value)
+and samples it for its own output rows only: the sampling takes the
+strip's first output row as `row0`. The offset convs fetch their halo
+rows as every conv does (models.layers.HaloConv2d).
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from yolosomi_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, C2f, C3, Conv, FlaxBatchNorm2d
+from yolosomi_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, C2f, C3, Conv, FlaxBatchNorm2d, HaloConv2d
 from yolosomi_tpu_torch.ops.dcn import dcnv2_columns, dcnv3_sampling
+from yolosomi_tpu_torch.parallel.spatial import active_strip, gather_h
 
 
 class DCNv3(nn.Module):
@@ -49,7 +56,7 @@ class DCNv3(nn.Module):
         self.k, self.stride, self.pad, self.dilation = kernel_size, stride, pad, dilation
         self.group, self.offset_scale, self.center_feature_scale = group, offset_scale, center_feature_scale
         self.input_proj = nn.Linear(C, C)
-        self.dw_conv = nn.Conv2d(C, C, kernel_size, 1, kernel_size // 2, groups=C)
+        self.dw_conv = HaloConv2d(C, C, kernel_size, 1, kernel_size // 2, groups=C)
         self.norm = nn.LayerNorm(C, eps=1e-6)
         self.offset = nn.Linear(C, G * P * 2)
         self.mask = nn.Linear(C, G * P)
@@ -67,9 +74,12 @@ class DCNv3(nn.Module):
         offset = self.offset(ctx)
         mask = torch.softmax(self.mask(ctx).reshape(N, H, W, G, P), -1).reshape(N, H, W, G * P)
         mask = mask.to(value.dtype)
-        out = dcnv3_sampling(value.contiguous(), offset.contiguous(), mask.contiguous(), k, k, self.stride,
+        sampled, row0 = value, 0
+        if active_strip() is not None:  # the whole value map; this strip's output rows from row0 on
+            sampled, row0 = gather_h(value, 1), active_strip().level(H).start
+        out = dcnv3_sampling(sampled.contiguous(), offset.contiguous(), mask.contiguous(), k, k, self.stride,
                              self.stride, self.pad, self.pad, self.dilation, self.dilation, G, C // G,
-                             self.offset_scale)
+                             self.offset_scale, row0=row0)
         if self.center_feature_scale:
             ct = torch.promote_types(ctx.dtype, torch.float32)
             scale = torch.sigmoid(torch.einsum("nhwc,gc->nhwg", ctx.to(ct), self.cfs_weight.to(ct))
@@ -87,7 +97,7 @@ class DCNv2(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: int = 1, g: int = 1, act=True):
         super().__init__()
         self.k, self.s, self.p = k, s, p
-        self.conv_offset_mask = nn.Conv2d(c1, 3 * k * k, k, s, p, bias=True)
+        self.conv_offset_mask = HaloConv2d(c1, 3 * k * k, k, s, p, bias=True)
         self.weight = nn.Parameter(torch.zeros(k * k, c1, c2))
         self.bias = nn.Parameter(torch.zeros(c2))
         self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -101,7 +111,11 @@ class DCNv2(nn.Module):
         offset_y = om[..., :P].contiguous()
         offset_x = om[..., P:2 * P].contiguous()
         mask = torch.sigmoid(om[..., 2 * P:]).contiguous()
-        cols = dcnv2_columns(x.permute(0, 2, 3, 1).contiguous(), offset_y, offset_x, mask, self.k, self.s, self.p)
+        sampled, row0 = x, 0
+        if active_strip() is not None:  # the whole x; this strip's output rows from row0 on
+            sampled, row0 = gather_h(x), active_strip().level(Ho).start
+        cols = dcnv2_columns(sampled.permute(0, 2, 3, 1).contiguous(), offset_y, offset_x, mask, self.k, self.s,
+                             self.p, row0=row0)
         w = self.weight.reshape(-1, self.weight.shape[-1]).to(cols.dtype)
         out = torch.matmul(cols, w) + self.bias.to(cols.dtype)  # (N, Ho*Wo, c2)
         out = out.reshape(N, Ho, Wo, -1).permute(0, 3, 1, 2)

@@ -19,6 +19,13 @@ Numerical conventions kept from the JAX package:
   2). Eval mode is torch's BatchNorm unchanged.
 - SEAM's GELU is exact erf in float32 and the tanh form in bfloat16
   (layers.py:631-632).
+
+Under `parallel.spatial.spatial(strip)` (spatial sharding for serving)
+every operator that looks across rows runs on its strip: convs and pools
+of more than one row (and strided convs) fetch their halo rows,
+whole-map means and maxima reduce over the strips, EMA-CBAM's profile and
+GroupNorm span the whole map, ODConv's per-sample conv runs on the strip
+and two rows above it. Outside it every module computes as before.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from yolosomi_tpu_torch.ops.odconv import per_sample_conv
-from yolosomi_tpu_torch.parallel import mesh
+from yolosomi_tpu_torch.parallel import mesh, spatial
+from yolosomi_tpu_torch.parallel.spatial import active_strip, check_aligned, halo_rows, strip_amax_hw, strip_mean_hw
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
@@ -137,7 +145,23 @@ def frozen_running_stats(model: nn.Module):
 QUANT_HOOK: list = [None]
 
 
-class ConvRaw(nn.Conv2d):
+class HaloConv2d(nn.Conv2d):
+    """nn.Conv2d that runs on the active strip under spatial sharding: a
+    conv of more than one row, a strided or a row-padded one fetches the
+    rows of its window from the neighbouring strips
+    (parallel.spatial.conv2d)."""
+
+    def forward(self, x):
+        if active_strip() is None or (self.kernel_size[0], self.stride[0], self.padding[0]) == (1, 1, 0):
+            return super().forward(x)
+        return spatial.conv2d(x, self.weight, self.bias, self.stride, self.padding, self.dilation, self.groups)
+
+    def halo(self) -> int:
+        """The most rows this conv asks of a neighbouring strip."""
+        return max(spatial.conv_halo(self.kernel_size[0], self.stride[0], self.padding[0], self.dilation[0]))
+
+
+class ConvRaw(HaloConv2d):
     """nn.Conv2d where the JAX package builds a ConvRaw (layers.py:104):
     Conv's conv, BottleneckCSP's cv2 / cv3, the CBAM spatial gate, SEAM's
     depthwise and pointwise convs, EMA-CBAM's cv1 / cv2 / conv_spatial and
@@ -158,7 +182,12 @@ class ConvRaw(nn.Conv2d):
 
     def forward(self, x):
         hook = QUANT_HOOK[0]
-        return super().forward(x) if hook is None else hook(self, x)
+        if hook is None:
+            return super().forward(x)
+        if active_strip() is not None:
+            raise RuntimeError("int8 serving is not sharded spatially (the JAX package's quantized_infer_fn runs "
+                               "unsharded)")
+        return hook(self, x)
 
 
 def autopad(k, p: Optional[int] = None):
@@ -194,6 +223,7 @@ class Focus(nn.Module):
         self.conv = Conv(4 * c1, c2, k, s, p, g, act)
 
     def forward(self, x):
+        check_aligned([x], 2)
         return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2], x[..., ::2, 1::2], x[..., 1::2, 1::2]], 1))
 
 
@@ -291,7 +321,7 @@ class ChannelAttentionModule(nn.Module):
         self.shared_MLP = nn.Sequential(nn.Linear(c1, mid), nn.ReLU(), nn.Linear(mid, c1))
 
     def forward(self, x):
-        gate = torch.sigmoid(self.shared_MLP(x.mean((2, 3))) + self.shared_MLP(x.amax((2, 3))))
+        gate = torch.sigmoid(self.shared_MLP(strip_mean_hw(x)) + self.shared_MLP(strip_amax_hw(x)))
         return gate[:, :, None, None]
 
 
@@ -386,7 +416,7 @@ class SEAM(nn.Module):
         self.fc = nn.Sequential(nn.Linear(c, mid, bias=False), nn.ReLU(), nn.Linear(mid, c, bias=False))
 
     def forward(self, x):
-        v = self.fc(self.DCovN(x).mean((2, 3)))
+        v = self.fc(strip_mean_hw(self.DCovN(x)))
         return x * torch.exp(torch.sigmoid(v))[:, :, None, None]
 
 
@@ -411,18 +441,38 @@ class EMACBAMBottleneck(nn.Module):
         b, c, h, w = y.shape
         g = self.factor
         gch = c // g
-        gate_c = torch.sigmoid(self.fc(y.mean((2, 3), keepdim=True)) + self.fc(y.amax((2, 3), keepdim=True)))
+        gate_c = torch.sigmoid(self.fc(strip_mean_hw(y, keepdim=True)) + self.fc(strip_amax_hw(y, keepdim=True)))
         y = y * gate_c
         gy = y.reshape(b, g, gch, h, w)
-        profile = torch.cat([gy.mean(4), gy.mean(3)], 3)  # (b, g, gch, h + w)
-        gate_s = self.conv_spatial(profile.reshape(b * g, gch, h + w, 1))
-        gate_s = torch.sigmoid(gate_s.reshape(b, g, 1, h + w))
-        gate_h = gate_s[..., :h].reshape(b, g, 1, h, 1)
-        gate_w = gate_s[..., h:].reshape(b, g, 1, 1, w)
+        st = active_strip()
+        if st is None:
+            top, height = 0, h
+            profile = torch.cat([gy.mean(4), gy.mean(3)], 3)  # (b, g, gch, h + w)
+            gate_s = self.conv_spatial(profile.reshape(b * g, gch, h + w, 1))
+        else:  # the whole profile on every rank: the (7, 1) taps cross the seam of its h and w parts
+            lv = st.level(h)
+            top, height = lv.start, lv.height
+            profile = torch.cat([spatial.gather_h(gy.mean(4), 3), spatial.strip_mean_h(gy, 3)], 3)
+            gate_s = nn.Conv2d.forward(self.conv_spatial, profile.reshape(b * g, gch, height + w, 1))
+        gate_s = torch.sigmoid(gate_s.reshape(b, g, 1, height + w))
+        gate_h = gate_s[..., top:top + h].reshape(b, g, 1, h, 1)
+        gate_w = gate_s[..., height:].reshape(b, g, 1, 1, w)
         gy = (gy * gate_h * gate_w).reshape(b, c, h, w)
-        if h * w == 1:  # one value a group (torch refuses it at batch 1): flax's output is the bias
+        if height * w == 1:  # one value a group (torch refuses it at batch 1): flax's output is the bias
             return gy * 0 + self.gn.bias.view(1, -1, 1, 1)
-        return self.gn(gy)
+        return self.gn(gy) if st is None else self._strip_group_norm(gy)
+
+    def _strip_group_norm(self, x):
+        """GroupNorm(c2, c2) over the whole map on a strip: each channel's
+        mean, then its centred squares' mean, in f32, across the strips."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = active_strip().level(x.shape[2]).height * x.shape[3]
+        d = xf - (spatial.strip_sum_hw(xf, keepdim=True) / n)
+        var = spatial.strip_sum_hw(d * d, keepdim=True) / n
+        shape = (1, -1, 1, 1)
+        y = d * torch.rsqrt(var + self.gn.eps) * self.gn.weight.to(xf.dtype).view(shape) + self.gn.bias.to(
+            xf.dtype).view(shape)
+        return y.to(x.dtype)
 
 
 class C2fEMACBAM(C2f):
@@ -435,6 +485,16 @@ class C2fEMACBAM(C2f):
 # ---------------------------------------------------------------------------
 # Pooling, resampling, fusion
 # ---------------------------------------------------------------------------
+
+
+def max_pool(x, k: int):
+    """The stride-1 k x k max-pool of SPP and SPPF, padded by k // 2. On a
+    strip the k // 2 rows above and below come from the neighbours, and
+    -inf past the image's edges, as the pool pads (SiLU maps reach -0.28,
+    so zero rows would change the result)."""
+    if active_strip() is None:
+        return F.max_pool2d(x, k, 1, k // 2)
+    return F.max_pool2d(halo_rows(x, k // 2, k // 2, fill=float("-inf")), k, 1, (0, k // 2))
 
 
 class SPP(nn.Module):
@@ -450,7 +510,7 @@ class SPP(nn.Module):
 
     def forward(self, x):
         y = self.cv1(x)
-        return self.cv2(torch.cat([y] + [F.max_pool2d(y, k, 1, k // 2) for k in self.k], 1))
+        return self.cv2(torch.cat([y] + [max_pool(y, k) for k in self.k], 1))
 
 
 class SPPF(nn.Module):
@@ -465,7 +525,7 @@ class SPPF(nn.Module):
 
     def forward(self, x):
         y = self.cv1(x)
-        pool = lambda t: F.max_pool2d(t, self.k, 1, self.k // 2)  # noqa: E731
+        pool = lambda t: max_pool(t, self.k)  # noqa: E731
         y1 = pool(y)
         y2 = pool(y1)
         return self.cv2(torch.cat([y, y1, y2, pool(y2)], 1))
@@ -486,6 +546,7 @@ class Concat(nn.Module):
     """Concatenation along the channels."""
 
     def forward(self, xs: List[torch.Tensor]):
+        check_aligned(xs)
         return torch.cat(xs, 1)
 
 
@@ -503,6 +564,7 @@ class Contract(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         g = self.gain
+        check_aligned([x], g)
         y = x.permute(0, 2, 3, 1).reshape(b, h // g, g, w // g, g, c).transpose(2, 3)
         return y.reshape(b, h // g, w // g, g * g * c).permute(0, 3, 1, 2)
 
@@ -518,6 +580,7 @@ class BiFPN(nn.Module):
         self.epsilon = epsilon
 
     def forward(self, xs: List[torch.Tensor]):
+        check_aligned(xs)
         w = self.weight.float()
         wn = (w / (torch.sum(w * torch.sigmoid(w)) + self.epsilon)).to(xs[0].dtype)
         out = wn[0] * xs[0]
@@ -560,7 +623,7 @@ class ODConv2d(nn.Module):
         b = x.shape[0]
         k = self.k
         # attention trunk: GAP -> fc -> BN -> ReLU -> four factors
-        v = torch.relu(self.bn(self.fc(x.mean((2, 3)))))
+        v = torch.relu(self.bn(self.fc(strip_mean_hw(x))))
         attn_f = torch.sigmoid(self.fc_f(v))  # (B, Cout)
         attn_s = torch.sigmoid(self.fc_s(v)).reshape(b, k, k)
         attn_c = torch.sigmoid(self.fc_c(v))  # (B, Cin)
@@ -569,7 +632,10 @@ class ODConv2d(nn.Module):
         wmix = torch.einsum("bk,koihw->bhwio", attn_w, self.weight)
         wmix = wmix * attn_s[:, :, :, None, None] * attn_c[:, None, None, :, None] * attn_f[:, None, None, None, :]
         x_nhwc = x.permute(0, 2, 3, 1).contiguous()  # free for a channels_last x
-        out = per_sample_conv(x_nhwc, wmix.to(x.dtype).contiguous())
+        if active_strip() is None:
+            out = per_sample_conv(x_nhwc, wmix.to(x.dtype).contiguous())
+        else:  # the kernel pads one row: given the two rows above an even strip, its first output row is surplus
+            out = per_sample_conv(halo_rows(x_nhwc, 2, 0, dim=1), wmix.to(x.dtype).contiguous())[:, 1:]
         out = out + (attn_w.float() @ self.bias.float()).to(x.dtype)[:, None, None, :]
         return out.permute(0, 3, 1, 2)
 
@@ -586,3 +652,18 @@ class ODConv(nn.Module):
 
     def forward(self, x):
         return self.act(self.bn(self.conv(x)))
+
+
+def strip_halo(model: nn.Module) -> int:
+    """The most rows any operator of `model` asks of a neighbouring strip
+    under spatial sharding (parallel.spatial.strip_plan holds the strips
+    to at least this many rows at the coarsest level)."""
+    halo = 0
+    for m in model.modules():
+        if isinstance(m, HaloConv2d):
+            halo = max(halo, m.halo())
+        elif isinstance(m, (SPP, SPPF)):
+            halo = max(halo, max(m.k if isinstance(m, SPP) else (m.k,)) // 2)
+        elif isinstance(m, ODConv2d):
+            halo = max(halo, 2)
+    return halo

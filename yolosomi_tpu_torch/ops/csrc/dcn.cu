@@ -22,10 +22,13 @@
 //   with gx = -(dil_w*(kw-1))/2 + ix*dil_w, the closed form of the JAX
 //   package's round trip through coordinates normalised over the padded
 //   canvas (both are exact in real arithmetic; f32 rounding differs in
-//   the last bits).
+//   the last bits). With a row origin row0 (a strip of a spatially sharded
+//   map, value the whole map) output row oy is row row0 + oy of the whole
+//   output: py = (dil_h*(kh-1))/2 + (row0 + oy)*s_h - pad_h + ...
 // dcnv2_im2col: x (N,H,W,C), offset_y, offset_x, mask (N,Ho,Wo,P) ->
 //   cols (N, Ho*Wo, P*C), cols[n, pix, p*C + c] = mask * bilinear(x, point
-//   p), p = ky*k + kx, py = oy*s - pad + ky + dy. The product with the
+//   p), p = ky*k + kx, py = (row0 + oy)*s - pad + ky + dy (row0 0, or a
+//   strip's first output row, x the whole map). The product with the
 //   (P*C, c2) weight is a plain large matmul left to torch.matmul.
 //
 // By their arithmetic both kernels are bound by bytes on an H100: per
@@ -144,7 +147,7 @@ dcnv3_core_kernel(const T* __restrict__ value, const T* __restrict__ offset, con
   const int half_x = (s.dw * (s.kw - 1)) / 2;
   const int half_y = (s.dh * (s.kh - 1)) / 2;
   const float cx = static_cast<float>(half_x + ox * s.sw - s.pw);
-  const float cy = static_cast<float>(half_y + oy * s.sh - s.ph);
+  const float cy = static_cast<float>(half_y + (s.row0 + oy) * s.sh - s.ph);
   const size_t q0 = (static_cast<size_t>(pix) * s.G + g) * P;  // the item's first point
   const T* img = value + static_cast<size_t>(n) * s.H * s.W * C + g * s.Cg;
   for (int c0 = 0; c0 < s.Cg; c0 += lanes * VEC) {
@@ -218,7 +221,7 @@ dcnv2_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset_y, con
     const int n = pix / (s.Wo * s.Ho);
     const int ky = p / s.k;  // p = ky*k + kx
     const int kx = p - ky * s.k;
-    const float py = static_cast<float>(oy * s.stride - s.pad + ky) + to_f32(offset_y[q]);
+    const float py = static_cast<float>((s.row0 + oy) * s.stride - s.pad + ky) + to_f32(offset_y[q]);
     const float px = static_cast<float>(ox * s.stride - s.pad + kx) + to_f32(offset_x[q]);
     bilinear_taps(px, py, s.H, s.W, to_f32(mask[q]), row, w);
 #pragma unroll
@@ -321,8 +324,8 @@ int launch_v2(const void* x, const void* offset_y, const void* offset_x, const v
 }
 
 V3Shape v3_shape(int N, int H, int W, int G, int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
-                 int dh, int dw, float offset_scale) {
-  return V3Shape{N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale};
+                 int dh, int dw, float offset_scale, int row0) {
+  return V3Shape{N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale, row0};
 }
 
 }  // namespace
@@ -332,30 +335,30 @@ V3Shape v3_shape(int N, int H, int W, int G, int Cg, int Ho, int Wo, int kh, int
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int dcnv3_core_f32(const void* value, const void* offset, const void* mask, void* out, int N, int H,
                               int W, int G, int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
-                              int dh, int dw, float offset_scale, int vec, int lanes, void* stream) {
+                              int dh, int dw, float offset_scale, int row0, int vec, int lanes, void* stream) {
   return launch_v3<float>(value, offset, mask, out,
-                          v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale), vec, lanes,
-                          stream);
+                          v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale, row0), vec,
+                          lanes, stream);
 }
 
 extern "C" int dcnv3_core_bf16(const void* value, const void* offset, const void* mask, void* out, int N, int H,
                                int W, int G, int Cg, int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
-                               int dh, int dw, float offset_scale, int vec, int lanes, void* stream) {
+                               int dh, int dw, float offset_scale, int row0, int vec, int lanes, void* stream) {
   return launch_v3<__nv_bfloat16>(value, offset, mask, out,
-                                  v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale), vec,
-                                  lanes, stream);
+                                  v3_shape(N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw, offset_scale, row0),
+                                  vec, lanes, stream);
 }
 
 extern "C" int dcnv2_im2col_f32(const void* x, const void* offset_y, const void* offset_x, const void* mask,
                                 void* cols, int N, int H, int W, int C, int Ho, int Wo, int k, int stride, int pad,
-                                int vec, int lanes, void* stream) {
-  return launch_v2<float>(x, offset_y, offset_x, mask, cols, V2Shape{N, H, W, C, Ho, Wo, k, stride, pad}, vec,
+                                int row0, int vec, int lanes, void* stream) {
+  return launch_v2<float>(x, offset_y, offset_x, mask, cols, V2Shape{N, H, W, C, Ho, Wo, k, stride, pad, row0}, vec,
                           lanes, stream);
 }
 
 extern "C" int dcnv2_im2col_bf16(const void* x, const void* offset_y, const void* offset_x, const void* mask,
                                  void* cols, int N, int H, int W, int C, int Ho, int Wo, int k, int stride, int pad,
-                                 int vec, int lanes, void* stream) {
-  return launch_v2<__nv_bfloat16>(x, offset_y, offset_x, mask, cols, V2Shape{N, H, W, C, Ho, Wo, k, stride, pad},
-                                  vec, lanes, stream);
+                                 int row0, int vec, int lanes, void* stream) {
+  return launch_v2<__nv_bfloat16>(x, offset_y, offset_x, mask, cols,
+                                  V2Shape{N, H, W, C, Ho, Wo, k, stride, pad, row0}, vec, lanes, stream);
 }

@@ -20,8 +20,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// row0: the first output row (a strip of a spatially sharded map: its
+// output rows are rows row0 .. row0 + Ho - 1 of the whole output, sampled
+// from the whole map x); 0 for the whole output
 struct V2Shape {
   int N, H, W, C, Ho, Wo, k, stride, pad;
+  int row0;
 };
 
 // VEC channels of one corner, or of one output run: `load` reads them
@@ -115,9 +119,11 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p, bool pair) {
               : make_float2(to_f32(__ldg(p)), to_f32(__ldg(p + 1)));
 }
 
+// row0 as V2Shape's; the gradient kernels take 0 (brace-initialised)
 struct V3Shape {
   int N, H, W, G, Cg, Ho, Wo, kh, kw, sh, sw, ph, pw, dh, dw;
   float offset_scale;
+  int row0;
 };
 
 }  // namespace

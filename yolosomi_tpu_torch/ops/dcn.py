@@ -17,6 +17,15 @@ the corners floor(p) and floor(p) + 1 (`_corner_weight`).
 The plain versions copy the JAX arithmetic with `torch.gather`. They
 compute in float32, or in float64 when given float64, and cast back to
 the input's dtype.
+
+Both forwards take a row origin `row0` (default 0): the offsets and the
+mask then hold output rows row0, row0 + 1, ... of the whole output, which
+sample the whole map `input` / `x` (a strip of a spatially sharded map,
+parallel/spatial.py). The sampling rows are (row0 + oy) * stride - pad +
+..., and DCNv3's canvas stays the whole padded map, so a strip's call
+gives rows row0 .. of the whole call. (Shifting the offsets by row0
+instead would round in bf16: 640 + 0.3 is 640.) No gradient is taken at
+row0 > 0: spatial sharding serves only.
 """
 
 from __future__ import annotations
@@ -54,8 +63,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures (csrc/dcn.cu, csrc/dcn_bwd.cu), without the trailing stream
 # pointer
 _ARGTYPES = {
-    "dcnv3_core": [_PTR] * 4 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 2,
-    "dcnv2_im2col": [_PTR] * 5 + [_INT] * 11,
+    "dcnv3_core": [_PTR] * 4 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 3,
+    "dcnv2_im2col": [_PTR] * 5 + [_INT] * 12,
     "dcnv3_core_bwd": [_PTR] * 8 + [_INT] * 15 + [ctypes.c_float] + [_INT] * 7,
     "dcnv2_im2col_bwd": [_PTR] * 10 + [_INT] * 16,
 }
@@ -142,7 +151,7 @@ def _bilinear_gather(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> t
 # ---------------------------------------------------------------------------
 
 
-def _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels):
+def _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels, row0: int = 0):
     if input.dim() != 4 or offset.dim() != 4 or mask.dim() != 4:
         raise ValueError(f"expected 4-D NHWC tensors, got {tuple(input.shape)} {tuple(offset.shape)} "
                          f"{tuple(mask.shape)}")
@@ -154,11 +163,13 @@ def _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels):
     if n != N or offset.shape[3] != group * P * 2 or tuple(mask.shape) != (N, ho, wo, group * P):
         raise ValueError(f"offset {tuple(offset.shape)} / mask {tuple(mask.shape)} do not match input "
                          f"{tuple(input.shape)} with G={group}, P={P}")
+    if row0 < 0:
+        raise ValueError(f"row0 {row0} < 0")
 
 
 def dcnv3_points(offset, H: int, W: int, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int, pad_h: int,
                  pad_w: int, dilation_h: int, dilation_w: int, group: int, offset_scale: float = 1.0,
-                 closed_form: bool = False, dtype: torch.dtype = None):
+                 closed_form: bool = False, dtype: torch.dtype = None, row0: int = 0):
     """DCNv3's sampling coordinates (px, py), each (N, Ho, Wo, G, P), in
     pixels of the padded canvas (`closed_form` False: the plain version's
     and JAX's round trip through coordinates normalised over that canvas)
@@ -166,7 +177,8 @@ def dcnv3_points(offset, H: int, W: int, kernel_h: int, kernel_w: int, stride_h:
     f32 arithmetic, px = cx + (gx + off_x) * offset_scale, exact for
     offset_scale 1); in `dtype`, by default float32 or float64 as the
     offsets. The two differ by pad and, in f32, in the last bits:
-    a point within an ulp of an integer can floor to another corner."""
+    a point within an ulp of an integer can floor to another corner. The
+    offsets' rows are output rows row0, row0 + 1, ... of an H x W map."""
     ct = dtype or _compute_dtype(offset.dtype)
     dev = offset.device
     N, Hout, Wout, _ = offset.shape
@@ -178,12 +190,12 @@ def dcnv3_points(offset, H: int, W: int, kernel_h: int, kernel_w: int, stride_h:
         gx = ((pp // kernel_h) * dilation_w - half_x).to(ct)  # p = ix*kh + iy
         gy = ((pp % kernel_h) * dilation_h - half_y).to(ct)
         cx = (half_x + torch.arange(Wout, device=dev) * stride_w - pad_w).to(ct)[None, None, :, None, None]
-        cy = (half_y + torch.arange(Hout, device=dev) * stride_h - pad_h).to(ct)[None, :, None, None, None]
+        cy = (half_y + torch.arange(row0, row0 + Hout, device=dev) * stride_h - pad_h).to(ct)[None, :, None, None, None]
         return cx + (gx + off[..., 0]) * offset_scale, cy + (gy + off[..., 1]) * offset_scale
     H_, W_ = H + 2 * pad_h, W + 2 * pad_w
     base_y = (dilation_h * (kernel_h - 1)) // 2 + 0.5
     base_x = (dilation_w * (kernel_w - 1)) // 2 + 0.5
-    ref_y = (base_y + torch.arange(Hout, dtype=ct, device=dev) * stride_h) / H_
+    ref_y = (base_y + torch.arange(row0, row0 + Hout, dtype=ct, device=dev) * stride_h) / H_
     ref_x = (base_x + torch.arange(Wout, dtype=ct, device=dev) * stride_w) / W_
     ref = torch.stack([ref_x[None, :].expand(Hout, Wout), ref_y[:, None].expand(Hout, Wout)], -1)
 
@@ -202,10 +214,11 @@ def dcnv3_points(offset, H: int, W: int, kernel_h: int, kernel_w: int, stride_h:
 
 def dcnv3_core_reference(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
                          pad_h: int, pad_w: int, dilation_h: int, dilation_w: int, group: int, group_channels: int,
-                         offset_scale: float = 1.0) -> torch.Tensor:
+                         offset_scale: float = 1.0, row0: int = 0) -> torch.Tensor:
     """Plain version of `dcnv3_core`: the JAX arithmetic (dcn.py:59-124),
-    reference points normalised over the padded canvas included."""
-    _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
+    reference points normalised over the padded canvas included; the
+    output rows from `row0` on."""
+    _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels, row0)
     ct = _compute_dtype(input.dtype)
     x = F.pad(input, (0, 0, pad_w, pad_w, pad_h, pad_h))
     N, H_, W_, _ = x.shape
@@ -213,7 +226,7 @@ def dcnv3_core_reference(input, offset, mask, kernel_h: int, kernel_w: int, stri
     P = kernel_h * kernel_w
     G, Cg = group, group_channels
     px, py = dcnv3_points(offset, input.shape[1], input.shape[2], kernel_h, kernel_w, stride_h, stride_w, pad_h,
-                          pad_w, dilation_h, dilation_w, group, offset_scale, dtype=ct)
+                          pad_w, dilation_h, dilation_w, group, offset_scale, dtype=ct, row0=row0)
     Q = Hout * Wout * P
     px = px.permute(0, 1, 2, 4, 3).reshape(N, Q, G)
     py = py.permute(0, 1, 2, 4, 3).reshape(N, Q, G)
@@ -323,7 +336,7 @@ def _workspace(plan: BwdPlan, mask: torch.Tensor):
 
 def dcnv3_core(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int, pad_h: int,
                pad_w: int, dilation_h: int, dilation_w: int, group: int, group_channels: int,
-               offset_scale: float = 1.0) -> torch.Tensor:
+               offset_scale: float = 1.0, row0: int = 0) -> torch.Tensor:
     """DCNv3's sampling: for each output pixel and group, the P = kh*kw
     points, each a bilinear sample of the zero-padded input at its learned
     offset, weighted by the softmax mask and summed over P, in f32.
@@ -335,21 +348,28 @@ def dcnv3_core(input, offset, mask, kernel_h: int, kernel_w: int, stride_h: int,
     count) launch the kernel on the current stream and count the launch in
     `dcnv3_core.launches`. Where autograd records and an input needs a
     gradient, the call goes through Dcnv3CoreFunction (on the CPU too), whose
-    backward is `dcnv3_core_bwd`."""
+    backward is `dcnv3_core_bwd`. `row0` > 0 (output rows from row0 on, of
+    the whole map `input`) takes no gradient."""
     args = (kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w, dilation_h, dilation_w, group, group_channels)
-    _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels)
+    _check_v3(input, offset, mask, kernel_h, kernel_w, group, group_channels, row0)
     if input.device.type != "cpu":
         _check_cuda("dcnv3_core", (input, offset, mask))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (input, offset, mask)):
+        _no_grad_at(row0, "dcnv3_core")
         return Dcnv3CoreFunction.apply(input, offset, mask, args, offset_scale)
-    return _v3_forward(input, offset, mask, args, offset_scale)
+    return _v3_forward(input, offset, mask, args, offset_scale, row0)
 
 
-def _v3_forward(input, offset, mask, args: tuple, offset_scale: float) -> torch.Tensor:
+def _no_grad_at(row0: int, name: str) -> None:
+    if row0:
+        raise NotImplementedError(f"{name} takes no gradient at row0 {row0}: spatial sharding serves only")
+
+
+def _v3_forward(input, offset, mask, args: tuple, offset_scale: float, row0: int = 0) -> torch.Tensor:
     """dcnv3_core on checked inputs: the plain version for CPU tensors, the
     kernel for CUDA tensors."""
     if input.device.type == "cpu":
-        return dcnv3_core_reference(input, offset, mask, *args, offset_scale=offset_scale)
+        return dcnv3_core_reference(input, offset, mask, *args, offset_scale=offset_scale, row0=row0)
     N, H, W, C = input.shape
     _, Ho, Wo, _ = offset.shape
     group, group_channels = args[8:]
@@ -357,7 +377,7 @@ def _v3_forward(input, offset, mask, args: tuple, offset_scale: float) -> torch.
     vec, lanes = _v3_geometry(group_channels, input.element_size(),
                               input.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     _launch("dcnv3_core", _entry("dcnv3_core", input.dtype), (input, offset, mask, out),
-            (N, H, W, group, group_channels, Ho, Wo, *args[:8]), (float(offset_scale), vec, lanes))
+            (N, H, W, group, group_channels, Ho, Wo, *args[:8]), (float(offset_scale), row0, vec, lanes))
     dcnv3_core.launches += 1
     return out
 
@@ -459,7 +479,7 @@ def dcnv3_sampling(*args, **kwargs) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_v2(x, offset_y, offset_x, mask, k):
+def _check_v2(x, offset_y, offset_x, mask, k, row0: int = 0):
     if x.dim() != 4 or offset_y.dim() != 4:
         raise ValueError(f"expected x (N,H,W,C) and offsets (N,Ho,Wo,P), got {tuple(x.shape)} "
                          f"{tuple(offset_y.shape)}")
@@ -467,6 +487,8 @@ def _check_v2(x, offset_y, offset_x, mask, k):
     if n != x.shape[0] or p != k * k or tuple(offset_x.shape) != (n, ho, wo, p) or tuple(mask.shape) != (n, ho, wo, p):
         raise ValueError(f"offset_y {tuple(offset_y.shape)}, offset_x {tuple(offset_x.shape)} and mask "
                          f"{tuple(mask.shape)} must all be (N, Ho, Wo, {k * k}) for x {tuple(x.shape)}")
+    if row0 < 0:
+        raise ValueError(f"row0 {row0} < 0")
 
 
 def _v2_geometry(C: int, elem_size: int, aligned: bool = True) -> tuple:
@@ -481,9 +503,11 @@ def _v2_geometry(C: int, elem_size: int, aligned: bool = True) -> tuple:
     return vec, lanes, min(lanes, _V2_PAIRS)
 
 
-def dcnv2_im2col_reference(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: int = 1) -> torch.Tensor:
-    """Plain version of `dcnv2_im2col`: the JAX arithmetic (dcn.py:220-233)."""
-    _check_v2(x, offset_y, offset_x, mask, k)
+def dcnv2_im2col_reference(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: int = 1,
+                           row0: int = 0) -> torch.Tensor:
+    """Plain version of `dcnv2_im2col`: the JAX arithmetic (dcn.py:220-233);
+    the output rows from `row0` on."""
+    _check_v2(x, offset_y, offset_x, mask, k, row0)
     ct = _compute_dtype(x.dtype)
     dev = x.device
     N, H, W, C = x.shape
@@ -491,7 +515,7 @@ def dcnv2_im2col_reference(x, offset_y, offset_x, mask, k: int = 3, stride: int 
     kk = torch.arange(k, dtype=ct, device=dev)
     grid_y = kk[:, None].expand(k, k).reshape(P)  # p = ky*k + kx
     grid_x = kk[None, :].expand(k, k).reshape(P)
-    base_y = torch.arange(Ho, dtype=ct, device=dev) * stride - pad
+    base_y = torch.arange(row0, row0 + Ho, dtype=ct, device=dev) * stride - pad
     base_x = torch.arange(Wo, dtype=ct, device=dev) * stride - pad
     py = base_y[None, :, None, None] + grid_y[None, None, None, :] + offset_y.to(ct)
     px = base_x[None, None, :, None] + grid_x[None, None, None, :] + offset_x.to(ct)
@@ -502,7 +526,7 @@ def dcnv2_im2col_reference(x, offset_y, offset_x, mask, k: int = 3, stride: int 
     return sampled.reshape(N, Ho * Wo, P * C).to(x.dtype)
 
 
-def dcnv2_im2col(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: int = 1) -> torch.Tensor:
+def dcnv2_im2col(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: int = 1, row0: int = 0) -> torch.Tensor:
     """DCNv2's modulated sampling as columns: for each output pixel and
     kernel point p = ky*k + kx, the bilinear sample of x at
     (oy*stride - pad + ky + dy, ox*stride - pad + kx + dx), zeros outside,
@@ -515,14 +539,16 @@ def dcnv2_im2col(x, offset_y, offset_x, mask, k: int = 3, stride: int = 1, pad: 
     stream and count the launch in `dcnv2_im2col.launches`. Where autograd
     records and an input needs a gradient, the call goes through
     Dcnv2Im2colFunction (on the CPU too), whose backward is
-    `dcnv2_im2col_bwd`."""
-    _check_v2(x, offset_y, offset_x, mask, k)
+    `dcnv2_im2col_bwd`. `row0` > 0 (output rows from row0 on, of the whole
+    map x) takes no gradient."""
+    _check_v2(x, offset_y, offset_x, mask, k, row0)
     if x.device.type != "cpu":
         _check_cuda("dcnv2_im2col", (x, offset_y, offset_x, mask))
         _check_v2_size(x, offset_y)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, offset_y, offset_x, mask)):
+        _no_grad_at(row0, "dcnv2_im2col")
         return Dcnv2Im2colFunction.apply(x, offset_y, offset_x, mask, k, stride, pad)
-    return _v2_forward(x, offset_y, offset_x, mask, k, stride, pad)
+    return _v2_forward(x, offset_y, offset_x, mask, k, stride, pad, row0)
 
 
 def _check_v2_size(x, offset_y) -> None:
@@ -530,17 +556,18 @@ def _check_v2_size(x, offset_y) -> None:
         raise ValueError("dcnv2_im2col: the columns would have 2**31 elements or more")
 
 
-def _v2_forward(x, offset_y, offset_x, mask, k: int, stride: int, pad: int) -> torch.Tensor:
+def _v2_forward(x, offset_y, offset_x, mask, k: int, stride: int, pad: int, row0: int = 0) -> torch.Tensor:
     """dcnv2_im2col on checked inputs: the plain version for CPU tensors,
     the kernel for CUDA tensors."""
     if x.device.type == "cpu":
-        return dcnv2_im2col_reference(x, offset_y, offset_x, mask, k, stride, pad)
+        return dcnv2_im2col_reference(x, offset_y, offset_x, mask, k, stride, pad, row0)
     N, H, W, C = x.shape
     _, Ho, Wo, P = offset_y.shape
     cols = torch.empty((N, Ho * Wo, P * C), device=x.device, dtype=x.dtype)
     vec, lanes, _ = _v2_geometry(C, x.element_size(), x.data_ptr() % 16 == 0 and cols.data_ptr() % 16 == 0)
     fn = _entry("dcnv2_im2col", x.dtype)
-    _launch("dcnv2_im2col", fn, (x, offset_y, offset_x, mask, cols), (N, H, W, C, Ho, Wo, k, stride, pad, vec, lanes))
+    _launch("dcnv2_im2col", fn, (x, offset_y, offset_x, mask, cols),
+            (N, H, W, C, Ho, Wo, k, stride, pad, row0, vec, lanes))
     dcnv2_im2col.launches += 1
     return cols
 

@@ -27,8 +27,9 @@ serving, the pipeline) every module computes as in one process, bit for
 bit. A group is made by `init_data_parallel` (torchrun's environment;
 NCCL on CUDA, gloo on the CPU) or by `spawn_local`, which runs W ranks as
 processes on one machine with a file rendezvous (the tests' stand-in for
-JAX's virtual CPU devices). The spatial and channel shardings of the JAX
-mesh (the 'model' axis) are not ported (ROADMAP queue A item 6).
+JAX's virtual CPU devices). Spatial sharding of the mesh's 'model' axis
+for serving is parallel/spatial.py; channel sharding is not ported
+(ROADMAP queue A item 6).
 """
 
 from __future__ import annotations

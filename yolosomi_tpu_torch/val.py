@@ -2,6 +2,7 @@
 of the root val.py of the JAX package, :35-388).
 
     python -m yolosomi_tpu_torch.val --data <data yaml> --cfg yolo-somi [--imgsz 640 --batch-size 16]
+    torchrun --standalone --nproc-per-node <W> -m yolosomi_tpu_torch.val --shard-spatial <S> --data ... --cfg ...
 
 Pipeline: the ordered, wrap-padded loader -> Runner on the device
 (forward, decode, multi-label NMS at conf 0.001 / IoU 0.6 with
@@ -19,8 +20,13 @@ as results[4:7]. `int8` evaluates through the int8 convs
 (ops/quant.py: calibrated on the first val batch; `int8_exclude` regexes
 of flax paths kept in float, `head` meaning the detect head;
 `int8_per_channel` per-channel activation scales) under the same eval
-protocol. TTA (`augment`, ROADMAP queue A item 9), plots (matplotlib,
-item 9) and spatial sharding (item 6) raise NotImplementedError.
+protocol. `shard_spatial` S > 1 serves every batch H-sharded over the
+process group of W = D x S ranks (engine/runner.py; under torchrun, which
+raises without one): every rank loads the same batches and gets the whole
+detections, and rank 0 alone logs the table and writes the files. With
+`int8` it stays unsharded, as the JAX package's quantized_infer_fn never
+uses the spatial mesh. TTA (`augment`, ROADMAP queue A item 9) and plots
+(matplotlib, item 9) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from yolosomi_tpu_torch.ops.quant import quantized_infer_fn
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xywh2xyxy
 from yolosomi_tpu_torch.utils.cocoeval import COCOEvaluator
 from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg
-from yolosomi_tpu_torch.utils.general import LOGGER, check_img_size, increment_path
+from yolosomi_tpu_torch.utils.general import LOGGER, check_img_size, increment_path, log_rank
 from yolosomi_tpu_torch.utils.metrics import ap_per_class, fitness, process_batch
 
 
@@ -123,8 +129,7 @@ def run(
     loss), per-class mAP@.5:.95 (nc,), (pre, inference+NMS, post) ms per
     image); the losses are 0 without `compute_loss`. `half` builds the
     Runner in bf16, else f32; a given `runner` keeps its own."""
-    for flag, what in ((augment, "TTA (ROADMAP queue A item 9)"), (plots, "plots (matplotlib; ROADMAP queue A item 9)"),
-                       (shard_spatial > 1, "spatial sharding (ROADMAP queue A item 6)")):
+    for flag, what in ((augment, "TTA (ROADMAP queue A item 9)"), (plots, "plots (matplotlib; ROADMAP queue A item 9)")):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
     t_start = time.time()
@@ -135,11 +140,18 @@ def run(
     if runner is None:
         if weights is None and variables is None:
             LOGGER.info("no weights given: random weights from seed 0")
+        if int8 and shard_spatial > 1:
+            LOGGER.info(f"--int8 serves unsharded: --shard-spatial {shard_spatial} is ignored, as the JAX package's "
+                        "quantized_infer_fn never uses the spatial mesh")
+            shard_spatial = 1
         runner = Runner(cfg, weights, nc=nc, dtype=torch.bfloat16 if half else torch.float32, imgsz=imgsz,
-                        device=device, variables=variables)
+                        device=device, variables=variables, spatial_shards=shard_spatial)
     imgsz = check_img_size(imgsz, s=runner.stride)
+    main_rank = runner.spatial is None or runner.spatial.rank == 0  # sharded: rank 0 alone writes
+    if runner.spatial is not None:
+        log_rank(runner.spatial.rank)
 
-    save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)
+    save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=main_rank)
 
     if dataloader is None:
         dataset = DetectionDataset(data_dict[task], img_size=imgsz)
@@ -208,7 +220,7 @@ def run(
                 det = _greedy_nms_host(np.concatenate([lab_rows, det], 0).astype(np.float32), iou_thres)[:max_det]
             correct = process_batch(det, tbox, iouv, alpha_iou=alpha_iou)
             stats.append((correct, det[:, 4], det[:, 5], tbox[:, 0]))
-            if save_txt and len(det):
+            if save_txt and len(det) and main_rank:
                 (save_dir / "labels").mkdir(parents=True, exist_ok=True)
                 h0w0 = shapes[si][0] if shapes[si] is not None else (h, w)
                 _save_one_txt(save_dir / "labels" / (Path(paths[si]).stem + ".txt"), det, h0w0, save_conf)
@@ -246,7 +258,7 @@ def run(
     spd = tuple(x / max(seen, 1) * 1000 for x in (t_pre, t_inf, t_post))
     LOGGER.info("Speed: %.1fms pre, %.1fms inference+NMS, %.1fms post per image" % spd)
 
-    if save_json and jdict:
+    if save_json and jdict and main_rank:
         pred_json = save_dir / "predictions.json"
         pred_json.write_text(json.dumps(jdict))
         LOGGER.info(f"COCO JSON: {pred_json} ({len(jdict)} detections)")
@@ -263,6 +275,8 @@ def run(
     results = (mp, mr, map50, map_, vb, vo, vc)
     fi = float(fitness(np.array(results[:4])))
     LOGGER.info(f"fitness: {fi:.4f} ({time.time() - t_start:.1f}s)")
+    if not main_rank:
+        return results, maps, spd
     (save_dir / "metrics.json").write_text(json.dumps({
         "P": float(mp), "R": float(mr), "mAP50": float(map50), "mAP": float(map_),
         "fitness": fi, "images": int(seen),
@@ -302,7 +316,8 @@ def parse_opt(argv=None):
                         help="flax path regexes kept in float under --int8 ('head' = the detect head)")
     parser.add_argument("--int8-per-channel", action="store_true",
                         help="per-channel activation scales under --int8")
-    parser.add_argument("--shard-spatial", type=int, default=1, help="split activations along H (not ported yet)")
+    parser.add_argument("--shard-spatial", type=int, default=1,
+                        help="H-strips a batch is split into, one a rank (run under torchrun with a multiple of it)")
     parser.add_argument("--plots", action="store_true", help="PR curves and confusion matrix (not ported yet)")
     return parser.parse_args(argv)
 
