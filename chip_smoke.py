@@ -24,15 +24,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     the rest of the family the same way, each at its published width and
     nc (FAMILY_SERVED: yolo-somi-s and the ODConv ablation through
     odconv_s2 4 times a batch; yolo-somi-t, -t-p3s8 and yolov5s, coupled
-    Detect heads, through no kernel; the heads that score nothing above
+    Detect heads, through no kernel, and the four hub detection configs
+    of ZOO (yolov3-tiny, yolov5s-ghost, yolov5s-transformer, yolov10) the
+    same way; the heads that score nothing above
     0.25 under random weights serve at conf 1e-6, SERVE_CONF, and every
     served image must get a detection), and a sweep (SWEEP): every other
     config the port serves builds at its published width and answers one
     b8 batch, every row finite, no kernel launched
  5. parity: each model in f32 through the kernels is as close to its
     plain version in f64 as the plain version in f32 is, on a batch of 2:
-    the flagship, yolo-somi-dcn, yolo-somi-s, yolo-somi-t and yolov5s (the
-    last two have no kernel site: their f32 distance from f64 is printed)
+    the flagship, yolo-somi-dcn, yolo-somi-s, yolo-somi-t, yolov5s and ZOO
+    (the last six have no kernel site: their f32 distance from f64 is
+    printed)
  6. eval, for the flagship, then yolo-somi-dcn with its offset heads
     randomised, then with them at their zero init: val.run of the full-width model (nc 10, 640 px, b8,
     random weights from seed 0) on a self-labelled set. The set is 60 synthetic
@@ -217,6 +220,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (phase 5's rule), in f32 the rows too, as many kept; per-rank peak
     memory, batch times and the bytes each rank all-reduces, beside one
     process's peak and its largest allocation
+15. test-time augmentation (the 0.83 and 0.67 passes' canvases are 544
+    and 448 px): odconv_s2 at the flagship's four sites and dcnv2_im2col /
+    dcnv3_core at yolo-somi-dcn's on those canvases against their plain
+    versions, timed as in phase 3; TTA serving (b8, 640 px, bf16, seed 0,
+    DCN offset heads randomised) of the flagship and yolo-somi-dcn, with
+    odconv_s2 12 launches a batch (yolo-somi-dcn 12 / 27 / 3) and the
+    counts set to 0 just before each path, timed beside plain batches of
+    the same Runner; TTA's decoded rows of a b2 batch in f32 through the
+    kernels no further from the float64 model (plain_version(), the same
+    TTA, a float64 decode) than twice the plain f32 rows (phase 5's rule);
+    val.run(augment=True) of the flagship in f32 on phase 6's set,
+    kernels against plain_version() (mAP@.5 within 0.01, 12 launches a
+    batch against 0); detect.run(augment=True) on 4 of phase 7's JPEGs
+    writes Runner(augment=True)'s rows; detect.run(classify="classifier")
+    on them: classifier.yaml's headless model at 224 px gives finite
+    logits, and the rows it keeps are among the unfiltered rows
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -228,6 +247,7 @@ import copy
 import hashlib
 import json
 import logging
+import math
 import re
 import statistics
 import subprocess
@@ -236,6 +256,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -256,7 +277,7 @@ from yolosomi_tpu_torch.engine.trainer import TrainStep, create_train_state, mak
 from yolosomi_tpu_torch.losses import ComputeLoss
 from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d, ODConv2d
 from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
-from yolosomi_tpu_torch.models.heads import decode
+from yolosomi_tpu_torch.models.heads import _grid_boxes, decode
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops import build, quant
 from yolosomi_tpu_torch.ops.dcn import (Dcnv2Im2colFunction, Dcnv3CoreFunction, _v2_bwd_plan, _v3_bwd_plan,
@@ -266,6 +287,7 @@ from yolosomi_tpu_torch.ops.dcn import (Dcnv2Im2colFunction, Dcnv3CoreFunction, 
 from yolosomi_tpu_torch.ops.int8 import (_conv_int8_plan, conv_int8, conv_int8_fused, conv_int8_fused_reference,
                                          conv_int8_reference, quantize_activation)
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
+from yolosomi_tpu_torch.ops.tta import TTA_SCALES, forward_augment
 from yolosomi_tpu_torch.ops.odconv import (OdconvS2Function, _dw_plan, _dw_split, _dx_plan, _plan, odconv_s2,
                                            odconv_s2_backward_reference, odconv_s2_dwmix, odconv_s2_dx,
                                            odconv_s2_reference, plain_version)
@@ -300,13 +322,18 @@ PER_BATCH = {
 # published width and depth, with its YAML's nc (10 for the SOMI configs,
 # 80 for the YOLOv5 ones)
 FAMILY_SERVED = {"yolo-somi-s": (0.5, 0.67), "ablation/v5s-c2f-odconv-bifpn-p2-decoupled": (0.5, 0.33),
-                 "yolo-somi-t": (1.0, 1.0), "yolo-somi-t-p3s8": (1.0, 1.0), "yolov5s": (0.5, 0.33)}
+                 "yolo-somi-t": (1.0, 1.0), "yolo-somi-t-p3s8": (1.0, 1.0), "yolov5s": (0.5, 0.33),
+                 "hub/yolov3-tiny": (1.0, 1.0), "hub/yolov5s-ghost": (0.5, 0.33),
+                 "hub/yolov5s-transformer": (0.5, 0.33), "hub/yolov10": (1.0, 1.0)}
+# the hub configs of the Ghost, transformer and YOLOv10 blocks and yolov3-tiny's pool and pad (phase 4 serves them,
+# phase 5 prints their distance)
+ZOO = ("hub/yolov3-tiny", "hub/yolov5s-ghost", "hub/yolov5s-transformer", "hub/yolov10")
 # every other config the port serves: each builds and answers one b8 batch
 SWEEP = ("yolo-somi-t-p3", "yolo-somi-t-p3s", "ablation/v5s-c2f", "ablation/v5s-c2f-bifpn-p2", "yolov5n", "yolov5m",
          "yolov5l", "yolov5x", "yolov5s-p2", "yolov5s6", "yolov5n6", "hub/yolov5s6", "yolov5m6", "yolov5l6",
          "yolov5x6", "yolov5-p2", "yolov5-p6", "yolov5-p7", "yolov5-bifpn", "yolov5-fpn", "yolov5-panet", "yolov3",
          "yolov3-spp")
-PARITY = ("yolo-somi", "yolo-somi-dcn", "yolo-somi-s", "yolo-somi-t", "yolov5s")
+PARITY = ("yolo-somi", "yolo-somi-dcn", "yolo-somi-s", "yolo-somi-t", "yolov5s", *ZOO)
 # AutoShape's threshold for the yolov5 hub loaders: random weights under
 # the detection priors score ~1e-4 at most, so the usual 0.25 (or 0.001)
 # would return no box to map back to the images
@@ -316,7 +343,7 @@ HUB_CONF = 1e-6
 # they serve at HUB_CONF and their NMS takes its full top-4096 candidates,
 # as the flagship's does at 0.25
 SERVE_CONF = {name: HUB_CONF for name in ("ablation/v5s-c2f-odconv-bifpn-p2-decoupled", "yolo-somi-t",
-                                          "yolo-somi-t-p3s8", "yolov5s")}
+                                          "yolo-somi-t-p3s8", "yolov5s", *ZOO)}
 EVAL_IMAGES = 60  # 7 batches of 8 and a last one that wraps 4
 EVAL_TOP = 10  # labels per image
 HEAD_TEMPER = 0.1
@@ -3490,6 +3517,227 @@ def spatial_sharding(gpu: str) -> dict:
     assert not failed, failed
     return dict(launches=launches, row0=row0)
 
+# ---------------------------------------------------------------------------
+# phase 15: test-time augmentation, and detect's second-stage classifier
+# ---------------------------------------------------------------------------
+
+TTA_CANVASES = tuple(math.ceil(IMGSZ * r / 32) * 32 for r in TTA_SCALES[1:])  # the 0.83 and 0.67 passes': 544, 448
+# launches per TTA batch: three forwards
+TTA_PER_BATCH = {name: {k: 3 * n for k, n in PER_BATCH[name].items()} for name in ("yolo-somi", "yolo-somi-dcn")}
+TTA_REQUESTS = 5  # timed TTA batches (and plain ones beside them) a config
+TTA_DETECT_IMAGES = 4  # phase 7's first JPEGs (1920x1080 drone frames)
+CLASSIFIER = "classifier"  # configs/models/classifier.yaml: a headless graph with a Classify tail (nc 2)
+
+
+def decode64(preds: list, meta) -> torch.Tensor:
+    """models.heads.decode in float64 (the port's decode rounds to f32):
+    the yardstick's decoded rows."""
+    anchors = torch.as_tensor(meta.anchors_px, dtype=torch.float64, device=preds[0].device)
+    rows = []
+    for p, a, s in zip(preds, anchors, meta.strides):
+        y = torch.sigmoid(p.double())
+        rows.append(torch.cat([_grid_boxes(y, a, float(s)), y[..., 4:]], -1).reshape(p.shape[0], -1, p.shape[-1]))
+    return torch.cat(rows, 1)
+
+
+def tta_kernels(meta, gen: torch.Generator) -> dict:
+    """The kernels at the sites of the TTA canvases (b8): odconv_s2 at the
+    flagship's four, dcnv2_im2col and dcnv3_core at yolo-somi-dcn's, each
+    against its plain version (check_kernel's, check_dcnv2's and
+    check_dcnv3's tolerances) with kernel, plain, library and bound times."""
+    out = {}
+    for side in TTA_CANVASES:
+        v2, v3 = dcn_sites("yolo-somi-dcn", BATCH, side)
+        out[side] = {"odconv_s2": check_kernel(odconv_sites(meta, BATCH, side), gen, f"yolo-somi TTA canvas {side}"),
+                     "dcnv2_im2col": check_dcnv2(v2, gen), "dcnv3_core": check_dcnv3(v3, gen)}
+    return out
+
+
+def tta_serve(gpu: str, cfg_name: str) -> dict:
+    """TTA_REQUESTS b8 bf16 batches with augment=True (conf 0.25, seed 0,
+    DCN offset heads randomised), each image answered, the kernels
+    launched TTA_PER_BATCH a batch with the counts set to 0 just before;
+    timed beside as many plain batches of the same Runner. Returns this
+    path's launch counts."""
+    runner = Runner(cfg_name, dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    randomize_offset_heads(runner.model, seed=0)
+    rng = np.random.default_rng(15)
+    batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(TTA_REQUESTS + 1)]
+    runner(batches[0], augment=True)  # warm-up: cuDNN plans of the 544 and 448 canvases
+    runner(batches[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for images in batches[1:]:
+        t0 = time.perf_counter()
+        out = runner(images, augment=True)
+        lat.append(time.perf_counter() - t0)
+        assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), out.shape
+        assert (out[..., 4] > 0).any(1).all(), f"{cfg_name}: a TTA image without detections"
+    launches = launch_counts()
+    assert launches == only(**{k: n * TTA_REQUESTS for k, n in TTA_PER_BATCH[cfg_name].items()}), launches
+    plain = []
+    for images in batches[1:]:
+        t0 = time.perf_counter()
+        runner(images)
+        plain.append(time.perf_counter() - t0)
+    med, med_plain = statistics.median(lat), statistics.median(plain)
+    per = ", ".join(f"{name} {n // TTA_REQUESTS}/batch" for name, n in launches.items() if n)
+    print(f"tta serving {cfg_name} {IMGSZ} px (canvases {IMGSZ}, {TTA_CANVASES[0]} flipped, {TTA_CANVASES[1]}) bf16 "
+          f"conf 0.25 "
+          f"b{BATCH}, {TTA_REQUESTS} requests on {gpu}: latency median {med * 1e3:.2f} ms/batch (min "
+          f"{min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), {BATCH / med:.1f} img/s; plain batches of the same "
+          f"Runner {med_plain * 1e3:.2f} ms/batch, {BATCH / med_plain:.1f} img/s ({med / med_plain:.2f}x); "
+          f"detections/img {(out[..., 4] > 0).sum(1).mean():.1f}; launches {per}")
+    return launches
+
+
+def tta_parity(cfg_name: str) -> None:
+    """TTA's decoded rows (before NMS) of a b2 batch in f32 through the
+    kernels and under plain_version(), each held against the model in
+    float64 under plain_version() through the same TTA (decode64): phase
+    5's rule, the kernels' rows no further from float64 than twice the
+    plain f32 rows plus 1e-6."""
+    runner = Runner(cfg_name, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+    randomize_offset_heads(runner.model, seed=0)
+    images = np.random.default_rng(16).integers(0, 256, (2, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+    x = runner.upload(images)
+    reset_counts()
+    rows = runner.augment_rows(x)
+    assert launch_counts() == only(**TTA_PER_BATCH[cfg_name]), launch_counts()
+    with plain_version(), torch.inference_mode():
+        ref = runner.augment_rows(x)
+        model64 = copy.deepcopy(runner.model).double()
+        ref64 = forward_augment(lambda xi: decode64(model64(xi), runner.meta), x.double(), runner.meta.nl,
+                                gs=runner.stride)
+    assert rows.shape == ref.shape == ref64.shape and torch.isfinite(rows).all(), (rows.shape, ref64.shape)
+    for what, cols in (("boxes (px)", slice(0, 4)), ("scores", slice(4, None))):
+        k_err = (rows[..., cols].double() - ref64[..., cols]).abs().max().item()
+        p_err = (ref[..., cols].double() - ref64[..., cols]).abs().max().item()
+        diff = (rows[..., cols] - ref[..., cols]).abs().max().item()
+        print(f"tta parity {cfg_name} {what}: {rows.shape[1]} rows an image, kernel-vs-plain {diff:.3e}, vs f64: "
+              f"kernel {k_err:.3e} plain {p_err:.3e}")
+        assert k_err <= 2 * p_err + 1e-6, (cfg_name, what, k_err, p_err)
+
+
+def tta_eval(gpu: str, workdir: Path) -> tuple:
+    """val.run(augment=True) of the full-width flagship in f32 (head
+    tempered as phase 6 tempers it) on phase 6's self-labelled set, through
+    the kernels and under plain_version(): mAP@.5 within 0.01, odconv_s2
+    12 launches a batch and none under plain_version(). Returns the
+    kernels' results."""
+    root = workdir / "ds"
+    runner = Runner("yolo-somi", nc=10, dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+    temper_head(runner.model, HEAD_TEMPER)
+    loader = DataLoader(DetectionDataset(str(root / "images"), img_size=IMGSZ), BATCH)
+    kw = dict(data=str(root / "data.yaml"), batch_size=BATCH, imgsz=IMGSZ, project=str(workdir / "runs"),
+              exist_ok=True, dataloader=loader, runner=runner, augment=True)
+    results = {}
+    for name, ctx in (("tta-f32-kernels", contextlib.nullcontext()), ("tta-f32-plain", plain_version())):
+        reset_counts()
+        t0 = time.perf_counter()
+        with ctx:
+            res, _, speed = val.run(name=name, **kw)
+        wall = time.perf_counter() - t0
+        results[name] = (res, launch_counts())
+        print(f"eval yolo-somi {name}: P {res[0]:.5f} R {res[1]:.5f} mAP@.5 {res[2]:.5f} mAP@.5:.95 {res[3]:.5f}; "
+              f"Speed {speed[1]:.2f} ms inference+NMS per image; {EVAL_IMAGES / wall:.1f} img/s ({wall:.2f} s); "
+              f"launches {results[name][1]}")
+    (kernels, launches), (plain, plain_launches) = results.values()
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    assert launches == only(**{k: n * n_batches for k, n in TTA_PER_BATCH["yolo-somi"].items()}), launches
+    assert not any(plain_launches.values()), plain_launches
+    assert abs(kernels[2] - plain[2]) <= 0.01, (kernels[2], plain[2])
+    return kernels
+
+
+def tta_detect(gpu: str, src: Path, tmp: Path) -> None:
+    """detect.run(augment=True) of the seed-0 flagship (bf16) on phase 7's
+    first TTA_DETECT_IMAGES JPEGs: odconv_s2 12 launches an image, and the
+    label rows those of Runner(augment=True) on the letterboxed images,
+    mapped back, to the printed digits."""
+    reset_counts()
+    run_dir = detect.run(weights=None, cfg="yolo-somi", source=str(src), imgsz=IMGSZ, save_txt=True, save_conf=True,
+                         nosave=True, augment=True, project=str(tmp / "runs"), name="detect-tta", device="cuda")
+    launches = launch_counts()
+    assert launches == only(odconv_s2=TTA_PER_BATCH["yolo-somi"]["odconv_s2"] * TTA_DETECT_IMAGES), launches
+    runner = Runner("yolo-somi", dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    n_rows = 0
+    for path, img, im0, _ in LoadImages(str(src), img_size=IMGSZ, stride=runner.stride):
+        det = runner(img[None], conf_thres=0.4, iou_thres=0.2, augment=True)[0]
+        det = det[det[:, 4] > 0]
+        det[:, :4] = scale_coords(img.shape[:2], det[:, :4], im0.shape[:2])
+        want = [detect.label_line(int(c), xyxy, im0.shape, conf) for *xyxy, conf, c in det]
+        label = run_dir / "labels" / f"{Path(path).stem}.txt"
+        assert (label.read_text().splitlines() if label.exists() else []) == want, path
+        n_rows += len(want)
+    assert n_rows > 0, "no rows: the detect check would be vacuous"
+    print(f"detect --augment on {gpu}: {TTA_DETECT_IMAGES} JPEGs of {DETECT_IMAGES[0][2]}x{DETECT_IMAGES[0][1]}, "
+          f"{n_rows} label rows equal to "
+          f"Runner(augment=True)'s; odconv_s2 {launches['odconv_s2']} launches")
+
+
+def classify_detect(gpu: str, src: Path, tmp: Path) -> None:
+    """detect.run(classify="classifier") of the seed-0 flagship on the same
+    JPEGs: the classifier (classifier.yaml at its published width, random
+    weights from seed 0, a Runner at 224 px) gives finite (N, 2) logits
+    for the crops, and the rows kept are a subset of the unfiltered rows."""
+    logits = []
+
+    class Recording(Runner):
+        def __call__(self, images, **kw):
+            out = super().__call__(images, **kw)
+            logits.append(out)
+            return out
+
+    def labels(name: str, classify=None) -> Counter:
+        """The label rows by (file, row), counted: rows repeat at the printed digits."""
+        run_dir = detect.run(weights=None, cfg="yolo-somi", source=str(src), imgsz=IMGSZ, save_txt=True, nosave=True,
+                             classify=classify, project=str(tmp / "runs"), name=name, device="cuda")
+        return Counter((p.name, r) for p in (run_dir / "labels").glob("*.txt") for r in p.read_text().splitlines())
+
+    every = labels("detect-all")
+    detect.Runner = Recording
+    try:
+        kept = labels("detect-classify", CLASSIFIER)
+    finally:
+        detect.Runner = Runner
+    n_crops = sum(len(lg) for lg in logits)
+    assert logits and all(lg.ndim == 2 and lg.shape[1] == 2 and np.isfinite(lg).all() for lg in logits), logits
+    assert n_crops == every.total() and kept <= every, (n_crops, every.total(), (kept - every).total())
+    print(f"detect --classify {CLASSIFIER} on {gpu}: {n_crops} crops classified at 224 px in {len(logits)} calls, "
+          f"logits finite, |logit| max {max(np.abs(lg).max() for lg in logits):.3f}; {kept.total()} of "
+          f"{every.total()} rows kept, all among the unfiltered rows")
+
+
+def tta_phase(gpu: str, meta, workdir: Path) -> dict:
+    """Phase 15: the TTA kernel checks, TTA serving of the flagship and
+    yolo-somi-dcn, TTA parity in f32, val.run and detect.run with augment,
+    and detect --classify. Returns the kernel summaries by canvas and the
+    TTA serving launches by config."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    kernels = tta_kernels(meta, gen)
+    t_kernels = time.perf_counter() - t_phase
+    served = {name: tta_serve(gpu, name) for name in TTA_PER_BATCH}
+    for name in TTA_PER_BATCH:
+        tta_parity(name)
+    tta_eval(gpu, workdir)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = tmp / "detect-src"
+        src.mkdir()
+        rng = np.random.default_rng(0)  # phase 7's first frames
+        count, h, w = DETECT_IMAGES[0]
+        for i in range(TTA_DETECT_IMAGES):
+            assert cv2.imwrite(str(src / f"im{i:02d}_{w}x{h}.jpg"), synthetic_image(rng, h, w))
+        tta_detect(gpu, src, tmp)
+        classify_detect(gpu, src, tmp)
+    print(f"test-time augmentation on {gpu}: phase 15 {time.perf_counter() - t_phase:.1f} s (kernel checks "
+          f"{t_kernels:.1f} s)")
+    return dict(kernels=kernels, served=served)
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     def one(source):
@@ -3569,19 +3817,20 @@ def main() -> int:
     sweep(gpu)
     for name in PARITY:
         parity(name)
-    eval_dir = tempfile.TemporaryDirectory()  # phase 6's flagship set, evaluated again in int8 by phase 12
-    bf16_eval = evaluate(gpu, workdir=Path(eval_dir.name))
-    evaluate(gpu, "yolo-somi-dcn")
-    evaluate(gpu, "yolo-somi-dcn", offsets="zero")  # where the random offsets' mAP@.5:.95 gap comes from
-    entry_points(gpu)
-    trained = training(gpu)
-    steps = TRAIN_IMAGES // BATCH * (TRAIN_EPOCHS + 1)
+    eval_dir = tempfile.TemporaryDirectory()  # phase 6's flagship set, evaluated again by phases 12 and 15
     try:
+        bf16_eval = evaluate(gpu, workdir=Path(eval_dir.name))
+        evaluate(gpu, "yolo-somi-dcn")
+        evaluate(gpu, "yolo-somi-dcn", offsets="zero")  # where the random offsets' mAP@.5:.95 gap comes from
+        entry_points(gpu)
+        trained = training(gpu)
+        steps = TRAIN_IMAGES // BATCH * (TRAIN_EPOCHS + 1)
         int8_summary, int8_served = int8_phase(gpu, Path(eval_dir.name), bf16_eval)
+        parallel = parallelism(gpu)
+        sharded = spatial_sharding(gpu)
+        tta = tta_phase(gpu, meta, Path(eval_dir.name))
     finally:
         eval_dir.cleanup()
-    parallel = parallelism(gpu)
-    sharded = spatial_sharding(gpu)
 
     kernels = [
         dict(kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111",
@@ -3626,6 +3875,12 @@ def main() -> int:
         if entry["name"] in sharded["row0"]:
             sm = sharded["row0"][entry["name"]]
             entry["row0"] = dict(summary_fields(sm), whole_rows_ms=sm["whole_ms"])
+        # phase 15: launches per TTA batch, and the numbers at the 0.83 and 0.67 passes' canvases (b8, bf16)
+        per_job = {cfg: counts[entry["name"]] // TTA_REQUESTS for cfg, counts in tta["served"].items()
+                   if counts.get(entry["name"])}
+        if per_job:
+            entry["tta_launches_per_batch"] = per_job
+            entry["tta"] = {f"{side} px": summary_fields(sums[entry["name"]]) for side, sums in tta["kernels"].items()}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -239,6 +239,16 @@ def spatial_case(name: str):
         "odconv": lambda: L.ODConv(c, 2 * c, 3, 2),
         "dcnv2": lambda: D.DCNv2(c, c, 3, 1),
         "dcnv3": lambda: D.DCNv3(c, 3, 1, 1, 1, 4),
+        "maxpool_k2s2": lambda: L.MaxPool2d(2, 2, 0),
+        "maxpool_k3s2p1": lambda: L.MaxPool2d(3, 2, 1),
+        "zeropad_maxpool": lambda: torch.nn.Sequential(L.ZeroPad2d((0, 1, 0, 1)), L.MaxPool2d(2, 1, 0)),
+        "ghost_s2": lambda: L.GhostBottleneck(c, 2 * c, 3, 2),
+        "c3ghost": lambda: L.C3Ghost(c, c, 1),
+        "c3tr": lambda: L.C3TR(c, c, 1),
+        "scdown": lambda: L.SCDown(c, 2 * c, 3, 2),
+        "c2fcib_lk": lambda: L.C2fCIB(c, c, 1, True, lk=True),
+        "psa": lambda: L.PSA(c, c),
+        "classify": lambda: L.Classify(c, 5),
     }[name]
     module = make()
     g = torch.Generator().manual_seed(1)
@@ -276,16 +286,17 @@ def spatial_operators(group, names: list) -> dict:
         module, x = spatial_case(name)
         strip = Strip(strip_plan(SPATIAL_ROWS, group.world, SPATIAL_UNIT), group.rank, 0, 1)
         with torch.no_grad(), spatial(strip):
-            out[name] = gather_h(module(x[:, :, strip.rows])).numpy()
+            y = module(x[:, :, strip.rows])
+            out[name] = (gather_h(y) if y.dim() == 4 else y).numpy()  # a Classify's logits are whole already
     return out
 
 
 def spatial_runner(group, cfg: str, images: np.ndarray, shards: int, conf: float, weights: str = None,
-                   device: str = "cpu") -> dict:
+                   device: str = "cpu", augment: bool = False) -> dict:
     """Runner(cfg, weights, f32, `device`, spatial_shards=shards) on the
     global batch `images` (every rank is handed all of it): its head maps,
-    its (B, 300, 6) rows at `conf`, what it all-reduced and its kernel
-    launches."""
+    its (B, 300, 6) rows at `conf` (with TTA where `augment`), what it
+    all-reduced and its kernel launches."""
     from yolosomi_tpu_torch.engine.runner import Runner
     from yolosomi_tpu_torch.ops.dcn import dcnv2_im2col, dcnv3_core
     from yolosomi_tpu_torch.ops.odconv import odconv_s2
@@ -297,8 +308,8 @@ def spatial_runner(group, cfg: str, images: np.ndarray, shards: int, conf: float
     before = [k.launches for k in kernels]
     preds = [p.cpu().numpy() for p in r.forward(images)]
     launches = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
-    return dict(preds=preds, out=r(images, conf_thres=conf), exchange=dict(r.exchange), strip=r.spatial.index,
-                launches=launches)
+    return dict(preds=preds, out=r(images, conf_thres=conf, augment=augment), exchange=dict(r.exchange),
+                strip=r.spatial.index, launches=launches)
 
 
 def spatial_entry_points(group, cfg: str, weights: list, data: dict, source: str, project: str, conf: float) -> dict:

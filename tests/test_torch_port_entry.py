@@ -188,8 +188,10 @@ def test_attempt_load_dispatch(files):
     assert len(ens.members) == 2 and ens.stride == 32 and ens.names == one.names
     # several weights serve unsharded whatever spatial_shards says, as the JAX package's attempt_load does
     assert type(attempt_load(files["weights"], files["cfg"], device="cpu", spatial_shards=2)) is EnsembleRunner
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ens(np.zeros((1, IMGSZ, IMGSZ, 3), np.uint8), augment=True)
+    # TTA: each member's three passes, one NMS (held to JAX in tests/test_torch_port_tta.py)
+    rows = ens(np.random.default_rng(7).integers(0, 256, (1, IMGSZ, IMGSZ, 3), dtype=np.uint8), conf_thres=0.25,
+               augment=True)
+    assert rows.shape == (1, 300, 6) and (rows[..., 4] > 0).any() and np.isfinite(rows).all()
 
 
 def test_ensemble_of_identical_models_equals_the_single_model(files):
@@ -287,10 +289,8 @@ def test_detect_video_and_a_callable_classifier(files, tmp_path):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(augment=True), NotImplementedError, "item 9"), (dict(visualize=True), NotImplementedError, "item 9"),
-    (dict(shard_spatial=2), RuntimeError, "torchrun"),
-    (dict(classify="classifier:w.msgpack"), NotImplementedError, "item 8")],
-    ids=["augment", "visualize", "shard", "classify"])
+    (dict(visualize=True), NotImplementedError, "item 9"), (dict(shard_spatial=2), RuntimeError, "torchrun")],
+    ids=["visualize", "shard"])
 def test_detect_refuses_what_is_not_ported(kw, error, match, tmp_path):
     """What is not ported raises, naming its ROADMAP item; spatial sharding
     without a process group raises, naming torchrun."""
@@ -463,18 +463,18 @@ def test_hub_loaders(files, monkeypatch):
 
 @pytest.mark.parametrize("fn", ["yolov5s", "yolov5l", "yolov3-tiny"])
 def test_yolov5_hub_loaders_name_the_queue_item(fn):
-    """The yolov5 loaders build their YAML's model (nc 80, its anchors, the
-    coupled Detect head) and answer an AutoShape call on the CPU; a hub
-    config with an unported row (yolov3-tiny's nn.MaxPool2d) still raises
-    KeyError naming ROADMAP queue A item 8."""
-    if fn == "yolov3-tiny":
-        with pytest.raises(KeyError, match="item 8"):
-            hubconf.custom(fn, device="cpu")
-        return
-    model = getattr(hubconf, fn)(device="cpu", imgsz=64)
+    """The yolov5 loaders, and hubconf.custom on yolov3-tiny (its
+    nn.MaxPool2d and nn.ZeroPad2d rows ported since; the rows outside the
+    registry raise KeyError naming ROADMAP queue A item 8,
+    tests/test_torch_port_zoo.py), build their YAML's model (nc 80, its
+    anchors, the coupled Detect head) and answer an AutoShape call on the
+    CPU."""
+    model = hubconf.custom(fn, device="cpu", imgsz=64) if fn == "yolov3-tiny" else getattr(hubconf, fn)(device="cpu",
+                                                                                                       imgsz=64)
     yaml_cfg = load_model_cfg(find_config(fn))
     assert model.runner.meta.nc == yaml_cfg["nc"] == 80 and model.runner.meta.head_type == "Detect"
-    np.testing.assert_array_equal(model.runner.meta.anchors_px.reshape(3, -1), yaml_cfg["anchors"])
+    levels = len(yaml_cfg["anchors"])
+    np.testing.assert_array_equal(model.runner.meta.anchors_px.reshape(levels, -1), yaml_cfg["anchors"])
     image = np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8)
     assert len(model([image]).pred) == 1
 

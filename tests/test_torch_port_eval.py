@@ -464,10 +464,9 @@ def test_val_run_single_cls_counts_every_label_as_class_0(flagship, tmp_path):
     assert _table(lines)[0] == ("all", "3", "3"), lines
 
 
-@pytest.mark.parametrize("kw, error, match", [(dict(augment=True), NotImplementedError, "ROADMAP queue A item"),
-                                              (dict(plots=True), NotImplementedError, "ROADMAP queue A item"),
+@pytest.mark.parametrize("kw, error, match", [(dict(plots=True), NotImplementedError, "ROADMAP queue A item"),
                                               (dict(shard_spatial=2), RuntimeError, "torchrun")],
-                         ids=["augment", "plots", "shard"])
+                         ids=["plots", "shard"])
 def test_val_run_refuses_what_is_not_ported(kw, error, match, tmp_path):
     """What is not ported raises, naming its ROADMAP item; spatial sharding
     without a process group raises, naming torchrun."""

@@ -21,7 +21,10 @@ size runs every rank-side case of that size.
 Sizes: the flagship and yolo-somi-dcn (random offset heads, samples
 crossing strips), BatchNorm scales spread (GAIN), at width
 0.25, depth 0.33, 256 px; the flagship at S = 3 over 320 px (strips of
-128 / 96 / 96 rows); a 2 x 2 mesh (two batch slices of two strips).
+128 / 96 / 96 rows); a 2 x 2 mesh (two batch slices of two strips);
+yolov3-tiny (its pad and stride-1 pool across the strips' seam) and the
+flagship's TTA (canvases of 256, 224 and 192 px, each split in two) at
+S = 2.
 """
 
 import functools
@@ -66,7 +69,12 @@ HEAD_TOL = 1e-4  # sharded head maps against the unsharded Runner's (f32)
 ROW_BOX_TOL, ROW_SCORE_TOL = 1e-2, 2e-5
 OP_TOL = 1e-5  # one operator on strips against the whole map (f32)
 OPERATORS = ("conv3_s1", "conv3_s2", "conv6_s2_p2", "conv3x1", "focus", "contract", "sppf_negative", "spp_negative",
-             "cbam", "seam", "ema_cbam", "odconv", "dcnv2", "dcnv3")
+             "cbam", "seam", "ema_cbam", "odconv", "dcnv2", "dcnv3", "maxpool_k2s2", "maxpool_k3s2p1",
+             "zeropad_maxpool", "ghost_s2", "c3ghost", "c3tr", "scdown", "c2fcib_lk", "psa", "classify")
+# yolov3-tiny's threshold: at GAIN its scores crowd 0.5-0.62 (~270 rows an
+# image above 0.5, the nearest 2e-5 from it); above 0.55 ~210 rows, none
+# within 7e-4 of it
+TINY_CONF = 0.55
 
 
 def _images(n: int, size: int, seed: int) -> np.ndarray:
@@ -80,7 +88,8 @@ def models(tmp_path_factory):
     their BatchNorm scales spread by GAIN, with their configs."""
     d = tmp_path_factory.mktemp("spatial")
     out = {}
-    for name, cfg in (("flagship", small_flagship_cfg()), ("dcn", _small("yolo-somi-dcn"))):
+    for name, cfg in (("flagship", small_flagship_cfg()), ("dcn", _small("yolo-somi-dcn")),
+                      ("tiny", _small("hub/yolov3-tiny"))):
         cfg_path = d / f"{name}.yaml"
         cfg_path.write_text(yaml.safe_dump(cfg))
         _, meta, variables = jax_flagship(cfg) if name == "flagship" else jax_random_model(cfg)
@@ -119,8 +128,8 @@ def data(models, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world2(models, data, tmp_path_factory):
-    """Two ranks, two strips: the operator cases, both models' Runner, and
-    the entry points."""
+    """Two ranks, two strips: the operator cases, the three models' Runner,
+    the flagship's TTA, and the entry points."""
     project = tmp_path_factory.mktemp("spatial-runs")
     calls = [(ranks.spatial_operators, dict(names=list(OPERATORS))),
              (ranks.spatial_runner, dict(cfg=models["flagship"]["cfg"], weights=models["flagship"]["weights"],
@@ -129,7 +138,11 @@ def world2(models, data, tmp_path_factory):
                                          images=_images(BATCH, SIZE, 2), shards=2, conf=CONF)),
              (ranks.spatial_entry_points, dict(cfg=models["flagship"]["cfg"],
                                                weights=[models["flagship"]["weights"]] * 2,
-                                               data=data, source=data["val"], project=str(project), conf=CONF))]
+                                               data=data, source=data["val"], project=str(project), conf=CONF)),
+             (ranks.spatial_runner, dict(cfg=models["tiny"]["cfg"], weights=models["tiny"]["weights"],
+                                         images=_images(BATCH, SIZE, 4), shards=2, conf=TINY_CONF)),
+             (ranks.spatial_runner, dict(cfg=models["flagship"]["cfg"], weights=models["flagship"]["weights"],
+                                         images=_images(BATCH, SIZE, 5), shards=2, conf=CONF, augment=True))]
     return spawn_local(2, ranks.run_calls, calls, timeout=600)
 
 
@@ -165,9 +178,9 @@ def assert_same_kept_set(got: np.ndarray, want: np.ndarray) -> None:
         ranks.match_rows(got[b][got[b][:, 4] > 0], want[b][want[b][:, 4] > 0], [ROW_BOX_TOL] * 4 + [ROW_SCORE_TOL])
 
 
-def _unsharded(model: dict, images: np.ndarray):
+def _unsharded(model: dict, images: np.ndarray, conf: float = CONF, augment: bool = False):
     runner = Runner(model["cfg"], model["weights"], dtype=torch.float32, device="cpu")
-    return [p.numpy() for p in runner.forward(images)], runner(images, conf_thres=CONF)
+    return [p.numpy() for p in runner.forward(images)], runner(images, conf_thres=conf, augment=augment)
 
 
 # ---------------------------------------------------------------------------
@@ -270,15 +283,21 @@ def _runner_case(world2, world3, world4, case):
         return "flagship", _images(BATCH, SIZE, 1), [r[1] for r in world2]
     if case == "dcn":
         return "dcn", _images(BATCH, SIZE, 2), [r[2] for r in world2]
+    if case == "tiny":
+        return "tiny", _images(BATCH, SIZE, 4), [r[4] for r in world2]
+    if case == "flagship-tta":
+        return "flagship", _images(BATCH, SIZE, 5), [r[5] for r in world2]
     if case == "flagship-S3":
         return "flagship", _images(2, 320, 3), [r[1] for r in world3]
     return "flagship", _images(BATCH, SIZE, 1), [r[0] for r in world4]
 
 
-@pytest.mark.parametrize("case", ["flagship", "dcn", "flagship-S3", "flagship-2x2"])
+@pytest.mark.parametrize("case", ["flagship", "dcn", "flagship-S3", "flagship-2x2", "tiny", "flagship-tta"])
 def test_sharded_runner_equals_the_unsharded_runner(models, world2, world3, world4, case):
+    """Head maps of a plain forward, and rows: TTA's for flagship-tta (its
+    three canvases each split in two; `exchange` sums theirs)."""
     name, images, results = _runner_case(world2, world3, world4, case)
-    preds, out = _unsharded(models[name], images)
+    preds, out = _unsharded(models[name], images, TINY_CONF if case == "tiny" else CONF, case == "flagship-tta")
     for r in results:
         assert [p.shape for p in r["preds"]] == [p.shape for p in preds]
         for got, want in zip(r["preds"], preds):

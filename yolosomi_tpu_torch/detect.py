@@ -16,9 +16,13 @@ Runs on CUDA unless `--device` names another device. `--shard-spatial` S
 (engine/runner.py; under torchrun, which raises without one; several
 weights serve unsharded, as in the JAX package): every rank reads the same
 frames and gets the whole detections, and rank 0 alone logs and writes.
-TTA (`--augment`, ROADMAP queue A item 9), feature maps (`--visualize`,
-item 9) and a classifier given as `cfg:weights` (`Classify`, item 8) raise
-NotImplementedError; `run` takes a callable classifier.
+`--augment` serves each frame with test-time augmentation (the Runner's
+TTA; sharded too). `--classify cfg[:weights]` builds a second-stage
+classifier from a headless config (classifier.yaml's Classify tail; random
+weights from seed 0 without a weights file) as a Runner at 224 px, bf16,
+on the same device, and keeps the detections whose crop it classifies
+alike; `run` also takes any callable classifier. Feature maps
+(`--visualize`, ROADMAP queue A item 9) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import cv2
 import numpy as np
 
 from yolosomi_tpu_torch.data.datasets import LoadImages
-from yolosomi_tpu_torch.engine.runner import attempt_load
+from yolosomi_tpu_torch.engine.runner import Runner, attempt_load
 from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.classifier import apply_classifier
 from yolosomi_tpu_torch.utils.config import find_config, load_data_cfg
@@ -97,16 +101,16 @@ def run(
     device=None,
 ):
     """Detect on every image and frame of `source`; returns the run directory."""
-    for flag, what in ((augment, "TTA (augment; ROADMAP queue A item 9)"),
-                       (visualize, "feature-map plots (visualize; ROADMAP queue A item 9)"),
-                       (isinstance(classify, str), "a classifier from a config (Classify; ROADMAP queue A item 8)")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if visualize:
+        raise NotImplementedError("feature-map plots (visualize; ROADMAP queue A item 9) are not ported yet")
     if names is None and data:
         names = load_data_cfg(find_config(data, "data")).get("names")
     save_img = not nosave
     if "*" not in str(source) and not Path(source).exists():  # before the model is built
         raise FileNotFoundError(f"source {source} does not exist")
+    if isinstance(classify, str):  # "cfg" or "cfg:weights": a Classify-tail model, as the JAX package's detect.py:84-95
+        ccfg, _, cweights = classify.partition(":")
+        classify = Runner(ccfg, cweights or None, imgsz=224, device=device)
     runner = attempt_load(weights, cfg, imgsz=imgsz, device=device, spatial_shards=shard_spatial)
     sharded = getattr(runner, "spatial", None)
     main_rank = sharded is None or sharded.rank == 0
@@ -136,7 +140,7 @@ def run(
         x = img[None]  # uint8; normalized on the device
         t1 = time.time()
         det = runner(x, conf_thres=conf_thres, iou_thres=iou_thres, agnostic=agnostic_nms, max_det=max_det,
-                     classes=cls_mask)[0]
+                     classes=cls_mask, augment=augment)[0]
         t2 = time.time()
         t_pre += t1 - t0
         t_inf += t2 - t1
@@ -214,8 +218,8 @@ def parse_opt(argv=None):
     parser.add_argument("--line-thickness", type=int, default=2, help="annotation box line width (px)")
     parser.add_argument("--data", type=str, default=None, help="data yaml for class names")
     parser.add_argument("--classify", type=str, default=None,
-                        help="second-stage classifier (cfg:weights; not ported yet)")
-    parser.add_argument("--augment", action="store_true", help="TTA inference (not ported yet)")
+                        help="second-stage classifier: a headless config and its weights, cfg[:weights]")
+    parser.add_argument("--augment", action="store_true", help="TTA inference")
     parser.add_argument("--visualize", action="store_true", help="save feature-map grids (not ported yet)")
     return parser.parse_args(argv)
 

@@ -12,10 +12,19 @@ same batch, takes its batch slice r // S and its strip r % S of the rows
 (parallel.spatial), runs the model under `spatial(strip)`, and gathers the
 head's whole maps of the whole batch, so the postprocess runs as in one
 process and every rank returns the whole (B, max_det, 6).
+
+`augment=True` serves with test-time augmentation (ops/tta.py, the JAX
+Runner's :188-195): the batch at scales 1, 0.83 and 0.67 (the middle one
+flipped left-right), each canvas through the same forward (sharded
+spatially where the Runner is) and decode, the rows de-scaled and clipped,
+then `non_max_suppression` with the caller's arguments; never the fused
+postprocess. A headless config (classifier.yaml's Classify tail) gives
+its (B, nc) logits instead of rows.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from pathlib import Path
 from typing import Optional
 
@@ -27,6 +36,7 @@ from yolosomi_tpu_torch.models.heads import decode
 from yolosomi_tpu_torch.models.layers import strip_halo
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
+from yolosomi_tpu_torch.ops.tta import forward_augment
 from yolosomi_tpu_torch.parallel import mesh
 from yolosomi_tpu_torch.parallel.spatial import SpatialMesh, gather_level_outputs, spatial
 from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
@@ -64,8 +74,9 @@ class Runner:
     signature; nothing here depends on it. `spatial_shards` > 1 serves
     H-sharded over the process group, which must be up (torchrun or
     spawn_local; SpatialMesh raises otherwise); `exchange` then holds the
-    last batch's all-reduced bytes by kind. TTA (ROADMAP queue A item 9)
-    raises NotImplementedError."""
+    last batch's all-reduced bytes by kind (a TTA batch's summed over its
+    three canvases). A headless config builds a classifier: __call__
+    returns its logits, at imgsz 224 for detect's second stage."""
 
     def __init__(self, cfg: str, weights: Optional[str] = None, nc: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16, imgsz: int = 640, device=None, seed: int = 0,
@@ -100,6 +111,9 @@ class Runner:
             if weights is not None:
                 LOGGER.info(f"loaded weights {weights}")
         if self.spatial is not None:
+            if not self.meta.nl:
+                raise NotImplementedError("a headless graph (Classify) is not served spatially sharded (ROADMAP "
+                                          "queue A item 6)")
             sm = self.spatial
             self.halo = strip_halo(self.model)
             LOGGER.info(f"spatial sharding: {sm.world} ranks, {sm.slices} batch slices x {sm.shards} H-strips; rank "
@@ -111,10 +125,13 @@ class Runner:
 
     @property
     def stride(self) -> int:
-        """The model's largest stride: image sizes must be multiples of it."""
-        return int(max(self.meta.strides))
+        """The model's largest stride: image sizes must be multiples of it
+        (a headless graph's deepest row's)."""
+        return int(max(self.meta.strides or [s.stride for s in self.meta.specs]))
 
     def _check_head(self) -> None:
+        if not self.meta.nl:
+            raise TypeError("a headless graph gives logits, not detection rows")
         if self.meta.head_type not in ANCHOR_HEADS:
             raise NotImplementedError(
                 f"head type {self.meta.head_type} decodes otherwise than the anchor grid; its decode is not "
@@ -143,10 +160,42 @@ class Runner:
         images = np.asarray(images)
         strip = self.spatial.strip(images.shape[1], self.stride, self.halo)
         local = mesh.shard_batch(images, strip.batch_slice, strip.slices)[:, strip.rows]
+        return self._sharded(strip, self.upload(local), len(images))
+
+    @torch.inference_mode()
+    def forward_tensor(self, x: torch.Tensor):
+        """As `forward`, for an NCHW batch already on the device in the
+        compute dtype (TTA's scaled canvases): sharded spatially, each rank
+        takes its batch slice and strip of `x`."""
+        if self.spatial is None:
+            return self.model(x)
+        strip = self.spatial.strip(x.shape[2], self.stride, self.halo)
+        local = mesh.shard_batch(x, strip.batch_slice, strip.slices)[:, :, strip.rows]
+        return self._sharded(strip, local, len(x))
+
+    def _sharded(self, strip, local: torch.Tensor, batch: int):
         with spatial(strip):
-            preds = gather_level_outputs(self.model(self.upload(local)), len(images))
+            preds = gather_level_outputs(self.model(local), batch)
         self.exchange = strip.stats
         return preds
+
+    @torch.inference_mode()
+    def augment_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """TTA's decoded rows (B, N, 5 + nc) of an NCHW batch in the compute
+        dtype, in its pixels: each scaled and flipped canvas through
+        forward_tensor and decode (ops/tta.py forward_augment)."""
+        self._check_head()
+        exchange = Counter()
+
+        def apply_decode(xi):
+            rows = self.decode(self.forward_tensor(xi))
+            exchange.update(self.exchange or {})
+            return rows
+
+        rows = forward_augment(apply_decode, x, self.meta.nl, gs=self.stride)
+        if self.spatial is not None:
+            self.exchange = dict(exchange)
+        return rows
 
     def val_loss_fn(self, compute_loss):
         """(images, targets) -> numpy (3,) [lbox, lobj, lcls] of
@@ -171,10 +220,18 @@ class Runner:
         """(B, H, W, 3) uint8, or float in [0, 1] -> numpy (B, max_det, 6)
         [x1, y1, x2, y2, conf, cls] in input pixels; padded rows are zeros.
         `classes` is an (nc,) bool mask of the classes to keep (the JAX
-        Runner's `class_mask`)."""
-        if augment:
-            raise NotImplementedError("TTA (augment) is not ported yet (ROADMAP queue A item 9)")
+        Runner's `class_mask`). `augment` runs TTA. A headless graph returns
+        its (B, nc) logits as float32 numpy, and takes no other argument."""
+        if not self.meta.nl:
+            if augment:
+                raise ValueError("TTA de-scales detection rows; a headless graph gives logits")
+            return self.forward(images).float().cpu().numpy()
         self._check_head()
+        if augment:
+            out = non_max_suppression(self.augment_rows(self.upload(images)), conf_thres=conf_thres,
+                                      iou_thres=iou_thres, classes=classes, multi_label=multi_label, agnostic=agnostic,
+                                      max_det=max_det, max_nms=max_nms, exact=exact)
+            return out.cpu().numpy()
         preds = self.forward(images)
         if not multi_label and not exact:
             out = fused_postprocess(preds, self.meta.anchors_px, self.meta.strides, conf_thres=conf_thres,
@@ -218,10 +275,10 @@ class EnsembleRunner:
     def __call__(self, images: np.ndarray, conf_thres: float = 0.25, iou_thres: float = 0.45,
                  max_det: int = 300, max_nms: int = 4096, multi_label: bool = False, exact: bool = False,
                  agnostic: bool = False, classes=None, augment: bool = False) -> np.ndarray:
-        """As Runner.__call__, always through the decoded rows."""
-        if augment:
-            raise NotImplementedError("TTA (augment) is not ported yet (ROADMAP queue A item 9)")
-        rows = torch.cat([m.decode(m.forward(images)) for m in self.members], 1)
+        """As Runner.__call__, always through the decoded rows; `augment`
+        runs each member's TTA before the one NMS."""
+        rows = torch.cat([m.augment_rows(m.upload(images)) if augment else m.decode(m.forward(images))
+                          for m in self.members], 1)
         out = non_max_suppression(rows, conf_thres=conf_thres, iou_thres=iou_thres, classes=classes,
                                   multi_label=multi_label, agnostic=agnostic, max_det=max_det, max_nms=max_nms,
                                   exact=exact)

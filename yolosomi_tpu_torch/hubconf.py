@@ -10,9 +10,10 @@ the reference's hubconf.py): thin calls to `api.load`.
 Detect head). `custom` takes any config the port serves: the flagship and
 its DCN variant, yolo-somi-s / -t / -t-p3 / -t-p3s / -t-p3s8, the ablation
 configs, yolov5n/s/m/l/x, yolov5s-p2 / s6 and the hub configs
-yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet and
-yolov3 / yolov3-spp. yolov3-tiny, yolov5s-ghost, yolov5s-transformer,
-yolov10 and classifier.yaml raise KeyError naming ROADMAP queue A item 8.
+yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet,
+yolov3 / yolov3-spp / yolov3-tiny, yolov5s-ghost, yolov5s-transformer and
+yolov10. `AutoShape(..., augment=True)` calls serve with TTA. A config
+outside the registry raises KeyError naming ROADMAP queue A item 8.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The detection family's blocks (counterparts of
-yolosomi_tpu/models/layers.py): the flagship's, and the YOLOv5 / YOLOv8
-blocks of the other model configs.
+yolosomi_tpu/models/layers.py): the flagship's, the YOLOv5 / YOLOv8
+blocks of the other model configs, yolov3-tiny's pool and pad, the Ghost,
+transformer and YOLOv10 blocks, and the Classify head.
 
 Modules are NCHW and run in `torch.channels_last` memory format, so a
 tensor's memory is NHWC like the JAX package's arrays. Submodule names
@@ -25,12 +26,16 @@ every operator that looks across rows runs on its strip: convs and pools
 of more than one row (and strided convs) fetch their halo rows,
 whole-map means and maxima reduce over the strips, EMA-CBAM's profile and
 GroupNorm span the whole map, ODConv's per-sample conv runs on the strip
-and two rows above it. Outside it every module computes as before.
+and two rows above it, the attention blocks (TransformerBlock,
+AttentionPSA) run on the gathered whole map, and ZeroPad2d hands the
+stride-1 MaxPool2d after it the strip with its rows below. Outside it
+every module computes as before.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -654,6 +659,324 @@ class ODConv(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
+# ---------------------------------------------------------------------------
+# yolov3-tiny's pool and pad, the Ghost, transformer and YOLOv10 families,
+# and the classification head
+# ---------------------------------------------------------------------------
+
+
+def on_whole_map(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """fn(x), where fn looks at the whole map at once (attention over every
+    position): on a strip, fn runs on the whole map gathered along H, with
+    the strip context off, and this strip's rows of its output come back."""
+    st = active_strip()
+    if st is None:
+        return fn(x)
+    lv = st.level(x.shape[2])
+    whole = spatial.gather_h(x).contiguous(memory_format=torch.channels_last)
+    with spatial.spatial(None):
+        y = fn(whole)
+    return y[:, :, lv.start:lv.stop]
+
+
+class MaxPool2d(nn.Module):
+    """The YAML's nn.MaxPool2d with torch's [k, s, p] semantics (a -inf
+    fill). On a strip the window's rows above and below come from the
+    neighbours, -inf past the image's edges; a strip that ZeroPad2d has
+    already given the rows below it (`pad_below`) is pooled as it is."""
+
+    def __init__(self, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = k, s, p
+
+    def forward(self, x):
+        if active_strip() is None:
+            return F.max_pool2d(x, self.k, self.s, self.p)
+        below = getattr(x, "pad_below", None)
+        if below is not None:
+            if (self.s, self.p, self.k - 1) != (1, 0, below):
+                raise NotImplementedError(f"a {self.k}x{self.k} stride-{self.s} pool after a pad of {below} rows on "
+                                          "a strip (ROADMAP queue A item 6)")
+            return F.max_pool2d(x, self.k, 1, 0)
+        above, below = spatial.conv_halo(self.k, self.s, self.p)
+        y = F.max_pool2d(halo_rows(x, above, below, fill=float("-inf")), self.k, self.s, (0, self.p))
+        if y.shape[2] * self.s != x.shape[2]:
+            raise ValueError(f"a strip of {x.shape[2]} rows gave {y.shape[2]} rows at stride {self.s}")
+        return y
+
+    def halo(self) -> int:
+        return max(spatial.conv_halo(self.k, self.s, self.p))
+
+
+class ZeroPad2d(nn.Module):
+    """The YAML's nn.ZeroPad2d, pads (left, right, top, bottom). On a strip
+    W pads as on the whole map, and the strip takes `top` rows above and
+    `bottom` rows below it: its neighbours' rows, zeros past the image's
+    true edges. The result is no level of the strip (it holds top + bottom
+    rows more), so only a stride-1 MaxPool2d whose window spans them reads
+    it (yolov3-tiny's pad (0, 1, 0, 1) and 2x2 stride-1 pool); it carries
+    `pad_below` = top + bottom for that pool."""
+
+    def __init__(self, pads: Sequence[int] = (0, 1, 0, 1)):
+        super().__init__()
+        self.pads = tuple(pads)
+
+    def forward(self, x):
+        left, right, top, bottom = self.pads
+        if active_strip() is None:
+            return F.pad(x, (left, right, top, bottom))
+        y = F.pad(halo_rows(x, top, bottom), (left, right))
+        y.pad_below = top + bottom
+        return y
+
+
+class DWConv(Conv):
+    """Depthwise Conv: groups g = gcd(c1, c2) unless given."""
+
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, p: Optional[int] = None, g: Optional[int] = None,
+                 act: bool = True):
+        super().__init__(c1, c2, k, s, p, math.gcd(c1, c2) if g is None else g, act)
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: Conv to c2 / 2 channels, and a 5x5 depthwise Conv
+    of that beside it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: bool = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck: GhostConv, a depthwise Conv at stride 2, GhostConv
+    without activation; the shortcut is the input, or at stride 2 (or
+    c1 != c2) a depthwise and a pointwise Conv. The names are the JAX
+    package's (conv1, dw, conv2, sc_dw, sc_pw)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv1 = GhostConv(c1, c_, 1, 1)
+        self.dw = DWConv(c_, c_, k, s, g=c_, act=False) if s == 2 else nn.Identity()
+        self.conv2 = GhostConv(c_, c2, 1, 1, act=False)
+        self.sc_dw = DWConv(c1, c1, k, s, g=c1, act=False) if s == 2 else nn.Identity()
+        self.sc_pw = Conv(c1, c2, 1, 1, act=False) if s == 2 or c1 != c2 else nn.Identity()
+
+    def forward(self, x):
+        return self.conv2(self.dw(self.conv1(x))) + self.sc_pw(self.sc_dw(x))
+
+
+class C3Ghost(C3):
+    """C3 with Ghost bottlenecks (k 3, stride 1)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, block=lambda c: GhostBottleneck(c, c, 3, 1))
+
+
+class TorchMHA(nn.Module):
+    """nn.MultiheadAttention's body in its parameter layout: the packed
+    `in_proj_weight` / `in_proj_bias` rows [W_q; W_k; W_v], q scaled by
+    head_dim**-0.5 after its projection, the softmax in the compute dtype,
+    and `out_proj`."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.c, self.num_heads = c, num_heads
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * c, c))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * c))
+        self.out_proj = nn.Linear(c, c)
+
+    def forward(self, q, k, v):  # each (B, N, C)
+        c, h = self.c, self.num_heads
+        hd = c // h
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q = F.linear(q, w[:c], b[:c]) * hd ** -0.5
+        k = F.linear(k, w[c:2 * c], b[c:2 * c])
+        v = F.linear(v, w[2 * c:], b[2 * c:])
+        bsz, n, _ = q.shape
+        split = lambda t: t.reshape(bsz, n, h, hd).transpose(1, 2)  # noqa: E731
+        attn = torch.softmax(split(q) @ split(k).transpose(-1, -2), -1)
+        return self.out_proj((attn @ split(v)).transpose(1, 2).reshape(bsz, n, c))
+
+
+class TransformerLayer(nn.Module):
+    """Pre-LayerNorm (eps 1e-5) attention whose q / k / v Linear layers feed
+    a whole TorchMHA (the reference projects twice), then pre-LayerNorm and
+    a bias-free 4x ReLU MLP, each with its residual. Dropout is off in eval,
+    as in the JAX package."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(c, eps=1e-5)
+        self.q = nn.Linear(c, c, bias=False)
+        self.k = nn.Linear(c, c, bias=False)
+        self.v = nn.Linear(c, c, bias=False)
+        self.ma = TorchMHA(c, num_heads)
+        self.ln2 = nn.LayerNorm(c, eps=1e-5)
+        self.fc1 = nn.Linear(c, 4 * c, bias=False)
+        self.fc2 = nn.Linear(4 * c, c, bias=False)
+
+    def forward(self, x):  # (B, N, C)
+        y = self.ln1(x)
+        x = self.ma(self.q(y), self.k(y), self.v(y)) + x
+        return x + self.fc2(torch.relu(self.fc1(self.ln2(x))))
+
+
+class TransformerBlock(nn.Module):
+    """A Conv to c2 where c1 != c2, then n TransformerLayers over the
+    flattened positions (row-major) with a learned position term
+    `linear(p)` added. On a strip it runs on the whole map."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int = 4, n: int = 1):
+        super().__init__()
+        self.conv = Conv(c1, c2) if c1 != c2 else nn.Identity()
+        self.linear = nn.Linear(c2, c2)
+        self.tr = nn.Sequential(*(TransformerLayer(c2, num_heads) for _ in range(n)))
+
+    def forward(self, x):
+        return on_whole_map(self._whole, x)
+
+    def _whole(self, x):
+        x = self.conv(x)
+        b, c, h, w = x.shape
+        p = x.flatten(2).transpose(1, 2)  # (B, H*W, C)
+        p = self.tr(p + self.linear(p))
+        return p.transpose(1, 2).reshape(b, c, h, w)  # channels_last in memory
+
+
+class C3TR(C3):
+    """C3 whose bottleneck stack is one TransformerBlock (4 heads, n layers)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = TransformerBlock(c_, c_, 4, n)
+
+
+class RepVGGDW(nn.Module):
+    """7x7 and 3x3 depthwise Convs without activation, summed, then SiLU (no
+    fused form)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = Conv(c, c, 7, 1, g=c, act=False)
+        self.conv1 = Conv(c, c, 3, 1, g=c, act=False)
+
+    def forward(self, x):
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Compact inverted block: depthwise 3x3, pointwise to 2c_, depthwise 3x3
+    (RepVGGDW with `lk`), pointwise to c2, depthwise 3x3, in `cv1`
+    (reference names cv1.0-4; flax cv1_0-4); the residual where `shortcut`
+    and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(Conv(c1, c1, 3, g=c1), Conv(c1, 2 * c_, 1),
+                                 RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+                                 Conv(2 * c_, c2, 1), Conv(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f with CIB bottlenecks (e 1.0)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1, e: float = 0.5,
+                 lk: bool = False):
+        super().__init__(c1, c2, n, shortcut, g, e, block=lambda c: CIB(c, c, shortcut, e=1.0, lk=lk))
+
+
+class SCDown(nn.Module):
+    """Separable downsample: pointwise Conv, then a depthwise k x k Conv at
+    stride s without activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class AttentionPSA(nn.Module):
+    """Multi-head self-attention over the positions with a positional
+    depthwise 3x3 conv `pe` on v. The qkv channels split per head as
+    (B, N, heads, 2 key_dim + head_dim) of the NHWC map; the softmax runs
+    in f32 (f64 stays f64) and is cast back. On a strip it runs on the whole map."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        self.qkv = Conv(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        return on_whole_map(self._whole, x)
+
+    def _whole(self, x):
+        b, c, h, w = x.shape
+        kd = self.key_dim
+        qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b, h * w, self.num_heads, 2 * kd + self.head_dim)
+        q, k, v = qkv.transpose(1, 2).split([kd, kd, self.head_dim], -1)
+        logits = (q @ k.transpose(-1, -2)) * self.scale
+        attn = torch.softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), -1).to(v.dtype)
+        nchw = lambda t: t.transpose(1, 2).reshape(b, h, w, c).permute(0, 3, 1, 2)  # noqa: E731
+        return self.proj(nchw(attn @ v) + self.pe(nchw(v)))
+
+
+class PSA(nn.Module):
+    """Partial self-attention: cv1 to 2c channels (c = c1 e), AttentionPSA
+    (max(c // 64, 1) heads) and a Conv pair `ffn` (ffn.0-1; flax ffn_0-1),
+    each with its residual, on the second half; cv2 back to c1."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c1 * e)
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        self.attn = AttentionPSA(c, num_heads=max(c // 64, 1))
+        self.ffn = nn.Sequential(Conv(c, 2 * c, 1), Conv(2 * c, c, 1, act=False))
+        self.cv2 = Conv(2 * c, c1, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split(self.c, 1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat([a, b], 1))
+
+
+class Classify(nn.Module):
+    """Classification head: the global mean of the map (of each map of a
+    list, concatenated), then a Linear `linear` to c2 logits. On a strip
+    the means are the whole map's."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.linear = nn.Linear(c1, c2)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            return self.linear(torch.cat([strip_mean_hw(xi) for xi in x], 1))
+        return self.linear(strip_mean_hw(x))
+
+
 def strip_halo(model: nn.Module) -> int:
     """The most rows any operator of `model` asks of a neighbouring strip
     under spatial sharding (parallel.spatial.strip_plan holds the strips
@@ -666,4 +989,8 @@ def strip_halo(model: nn.Module) -> int:
             halo = max(halo, max(m.k if isinstance(m, SPP) else (m.k,)) // 2)
         elif isinstance(m, ODConv2d):
             halo = max(halo, 2)
+        elif isinstance(m, MaxPool2d):
+            halo = max(halo, m.halo())
+        elif isinstance(m, ZeroPad2d):
+            halo = max(halo, *m.pads[2:])
     return halo

@@ -8,12 +8,13 @@ analytic stride propagation, and its named anchor presets
 detection family: the flagship (configs/models/yolo-somi.yaml), its DCN
 variant, yolo-somi-s / -t / -t-p3 / -t-p3s / -t-p3s8, the ablation
 configs, yolov5n/s/m/l/x, yolov5s-p2 and yolov5s6, and the hub configs
-yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet and
-yolov3 / yolov3-spp. A row outside it raises KeyError naming ROADMAP queue
-A item 8: yolov3-tiny (nn.MaxPool2d, nn.ZeroPad2d), yolov5s-ghost
-(GhostConv, C3Ghost), yolov5s-transformer (C3TR), yolov10 (C2fCIB, SCDown,
-PSA), classifier.yaml (Classify), and the rest of the JAX package's zoo
-and heads.
+yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet,
+yolov3 / yolov3-spp / yolov3-tiny (nn.MaxPool2d, nn.ZeroPad2d),
+yolov5s-ghost (GhostConv, C3Ghost), yolov5s-transformer (C3TR) and
+yolov10 (SCDown, C2fCIB, PSA); and classifier.yaml, a headless graph
+whose Classify tail gives logits (ModelMeta with nl 0). A row outside it
+raises KeyError naming ROADMAP queue A item 8: the rest of the JAX
+package's zoo and heads.
 """
 
 from __future__ import annotations
@@ -42,15 +43,33 @@ from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_dev
 #   concat  : c2 = the sum of the inputs' channels
 #   contract: space-to-depth by args[0]; c2 = c1 * g * g, stride * g
 #   dcnv3   : channel-preserving (c2 = channels of the input), cls(c2, *args[1:])
+#   plain   : channel-preserving, cls(*args), or cls(c2) without args
+#   pool    : nn.MaxPool2d [k, s, p]; stride * s
+#   zeropad : nn.ZeroPad2d [(left, right, top, bottom)]
+#   classify: c2 = args[0], the class count, never width-scaled
 #   head    : detection head
 _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "Conv": (L.Conv, "conv"),
+    "DWConv": (L.DWConv, "conv"),
     "Focus": (L.Focus, "conv"),
+    "GhostConv": (L.GhostConv, "conv"),
+    "GhostBottleneck": (L.GhostBottleneck, "conv"),
     "Bottleneck": (L.Bottleneck, "conv"),
     "SPP": (L.SPP, "conv"),
     "BottleneckCSP": (L.BottleneckCSP, "csp"),
+    "C3TR": (L.C3TR, "csp"),
+    "C3Ghost": (L.C3Ghost, "csp"),
+    "TransformerBlock": (L.TransformerBlock, "conv"),
+    "Classify": (L.Classify, "classify"),
     "C3": (L.C3, "csp"),
     "C2f": (L.C2f, "csp"),
+    "C2fCIB": (L.C2fCIB, "csp"),
+    "CIB": (L.CIB, "conv"),
+    "PSA": (L.PSA, "conv"),
+    "SCDown": (L.SCDown, "conv"),
+    "RepVGGDW": (L.RepVGGDW, "plain"),
+    "nn.MaxPool2d": (L.MaxPool2d, "pool"),
+    "nn.ZeroPad2d": (L.ZeroPad2d, "zeropad"),
     "Concat": (L.Concat, "concat"),
     "Contract": (L.Contract, "contract"),
     "ODConv_3rd": (L.ODConv, "conv"),
@@ -76,7 +95,8 @@ _REGISTRY: Dict[str, Tuple[Any, str]] = {
 
 # positional index of the stride arg (after c2) of conv-kind modules; DCNv2
 # is left out, as in the JAX package, so its stride never reaches the graph
-_STRIDE_ARG_POS = {"Conv": 2, "ODConv": 2, "ODConv_3rd": 2}
+_STRIDE_ARG_POS = {"Conv": 2, "DWConv": 2, "GhostConv": 2, "GhostBottleneck": 2, "SCDown": 2, "ODConv": 2,
+                   "ODConv_3rd": 2}
 # conv-kind modules whose graph stride is 2 by construction, whatever their
 # stride arg (Focus's space-to-depth)
 _FIXED_STRIDE2 = {"Focus"}
@@ -236,6 +256,21 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         elif kind == "dcnv3":
             c2 = in_ch(f)
             mod = cls(c2, *args[1:])
+        elif kind == "plain":
+            c2 = in_ch(f)
+            mod = cls(*args) if args else cls(c2)
+        elif kind == "pool":
+            c2 = in_ch(f)
+            k = args[0] if args else 2
+            s = args[1] if len(args) > 1 else k
+            mod = cls(k, s, args[2] if len(args) > 2 else 0)
+            stride *= s
+        elif kind == "zeropad":
+            c2 = in_ch(f)
+            mod = cls(tuple(args[0]) if args else (0, 1, 0, 1))
+        elif kind == "classify":
+            c2 = args[0]
+            mod = cls(in_ch(f) if isinstance(f, int) else sum(in_ch(x) for x in f), *args)
         else:  # head
             head_from = tuple(x if x >= 0 else len(chans) + x for x in f)
             na_head = _resolve_anchors(args[1] if len(args) > 1 else anchors, len(f)).shape[1]
@@ -258,8 +293,10 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         chans.append(int(c2))
         strides.append(stride)
 
-    if not head_from:
-        raise NotImplementedError("a graph without a detection head")
+    if not head_from:  # a headless graph (a Classify tail: detect's second-stage classifier)
+        return modules, ModelMeta(nc=nc, names=[str(i) for i in range(nc)], nl=0, na=0, strides=(),
+                                  anchors_px=np.zeros((0, 0, 2), np.float32), save=tuple(sorted(set(save))),
+                                  head_from=(), specs=specs, yaml=cfg, head_type=head_name)
     anchors_px = _resolve_anchors(anchors, len(head_from))
     meta = ModelMeta(
         nc=nc,
@@ -280,7 +317,8 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
 class DetectionModel(nn.Module):
     """The parsed graph under reference indexing (`model.<i>`), with the
     from/save forward walk. `forward` takes an NCHW batch and returns the
-    head's raw per-level maps [(B, ny, nx, na, no), ...]. Distillation's
+    head's raw per-level maps [(B, ny, nx, na, no), ...]; a headless graph
+    returns its last row's output (a Classify tail's (B, nc) logits). Distillation's
     `kd_adapter_<i>` (nn.Linear, engine/distill.py) hang on the model when
     a run plants them, so the optimizer, the EMA and the checkpoints carry
     them as the JAX package's params tree does; the forward ignores them."""
@@ -308,7 +346,7 @@ class DetectionModel(nn.Module):
         n = len(self.model)
         for i in range(lo, hi):
             m, f = self.model[i], self.froms[i]
-            if i == n - 1:  # the head consumes its `from` list
+            if i == n - 1 and self.head_from:  # the head consumes its `from` list
                 return m([saved[j] for j in self.head_from]), saved
             if isinstance(f, int):
                 inp = x if f == -1 else saved[f if f >= 0 else i + f]
@@ -329,8 +367,9 @@ def _trunc_normal(t: torch.Tensor, fan: int, scale: float, g: torch.Generator):
 @torch.no_grad()
 def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
     """Random init from `seed`, in the JAX package's scheme (conv kernels
-    variance_scaling(2, fan_out), dense kernels lecun_normal, zero biases,
-    unit norms; the deformable blocks' own init in
+    variance_scaling(2, fan_out), dense kernels lecun_normal, the packed
+    attention projection xavier_uniform, zero biases, unit norms; the
+    deformable blocks' own init in
     models/dcn.py:init_dcn_heads), then its detection-prior biases
     (obj log(8/(640/s)^2), cls log(0.6/(nc-0.99999)))."""
     g = torch.Generator().manual_seed(seed)
@@ -344,10 +383,15 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
             K, o, _, kh, kw = m.weight.shape
             _trunc_normal(m.weight, K * o * kh * kw, 2.0, g)
             m.bias.zero_()
+        elif isinstance(m, L.TorchMHA):
+            nn.init.xavier_uniform_(m.in_proj_weight, generator=g)
+            m.in_proj_bias.zero_()
         if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
     for m in model.modules():  # after the generic pass, which also reached their children
         D.init_dcn_heads(m, g)
+    if not meta.nl:  # headless: no detection priors
+        return
     head = model.model[-1]
     nc, na = meta.nc, meta.na
     cls_prior = math.log(0.6 / (nc - 0.99999)) if nc > 1 else 0.0

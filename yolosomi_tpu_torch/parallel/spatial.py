@@ -203,6 +203,7 @@ def halo_rows(x: torch.Tensor, above: int, below: int, fill: float = 0.0, dim: i
     other strips, `fill` past the image's top and bottom edges (0 as a
     conv pads, -inf as a max-pool does). One all-reduce of a buffer that
     holds every strip's halo."""
+    _check_unpadded(x)
     st = active_strip()
     lv = st.level(x.shape[dim])
     n = above + below
@@ -236,6 +237,7 @@ def halo_rows(x: torch.Tensor, above: int, below: int, fill: float = 0.0, dim: i
 def gather_h(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
     """The whole map of the active strip's local `x` along `dim`, on every
     rank of the slice, contiguous."""
+    _check_unpadded(x)
     st = active_strip()
     lv = st.level(x.shape[dim])
     shape = list(x.shape)
@@ -244,6 +246,14 @@ def gather_h(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
     out.narrow(dim, lv.start, lv.stop - lv.start).copy_(x)
     st.all_reduce(_as_bytes(out), "gather_bytes")
     return out
+
+
+def _check_unpadded(x: torch.Tensor) -> None:
+    """A ZeroPad2d's strip (models/layers.py) holds its pad rows already,
+    and only the stride-1 pool after it reads it."""
+    if getattr(x, "pad_below", None) is not None:
+        raise NotImplementedError("a ZeroPad2d's strip read by another operator than a stride-1 MaxPool2d (ROADMAP "
+                                  "queue A item 6)")
 
 
 def _reduce_dtype(x: torch.Tensor) -> torch.dtype:

@@ -5,9 +5,9 @@ apply_classifier and detect.py:93-95).
 Each detection's crop is classified again, and only detections whose
 second-stage class agrees with the detector's are kept. `classify_fn` is
 any callable from a (N, size, size, 3) float32 RGB batch in [0, 1] (a
-numpy array) to (N, n_classes) logits (numpy or a torch tensor). A
-classifier model built from a config (`Classify`) waits for ROADMAP queue
-A item 8.
+numpy array) to (N, n_classes) logits (numpy or a torch tensor): a
+Runner built on a headless config (classifier.yaml's Classify tail) is
+one, as detect's `--classify cfg[:weights]` builds it.
 """
 
 from __future__ import annotations

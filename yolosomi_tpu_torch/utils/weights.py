@@ -9,7 +9,11 @@ the detection family the port serves needs; a repeated row's flax copies
 `mods_<i>` are the <i>th module of its nn.Sequential), and each value is
 transposed to torch layout (counterpart of
 yolosomi_tpu/utils/onnx_export.py:35-51).
-DCNv3's Dense layers, depthwise conv and LayerNorm map by name; DCNv2's
+The transformer blocks' LayerNorms (scale / bias), Dense kernels
+(transposed), TorchMHA's packed `in_proj_weight` / `in_proj_bias` and
+`out_proj`, and the YOLOv10 blocks' flattened Sequentials (flax cv1_<i>,
+ffn_<i>, tr<i>: cv1.<i>, ffn.<i>, tr.<i> here) map by name. DCNv3's
+Dense layers, depthwise conv and LayerNorm map by name too; DCNv2's
 3-D (P, C, c2) weight keeps its flax layout in the port (models/dcn.py),
 so it passes through untransposed.
 
@@ -34,7 +38,9 @@ import torch.nn as nn
 from yolosomi_tpu_torch.models import dcn as D
 from yolosomi_tpu_torch.models import layers as L
 
-_LIST_RE = re.compile(r"^(m|dw|pw|bn_dw|bn_pw)(\d+)$")
+_LIST_RE = re.compile(r"^(m|dw|pw|bn_dw|bn_pw|tr)(\d+)$")
+# the YOLOv10 blocks' Sequentials, flattened by flax: CIB's cv1_0-4, PSA's ffn_0-1
+_SEQ_RE = re.compile(r"^(cv1|ffn)_(\d+)$")
 
 
 def _path_to_key(path: List[str], collection: str) -> str:
@@ -47,7 +53,7 @@ def _path_to_key(path: List[str], collection: str) -> str:
         if p.startswith("mods_"):  # the copies of a repeated row (JAX's _Repeat): an nn.Sequential
             parts.append(p.split("_")[1])
             continue
-        m = _LIST_RE.match(p)
+        m = _LIST_RE.match(p) or _SEQ_RE.match(p)
         parts.append(f"{m.group(1)}.{m.group(2)}" if m else p)
     leaf = path[-1]
     key = ".".join(parts)
@@ -70,8 +76,8 @@ def _path_to_key(path: List[str], collection: str) -> str:
         name = "weight" if leaf == "kernel" else "bias"
         # Conv wraps ConvRaw 'cv' holding nn.Conv 'conv' (X.conv.weight); a
         # bare ConvRaw named 'conv' is a raw Conv2d (X.weight)
-        if key.endswith(".cv.conv"):
-            return key[: -len(".cv.conv")] + f".conv.{name}"
+        if f".{key}".endswith(".cv.conv"):  # a Conv at the root too (a DWConv loaded on its own)
+            return key[: -len("cv.conv")] + f"conv.{name}"
         if key.endswith(".conv"):
             return key[: -len(".conv")] + f".{name}"
         return _join(key, name)
@@ -166,6 +172,8 @@ _INVERSE_RE = (
     (re.compile(r"\.DCovN\.(\d+)\.3$"), lambda m: f".bn_pw{int(m.group(1)) - 3}"),
     (re.compile(r"\.(?:shared_MLP|fc)\.([02])$"), lambda m: f".fc{int(m.group(1)) // 2 + 1}"),
     (re.compile(r"\.m\.(\d+)"), lambda m: f".m{m.group(1)}"),
+    (re.compile(r"\.tr\.(\d+)"), lambda m: f".tr{m.group(1)}"),
+    (re.compile(r"\.(cv1|ffn)\.(\d+)"), lambda m: f".{m.group(1)}_{m.group(2)}"),
 )
 _NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
 

@@ -25,8 +25,11 @@ process group of W = D x S ranks (engine/runner.py; under torchrun, which
 raises without one): every rank loads the same batches and gets the whole
 detections, and rank 0 alone logs the table and writes the files. With
 `int8` it stays unsharded, as the JAX package's quantized_infer_fn never
-uses the spatial mesh. TTA (`augment`, ROADMAP queue A item 9) and plots
-(matplotlib, item 9) raise NotImplementedError.
+uses the spatial mesh. `augment` / `--augment` evaluates with test-time
+augmentation (the Runner's TTA under the same protocol, as the JAX
+package's val.py:126; sharded too); with `int8` it is not applied, as the
+JAX package's quantized_infer_fn has none, and a log line says so. Plots
+(matplotlib, ROADMAP queue A item 9) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -129,9 +132,8 @@ def run(
     loss), per-class mAP@.5:.95 (nc,), (pre, inference+NMS, post) ms per
     image); the losses are 0 without `compute_loss`. `half` builds the
     Runner in bf16, else f32; a given `runner` keeps its own."""
-    for flag, what in ((augment, "TTA (ROADMAP queue A item 9)"), (plots, "plots (matplotlib; ROADMAP queue A item 9)")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if plots:
+        raise NotImplementedError("plots (matplotlib; ROADMAP queue A item 9) are not ported yet")
     t_start = time.time()
     data_dict = load_data_cfg(find_config(data, "data")) if isinstance(data, str) else data
     nc = 1 if single_cls else int(data_dict["nc"])
@@ -160,8 +162,11 @@ def run(
     # the eval protocol: multi-label, exact top-k over max_nms 30000 candidates
     protocol = dict(conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det, max_nms=30000, multi_label=True,
                     exact=True)
-    infer = lambda x: runner(x, **protocol)  # noqa: E731
+    infer = lambda x: runner(x, augment=augment, **protocol)  # noqa: E731
     if int8:
+        if augment:
+            LOGGER.info("--int8 evaluates without TTA: --augment is not applied, as the JAX package's "
+                        "quantized_infer_fn has no TTA")
         # the same protocol through the int8 convs, so the mAP gap is the
         # quantization's; "head" names the detect head's rows
         exclude = tuple(rf"^layers_{len(runner.model.model) - 1}/" if p == "head" else p for p in int8_exclude)
@@ -297,7 +302,7 @@ def parse_opt(argv=None):
     parser.add_argument("--iou-thres", type=float, default=0.6)
     parser.add_argument("--task", default="val", help="train, val, test, speed or study")
     parser.add_argument("--single-cls", action="store_true")
-    parser.add_argument("--augment", action="store_true")
+    parser.add_argument("--augment", action="store_true", help="TTA inference")
     parser.add_argument("--save-txt", action="store_true")
     parser.add_argument("--save-hybrid", action="store_true",
                         help="merge ground-truth labels into the NMS pool (autolabelling)")
