@@ -236,6 +236,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     writes Runner(augment=True)'s rows; detect.run(classify="classifier")
     on them: classifier.yaml's headless model at 224 px gives finite
     logits, and the rows it keeps are among the unfiltered rows
+16. the rest of the heads, each in place of row 35 on the full-width
+    flagship body (rows 0-34, nc 10, 640 px, HEAD_ROWS): DetectV8,
+    DetectV11, IDetect, IAuxDetect, ASFF_Detect, CLLADetect,
+    TSCODE_Detect, DetectODConv, Segment (nm 32, npr 256) and
+    RTDETRDecoder (hd 256, nq 300). (a) each serves N_REQUESTS b8 bf16
+    batches through Runner (conf 1e-6, every image answered), odconv_s2 4
+    times a batch with the counts set to 0 just before, latency, img/s and
+    the model / postprocess split printed; its f32 model through the
+    kernels no further from f64 than twice the plain f32 model (phase 5's
+    rule; RT-DETR's head input maps). (b) flagship+DetectV8 through
+    ComputeLossV8 on phase 8's set: HEAD_STEPS timed bf16 b8 steps with
+    4 + 4 + 4 launches each, peak memory and the assigner's tensor size,
+    one step profiled, the f32 b2 step against plain_version() (phase
+    8(b)'s rule); one flagship+IAuxDetect bf16 b8 step through
+    ComputeLoss's aux branch (8 maps), 4 + 4 + 4 launches. DetectV8's
+    biases take the ultralytics head's init first (dfl_prior: the JAX
+    init_model sets none, and from zero biases the third step diverges)
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -272,9 +289,10 @@ from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoin
 from yolosomi_tpu_torch.engine.distill import plant_adapters, wrap_loss_with_distillation
 from yolosomi_tpu_torch.engine.evolve import META
 from yolosomi_tpu_torch.engine.optim import make_optimizer
-from yolosomi_tpu_torch.engine.runner import EnsembleRunner, Runner, attempt_load
+from yolosomi_tpu_torch.engine.runner import ANCHOR_HEADS, EnsembleRunner, Runner, attempt_load
 from yolosomi_tpu_torch.engine.trainer import TrainStep, create_train_state, make_train_step, upload_images
 from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.losses_v8 import ComputeLossV8
 from yolosomi_tpu_torch.models.layers import FlaxBatchNorm1d, FlaxBatchNorm2d, ODConv2d
 from yolosomi_tpu_torch.models.dcn import DCNv2, DCNv3, randomize_offset_heads
 from yolosomi_tpu_torch.models.heads import _grid_boxes, decode
@@ -357,6 +375,7 @@ TRAIN_EPOCHS = 1  # then one more from --resume
 # launches of one train step (forward and backward) of each full-width model
 STEP_LAUNCHES = {
     "yolo-somi": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
+    "yolo-somi+DetectV8": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "yolo-somi-dcn": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4, dcnv2_im2col=9, dcnv3_core=1,
                           dcnv2_im2col_bwd=9, dcnv3_core_bwd=1),
 }
@@ -376,7 +395,7 @@ STEP_GRAD_TOL = 1e-6
 # phase 8b, and 9.6e-6 / 2.2e-4 for yolo-somi-dcn at the zero init, NVIDIA
 # H100 80GB HBM3), so for yolo-somi-dcn each floor is that noise; the
 # flagship keeps the floor it passed with (1e-6)
-STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4)}
+STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4), "yolo-somi+DetectV8": (1e-6, 1e-6)}
 # the per-parameter floor of that comparison, as a share of the largest
 # gradient's norm: STEP_GRAD_TOL for the flagship; for yolo-somi-dcn the
 # bf16 witness's 1e-4, because its f32 step through the kernels put a sum
@@ -385,7 +404,7 @@ STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4)}
 # the zero init, NVIDIA H100 80GB HBM3): the forward kernels' rounding,
 # carried into a cancelling sum. For that model the median distance over
 # all parameters is held to STEP_MEDIAN_RATIO times the plain step's too.
-STEP_PARAM_FLOOR = {"yolo-somi": STEP_GRAD_TOL, "yolo-somi-dcn": 1e-4}
+STEP_PARAM_FLOOR = {"yolo-somi": STEP_GRAD_TOL, "yolo-somi-dcn": 1e-4, "yolo-somi+DetectV8": STEP_GRAD_TOL}
 STEP_MEDIAN_RATIO = 2.0
 # the same step at b8 through the kernels against the plain ODConv backward
 # (in f32, rounded once) behind the same forward kernel (train_step_witness),
@@ -1593,7 +1612,8 @@ def offset_heads(model) -> list:
     return heads
 
 
-def train_step_parity(root: Path, cfg_name: str = "yolo-somi", heads: str = None) -> None:
+def train_step_parity(root: Path, cfg_name: str = "yolo-somi", heads: str = None, cfg: dict = None,
+                      loss_cls=ComputeLoss, temper=None) -> None:
     """Phase 8(b): one full-width f32 step (b2, 640 px, seed-0 weights, head
     tempered) through the kernels against the same step under
     plain_version(), each held against the plain step in f64: the loss,
@@ -1629,13 +1649,19 @@ def train_step_parity(root: Path, cfg_name: str = "yolo-somi", heads: str = None
     to 1.0 of each gradient, 1e-3 of the loss: the data-dependent offsets
     feed rounding back into where the next layer samples), so there this
     check only catches what is grossly wrong; the witness (9c) and the
-    per-launch checks are the tight ones."""
-    model, meta = build_model(load_model_cfg(find_config(cfg_name)), nc=10, device="cuda", seed=0)
-    temper_head(model, HEAD_TEMPER)
+    per-launch checks are the tight ones. Phase 16(b) passes the
+    flagship's body under DetectV8 as `cfg` (its `cfg_name` a label) with
+    ComputeLossV8 as `loss_cls` and dfl_prior as `temper`, in place of
+    temper_head."""
+    model, meta = build_model(cfg or load_model_cfg(find_config(cfg_name)), nc=10, device="cuda", seed=0)
+    if temper is None:
+        temper_head(model, HEAD_TEMPER)
+    else:
+        temper(model, meta)
     if heads == "random":
         randomize_offset_heads(model, seed=0)
     plain_model, f64_model = copy.deepcopy(model), copy.deepcopy(model).double()
-    loss_fn = ComputeLoss(meta, load_hyp(find_config("hyp.visdrone", "hyps")))
+    loss_fn = loss_cls(meta, load_hyp(find_config("hyp.visdrone", "hyps")))
     images, targets, _, _ = next(iter(DataLoader(DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ), 2)))
     seen = []  # the layout each upstream gradient arrives in
     backward = OdconvS2Function.backward
@@ -1690,7 +1716,8 @@ def train_step_parity(root: Path, cfg_name: str = "yolo-somi", heads: str = None
         print(f"train step parity {cfg_name} offset heads ({heads}): gradient norm kernels / f64, relative distance "
               f"to f64 kernels / plain: " + "; ".join(f"{n} {a:.3e} / {b:.3e}, {c:.1e} / {d:.1e}"
                                                      for n, a, b, c, d in head_rel))
-    print(f"train step parity {cfg_name} f32 b2 {IMGSZ} px (full width, head tempered by {HEAD_TEMPER}), "
+    tempered = f"head tempered by {HEAD_TEMPER}" if temper is None else f"head under {temper.__name__}"
+    print(f"train step parity {cfg_name} f32 b2 {IMGSZ} px (full width, {tempered}), "
           f"against the plain step "
           f"in f64: loss {lk:.7f} kernels, {lp:.7f} plain, {ld:.7f} f64; {len(names)} parameter gradients, relative "
           f"norm distance to f64: kernels median {statistics.median(k_rel):.2e} max {k_rel[-1]:.2e}, plain median "
@@ -1702,7 +1729,7 @@ def train_step_parity(root: Path, cfg_name: str = "yolo-somi", heads: str = None
     loss_floor, bn_floor = STEP_FLOORS[cfg_name]
     assert abs(lk - ld) <= 2 * abs(lp - ld) + loss_floor * abs(ld), (lk, lp, ld)
     assert worst is None, worst
-    if cfg_name != "yolo-somi":
+    if cfg_name == "yolo-somi-dcn":
         assert statistics.median(k_rel) <= STEP_MEDIAN_RATIO * statistics.median(p_rel), (k_rel, p_rel)
     assert bn_ek <= 2 * bn_ep + bn_floor, (bn_ek, bn_ep)
     assert len(bank_norms) == 4 and all(v > 0 for v in bank_norms), bank_norms
@@ -3738,6 +3765,262 @@ def tta_phase(gpu: str, meta, workdir: Path) -> dict:
     return dict(kernels=kernels, served=served)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the detection heads on the flagship's body
+# ---------------------------------------------------------------------------
+
+# each head in place of row 35 of configs/models/yolo-somi.yaml (rows 0-34 at
+# width 1.0): (input rows, args). IAuxDetect's aux maps are the BiFPN merges
+# before each C2f of its levels; CLLADetect and TSCODE_Detect take the P2 map
+# (and TSCODE_Detect the P5 map) beside their levels, as their level slices do
+HEAD_ROWS = {
+    "DetectV8": ([25, 28, 31, 34], ["nc"]),
+    "DetectV11": ([25, 28, 31, 34], ["nc"]),
+    "IDetect": ([25, 28, 31, 34], ["nc", "anchors"]),
+    "IAuxDetect": ([25, 28, 31, 34, 23, 27, 30, 33], ["nc", "anchors"]),
+    "ASFF_Detect": ([28, 31, 34], ["nc", "anchors"]),
+    "CLLADetect": ([25, 28, 31, 34], ["nc", "anchors"]),
+    "TSCODE_Detect": ([25, 28, 31, 34], ["nc", "anchors"]),
+    "DetectODConv": ([25, 28, 31, 34], ["nc", "anchors"]),
+    "Segment": ([25, 28, 31, 34], ["nc", "anchors", 32, 256]),
+    "RTDETRDecoder": ([28, 31, 34], ["nc", 256, 300]),
+}
+HEAD_STEPS = 5  # timed bf16 b8 train steps of flagship+DetectV8
+
+
+@torch.no_grad()
+def dfl_prior(model: torch.nn.Module, meta) -> None:
+    """temper_head for the DFL heads: each level's two output convs' weights
+    scaled by HEAD_TEMPER, and the ultralytics Detect head's bias init
+    (box logits 1.0, class logits log(5 / nc / (640 / s)^2)), which the JAX
+    package's init_model does not apply to them (it sets priors on `m<i>`
+    convs only). From JAX's init the class logits spread over +-200 and
+    ComputeLossV8's class term sums over every anchor and class (~9e3 at
+    640 px, b8): hyp.visdrone's bias warm-up then throws the weights to
+    ~1e8 by the second step (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    head = model.model[-1]
+    for i, s in enumerate(meta.strides):
+        box, cls = getattr(head, f"cv2_{i}_2"), getattr(head, f"cv3_{i}_2")
+        box.weight.mul_(HEAD_TEMPER)
+        cls.weight.mul_(HEAD_TEMPER)
+        box.bias.fill_(1.0)
+        cls.bias.fill_(math.log(5 / meta.nc / (640 / s) ** 2))
+
+
+def head_cfg(name: str) -> dict:
+    """The flagship's YAML with `name` in place of its DecoupledDetect row."""
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    f, args = HEAD_ROWS[name]
+    cfg["head"] = cfg["head"][:-1] + [[f, 1, name, args]]
+    return cfg
+
+
+def postprocess(runner: Runner, preds, conf: float):
+    """The Runner's serving postprocess of raw outputs, as __call__ picks it."""
+    head = runner.meta.head_type
+    if head == "RTDETRDecoder":
+        return Runner.query_rows(preds, (IMGSZ, IMGSZ), conf, 300)
+    if head in ANCHOR_HEADS:
+        return fused_postprocess(preds, runner.meta.anchors_px, runner.meta.strides, conf_thres=conf)
+    return non_max_suppression(runner.decode(preds), conf_thres=conf)
+
+
+def head_serve(gpu: str, name: str, path: Path) -> dict:
+    """Phase 16(a) for one head: N_REQUESTS b8 bf16 batches through Runner
+    (conf HUB_CONF: random weights under the priors score below 0.25),
+    every image answered, odconv_s2 4 times a batch with the counts set to
+    0 just before; the model / postprocess split; then the f32 model
+    through the kernels against plain_version() by phase 5's rule (for
+    RTDETRDecoder the head's input maps: its top-k query selection turns a
+    rounding difference into another query order). Returns the launches
+    and the median batch latency (s)."""
+    runner = Runner(str(path), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    rng = np.random.default_rng(16)
+    batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
+    runner(batches[0], conf_thres=HUB_CONF)
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for images in batches[1:]:
+        t0 = time.perf_counter()
+        out = runner(images, conf_thres=HUB_CONF)
+        lat.append(time.perf_counter() - t0)
+        assert out.shape == (BATCH, 300, 6) and np.isfinite(out).all(), (name, out.shape)
+        assert (out[..., 4] > 0).any(1).all(), f"{name}: an image without detections"
+    launches = launch_counts()
+    assert launches == only(odconv_s2=4 * N_REQUESTS), (name, launches)
+    fwd, post = [], []
+    for images in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = runner.forward(images)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        postprocess(runner, preds, HUB_CONF).cpu()
+        fwd.append(t1 - t0)
+        post.append(time.perf_counter() - t1)
+    med = statistics.median(lat)
+    print(f"heads {name} on the flagship's body (width 1.0, {n_params / 1e6:.2f} M params, nc 10, strides "
+          f"{[int(s) for s in runner.meta.strides]}) 640 px bf16 conf {HUB_CONF:g} b{BATCH}, {N_REQUESTS} requests on "
+          f"{gpu}: latency median {med * 1e3:.2f} ms/batch (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), "
+          f"{BATCH / med:.1f} img/s; upload+model median {statistics.median(fwd) * 1e3:.2f} ms, postprocess median "
+          f"{statistics.median(post) * 1e3:.2f} ms; odconv_s2 {launches['odconv_s2'] // N_REQUESTS}/batch")
+    del runner
+    torch.cuda.empty_cache()
+
+    runner = Runner(str(path), dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+    images = np.random.default_rng(1).integers(0, 256, (2, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+    x = runner.upload(images)
+    rtdetr = name == "RTDETRDecoder"
+
+    def outputs(model, inp):
+        with torch.inference_mode():
+            out, feats = model(inp, features=True)
+        return list(feats) if rtdetr else [t for t in _leaves(out)]
+
+    reset_counts()
+    raw = outputs(runner.model, x)
+    assert launch_counts() == only(odconv_s2=4), launch_counts()
+    with plain_version():
+        ref = outputs(runner.model, x)
+        ref64 = outputs(copy.deepcopy(runner.model).double(), x.double())
+    errs = []
+    for a, b, c in zip(raw, ref, ref64):
+        assert a.shape == b.shape == c.shape and torch.isfinite(a).all()
+        k_err, p_err = (a.double() - c).abs().max().item(), (b.double() - c).abs().max().item()
+        errs.append((k_err, p_err))
+        assert k_err <= 2 * p_err + 1e-6, (name, k_err, p_err)
+    what = "head input maps" if rtdetr else "outputs"
+    print(f"heads parity {name} f32 b2 ({len(raw)} {what}): max |out| {max(c.abs().max().item() for c in ref64):.3e}, "
+          f"vs f64 kernel / plain " + ", ".join(f"{k:.2e} / {p:.2e}" for k, p in errs))
+    del runner
+    torch.cuda.empty_cache()
+    return dict(launches=launches, latency=med)
+
+
+def _leaves(out) -> list:
+    """The tensors of a head's output: a list of maps, Segment's (levels,
+    proto), RT-DETR's one tensor."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _leaves(o)]
+
+
+def heads_training(gpu: str, root: Path) -> dict:
+    """Phase 16(b): flagship+DetectV8 (its class and box biases under
+    dfl_prior) through ComputeLossV8 on phase 8's set (the same 64 seed-0
+    JPEGs): HEAD_STEPS timed bf16 b8 train steps with
+    4 + 4 + 4 kernel launches each, the median step and the peak memory
+    (the assigner's dense (B, M, N) tensors: M the loader's padded label
+    count); one step profiled (the kernels' device time on this graph);
+    the f32 b2 step through the kernels against plain_version()
+    (train_step_parity, phase 8(b)'s limits); then one flagship+IAuxDetect
+    bf16 b8 step through ComputeLoss's aux branch (its 8 maps), with its
+    launches. Returns the per-step launches by graph."""
+    hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
+    ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
+    batches = list(DataLoader(ds, BATCH, shuffle=True, drop_last=True))[:HEAD_STEPS + 1]
+    runs = {}
+    for name in ("DetectV8", "IAuxDetect"):
+        model, meta = build_model(head_cfg(name), nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
+        if name == "DetectV8":
+            dfl_prior(model, meta)
+        opt = make_optimizer(hyp, nb=len(batches), epochs=1, batch_size=BATCH)
+        state = create_train_state(model, opt)
+        seen = []
+        if name == "DetectV8":
+            base = ComputeLossV8(meta, hyp)
+        else:
+            base = ComputeLoss(meta, hyp)
+
+        def loss_fn(preds, targets, base=base):
+            seen.append(len(preds))
+            return base(preds, targets)
+
+        step = make_train_step(loss_fn, opt, amp_dtype=torch.bfloat16)
+        images, targets = batches[0][:2]
+        step(state, images, targets)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        n = HEAD_STEPS if name == "DetectV8" else 1
+        for images, targets, _, _ in batches[1:n + 1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, images, targets)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            assert bool(m["grads_finite"]) and torch.isfinite(m["loss"]), (name, m)
+            losses.append([m[k].item() for k in ("loss", "lbox", "lobj", "lcls")])
+        launches = launch_counts()
+        assert launches == only(**{k: v * n for k, v in STEP_LAUNCHES["yolo-somi"].items()}), (name, launches)
+        assert seen[-1] == (2 * meta.nl if name == "IAuxDetect" else meta.nl), (name, seen)
+        peak = torch.cuda.max_memory_allocated()
+        m_labels = batches[1][1].shape[1]
+        n_anchors = sum((IMGSZ // int(s)) ** 2 for s in meta.strides)
+        dense = (f"; the assigner's (B, M, N) f32 tensors: {BATCH} x {m_labels} x {n_anchors} = "
+                 f"{BATCH * m_labels * n_anchors * 4 / 1e6:.0f} MB each" if name == "DetectV8" else "")
+        runs[name] = {k: v // n for k, v in launches.items() if v}
+        print(f"heads train {name} (flagship body, {type(base).__name__}) bf16 b{BATCH} {IMGSZ} px on {gpu}: "
+              f"{n} step(s) median {statistics.median(times) * 1e3:.1f} ms ({BATCH / statistics.median(times):.1f} "
+              f"img/s), losses [loss, box, {'dfl' if name == 'DetectV8' else 'obj'}, cls] "
+              f"{[[round(v, 4) for v in row] for row in losses]}, maps per loss call {seen[-1]}, launches per step "
+              f"{runs[name]}, peak memory {peak / 1e9:.2f} GB{dense}")
+        if name == "DetectV8":
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            images, targets = batches[1][:2]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                step(state, images, targets)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = prof.key_averages()
+            kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            ours = {label: sum(e.self_device_time_total for e in kernels if any(k in e.key for k in keys)) / 1e3
+                    for label, keys in PROFILED[:3]}
+            path = OUT / "chip_smoke_profile_train_yolo-somi+DetectV8.txt"
+            path.write_text(f"{gpu}\n{events.table(sort_by='self_device_time_total', row_limit=50)}\n")
+            RECORD["heads step DetectV8"] = statistics.median(times)
+            RECORD["heads peak DetectV8"] = peak
+            print(f"heads profile DetectV8 train step (one step, profiler on): wall {wall_ms:.1f} ms, device kernels "
+                  f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
+                  + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items()) + f"; table in {path}")
+        del model, state, step
+        torch.cuda.empty_cache()
+        if name == "DetectV8":
+            train_step_parity(root, "yolo-somi+DetectV8", cfg=head_cfg("DetectV8"), loss_cls=ComputeLossV8,
+                              temper=dfl_prior)
+    return runs
+
+
+def heads_phase(gpu: str) -> dict:
+    """Phase 16: each head of HEAD_ROWS on the full-width flagship body
+    served and held in f32 (a), flagship+DetectV8 and flagship+IAuxDetect
+    trained (b). Returns the serving launches per batch and the training
+    launches per step by head."""
+    t_phase = time.perf_counter()
+    OUT.mkdir(exist_ok=True)
+    served = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name in HEAD_ROWS:
+            path = tmp / f"yolo-somi-{name}.yaml"
+            path.write_text(yaml.safe_dump(head_cfg(name)))
+            served[name] = head_serve(gpu, name, path)
+            RECORD[f"heads serve {name}"] = served[name]["latency"]
+        t_a = time.perf_counter()
+        root = tmp / "shapes"
+        rng = np.random.default_rng(0)  # phase 8's set
+        write_shapes_split(root, "train", TRAIN_IMAGES, rng)
+        trained = heads_training(gpu, root)
+    print(f"heads on {gpu}: phase 16 {time.perf_counter() - t_phase:.1f} s (serving and f32 parity "
+          f"{t_a - t_phase:.1f} s)")
+    return dict(served={k: v["launches"]["odconv_s2"] // N_REQUESTS for k, v in served.items()}, trained=trained)
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     def one(source):
@@ -3829,6 +4112,7 @@ def main() -> int:
         parallel = parallelism(gpu)
         sharded = spatial_sharding(gpu)
         tta = tta_phase(gpu, meta, Path(eval_dir.name))
+        heads = heads_phase(gpu)
     finally:
         eval_dir.cleanup()
 
@@ -3881,6 +4165,12 @@ def main() -> int:
         if per_job:
             entry["tta_launches_per_batch"] = per_job
             entry["tta"] = {f"{side} px": summary_fields(sums[entry["name"]]) for side, sums in tta["kernels"].items()}
+        # phase 16: launches per served batch of each head on the flagship's body, per train step of the two trained
+        if entry["name"] == "odconv_s2":
+            entry["heads_launches_per_batch"] = heads["served"]
+        per_job = {head: counts[entry["name"]] for head, counts in heads["trained"].items() if counts.get(entry["name"])}
+        if per_job:
+            entry["heads_launches_per_train_step"] = per_job
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

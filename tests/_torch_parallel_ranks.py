@@ -12,6 +12,7 @@ import torch
 from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
 from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.losses_v8 import ComputeLossV8
 from yolosomi_tpu_torch.models.yolo import build_model
 from yolosomi_tpu_torch.ops.odconv import odconv_s2, odconv_s2_dwmix, odconv_s2_dx
 from yolosomi_tpu_torch.parallel.mesh import shard_batch
@@ -65,11 +66,11 @@ def train_steps(group, cfg: dict, nc: int, variables: dict, hyp: dict, opt_kw: d
 
 
 def step_grads(group, cfg: dict, nc: int, hyp: dict, images: np.ndarray, targets: np.ndarray,
-               dtype=torch.float64) -> dict:
-    """One train-mode forward, ComputeLoss and backward of `cfg` (seed-0
-    weights) in `dtype`, on this rank's rows of the global batch inside
-    mesh.reducing(group), its gradients summed over the ranks: the global
-    batch's loss and gradients, by parameter name."""
+               dtype=torch.float64, v8: bool = False) -> dict:
+    """One train-mode forward, ComputeLoss (ComputeLossV8 with `v8`) and
+    backward of `cfg` (seed-0 weights) in `dtype`, on this rank's rows of
+    the global batch inside mesh.reducing(group), its gradients summed over
+    the ranks: the global batch's loss and gradients, by parameter name."""
     from yolosomi_tpu_torch.engine.trainer import upload_images
     from yolosomi_tpu_torch.parallel import mesh
 
@@ -78,7 +79,8 @@ def step_grads(group, cfg: dict, nc: int, hyp: dict, images: np.ndarray, targets
     model = model.to(dtype).train()
     x = upload_images(shard_batch(images, rank, world), torch.device("cpu")).to(dtype)
     with mesh.reducing(group):
-        loss, _ = ComputeLoss(meta, dict(hyp))(model(x), torch.as_tensor(shard_batch(targets, rank, world)))
+        loss_fn = (ComputeLossV8 if v8 else ComputeLoss)(meta, dict(hyp))
+        loss, _ = loss_fn(model(x), torch.as_tensor(shard_batch(targets, rank, world)))
         names, params = zip(*model.named_parameters())
         grads = list(torch.autograd.grad(loss, params))
     loss = loss.detach()

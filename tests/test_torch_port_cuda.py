@@ -17,6 +17,7 @@ bound on every call rather than repeated bitwise; their offset and mask
 gradients are fixed-order sums and repeat bitwise.
 """
 
+import copy
 import json
 
 import cv2
@@ -40,6 +41,7 @@ from yolosomi_tpu_torch import train
 from yolosomi_tpu_torch.engine.optim import make_optimizer
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
 from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.losses_v8 import ComputeLossV8
 from yolosomi_tpu_torch.models.layers import ODConv2d
 from yolosomi_tpu_torch.ops.odconv import (_DW_TILES, _DX_TILES, _TILES, _dw_plan, _dw_split, _plan, _smem_bytes,
                                            odconv_s2, odconv_s2_backward_reference, odconv_s2_dwmix, odconv_s2_dx,
@@ -707,6 +709,54 @@ def test_a_train_step_on_cuda_goes_through_the_gradient_kernels(cuda, amp):
             odconv_s2_dwmix.launches - before[2]) == (8, 8, 8)
     assert bool(m["grads_finite"]) and torch.isfinite(m["loss"])
     assert len(banks) == 4 and all(not torch.equal(b, b0) for b, b0 in zip(banks, bank0))
+
+
+@pytest.mark.cuda
+def test_a_detect_v8_train_step_on_cuda_matches_the_plain_version(cuda):
+    """The small flagship's body (rows 0-34, width 0.25, depth 0.33) under
+    DetectV8 on rows 25 / 28 / 31 / 34, b2, 64 px, f32: one forward,
+    ComputeLossV8 and backward through odconv_s2 and its two gradient
+    kernels (4 + 4 + 4 launches) against the same step under
+    plain_version() (none), both held against the plain step in float64:
+    the kernels' loss and every gradient no further from f64 than four
+    times the larger of the plain f32 step's distance and its median
+    distance, plus 1e-6 of the largest gradient (chip_smoke.py's
+    train_step_parity rule)."""
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    cfg["head"] = cfg["head"][:-1] + [[[25, 28, 31, 34], 1, "DetectV8", ["nc"]]]
+    model, meta = build_model(cfg, nc=3, device="cuda", seed=0)
+    plain, f64 = copy.deepcopy(model), copy.deepcopy(model).double()
+    loss_fn = ComputeLossV8(meta, load_hyp(find_config("hyp.visdrone", "hyps")))
+    t = np.full((2, 8, 5), -1, np.float32)
+    t[..., 1:] = 0
+    t[:, :2] = [[0, 0.3, 0.4, 0.2, 0.3], [2, 0.6, 0.6, 0.1, 0.1]]
+    t = torch.from_numpy(t).cuda()
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 3, 64, 64))).cuda()
+
+    def step(m):
+        m.train()
+        loss, _ = loss_fn(m(x.to(next(m.parameters()).dtype)), t)
+        return loss.detach().double(), [g.double() for g in torch.autograd.grad(loss, list(m.parameters()))]
+
+    before = (odconv_s2.launches, odconv_s2_dx.launches, odconv_s2_dwmix.launches)
+    loss_k, grads_k = step(model)
+    torch.cuda.synchronize()
+    assert (odconv_s2.launches - before[0], odconv_s2_dx.launches - before[1],
+            odconv_s2_dwmix.launches - before[2]) == (4, 4, 4)
+    with plain_version():
+        loss_p, grads_p = step(plain)
+        loss_d, grads_d = step(f64)
+    assert (odconv_s2.launches, odconv_s2_dx.launches, odconv_s2_dwmix.launches) == (before[0] + 4, before[1] + 4,
+                                                                                      before[2] + 4)
+    assert torch.isfinite(loss_k) and all(torch.isfinite(g).all() for g in grads_k)
+    assert abs(loss_k - loss_d) <= 4 * abs(loss_p - loss_d) + 1e-6 * abs(loss_d)
+    floor = 1e-6 * max(g.norm().item() for g in grads_d)
+    median = float(np.median([((gp - gd).norm() / gd.norm().clamp_min(1e-300)).item()
+                              for gp, gd in zip(grads_p, grads_d)]))
+    for (name, _), gk, gp, gd in zip(model.named_parameters(), grads_k, grads_p, grads_d):
+        ek, ep = (gk - gd).norm().item(), (gp - gd).norm().item()
+        assert ek <= 4 * max(ep, median * gd.norm().item()) + floor, (name, ek, ep)
 
 
 # ---------------------------------------------------------------------------

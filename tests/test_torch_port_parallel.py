@@ -175,13 +175,15 @@ def spawned(v5n, tmp_path_factory):
         (ranks.train_run, dict(kwargs=dict(cfg=str(cfg), data=str(data), epochs=1, batch_size=4, imgsz=IMGSZ,
                                            device="cpu", no_bf16=True, workers=1, max_labels=16, sync_bn=True,
                                            project=str(tmp / "runs"), name="t"))),
+        (ranks.step_grads, dict(cfg=v8_cfg(), nc=3, hyp=dict(DEFAULT_HYP), images=f64_batch()[0],
+                                targets=f64_batch()[1], v8=True)),
     ]
 
     def run():
         results = mesh.spawn_local(WORLD, ranks.run_calls, calls, timeout=240)
         return dict(a=[r[0] for r in results], b=[r[1] for r in results], bn=[r[2] for r in results],
                     f64=[r[3] for r in results], distill=[r[4] for r in results], run=[r[5] for r in results],
-                    runs_dir=tmp / "runs")
+                    v8=[r[6] for r in results], runs_dir=tmp / "runs")
 
     pool = ThreadPoolExecutor(1)
     future = pool.submit(run)
@@ -333,6 +335,23 @@ def test_distillation_on_two_ranks_is_the_one_process_loss_in_float64(port_ranks
     want = ranks.distill_grads(None, small_flagship_cfg(), 3, dict(DEFAULT_HYP), images, targets)
     assert any(k.startswith("kd_adapter_") and np.abs(g).max() > 0 for k, g in want["grads"].items())
     assert_global_grads(port_ranks["distill"], want)
+
+
+def v8_cfg() -> dict:
+    """The small flagship under DetectV8 on its P2-P5 maps."""
+    cfg = small_flagship_cfg()
+    cfg["head"] = cfg["head"][:-1] + [[[25, 28, 31, 34], 1, "DetectV8", ["nc"]]]
+    return cfg
+
+
+def test_the_v8_loss_on_two_ranks_is_the_one_process_step_in_float64(port_ranks):
+    """ComputeLossV8 as the float64 test above (the same limits): each
+    image's assignment is its own, and the target-score sum that
+    normalises every term is the global batch's, summed over the ranks
+    with its gradient; the batch size is the global one."""
+    images, targets = f64_batch()
+    want = ranks.step_grads(None, v8_cfg(), 3, dict(DEFAULT_HYP), images, targets, v8=True)
+    assert_global_grads(port_ranks["v8"], want)
 
 
 def assert_global_grads(per_rank: list, want: dict) -> None:

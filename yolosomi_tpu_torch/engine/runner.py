@@ -20,6 +20,15 @@ spatially where the Runner is) and decode, the rows de-scaled and clipped,
 then `non_max_suppression` with the caller's arguments; never the fused
 postprocess. A headless config (classifier.yaml's Classify tail) gives
 its (B, nc) logits instead of rows.
+
+The head type picks the postprocess, as in the JAX Runner (:124-136,
+:160-212): Detect, the DecoupledDetects and DetectODConv take the fused
+path when serving; IDetect, IAuxDetect, ASFF_Detect, CLLADetect and
+TSCODE_Detect decode on the anchor grid, Segment too (its levels; the nm
+mask coefficients are dropped), the DFL heads through `decode_v8`, each
+then `non_max_suppression`; RTDETRDecoder takes its NMS-free top-k of the
+query rows, before and in place of TTA. Only Detect and the
+DecoupledDetects serve spatially sharded (ROADMAP queue A item 6).
 """
 
 from __future__ import annotations
@@ -32,10 +41,10 @@ import numpy as np
 import torch
 
 from yolosomi_tpu_torch.engine.checkpoint import load_artifact
-from yolosomi_tpu_torch.models.heads import decode
+from yolosomi_tpu_torch.models.heads import decode, decode_v8
 from yolosomi_tpu_torch.models.layers import strip_halo
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
-from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression
+from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression, top_k
 from yolosomi_tpu_torch.ops.tta import forward_augment
 from yolosomi_tpu_torch.parallel import mesh
 from yolosomi_tpu_torch.parallel.spatial import SpatialMesh, gather_level_outputs, spatial
@@ -43,22 +52,32 @@ from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
 from yolosomi_tpu_torch.utils.general import LOGGER
 from yolosomi_tpu_torch.utils.weights import load_jax_variables, without_adapters
 
-# the head types whose raw maps decode with the anchor grid, and which the
+# the head types whose raw maps decode with the anchor grid and which the
 # JAX Runner serves through the fused postprocess (runner.py:196-200)
 ANCHOR_HEADS = ("Detect", "DecoupledDetect", "DetectODConv", "DecoupledDetect1", "Decoupled_Detect")
+# the other heads decoded on the anchor grid, then suppressed
+GRID_HEADS = ANCHOR_HEADS + ("IDetect", "IAuxDetect", "ASFF_Detect", "CLLADetect", "TSCODE_Detect")
+# the anchor-free DFL heads (decode_v8)
+V8_HEADS = ("DetectYOLOv8", "DetectYOLO8Head", "DetectV8", "DetectYolov11", "DetectV11")
+# the heads whose strip paths are ported (parallel/spatial.py)
+SPATIAL_HEADS = ("Detect", "DecoupledDetect", "DecoupledDetect1", "Decoupled_Detect")
 
 
 def _infer_nc(params: dict, na: int) -> Optional[int]:
     """nc from a checkpoint's head: a DecoupledDetect class conv `c3` has
-    na * nc outputs, a coupled Detect conv na * (nc + 5)."""
+    na * nc outputs, a bare `m0` conv na * (nc + 5), Segment's na * (nc +
+    5 + nm) with nm its Proto's outputs. None for a head without them (the
+    DFL heads, RT-DETR, TSCODE, DetectODConv), as in the JAX Runner."""
     head_keys = [k for k in params if k.startswith("layers_")]
     if not head_keys:
         return None
-    m0 = params[max(head_keys, key=lambda k: int(k.split("_")[1]))].get("m0", {})
+    head = params[max(head_keys, key=lambda k: int(k.split("_")[1]))]
+    m0 = head.get("m0", {})
     if "c3" in m0:
         return int(np.asarray(m0["c3"]["conv"]["bias"]).size // na)
     if "conv" in m0:
-        return int(np.asarray(m0["conv"]["bias"]).size // na - 5)
+        nm = np.asarray(head["proto"]["cv3"]["cv"]["conv"]["kernel"]).shape[-1] if "proto" in head else 0
+        return int(np.asarray(m0["conv"]["bias"]).size // na - 5 - nm)
     return None
 
 
@@ -83,9 +102,19 @@ class Runner:
                  variables: Optional[dict] = None, spatial_shards: int = 1):
         if spatial_shards < 1:
             raise ValueError(f"spatial_shards {spatial_shards} < 1")
-        self.spatial = SpatialMesh(spatial_shards) if spatial_shards > 1 else None
         self.exchange = None
         cfg_dict = load_model_cfg(find_config(cfg))
+        self.spatial = None
+        if spatial_shards > 1:
+            with torch.device("meta"):  # the head only; nothing is allocated
+                head = parse_model(cfg_dict)[1]
+            if not head.nl:
+                raise NotImplementedError("a headless graph (Classify) is not served spatially sharded (ROADMAP "
+                                          "queue A item 6)")
+            if head.head_type not in SPATIAL_HEADS:
+                raise NotImplementedError(f"the {head.head_type} head is not served spatially sharded: its strip "
+                                          "path is not ported (ROADMAP queue A item 6)")
+            self.spatial = SpatialMesh(spatial_shards)
         anchors = None
         if weights is not None and Path(weights).exists():
             variables, ckpt_anchors = load_artifact(weights)
@@ -111,9 +140,6 @@ class Runner:
             if weights is not None:
                 LOGGER.info(f"loaded weights {weights}")
         if self.spatial is not None:
-            if not self.meta.nl:
-                raise NotImplementedError("a headless graph (Classify) is not served spatially sharded (ROADMAP "
-                                          "queue A item 6)")
             sm = self.spatial
             self.halo = strip_halo(self.model)
             LOGGER.info(f"spatial sharding: {sm.world} ranks, {sm.slices} batch slices x {sm.shards} H-strips; rank "
@@ -125,17 +151,16 @@ class Runner:
 
     @property
     def stride(self) -> int:
-        """The model's largest stride: image sizes must be multiples of it
-        (a headless graph's deepest row's)."""
-        return int(max(self.meta.strides or [s.stride for s in self.meta.specs]))
+        """The graph's deepest stride: image sizes must be multiples of it.
+        It is the largest level's, except for a headless graph and for
+        TSCODE_Detect, whose coarser input map lies below its levels."""
+        return int(max(s.stride for s in self.meta.specs))
 
     def _check_head(self) -> None:
         if not self.meta.nl:
             raise TypeError("a headless graph gives logits, not detection rows")
-        if self.meta.head_type not in ANCHOR_HEADS:
-            raise NotImplementedError(
-                f"head type {self.meta.head_type} decodes otherwise than the anchor grid; its decode is not "
-                "ported yet (ROADMAP queue A item 8)")
+        if self.meta.head_type not in GRID_HEADS + V8_HEADS + ("Segment", "RTDETRDecoder"):
+            raise ValueError(f"unknown head type {self.meta.head_type!r}: the Runner has no postprocess for it")
 
     def upload(self, images: np.ndarray) -> torch.Tensor:
         """A (B, H, W, 3) batch -> the model's NCHW input on the device, in
@@ -152,9 +177,10 @@ class Runner:
 
     @torch.inference_mode()
     def forward(self, images: np.ndarray):
-        """Raw head outputs [(B, ny, nx, na, no), ...] for a uint8 or float
-        NHWC batch; sharded spatially, the whole maps of the whole batch on
-        every rank."""
+        """Raw head outputs [(B, ny, nx, na, no), ...] (the head's own
+        form: DFL maps, Segment's (levels, proto), RT-DETR's (B, nq,
+        4 + nc)) for a uint8 or float NHWC batch; sharded spatially, the
+        whole maps of the whole batch on every rank."""
         if self.spatial is None:
             return self.model(self.upload(images))
         images = np.asarray(images)
@@ -211,7 +237,38 @@ class Runner:
     def decode(self, preds) -> torch.Tensor:
         """Raw maps -> decoded rows (B, N, 5 + nc) in input pixels."""
         self._check_head()
+        head = self.meta.head_type
+        if head in V8_HEADS:
+            return decode_v8(preds, self.meta.strides, self.meta.nc)
+        if head == "Segment":
+            return decode(preds[0], self.meta.anchors_px, self.meta.strides)[..., :5 + self.meta.nc]
+        if head == "RTDETRDecoder":
+            raise ValueError("RTDETRDecoder's query rows are NMS-free: Runner.__call__ selects them, they do not "
+                             "decode to rows for non_max_suppression")
         return decode(preds, self.meta.anchors_px, self.meta.strides)
+
+    @staticmethod
+    def query_rows(out: torch.Tensor, hw, conf_thres: float, max_det: int, classes=None) -> torch.Tensor:
+        """RTDETRDecoder's (B, nq, 4 + nc) output (cxcywh in [0, 1], class
+        scores) -> NMS-free rows (B, max_det, 6) [x1, y1, x2, y2, conf, cls]
+        in the pixels of an (h, w) input (runner.py:160-185): each query's
+        best class above conf_thres, the top max_det queries by it (the
+        lower index first among equal ones), rows of no query zero."""
+        out = out.float()
+        h, w = hw
+        cx, cy, bw, bh = out[..., 0], out[..., 1], out[..., 2], out[..., 3]
+        boxes = torch.stack([(cx - bw / 2) * w, (cy - bh / 2) * h, (cx + bw / 2) * w, (cy + bh / 2) * h], -1)
+        scores = out[..., 4:]
+        if classes is not None:
+            scores = torch.where(torch.as_tensor(np.asarray(classes), device=scores.device), scores, 0.0)
+        conf, cls = scores.amax(-1), scores.argmax(-1).float()
+        conf = torch.where(conf > conf_thres, conf, 0.0)
+        k = min(max_det, conf.shape[1])
+        top, idx = top_k(conf, k)
+        rows = torch.cat([torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)), top[..., None],
+                          torch.gather(cls, 1, idx)[..., None]], -1)
+        rows = torch.where(top[..., None] > 0, rows, 0.0)
+        return torch.nn.functional.pad(rows, (0, 0, 0, max_det - k))
 
     @torch.inference_mode()
     def __call__(self, images: np.ndarray, conf_thres: float = 0.25, iou_thres: float = 0.45,
@@ -227,13 +284,16 @@ class Runner:
                 raise ValueError("TTA de-scales detection rows; a headless graph gives logits")
             return self.forward(images).float().cpu().numpy()
         self._check_head()
+        if self.meta.head_type == "RTDETRDecoder":  # NMS-free, and never augmented (the JAX Runner's order)
+            out = self.query_rows(self.forward(images), np.asarray(images).shape[1:3], conf_thres, max_det, classes)
+            return out.cpu().numpy()
         if augment:
             out = non_max_suppression(self.augment_rows(self.upload(images)), conf_thres=conf_thres,
                                       iou_thres=iou_thres, classes=classes, multi_label=multi_label, agnostic=agnostic,
                                       max_det=max_det, max_nms=max_nms, exact=exact)
             return out.cpu().numpy()
         preds = self.forward(images)
-        if not multi_label and not exact:
+        if not multi_label and not exact and self.meta.head_type in ANCHOR_HEADS:
             out = fused_postprocess(preds, self.meta.anchors_px, self.meta.strides, conf_thres=conf_thres,
                                     iou_thres=iou_thres, classes=classes, agnostic=agnostic, max_det=max_det,
                                     max_nms=max_nms)

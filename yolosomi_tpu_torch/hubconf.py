@@ -12,8 +12,13 @@ its DCN variant, yolo-somi-s / -t / -t-p3 / -t-p3s / -t-p3s8, the ablation
 configs, yolov5n/s/m/l/x, yolov5s-p2 / s6 and the hub configs
 yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet,
 yolov3 / yolov3-spp / yolov3-tiny, yolov5s-ghost, yolov5s-transformer and
-yolov10. `AutoShape(..., augment=True)` calls serve with TTA. A config
-outside the registry raises KeyError naming ROADMAP queue A item 8.
+yolov10, and any graph that ends in one of the JAX package's heads
+(IDetect, IAuxDetect, ASFF_Detect, CLLADetect, TSCODE_Detect,
+DetectODConv, Segment, the DFL heads DetectV8 / DetectV11 and their
+aliases, RTDETRDecoder). `AutoShape(..., augment=True)` calls serve with
+TTA. A config with a row outside the registry (the rest of the JAX
+package's zoo blocks, row kinds and activations) raises KeyError naming
+ROADMAP queue A item 8.
 """
 
 from __future__ import annotations

@@ -140,7 +140,8 @@ class ComputeLoss:
     """The loss: `loss(preds, targets) -> (total, components)`.
 
     preds: the head's raw maps [(B, ny, nx, na, no), ...] (taken in f32,
-    whatever their dtype); targets: (B, M, 5) padded as above, on the
+    whatever their dtype; IAuxDetect's 2 * nl train-mode maps add the aux
+    half's total at 0.25); targets: (B, M, 5) padded as above, on the
     preds' device. `total` is the sum of the three gained terms times the
     batch size; `components` is the detached (3,) [lbox, lobj, lcls].
 
@@ -173,6 +174,12 @@ class ComputeLoss:
         self.rep_nms = float(hyp.get("Rp_nms", 0.1))
 
     def __call__(self, preds: Sequence[torch.Tensor], targets: torch.Tensor):
+        if len(preds) == 2 * self.nl:
+            # IAuxDetect's train-mode lead + aux maps: the aux maps take the
+            # same targets at weight 0.25 (losses.py:199-206); the components
+            # are the lead maps'
+            total, comps = self(preds[:self.nl], targets)
+            return total + 0.25 * self(preds[self.nl:], targets)[0], comps
         dev = preds[0].device
         targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
         anchors = self.anchors_grid.to(dev)

@@ -204,14 +204,15 @@ def autopad(k, p: Optional[int] = None):
 
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm(eps 1e-3) + SiLU. `k` is an int or an
-    (h, w) pair."""
+    (h, w) pair; `act` True (SiLU), False (none) or an activation module
+    (ASFF's LeakyReLU(0.1))."""
 
     def __init__(self, c1: int, c2: int, k: Union[int, Tuple[int, int]] = 1, s: int = 1, p: Optional[int] = None,
-                 g: int = 1, act: bool = True):
+                 g: int = 1, act: Union[bool, nn.Module] = True):
         super().__init__()
         self.conv = ConvRaw(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
-        self.act = nn.SiLU() if act else nn.Identity()
+        self.act = act if isinstance(act, nn.Module) else nn.SiLU() if act else nn.Identity()
 
     def forward(self, x):
         return self.act(self.bn(self.conv(x)))
@@ -602,27 +603,38 @@ class BiFPN(nn.Module):
 class ODConv2d(nn.Module):
     """Omni-dimensional dynamic conv: K candidate kernels mixed per sample by
     four attention factors (kernel-wise softmax, spatial, in-channel and
-    out-channel sigmoids). The per-sample 3x3 stride-2 conv is
-    ops.odconv.odconv_s2 (a CUDA kernel on the GPU); the trunk and the mix
-    are small tensor ops left to PyTorch, as the JAX package left them to XLA.
+    out-channel sigmoids). The per-sample conv at the flagship's shape (3x3,
+    stride 2, padding 1, one group, no dilation) is ops.odconv.odconv_s2 (a
+    CUDA kernel on the GPU); any other shape (DetectODConv's 1x1 stride-1
+    prediction convs) is one grouped conv over the batch (`grouped_conv`),
+    as the JAX package runs every shape its Pallas kernel does not take
+    through vmap(conv) (layers.py:928, odconv_pallas.supported). The trunk
+    and the mix are small tensor ops left to PyTorch, as the JAX package
+    left them to XLA.
 
-    `weight` is the (K, Cout, Cin, k, k) candidate bank and `bias` the
+    `weight` is the (K, Cout, Cin/g, k, k) candidate bank and `bias` the
     (K, Cout) bias bank, as in the reference checkpoints."""
 
-    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, K: int = 4, r: float = 1.0 / 16.0):
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: Optional[int] = None, g: int = 1, d: int = 1,
+                 K: int = 4, r: float = 1.0 / 16.0):
         super().__init__()
-        if (k, s) != (3, 2):
-            raise NotImplementedError(f"ODConv is ported for k=3 s=2 (every flagship site), got k={k} s={s}")
-        self.k, self.c1, self.c2, self.K = k, c1, c2, K
+        self.k, self.s, self.g, self.d = k, s, g, d
+        self.p = d * (k - 1) // 2 if p is None else p  # autopad(k, p, d)
+        self.c1, self.c2, self.K = c1, c2, K
         hidden = max(int(c1 * r), 16)
-        self.weight = nn.Parameter(torch.zeros(K, c2, c1, k, k))
+        self.weight = nn.Parameter(torch.zeros(K, c2, c1 // g, k, k))
         self.bias = nn.Parameter(torch.zeros(K, c2))
         self.fc = nn.Linear(c1, hidden, bias=False)
         self.bn = FlaxBatchNorm1d(hidden, eps=1e-5, momentum=0.1)
         self.fc_f = nn.Linear(hidden, c2)
         self.fc_s = nn.Linear(hidden, k * k)
-        self.fc_c = nn.Linear(hidden, c1)
+        self.fc_c = nn.Linear(hidden, c1 // g)
         self.fc_w = nn.Linear(hidden, K)
+
+    @property
+    def uses_kernel(self) -> bool:
+        """Whether odconv_s2 computes this conv."""
+        return (self.k, self.s, self.p, self.g, self.d) == (3, 2, 1, 1, 1)
 
     def forward(self, x):
         b = x.shape[0]
@@ -631,27 +643,45 @@ class ODConv2d(nn.Module):
         v = torch.relu(self.bn(self.fc(strip_mean_hw(x))))
         attn_f = torch.sigmoid(self.fc_f(v))  # (B, Cout)
         attn_s = torch.sigmoid(self.fc_s(v)).reshape(b, k, k)
-        attn_c = torch.sigmoid(self.fc_c(v))  # (B, Cin)
+        attn_c = torch.sigmoid(self.fc_c(v))  # (B, Cin/g)
         attn_w = torch.softmax(self.fc_w(v), -1)  # (B, K)
-        # mix over K once, then the separable factors -> (B, 3, 3, Cin, Cout)
+        # mix over K once, then the separable factors -> (B, k, k, Cin/g, Cout)
         wmix = torch.einsum("bk,koihw->bhwio", attn_w, self.weight)
         wmix = wmix * attn_s[:, :, :, None, None] * attn_c[:, None, None, :, None] * attn_f[:, None, None, None, :]
+        bias = (attn_w.float() @ self.bias.float()).to(x.dtype)
+        if not self.uses_kernel:
+            if active_strip() is not None and (k, self.s) != (1, 1):
+                raise NotImplementedError(f"ODConv2d at k={k} s={self.s} on a strip (ROADMAP queue A item 6)")
+            out = grouped_conv(x, wmix.to(x.dtype), self.s, self.p, self.d, self.g)
+            return out + bias[:, :, None, None]
         x_nhwc = x.permute(0, 2, 3, 1).contiguous()  # free for a channels_last x
         if active_strip() is None:
             out = per_sample_conv(x_nhwc, wmix.to(x.dtype).contiguous())
         else:  # the kernel pads one row: given the two rows above an even strip, its first output row is surplus
             out = per_sample_conv(halo_rows(x_nhwc, 2, 0, dim=1), wmix.to(x.dtype).contiguous())[:, 1:]
-        out = out + (attn_w.float() @ self.bias.float()).to(x.dtype)[:, None, None, :]
+        out = out + bias[:, None, None, :]
         return out.permute(0, 3, 1, 2)
+
+
+def grouped_conv(x: torch.Tensor, wmix: torch.Tensor, s: int, p: int, d: int, g: int) -> torch.Tensor:
+    """Per-sample conv as one conv of B*g groups (the reference's
+    view(1, B*C, H, W) trick): x (B, Cin, H, W), wmix (B, k, k, Cin/g,
+    Cout) -> (B, Cout, H', W'), channels_last."""
+    B, cin, H, W = x.shape
+    k, cout = wmix.shape[1], wmix.shape[-1]
+    w = wmix.permute(0, 4, 3, 1, 2).reshape(B * cout, cin // g, k, k)  # per-sample OIHW stacked
+    out = F.conv2d(x.reshape(1, B * cin, H, W), w, stride=s, padding=p, dilation=d, groups=B * g)
+    return out.reshape(B, cout, *out.shape[2:]).contiguous(memory_format=torch.channels_last)
 
 
 class ODConv(nn.Module):
     """ODConv2d + BatchNorm(eps 1e-3) + SiLU, the YAML-visible module
-    (`ODConv_3rd`)."""
+    (`ODConv_3rd`; the JAX ODConv's [c2, k, s, kerNums, g, p])."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, kerNums: int = 4):
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, kerNums: int = 4, g: int = 1,
+                 p: Optional[int] = None):
         super().__init__()
-        self.conv = ODConv2d(c1, c2, k, s, K=kerNums)
+        self.conv = ODConv2d(c1, c2, k, s, p, g, K=kerNums)
         self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU()
 
@@ -987,7 +1017,7 @@ def strip_halo(model: nn.Module) -> int:
             halo = max(halo, m.halo())
         elif isinstance(m, (SPP, SPPF)):
             halo = max(halo, max(m.k if isinstance(m, SPP) else (m.k,)) // 2)
-        elif isinstance(m, ODConv2d):
+        elif isinstance(m, ODConv2d) and m.uses_kernel:
             halo = max(halo, 2)
         elif isinstance(m, MaxPool2d):
             halo = max(halo, m.halo())

@@ -4,17 +4,23 @@
 The same `[from, repeats, module, args]` rows compile into torch modules
 through an explicit registry, with the JAX package's channel, repeat and
 analytic stride propagation, and its named anchor presets
-(configs/models/hub/anchors.yaml). The registry holds the anchor-grid
-detection family: the flagship (configs/models/yolo-somi.yaml), its DCN
-variant, yolo-somi-s / -t / -t-p3 / -t-p3s / -t-p3s8, the ablation
-configs, yolov5n/s/m/l/x, yolov5s-p2 and yolov5s6, and the hub configs
+(configs/models/hub/anchors.yaml). The registry holds the detection
+family: the flagship (configs/models/yolo-somi.yaml), its DCN variant,
+yolo-somi-s / -t / -t-p3 / -t-p3s / -t-p3s8, the ablation configs,
+yolov5n/s/m/l/x, yolov5s-p2 and yolov5s6, and the hub configs
 yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet,
 yolov3 / yolov3-spp / yolov3-tiny (nn.MaxPool2d, nn.ZeroPad2d),
 yolov5s-ghost (GhostConv, C3Ghost), yolov5s-transformer (C3TR) and
-yolov10 (SCDown, C2fCIB, PSA); and classifier.yaml, a headless graph
-whose Classify tail gives logits (ModelMeta with nl 0). A row outside it
-raises KeyError naming ROADMAP queue A item 8: the rest of the JAX
-package's zoo and heads.
+yolov10 (SCDown, C2fCIB, PSA); classifier.yaml, a headless graph whose
+Classify tail gives logits (ModelMeta with nl 0); and every head of the
+JAX registry (yolo.py:151-167): Detect, DecoupledDetect (and its two
+aliases), DetectODConv, IDetect, IAuxDetect, ASFF_Detect, CLLADetect,
+TSCODE_Detect, Segment, the anchor-free DetectV8 / DetectYOLOv8 /
+DetectYOLO8Head / DetectV11 / DetectYolov11 and RTDETRDecoder. A row
+outside it raises KeyError naming ROADMAP queue A item 8: the rest of the
+JAX package's zoo (layers_zoo.py, the attention family), its row kinds
+(spd, carafe, dysample, involution, addN, ...) and activations (FReLU,
+AconC, MetaAconC).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import yaml
 from yolosomi_tpu_torch.models import dcn as D
 from yolosomi_tpu_torch.models import heads as H
 from yolosomi_tpu_torch.models import layers as L
+from yolosomi_tpu_torch.models.rtdetr import DenseGeneral, RTDETRDecoder
 from yolosomi_tpu_torch.utils.config import find_config
 from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_device
 
@@ -47,7 +54,9 @@ from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_dev
 #   pool    : nn.MaxPool2d [k, s, p]; stride * s
 #   zeropad : nn.ZeroPad2d [(left, right, top, bottom)]
 #   classify: c2 = args[0], the class count, never width-scaled
-#   head    : detection head
+#   head    : anchor-grid detection head, cls(nc, na, ch)
+#   head_v8 : anchor-free DFL head, cls(nc, ch)
+#   head_rtdetr: the RT-DETR decoder, cls(nc, ch, [hd, nq])
 _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "Conv": (L.Conv, "conv"),
     "DWConv": (L.DWConv, "conv"),
@@ -91,7 +100,34 @@ _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "DecoupledDetect": (H.DecoupledDetect, "head"),
     "DecoupledDetect1": (H.DecoupledDetect, "head"),
     "Decoupled_Detect": (H.DecoupledDetect, "head"),
+    "DetectODConv": (H.DetectODConvHead, "head"),
+    "IDetect": (H.IDetect, "head"),
+    "IAuxDetect": (H.IAuxDetect, "head"),
+    "ASFF_Detect": (H.ASFFDetect, "head"),
+    "CLLADetect": (H.CLLADetect, "head"),
+    "TSCODE_Detect": (H.TSCODEDetect, "head"),
+    "Segment": (H.Segment, "head"),
+    "DetectYOLOv8": (H.DetectV8, "head_v8"),
+    "DetectYOLO8Head": (H.DetectV8, "head_v8"),
+    "DetectV8": (H.DetectV8, "head_v8"),
+    "DetectYolov11": (H.DetectV11, "head_v8"),
+    "DetectV11": (H.DetectV11, "head_v8"),
+    "RTDETRDecoder": (RTDETRDecoder, "head_rtdetr"),
 }
+HEAD_KINDS = ("head", "head_v8", "head_rtdetr")
+# the heads that take more input maps than they have detection levels:
+# name -> fn(n_inputs) -> the slice of the inputs that are the levels
+# (CLLADetect fuses inputs 0 and 1 into level 0, TSCODE_Detect detects on
+# the middle maps, IAuxDetect's second half is its aux maps; yolo.py:252-256)
+_HEAD_LEVEL_SLICE = {
+    "CLLADetect": lambda n: slice(1, n),
+    "TSCODE_Detect": lambda n: slice(1, n - 1),
+    "IAuxDetect": lambda n: slice(0, n // 2),
+}
+
+
+def level_slice(head_name: str, n: int) -> slice:
+    return _HEAD_LEVEL_SLICE.get(head_name, lambda n: slice(0, n))(n)
 
 # positional index of the stride arg (after c2) of conv-kind modules; DCNv2
 # is left out, as in the JAX package, so its stride never reaches the graph
@@ -201,8 +237,8 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
     for i, (f, n, mname, args) in enumerate(rows):
         mname = str(mname)
         if mname not in _REGISTRY:
-            raise KeyError(f"module '{mname}' not in registry (row {i}): the rest of the model zoo is not ported "
-                           "yet (ROADMAP queue A item 8)")
+            raise KeyError(f"module '{mname}' not in registry (row {i}): the rest of the JAX package's zoo blocks, "
+                           "row kinds and activations are not ported yet (ROADMAP queue A item 8)")
         cls, kind = _REGISTRY[mname]
         tokens = {"nc": nc, "anchors": anchors, "None": None, "True": True, "False": False}
         args = [tokens.get(a, a) if isinstance(a, str) else a for a in args]
@@ -271,10 +307,28 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         elif kind == "classify":
             c2 = args[0]
             mod = cls(in_ch(f) if isinstance(f, int) else sum(in_ch(x) for x in f), *args)
-        else:  # head
+        else:  # head, head_v8, head_rtdetr
             head_from = tuple(x if x >= 0 else len(chans) + x for x in f)
-            na_head = _resolve_anchors(args[1] if len(args) > 1 else anchors, len(f)).shape[1]
-            mod = cls(nc, na_head, [in_ch(x) for x in f])
+            ch_in = [in_ch(x) for x in f]
+            if kind == "head_rtdetr":  # [nc, hd, nq]; hd width-scales
+                hkw = {}
+                if len(args) > 1 and isinstance(args[1], int):
+                    hkw["hd"] = make_divisible(args[1] * gw, 8)
+                if len(args) > 2:
+                    hkw["nq"] = args[2]
+                mod = cls(nc, ch_in, **hkw)
+            elif kind == "head_v8":  # anchor-free: nc only
+                mod = cls(nc, ch_in, approx_gelu=dtype == torch.bfloat16) if cls is H.DetectV11 else cls(nc, ch_in)
+            else:
+                nl = len(f[level_slice(mname, len(f))])
+                na_head = _resolve_anchors(args[1] if len(args) > 1 else anchors, nl).shape[1]
+                hkw = {}
+                if mname == "Segment":  # [nc, anchors, nm, npr]; npr width-scales
+                    if len(args) > 2:
+                        hkw["nm"] = args[2]
+                    if len(args) > 3:
+                        hkw["npr"] = make_divisible(args[3] * gw, 8)
+                mod = cls(nc, na_head, ch_in, **hkw)
             c2 = 0
             head_name = mname
             stride = 0.0
@@ -286,7 +340,7 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         modules.append(mod)
         specs.append(LayerSpec(i, f, n_rep, mname, args, int(c2), stride))
         save.extend(x % i for x in ([f] if isinstance(f, int) else list(f)) if x != -1)
-        if kind == "head":
+        if kind in HEAD_KINDS:
             save.extend(head_from)
         if i == 0:
             chans, strides = [], []
@@ -297,13 +351,14 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         return modules, ModelMeta(nc=nc, names=[str(i) for i in range(nc)], nl=0, na=0, strides=(),
                                   anchors_px=np.zeros((0, 0, 2), np.float32), save=tuple(sorted(set(save))),
                                   head_from=(), specs=specs, yaml=cfg, head_type=head_name)
-    anchors_px = _resolve_anchors(anchors, len(head_from))
+    levels = head_from[level_slice(head_name, len(head_from))]
+    anchors_px = _resolve_anchors(anchors, len(levels))
     meta = ModelMeta(
         nc=nc,
         names=[str(i) for i in range(nc)],
-        nl=len(head_from),
+        nl=len(levels),
         na=anchors_px.shape[1],
-        strides=tuple(specs[j].stride for j in head_from),
+        strides=tuple(specs[j].stride for j in levels),
         anchors_px=anchors_px,
         save=tuple(sorted(set(save))),
         head_from=head_from,
@@ -386,24 +441,33 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
         elif isinstance(m, L.TorchMHA):
             nn.init.xavier_uniform_(m.in_proj_weight, generator=g)
             m.in_proj_bias.zero_()
+        elif isinstance(m, DenseGeneral):
+            _trunc_normal(m.weight, math.prod(m.weight.shape[:m.in_dims]), 1.0, g)
+            m.bias.zero_()
+        elif isinstance(m, H.ImplicitA):  # N(0, 0.02), ImplicitM N(1, 0.02)
+            nn.init.normal_(m.implicit, 1.0 if isinstance(m, H.ImplicitM) else 0.0, 0.02, generator=g)
         if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
     for m in model.modules():  # after the generic pass, which also reached their children
         D.init_dcn_heads(m, g)
     if not meta.nl:  # headless: no detection priors
         return
+    # the priors go where the JAX init_model puts them (yolo.py:596-626):
+    # level i's `m<i>` when it is a Decouple branch or a bare conv (a
+    # CLLADetect's m<i> is level i + 1's conv, and its last level has none)
     head = model.model[-1]
     nc, na = meta.nc, meta.na
     cls_prior = math.log(0.6 / (nc - 0.99999)) if nc > 1 else 0.0
-    for s, mi in zip(meta.strides, head.m):
+    ms = getattr(head, "m", ())
+    for s, mi in zip(meta.strides, ms):
         obj_prior = math.log(8.0 / (640.0 / s) ** 2)
-        if isinstance(head, H.DecoupledDetect):
+        if isinstance(mi, H.Decouple):
             mi.b3.bias.view(na, 5)[:, 4] += obj_prior
             mi.c3.bias += cls_prior
-        else:  # the coupled Detect's conv, [xywh, obj, cls] per anchor
-            b = mi.bias.view(na, nc + 5)
+        elif isinstance(mi, nn.Conv2d):  # [xywh, obj, cls (, mask coefficients)] per anchor
+            b = mi.bias.view(na, -1)
             b[:, 4] += obj_prior
-            b[:, 5:] += cls_prior
+            b[:, 5:5 + nc] += cls_prior
 
 
 def build_model(cfg: dict, nc: Optional[int] = None, device=None, dtype: torch.dtype = torch.float32,

@@ -5,7 +5,7 @@ multi-label mode (counterparts of yolosomi_tpu/ops/nms.py:84-260 and
 
 The keep-set is the JAX package's: greedy NMS in score order with a
 strict `>` on both the confidence and the IoU threshold, per-class by the
-class-offset trick (+cls * MAX_WH). Candidates are chosen by `_top_k`, a
+class-offset trick (+cls * MAX_WH). Candidates are chosen by `top_k`, a
 stable descending sort: of two equal scores the lower index comes first,
 as in jax.lax.top_k, so exact ties (a saturated sigmoid gives many scores
 of exactly 1.0) order as in the JAX package and the same on every run.
@@ -29,7 +29,7 @@ from yolosomi_tpu_torch.utils.iou import bbox_iou
 MAX_WH = 4096.0  # class-offset multiplier: boxes of different classes never overlap
 
 
-def _top_k(scores: torch.Tensor, k: int):
+def top_k(scores: torch.Tensor, k: int):
     """The k largest scores along the last axis and their indices, in
     descending order; equal scores keep their index order."""
     values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
@@ -130,7 +130,7 @@ def fused_postprocess(
 
     scores = torch.where(scores > conf_thres, scores, torch.zeros_like(scores))
     k = min(max_nms, scores.shape[1])
-    top_scores, idx = _top_k(scores, k)
+    top_scores, idx = top_k(scores, k)
 
     t = torch.gather(traw, 1, idx[..., None].expand(b, k, 4)).float()
     y = torch.sigmoid(t)
@@ -171,7 +171,7 @@ def non_max_suppression(
     per class. Either way scores at or below `conf_thres` become 0 and the
     top min(max_nms, candidates) go to the tiled exact NMS. `exact` is
     accepted for the JAX signature and changes nothing: JAX's inexact
-    selection (approx_max_k) is a TPU device feature, and `_top_k` here is
+    selection (approx_max_k) is a TPU device feature, and `top_k` here is
     exact on every device."""
     del exact
     b, n, no = prediction.shape
@@ -187,13 +187,13 @@ def non_max_suppression(
     if multi_label:
         flat = cls_scores.reshape(b, n * nc)
         flat = torch.where(flat > conf_thres, flat, torch.zeros_like(flat))
-        scores, idx = _top_k(flat, min(max_nms, n * nc))
+        scores, idx = top_k(flat, min(max_nms, n * nc))
         box_idx = torch.div(idx, nc, rounding_mode="floor")
         cls_idx = (idx % nc).float()
     else:
         best, best_cls = cls_scores.max(-1)
         best = torch.where(best > conf_thres, best, torch.zeros_like(best))
-        scores, box_idx = _top_k(best, min(max_nms, n))
+        scores, box_idx = top_k(best, min(max_nms, n))
         cls_idx = torch.gather(best_cls, 1, box_idx).float()
     cand = torch.gather(boxes, 1, box_idx[..., None].expand(*box_idx.shape, 4))
     offset = torch.zeros_like(cls_idx) if agnostic else cls_idx * MAX_WH

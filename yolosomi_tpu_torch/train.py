@@ -8,10 +8,11 @@ The loop: autoanchor (unless --noautoanchor), the augmenting loader
 --cache ram), the train step (bf16 under autocast by default, f32 with
 --no-bf16; the finite guard, --accumulate, --freeze, --multi-scale,
 --remat, --rep, --device-preprocess, and --cache device, whose mosaic is
-composited on the device), distillation from a frozen teacher (--teacher,
---teacher-cfg, --distill, --distill-hint; engine/distill.py), validation
-of the EMA weights every epoch with the val losses,
-results.csv, and weights/last.ckpt and best.ckpt (the JAX package's
+composited on the device), the DFL heads' task-aligned loss
+(losses_v8.py; Segment and RT-DETR have no loss and refuse), distillation
+from a frozen teacher (--teacher, --teacher-cfg, --distill,
+--distill-hint; engine/distill.py), validation of the EMA weights every
+epoch with the val losses, results.csv, and weights/last.ckpt and best.ckpt (the JAX package's
 checkpoint layout, written on a background thread) stripped at the end
 to last.msgpack and best.msgpack. --resume continues a run from its
 last.ckpt: weights, BatchNorm statistics, EMA, optimizer state and epoch.
@@ -63,9 +64,10 @@ from yolosomi_tpu_torch.engine.distill import plant_adapters, wrap_loss_with_dis
 from yolosomi_tpu_torch.engine.ema import EarlyStopping
 from yolosomi_tpu_torch.engine.evolve import log_generation, mutate
 from yolosomi_tpu_torch.engine.optim import current_lr, make_optimizer
-from yolosomi_tpu_torch.engine.runner import Runner
+from yolosomi_tpu_torch.engine.runner import V8_HEADS, Runner
 from yolosomi_tpu_torch.engine.trainer import create_train_state, make_train_step
 from yolosomi_tpu_torch.losses import ComputeLoss
+from yolosomi_tpu_torch.losses_v8 import ComputeLossV8
 from yolosomi_tpu_torch.models.yolo import build_model, parse_model
 from yolosomi_tpu_torch.utils.autoanchor import check_anchors
 from yolosomi_tpu_torch.utils.callbacks import Callbacks
@@ -88,8 +90,8 @@ MULTI_SCALE = (0.67, 0.83, 1.0, 1.17, 1.33)  # --multi-scale's factors of imgsz
 # the hand-written kernels a train step or a val forward may launch; each wrapper counts its launches
 TRAIN_KERNELS = ((odconv_ops, ("odconv_s2", "odconv_s2_dx", "odconv_s2_dwmix")),
                  (dcn_ops, ("dcnv2_im2col", "dcnv3_core", "dcnv2_im2col_bwd", "dcnv3_core_bwd")))
-# heads whose DFL soft targets distillation does not cover, in the JAX package either
-_ANCHOR_FREE = ("DetectYOLOv8", "DetectYOLO8Head", "DetectV8", "DetectYolov11", "DetectV11")
+# heads the JAX package ships no loss for (its ComputeLoss takes neither Segment's (levels, proto) nor RT-DETR's rows)
+NO_LOSS = ("Segment", "RTDETRDecoder")
 
 
 def _refuse_unported(opt) -> None:
@@ -121,7 +123,7 @@ def _teacher(opt, meta, nc: int, device, amp_dtype):
     level map: student level i learns from the teacher level of the same
     stride, so a P3-P5 student distills from the P2-P5 flagship
     (JAX train.py:235-271)."""
-    if meta.head_type in _ANCHOR_FREE:
+    if meta.head_type in V8_HEADS:  # their DFL soft targets, in the JAX package either
         raise SystemExit("--teacher: distillation supports anchor-based heads only "
                          "(anchor-free DFL soft targets not implemented)")
     t_vars, t_anchors = load_artifact(opt.teacher)
@@ -193,6 +195,9 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
     amp_dtype = None if opt.no_bf16 else torch.bfloat16
     with torch.device("meta"):  # the graph's geometry; nothing is allocated
         meta = parse_model(dict(cfg, nc=nc))[1]
+    if meta.head_type in NO_LOSS:
+        raise NotImplementedError(f"the {meta.head_type} head has no training loss, in the JAX package either: it "
+                                  "serves (val, detect) but does not train")
     gs = int(max(meta.strides))
     imgsz = check_img_size(opt.imgsz, s=gs)
 
@@ -269,8 +274,11 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
                            "seed draw and their optimizer state from zero")
         state.step = start_epoch * nb
         LOGGER.info(f"resuming at epoch {start_epoch}, optimizer step {int(state.opt_state.step)}")
-    loss_fn = ComputeLoss(meta, hyp)
-    loss_fn.rep = opt.rep
+    if meta.head_type in V8_HEADS:  # the task-aligned assigner's loss (train.py:226-230)
+        loss_fn = ComputeLossV8(meta, hyp)
+    else:
+        loss_fn = ComputeLoss(meta, hyp)
+        loss_fn.rep = opt.rep
     if teacher is not None:
         amp = (lambda: torch.autocast(device.type, dtype=amp_dtype)) if amp_dtype else contextlib.nullcontext
 

@@ -15,7 +15,11 @@ The transformer blocks' LayerNorms (scale / bias), Dense kernels
 ffn_<i>, tr<i>: cv1.<i>, ffn.<i>, tr.<i> here) map by name. DCNv3's
 Dense layers, depthwise conv and LayerNorm map by name too; DCNv2's
 3-D (P, C, c2) weight keeps its flax layout in the port (models/dcn.py),
-so it passes through untransposed.
+so it passes through untransposed. The heads' leaves map by name too:
+ImplicitA / ImplicitM's (1, 1, 1, C) `implicit` is (1, C, 1, 1) here;
+RT-DETR's flax attention DenseGeneral kernels keep their flax shapes
+(models/rtdetr.py DenseGeneral), and its input projections are bare flax
+nn.Conv, as DCNv3's depthwise conv is.
 
 `export_jax_variables` is the inverse: a port model -> the flax tree, with
 flax paths, flax layouts and float32 numpy values, for the checkpoint
@@ -36,7 +40,9 @@ import torch
 import torch.nn as nn
 
 from yolosomi_tpu_torch.models import dcn as D
+from yolosomi_tpu_torch.models import heads as H
 from yolosomi_tpu_torch.models import layers as L
+from yolosomi_tpu_torch.models.rtdetr import DenseGeneral, RTDETRDecoder
 
 _LIST_RE = re.compile(r"^(m|dw|pw|bn_dw|bn_pw|tr)(\d+)$")
 # the YOLOv10 blocks' Sequentials, flattened by flax: CIB's cv1_0-4, PSA's ffn_0-1
@@ -111,7 +117,9 @@ def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...]) -> 
     HWIO -> OIHW, a Dense kernel -> a 1x1 Conv2d or a Linear weight; a 3-D
     DCNv2 weight (P, C, c2) and 1-D leaves pass through."""
     v = np.asarray(v, np.float32)
-    if v.ndim == 5:
+    if leaf == "implicit":  # (1, 1, 1, C) -> (1, C, 1, 1)
+        v = v.reshape(1, -1, 1, 1)
+    elif v.ndim == 5:
         v = v.transpose(0, 4, 3, 1, 2)
     elif v.ndim == 4:
         v = v.transpose(3, 2, 0, 1)
@@ -192,7 +200,7 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
         dense = re.search(r"\.fc[12]$", path) is not None  # EMA-CBAM's fc pair: flax Dense
         if isinstance(parent, L.Conv):
             path = path[: -len(".conv")] + ".cv.conv"
-        elif not (dense or isinstance(parent, (D.DCNv2, D.DCNv3))):
+        elif not (dense or isinstance(parent, (D.DCNv2, D.DCNv3, RTDETRDecoder))):
             path += ".conv"
         if name == "weight":
             layout = (lambda t: t[:, :, 0, 0].T) if dense else (lambda t: t.permute(2, 3, 1, 0))
@@ -200,12 +208,14 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
         layout = lambda t: t.T  # noqa: E731
     elif isinstance(mod, L.ODConv2d) and name == "weight":
         layout = lambda t: t.permute(0, 3, 4, 2, 1)  # noqa: E731  (K,O,I,kh,kw) -> (K,kh,kw,I,O)
+    elif isinstance(mod, H.ImplicitA):
+        layout = lambda t: t.reshape(1, 1, 1, -1)  # noqa: E731
     collection = "params"
     if isinstance(mod, _NORMS) and name in ("running_mean", "running_var"):
         collection, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[name]
     elif isinstance(mod, _NORMS) and name == "weight":
         name = "scale"
-    elif isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "weight":
+    elif isinstance(mod, (nn.Conv2d, nn.Linear, DenseGeneral)) and name == "weight":
         name = "kernel"
     return collection, [p for p in path.split(".") if p] + [name], layout
 
