@@ -78,7 +78,7 @@ def random_variables(shapes, seed: int) -> dict:
             v = rng.standard_normal(shape) * (2.0 if parent == "offset" else 1.0)
         elif parent == "norm" and name == "scale":
             v = 1.0 + 0.1 * rng.standard_normal(shape)
-        elif name == "weight" and len(shape) == 1:  # BiFPN fusion weights
+        elif name in ("weight", "w") and len(shape) == 1:  # BiFPN's and BiFPN_Add's fusion weights (ReLU'd)
             v = rng.uniform(0.5, 1.5, shape)
         else:
             v = 0.1 * rng.standard_normal(shape)

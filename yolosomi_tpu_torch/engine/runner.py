@@ -28,7 +28,8 @@ TSCODE_Detect decode on the anchor grid, Segment too (its levels; the nm
 mask coefficients are dropped), the DFL heads through `decode_v8`, each
 then `non_max_suppression`; RTDETRDecoder takes its NMS-free top-k of the
 query rows, before and in place of TTA. Only Detect and the
-DecoupledDetects serve spatially sharded (ROADMAP queue A item 6).
+DecoupledDetects serve spatially sharded, and only graphs that name none
+of the body zoo's blocks (models.yolo.STRIPLESS; ROADMAP queue A item 6).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import torch
 from yolosomi_tpu_torch.engine.checkpoint import load_artifact
 from yolosomi_tpu_torch.models.heads import decode, decode_v8
 from yolosomi_tpu_torch.models.layers import strip_halo
-from yolosomi_tpu_torch.models.yolo import build_model, parse_model
+from yolosomi_tpu_torch.models.yolo import STRIPLESS, build_model, parse_model
 from yolosomi_tpu_torch.ops.nms import fused_postprocess, non_max_suppression, top_k
 from yolosomi_tpu_torch.ops.tta import forward_augment
 from yolosomi_tpu_torch.parallel import mesh
@@ -114,6 +115,10 @@ class Runner:
             if head.head_type not in SPATIAL_HEADS:
                 raise NotImplementedError(f"the {head.head_type} head is not served spatially sharded: its strip "
                                           "path is not ported (ROADMAP queue A item 6)")
+            stripless = sorted({s.name for s in head.specs} & STRIPLESS)
+            if stripless:
+                raise NotImplementedError(f"the graph is not served spatially sharded: the strip paths of "
+                                          f"{', '.join(stripless)} are not ported (ROADMAP queue A item 6)")
             self.spatial = SpatialMesh(spatial_shards)
         anchors = None
         if weights is not None and Path(weights).exists():

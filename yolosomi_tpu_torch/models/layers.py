@@ -38,6 +38,7 @@ import contextlib
 import math
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -1005,6 +1006,481 @@ class Classify(nn.Module):
         if isinstance(x, (list, tuple)):
             return self.linear(torch.cat([strip_mean_hw(xi) for xi in x], 1))
         return self.linear(strip_mean_hw(x))
+
+
+# ---------------------------------------------------------------------------
+# The parser's remaining kinds and the body zoo: gates, conv and CSP
+# variants, space-to-depth and depth-to-space, fusion, the content-aware
+# upsamplers, involution and Zoom_cat (yolosomi_tpu/models/layers.py). None
+# of them has a strip path: those that reduce over the whole map or sample
+# anywhere in it refuse a strip (refuse_strip), and the Runner refuses to
+# shard a graph that names any of them (models.yolo.STRIPLESS).
+# ---------------------------------------------------------------------------
+
+
+def refuse_strip(module: nn.Module) -> None:
+    """Raise under spatial sharding: `module` has no strip path, and its
+    whole-map reduction or unbounded reach would be wrong on a strip."""
+    if active_strip() is not None:
+        raise NotImplementedError(f"{type(module).__name__} on a strip: its strip path is not ported (ROADMAP "
+                                  "queue A item 6)")
+
+
+class SE(nn.Module):
+    """Squeeze-excitation gate (layers.py:589): the whole-map mean, a
+    bias-free Dense pair `l1` / `l2` through ReLU, a sigmoid gate."""
+
+    def __init__(self, c1: int, ratio: int = 16):
+        super().__init__()
+        self.l1 = nn.Linear(c1, max(c1 // ratio, 1), bias=False)
+        self.l2 = nn.Linear(max(c1 // ratio, 1), c1, bias=False)
+
+    def forward(self, x):
+        refuse_strip(self)
+        v = self.l2(torch.relu(self.l1(x.mean((2, 3)))))
+        return x * torch.sigmoid(v)[:, :, None, None]
+
+
+def eca_kernel_size(c: int, b: int = 1, gamma: int = 2) -> int:
+    """ECA's odd kernel from the channel count (layers.py:1268-1269)."""
+    t = int(abs((math.log2(c) + b) / gamma))
+    return t if t % 2 else t + 1
+
+
+class ECA(nn.Module):
+    """Efficient channel attention (layers.py:1259): the whole-map mean, a
+    bias-free 1-D conv `conv` over the channel axis ('same' padding, k from
+    log2(c), b and gamma), a sigmoid gate."""
+
+    def __init__(self, c1: int, b: int = 1, gamma: int = 2):
+        super().__init__()
+        self.b, self.gamma = b, gamma
+        k = eca_kernel_size(c1, b, gamma)
+        self.conv = nn.Conv1d(1, 1, k, padding=k // 2, bias=False)
+
+    def forward(self, x):
+        refuse_strip(self)
+        v = self.conv(x.mean((2, 3))[:, None, :])[:, 0]
+        return x * torch.sigmoid(v)[:, :, None, None]
+
+
+class SimAM(nn.Module):
+    """Parameter-free SimAM (layers.py:1169): x * sigmoid(d / (4 (v +
+    e_lambda)) + 0.5), d the squared distance from the channel's whole-map
+    mean and v d's sum over h * w - 1."""
+
+    def __init__(self, c1: int = 0, e_lambda: float = 1e-4):
+        super().__init__()
+        self.e_lambda = e_lambda
+
+    def forward(self, x):
+        refuse_strip(self)
+        n = x.shape[2] * x.shape[3] - 1
+        d = (x - x.mean((2, 3), keepdim=True)).square()
+        v = d.sum((2, 3), keepdim=True) / n
+        return x * torch.sigmoid(d / (4 * (v + self.e_lambda)) + 0.5)
+
+
+class CoorAttention(nn.Module):
+    """Coordinate attention (layers.py:1187): the h- and w-profiles (means
+    over W and over H) side by side, a shared biased 1x1 conv `conv1` to
+    mip = max(8, c // reduction), BatchNorm `bn1` (eps 1e-3), hard-swish,
+    then `conv_h` / `conv_w` back to c and sigmoid gates along H and W.
+    The YAML row is of the conv kind; `c2` does not enter the block."""
+
+    def __init__(self, c1: int, c2: int = 0, reduction: int = 32):
+        super().__init__()
+        mip = max(8, c1 // reduction)
+        self.conv1 = ConvRaw(c1, mip, 1)
+        self.bn1 = FlaxBatchNorm2d(mip, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.conv_h = ConvRaw(mip, c1, 1)
+        self.conv_w = ConvRaw(mip, c1, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        h = x.shape[2]
+        y = torch.cat([x.mean(3), x.mean(2)], 2)[..., None]  # (B, C, H + W, 1)
+        y = F.hardswish(self.bn1(self.conv1(y)))
+        gh = torch.sigmoid(self.conv_h(y[:, :, :h]))  # (B, C, H, 1)
+        gw = torch.sigmoid(self.conv_w(y[:, :, h:]))  # (B, C, W, 1)
+        return x * gh * gw.transpose(2, 3)
+
+
+class BAM(nn.Module):
+    """Bottleneck attention (layers.py:1279): a channel branch (whole-map
+    mean, biased Dense `fc1` / `fc2` through ReLU) beside a spatial branch
+    (1x1 `sp1`, two 3x3 convs dilated 4 `sp2` / `sp3`, 1x1 `sp4` to one
+    channel, ReLU between), x * (1 + sigmoid(channel + spatial))."""
+
+    def __init__(self, c1: int, reduction: int = 16):
+        super().__init__()
+        mid = max(c1 // reduction, 1)
+        self.fc1 = nn.Linear(c1, mid)
+        self.fc2 = nn.Linear(mid, c1)
+        self.sp1 = ConvRaw(c1, mid, 1)
+        self.sp2 = ConvRaw(mid, mid, 3, 1, 4, dilation=4)
+        self.sp3 = ConvRaw(mid, mid, 3, 1, 4, dilation=4)
+        self.sp4 = ConvRaw(mid, 1, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        ch = self.fc2(torch.relu(self.fc1(x.mean((2, 3)))))[:, :, None, None]
+        s = torch.relu(self.sp3(torch.relu(self.sp2(torch.relu(self.sp1(x))))))
+        return x * (1.0 + torch.sigmoid(ch + self.sp4(s)))
+
+
+class MultiSEAM(nn.Module):
+    """SEAM with three depthwise branches dilated 1, 2, 3 (`dcov<i>`, biased,
+    each GELU then BatchNorm `bn<i>`), averaged; the whole-map mean, a
+    bias-free Dense pair `fc1` / `fc2` through ReLU, and an exp(sigmoid)
+    channel gate (layers.py:2765). The GELU is flax's default, the tanh form,
+    in every dtype (SEAM's is exact in f32)."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        for i, d in enumerate((1, 2, 3)):
+            setattr(self, f"dcov{i}", ConvRaw(c1, c1, 3, 1, d, dilation=d, groups=c1))
+            setattr(self, f"bn{i}", FlaxBatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM))
+        self.fc1 = nn.Linear(c1, max(c1 // 16, 1), bias=False)
+        self.fc2 = nn.Linear(max(c1 // 16, 1), c1, bias=False)
+
+    def forward(self, x):
+        refuse_strip(self)
+        outs = [getattr(self, f"bn{i}")(F.gelu(getattr(self, f"dcov{i}")(x), approximate="tanh")) for i in range(3)]
+        y = (outs[0] + outs[1] + outs[2]) / 3.0
+        v = self.fc2(torch.relu(self.fc1(y.mean((2, 3)))))
+        return x * torch.exp(torch.sigmoid(v))[:, :, None, None]
+
+
+class BiFPNAdd(nn.Module):
+    """Weighted add of the first `n` inputs + a biased 1x1 conv `conv`
+    (BiFPN_Add2 / BiFPN_Add3, layers.py:755, :770): w = relu(`w`),
+    normalised by its sum + 1e-4 in float32 and cast to the inputs' dtype,
+    then SiLU before the conv."""
+
+    n = 2
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(self.n))
+        self.conv = ConvRaw(c1, c2, 1)
+
+    def forward(self, xs: List[torch.Tensor]):
+        check_aligned(xs[:self.n])
+        w = torch.relu(self.w.float())
+        wn = (w / (w.sum() + 1e-4)).to(xs[0].dtype)
+        y = wn[0] * xs[0]
+        for i in range(1, self.n):
+            y = y + wn[i] * xs[i]
+        return self.conv(F.silu(y))
+
+
+class BiFPN_Add2(BiFPNAdd):
+    n = 2
+
+
+class BiFPN_Add3(BiFPNAdd):
+    n = 3
+
+
+class CrossConv(nn.Module):
+    """Cross convolution (layers.py:1421): Conv 1 x k at stride (1, s), then
+    Conv k x 1 at stride (s, 1) grouped by g, and the residual where
+    `shortcut` and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1, e: float = 1.0,
+                 shortcut: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, (1, k), (1, s))
+        self.cv2 = Conv(c_, c2, (k, 1), (s, 1), g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+def mix_splits(c2: int, n: int) -> List[int]:
+    """MixConv2d's output channels per kernel size: the linspace-floor
+    buckets of the equal-channel split (layers.py:1477-1478)."""
+    idx = np.floor(np.linspace(0, n - 1e-6, c2))
+    return [int((idx == g).sum()) for g in range(n)]
+
+
+class MixConv2d(nn.Module):
+    """Mixed-kernel conv (layers.py:1464): one bias-free conv `m<i>` per
+    kernel size (groups gcd(c1, its channels), 'same' padding, stride s),
+    concatenated, then one BatchNorm `bn` (eps 1e-3) and SiLU."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (1, 3), s: int = 1):
+        super().__init__()
+        self.m = nn.ModuleList(ConvRaw(c1, c, kk, s, kk // 2, groups=math.gcd(c1, c), bias=False)
+                               for c, kk in zip(mix_splits(c2, len(k)), k))
+        self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        return F.silu(self.bn(torch.cat([m(x) for m in self.m], 1)))
+
+
+class GSConv(nn.Module):
+    """Slim-neck GSConv (layers.py:1572): Conv to c2 / 2, a 5x5 depthwise
+    Conv of that beside it, and the channel shuffle of the NHWC
+    reshape(..., 2, c / 2) transpose: output channel 2j + i is input channel
+    i * c / 2 + j."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: bool = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, g=g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, g=c_, act=act)
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        y = torch.cat([y1, self.cv2(y1)], 1)
+        b, c, h, w = y.shape
+        y = y.permute(0, 2, 3, 1).reshape(b, h, w, 2, c // 2).transpose(3, 4).reshape(b, h, w, c)
+        return y.permute(0, 3, 1, 2)
+
+
+class C3SE(C3):
+    """C3 whose bottlenecks `m<i>` each feed an SE gate `se<i>` (layers.py:1491)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.se = nn.ModuleList(SE(int(c2 * e)) for _ in range(n))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        for m, gate in zip(self.m, self.se):
+            y = gate(m(y))
+        return self.cv3(torch.cat([y, self.cv2(x)], 1))
+
+
+class C3ECA(C3):
+    """C3 whose bottlenecks `m<i>` each feed an ECA gate `eca<i>` (b 1,
+    gamma 2; layers.py:1507)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.eca = nn.ModuleList(ECA(int(c2 * e)) for _ in range(n))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        for m, gate in zip(self.m, self.eca):
+            y = gate(m(y))
+        return self.cv3(torch.cat([y, self.cv2(x)], 1))
+
+
+class C3SPP(C3):
+    """C3 whose stack is one SPP (5, 9, 13) `m`, whatever n (layers.py:1523)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, shortcut, g, e)
+        self.m = SPP(int(c2 * e), int(c2 * e), (5, 9, 13))
+
+
+class C3x(C3):
+    """C3 with CrossConv (k 3, s 1, e 1) bottlenecks (layers.py:1537)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, block=lambda c: CrossConv(c, c, 3, 1, g, 1.0, shortcut))
+
+
+class RepC3(nn.Module):
+    """RT-DETR's RepC3 (layers.py:1550): cv1 then n 3x3 Convs `m<i>`, plus
+    cv2 of the input, summed; cv3 (no activation) to c2 only where the
+    hidden width c2 * e is not c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(Conv(c_, c_, 3, 1) for _ in range(n)))
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(c_, c2, 1, 1, act=False) if c_ != c2 else nn.Identity()
+
+    def forward(self, x):
+        return self.cv3(self.m(self.cv1(x)) + self.cv2(x))
+
+
+class SPPCSPC(nn.Module):
+    """YOLOv7's CSP SPP (layers.py:1212), c_ = int(2 c2 e): cv1, cv3, cv4,
+    the map beside its stride-1 max-pools of each size in k, cv5, cv6;
+    beside cv2 of the input; cv7 of both."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1, e: float = 0.5,
+                 k: Sequence[int] = (5, 9, 13)):
+        super().__init__()
+        c_ = int(2 * c2 * e)
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(c_, c_, 3, 1)
+        self.cv4 = Conv(c_, c_, 1, 1)
+        self.cv5 = Conv(c_ * (len(self.k) + 1), c_, 1, 1)
+        self.cv6 = Conv(c_, c_, 3, 1)
+        self.cv7 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        x1 = self.cv4(self.cv3(self.cv1(x)))
+        y1 = self.cv6(self.cv5(torch.cat([x1] + [max_pool(x1, k) for k in self.k], 1)))
+        return self.cv7(torch.cat([y1, self.cv2(x)], 1))
+
+
+class SPD(nn.Module):
+    """SPD-Conv's space-to-depth by 2 (layers.py:1594): the phases (0, 0),
+    (0, 1), (1, 0), (1, 1) by (row, column), concatenated on the channels
+    in that order (the JAX package's, not the usual SPD-Conv torch order)."""
+
+    def forward(self, x):
+        refuse_strip(self)
+        return torch.cat([x[..., i::2, j::2] for i in range(2) for j in range(2)], 1)
+
+
+class Expand(nn.Module):
+    """Depth-to-space by `gain` (layers.py:1040): (B, C, H, W) -> (B, C/g²,
+    H g, W g), input channel (gy g + gx) C/g² + c to output channel c at
+    (g y + gy, g x + gx), as the NHWC reshape; the work runs on the NHWC
+    view, as Contract's does."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        g = self.gain
+        y = x.permute(0, 2, 3, 1).reshape(b, h, w, g, g, c // (g * g)).transpose(2, 3)
+        return y.reshape(b, h * g, w * g, c // (g * g)).permute(0, 3, 1, 2)
+
+
+class CARAFE(nn.Module):
+    """Content-aware upsampling (layers.py:1822): `comp` (1x1 Conv to
+    c_mid) and `enc` (k_enc Conv to (scale k_up)², no activation) predict a
+    reassembly kernel per source pixel; pixel-shuffled to the upsampled
+    grid (channels split (k_up², s, s), channel-major), softmax in float32;
+    each output pixel is the kernel-weighted sum of the k_up x k_up
+    neighbourhood, dilated by scale, of the nearest-upsampled input
+    (F.unfold's (c, kh, kw) order is the JAX package's `_patches`)."""
+
+    def __init__(self, c1: int, k_enc: int = 3, k_up: int = 5, c_mid: int = 64, scale: int = 2):
+        super().__init__()
+        if scale != 2:
+            raise NotImplementedError(f"CARAFE at scale {scale}: the graph compiler records the row's stride as "
+                                      "its input's / 2, as the JAX package's does")
+        self.k_up, self.scale = k_up, scale
+        self.comp = Conv(c1, c_mid, 1)
+        self.enc = Conv(c_mid, (scale * k_up) ** 2, k_enc, act=False)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        s, k = self.scale, self.k_up
+        kernel = F.pixel_shuffle(self.enc(self.comp(x)), s)  # (b, k², h s, w s)
+        kernel = torch.softmax(kernel.float(), 1).to(x.dtype)
+        up = F.interpolate(x, scale_factor=s, mode="nearest")
+        patches = F.unfold(up, k, dilation=s, padding=(k - 1) // 2 * s).view(b, c, k * k, h * s, w * s)
+        out = torch.einsum("bkhw,bckhw->bchw", kernel, patches)
+        return out.contiguous(memory_format=torch.channels_last)
+
+
+def bilinear_sample(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """The JAX package's `_bilinear_sample` (layers.py:1855) batched: img
+    (N, C, H, W), px / py (N, P) pixel coordinates (x right, y down),
+    clamped to the border; returns (N, C, P) in float32, the four corners
+    weighted as JAX weighs them."""
+    n, c, H, W = img.shape
+    px = px.clamp(0.0, W - 1.0)
+    py = py.clamp(0.0, H - 1.0)
+    x0, y0 = px.floor(), py.floor()
+    wx, wy = (px - x0)[:, None], (py - y0)[:, None]
+    x0, y0 = x0.long(), y0.long()
+    x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
+    flat = img.float().reshape(n, c, H * W)
+
+    def at(yi, xi):
+        return torch.gather(flat, 2, (yi * W + xi)[:, None].expand(-1, c, -1))
+
+    return (at(y0, x0) * (1 - wx) * (1 - wy) + at(y0, x1) * wx * (1 - wy) + at(y1, x0) * (1 - wx) * wy
+            + at(y1, x1) * wx * wy)
+
+
+class DySample(nn.Module):
+    """Dynamic-offset upsampling, 'lp' style (layers.py:1876): a biased 1x1
+    conv `offset` predicts 2 g s² offsets a pixel (laid out (2, g, s²),
+    x then y), x 0.25 plus the sub-pixel grid of the s x s cells; each
+    channel group is sampled bilinearly, border-clamped, at its own
+    coordinates (the sampling runs in float32, the output is cast back).
+    The offsets are unbounded: no strip path."""
+
+    def __init__(self, c1: int, scale: int = 2, groups: int = 4):
+        super().__init__()
+        if c1 % groups:
+            raise ValueError(f"DySample: {c1} channels do not split into {groups} groups")
+        self.scale, self.groups = scale, groups
+        self.offset = ConvRaw(c1, 2 * groups * scale * scale, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        s, g = self.scale, self.groups
+        off = self.offset(x).float() * 0.25
+        grid = (torch.arange(s, dtype=torch.float32, device=x.device) - (s - 1) / 2) / s
+        iy, ix = torch.meshgrid(grid, grid, indexing="ij")
+        init = torch.stack([ix, iy], 0).reshape(1, 2, 1, s * s, 1, 1)
+        off = off.reshape(b, 2, g, s * s, h, w) + init
+        cx = torch.arange(w, dtype=torch.float32, device=x.device) + 0.5
+        cy = torch.arange(h, dtype=torch.float32, device=x.device) + 0.5
+        px = off[:, 0] + cx - 0.5  # (b, g, s², h, w)
+        py = off[:, 1] + cy[:, None] - 0.5
+
+        def shuffle(o):  # the s x s cells onto the upsampled grid: (b g, h s w s)
+            return o.reshape(b, g, s, s, h, w).permute(0, 1, 4, 2, 5, 3).reshape(b * g, h * s * w * s)
+
+        out = bilinear_sample(x.reshape(b * g, c // g, h, w), shuffle(px), shuffle(py))
+        return out.reshape(b, c, h * s, w * s).to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+class Involution(nn.Module):
+    """Involution (layers.py:1921): per-pixel kernels over groups of 16
+    channels, generated by `conv1` (Conv to c / 4, on the stride x stride
+    average pool when stride > 1) and `conv2` (Conv to k² groups), applied
+    to the input's k x k patches at the stride. Channel-preserving."""
+
+    def __init__(self, c1: int, kernel_size: int = 3, stride: int = 1):
+        super().__init__()
+        self.k, self.stride = kernel_size, stride
+        self.groups = c1 // 16
+        self.conv1 = Conv(c1, c1 // 4, 1)
+        self.conv2 = Conv(c1 // 4, kernel_size ** 2 * self.groups, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        k, s, g = self.k, self.stride, self.groups
+        weight = self.conv2(self.conv1(x if s == 1 else F.avg_pool2d(x, s, s)))
+        ho, wo = weight.shape[2:]
+        patches = F.unfold(x, k, padding=(k - 1) // 2, stride=s).view(b, g, 16, k * k, ho, wo)
+        out = (weight.reshape(b, g, 1, k * k, ho, wo) * patches).sum(3)
+        return out.reshape(b, c, ho, wo).contiguous(memory_format=torch.channels_last)
+
+
+class ZoomCat(nn.Module):
+    """Zoom_cat (layers.py:2163): of the (large, middle, small) maps, the
+    large one max-pooled plus average-pooled down to the middle's size, the
+    middle one, and the small one repeated (nearest) up to it, concatenated
+    on the channels. The output lies at the middle map's resolution."""
+
+    def forward(self, xs: List[torch.Tensor]):
+        refuse_strip(self)
+        big, mid, small = xs
+        th, tw = mid.shape[2:]
+        kern = (big.shape[2] // th, big.shape[3] // tw)
+        lm = F.max_pool2d(big, kern, kern) + F.avg_pool2d(big, kern, kern)
+        sm = F.interpolate(small, size=(th, tw), mode="nearest")
+        return torch.cat([lm, mid, sm], 1)
 
 
 def strip_halo(model: nn.Module) -> int:

@@ -12,15 +12,24 @@ yolov5{n,s,m,l,x}6, yolov5-p2 / -p6 / -p7 / -bifpn / -fpn / -panet,
 yolov3 / yolov3-spp / yolov3-tiny (nn.MaxPool2d, nn.ZeroPad2d),
 yolov5s-ghost (GhostConv, C3Ghost), yolov5s-transformer (C3TR) and
 yolov10 (SCDown, C2fCIB, PSA); classifier.yaml, a headless graph whose
-Classify tail gives logits (ModelMeta with nl 0); and every head of the
+Classify tail gives logits (ModelMeta with nl 0); every head of the
 JAX registry (yolo.py:151-167): Detect, DecoupledDetect (and its two
 aliases), DetectODConv, IDetect, IAuxDetect, ASFF_Detect, CLLADetect,
-TSCODE_Detect, Segment, the anchor-free DetectV8 / DetectYOLOv8 /
-DetectYOLO8Head / DetectV11 / DetectYolov11 and RTDETRDecoder. A row
-outside it raises KeyError naming ROADMAP queue A item 8: the rest of the
-JAX package's zoo (layers_zoo.py, the attention family), its row kinds
-(spd, carafe, dysample, involution, addN, ...) and activations (FReLU,
-AconC, MetaAconC).
+TSCODE_Detect, Segment, the anchor-free DFL heads and RTDETRDecoder; and
+the parser's own row kinds with layers.py's body zoo (yolo.py:60-170,
+:457-540): SPD / space_to_depth, Expand, BiFPN_Add2 / BiFPN_Add3, CARAFE,
+DySample, Involution, Zoom_cat, the learnable activations FReLU / AconC /
+MetaAconC (models/activations.py), the gates SE / se_block, ECA /
+eca_block, SimAM, CoorAttention, BAM and CBAM, MultiSEAM, CrossConv,
+MixConv2d, GSConv, C3SE, C3ECA, C3SPP, C3x, RepC3 and SPPCSPC. A row of any
+kind but the heads may repeat (JAX's _Repeat). One deliberate divergence:
+a Zoom_cat row's stride is its second input's, where its output lies (the
+JAX parser records the first input's). A row outside the registry raises
+KeyError naming ROADMAP queue A item 8, which still lacks layers.py's
+attention family (GAM, SK, Shuffle, NAM, EMA, LSKblock, MLCA, Triplet, GC,
+NonLocal, CoT, DoubleAttention, PPSA, SGE, MHSA, S2, Efficient, ELA, MSCA,
+LSKA / SPPF_LSKA, HorBlock / gnconv), RFEM / C3RFEM, LVCBlock, ConvMixer,
+Swin / C3STR, and layers_zoo.py with its row kinds.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 import torch.nn as nn
 import yaml
 
+from yolosomi_tpu_torch.models import activations as A
 from yolosomi_tpu_torch.models import dcn as D
 from yolosomi_tpu_torch.models import heads as H
 from yolosomi_tpu_torch.models import layers as L
@@ -47,10 +57,19 @@ from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_dev
 #   seam    : channel-preserving (c2 forced to c1)
 #   upsample: [size, scale, mode]
 #   fuse    : equal-shape fusion; c2 = channels of the first input
+#   addN    : weighted add + 1x1 conv; c2 = the widest input's channels
 #   concat  : c2 = the sum of the inputs' channels
+#   zoomcat : c2 = the sum of the inputs' channels, at the second input's stride
 #   contract: space-to-depth by args[0]; c2 = c1 * g * g, stride * g
+#   expand  : depth-to-space by args[0]; c2 = c1 / (g * g), stride / g
+#   spd     : space-to-depth by 2; c2 = c1 * 4, stride * 2
+#   carafe  : channel-preserving 2x upsample, cls(c1, *args); stride / 2
+#   dysample: channel-preserving upsample by args[0], cls(c1, *args)
+#   involution: channel-preserving, [c2, k, s]; stride * s
 #   dcnv3   : channel-preserving (c2 = channels of the input), cls(c2, *args[1:])
-#   plain   : channel-preserving, cls(*args), or cls(c2) without args
+#   plain   : channel-preserving; the args fill the JAX module's fields
+#             (_PLAIN_FIELDS), or cls(*args) / cls(c2) (RepVGGDW)
+#   noarg   : channel-preserving, cls(c1) (the learnable activations)
 #   pool    : nn.MaxPool2d [k, s, p]; stride * s
 #   zeropad : nn.ZeroPad2d [(left, right, top, bottom)]
 #   classify: c2 = args[0], the class count, never width-scaled
@@ -114,6 +133,55 @@ _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "DetectV11": (H.DetectV11, "head_v8"),
     "RTDETRDecoder": (RTDETRDecoder, "head_rtdetr"),
 }
+# the parser's remaining kinds and the body zoo (yolosomi_tpu/models/yolo.py:60-170); none of these
+# blocks has a strip path, so a graph that names one is not served spatially sharded (engine/runner.py)
+_BODY_ZOO: Dict[str, Tuple[Any, str]] = {
+    "MultiSEAM": (L.MultiSEAM, "seam"),
+    "CBAM": (L.CBAM, "plain"),
+    "SE": (L.SE, "plain"),
+    "se_block": (L.SE, "plain"),
+    "SimAM": (L.SimAM, "plain"),
+    "eca_block": (L.ECA, "plain"),
+    "ECA": (L.ECA, "plain"),
+    "BAM": (L.BAM, "plain"),
+    "CoorAttention": (L.CoorAttention, "conv"),
+    "C3SE": (L.C3SE, "csp"),
+    "C3ECA": (L.C3ECA, "csp"),
+    "C3SPP": (L.C3SPP, "csp"),
+    "C3x": (L.C3x, "csp"),
+    "RepC3": (L.RepC3, "csp"),
+    "SPPCSPC": (L.SPPCSPC, "csp"),
+    "CrossConv": (L.CrossConv, "conv"),
+    "MixConv2d": (L.MixConv2d, "conv"),
+    "GSConv": (L.GSConv, "conv"),
+    "SPD": (L.SPD, "spd"),
+    "space_to_depth": (L.SPD, "spd"),
+    "Expand": (L.Expand, "expand"),
+    "BiFPN_Add2": (L.BiFPN_Add2, "addN"),
+    "BiFPN_Add3": (L.BiFPN_Add3, "addN"),
+    "CARAFE": (L.CARAFE, "carafe"),
+    "DySample": (L.DySample, "dysample"),
+    "Involution": (L.Involution, "involution"),
+    "Zoom_cat": (L.ZoomCat, "zoomcat"),
+    "FReLU": (A.FReLU, "noarg"),
+    "AconC": (A.AconC, "noarg"),
+    "MetaAconC": (A.MetaAconC, "noarg"),
+}
+_REGISTRY.update(_BODY_ZOO)
+STRIPLESS = frozenset(_BODY_ZOO)
+# a `plain` row's YAML args fill the JAX module's dataclass fields in
+# order (`cls(*args)`, or `cls(c2)` without args); the torch module takes
+# the input channels first and these fields by name, less the `c2` slot
+# that CBAM, SE and BAM ignore. RepVGGDW's one field is its width.
+_PLAIN_FIELDS = {
+    "CBAM": ("c2", "reduction"),
+    "SE": ("c2", "ratio"),
+    "se_block": ("c2", "ratio"),
+    "SimAM": ("e_lambda",),
+    "eca_block": ("b", "gamma"),
+    "ECA": ("b", "gamma"),
+    "BAM": ("c2", "reduction"),
+}
 HEAD_KINDS = ("head", "head_v8", "head_rtdetr")
 # the heads that take more input maps than they have detection levels:
 # name -> fn(n_inputs) -> the slice of the inputs that are the levels
@@ -132,7 +200,7 @@ def level_slice(head_name: str, n: int) -> slice:
 # positional index of the stride arg (after c2) of conv-kind modules; DCNv2
 # is left out, as in the JAX package, so its stride never reaches the graph
 _STRIDE_ARG_POS = {"Conv": 2, "DWConv": 2, "GhostConv": 2, "GhostBottleneck": 2, "SCDown": 2, "ODConv": 2,
-                   "ODConv_3rd": 2}
+                   "ODConv_3rd": 2, "CrossConv": 2, "MixConv2d": 2, "GSConv": 2, "Involution": 2}
 # conv-kind modules whose graph stride is 2 by construction, whatever their
 # stride arg (Focus's space-to-depth)
 _FIXED_STRIDE2 = {"Focus"}
@@ -237,8 +305,11 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
     for i, (f, n, mname, args) in enumerate(rows):
         mname = str(mname)
         if mname not in _REGISTRY:
-            raise KeyError(f"module '{mname}' not in registry (row {i}): the rest of the JAX package's zoo blocks, "
-                           "row kinds and activations are not ported yet (ROADMAP queue A item 8)")
+            raise KeyError(f"module '{mname}' not in registry (row {i}): not ported yet (ROADMAP queue A item 8: "
+                           "layers.py's attention family GAM, SK, Shuffle, NAM, EMA, LSKblock, MLCA, Triplet, GC, "
+                           "NonLocal, CoT, DoubleAttention, PPSA, SGE, MHSA, S2, Efficient, ELA, MSCA, LSKA / "
+                           "SPPF_LSKA, HorBlock / gnconv; RFEM / C3RFEM, LVCBlock, ConvMixer, Swin / C3STR; "
+                           "layers_zoo.py and its row kinds)")
         cls, kind = _REGISTRY[mname]
         tokens = {"nc": nc, "anchors": anchors, "None": None, "True": True, "False": False}
         args = [tokens.get(a, a) if isinstance(a, str) else a for a in args]
@@ -251,20 +322,23 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
             return strides[fi] if fi >= 0 else strides[len(strides) + fi]
 
         stride = in_stride(f if isinstance(f, int) else f[0])
+        c_in = in_ch(f if isinstance(f, int) else f[0])
+        # make(c) builds the row's module for c input channels: once for the
+        # row, then once for each copy of a repeated row, which takes c2 in
         if kind in ("conv", "csp", "seam"):
-            c1 = in_ch(f)
             c2 = args[0]
             if c2 != no:
                 c2 = make_divisible(c2 * gw, 8)
             if kind == "seam":
-                c2 = c1  # SEAM is channel-preserving
-                mod = cls(c1, *args[1:], approx_gelu=dtype == torch.bfloat16)
+                c2 = c_in  # SEAM and MultiSEAM are channel-preserving
+                kw = {"approx_gelu": dtype == torch.bfloat16} if cls is L.SEAM else {}
                 margs = [c2, *args[1:]]
+                make = lambda c: cls(c, *args[1:], **kw)  # noqa: E731
             else:
                 margs = [c2, n_rep, *args[1:]] if kind == "csp" else [c2, *args[1:]]
                 if kind == "csp":
                     n_rep = 1
-                mod = cls(c1, *margs)
+                make = lambda c: cls(c, *margs)  # noqa: E731
             spos = _STRIDE_ARG_POS.get(mname)
             if kind == "conv" and spos is not None and len(margs) > spos and isinstance(margs[spos], int) \
                     and not isinstance(margs[spos], bool):
@@ -272,41 +346,69 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
             if mname in _FIXED_STRIDE2:
                 stride *= 2
         elif kind == "upsample":
-            c2 = in_ch(f)
+            c2 = c_in
             scale = args[1] if len(args) > 1 else 2
             if len(args) > 2 and args[2] != "nearest":
                 raise NotImplementedError(f"Upsample mode {args[2]!r} (row {i})")
-            mod = cls(scale)
+            make = lambda c: cls(scale)  # noqa: E731
             stride /= scale
         elif kind == "fuse":
-            c2 = in_ch(f[0])
-            mod = cls(len(f))
-        elif kind == "concat":
-            c2 = sum(in_ch(x) for x in f)
-            mod = cls()
-        elif kind == "contract":
+            c2 = c_in
+            make = lambda c: cls(len(f))  # noqa: E731
+        elif kind == "addN":  # BiFPN_Add2 / 3: c2 = the widest input, whatever the args
+            c2 = max(in_ch(x) for x in f)
+            make = lambda c: cls(c, c2)  # noqa: E731
+        elif kind in ("concat", "zoomcat", "spd"):
+            c2 = c_in * 4 if kind == "spd" else sum(in_ch(x) for x in f)
+            make = lambda c: cls()  # noqa: E731
+            if kind == "spd":
+                stride *= 2
+            elif kind == "zoomcat":  # at the second input's resolution: its stride (JAX records the first's)
+                stride = in_stride(f[1])
+        elif kind in ("contract", "expand"):
             g = args[0] if args else 2
-            c2 = in_ch(f) * g * g
-            mod = cls(g)
-            stride *= g
+            c2 = c_in * g * g if kind == "contract" else c_in // (g * g)
+            make = lambda c: cls(g)  # noqa: E731
+            stride = stride * g if kind == "contract" else stride / g
+        elif kind in ("carafe", "dysample"):  # channel-preserving upsamples, cls(c1, *args)
+            c2 = c_in
+            make = lambda c: cls(c, *args)  # noqa: E731
+            stride /= 2 if kind == "carafe" or not args else args[0]
+        elif kind == "involution":  # channel-preserving whatever its c2 arg: [c2, k, s]
+            c2 = c_in
+            k, s_loc = (args[1] if len(args) > 1 else 3), (args[2] if len(args) > 2 else 1)
+            make = lambda c: cls(c, kernel_size=k, stride=s_loc)  # noqa: E731
+            stride *= s_loc
         elif kind == "dcnv3":
-            c2 = in_ch(f)
-            mod = cls(c2, *args[1:])
+            c2 = c_in
+            make = lambda c: cls(c, *args[1:])  # noqa: E731
+        elif kind == "noarg":  # the JAX module takes none of the row's args
+            c2 = c_in
+            make = cls
         elif kind == "plain":
-            c2 = in_ch(f)
-            mod = cls(*args) if args else cls(c2)
+            c2 = c_in
+            fields = _PLAIN_FIELDS.get(mname)
+            if fields is None:  # RepVGGDW
+                make = lambda c: cls(*args) if args else cls(c)  # noqa: E731
+            else:
+                if len(args) > len(fields):
+                    raise TypeError(f"{mname} takes at most {len(fields)} args {fields} (row {i})")
+                kw = dict(zip(fields, args or [c2]))
+                kw.pop("c2", None)
+                make = lambda c: cls(c, **kw)  # noqa: E731
         elif kind == "pool":
-            c2 = in_ch(f)
+            c2 = c_in
             k = args[0] if args else 2
             s = args[1] if len(args) > 1 else k
-            mod = cls(k, s, args[2] if len(args) > 2 else 0)
+            make = lambda c: cls(k, s, args[2] if len(args) > 2 else 0)  # noqa: E731
             stride *= s
         elif kind == "zeropad":
-            c2 = in_ch(f)
-            mod = cls(tuple(args[0]) if args else (0, 1, 0, 1))
+            c2 = c_in
+            make = lambda c: cls(tuple(args[0]) if args else (0, 1, 0, 1))  # noqa: E731
         elif kind == "classify":
             c2 = args[0]
-            mod = cls(in_ch(f) if isinstance(f, int) else sum(in_ch(x) for x in f), *args)
+            c_in = c_in if isinstance(f, int) else sum(in_ch(x) for x in f)
+            make = lambda c: cls(c, *args)  # noqa: E731
         else:  # head, head_v8, head_rtdetr
             head_from = tuple(x if x >= 0 else len(chans) + x for x in f)
             ch_in = [in_ch(x) for x in f]
@@ -332,10 +434,12 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
             c2 = 0
             head_name = mname
             stride = 0.0
-        if n_rep > 1:  # a row repeated in sequence (JAX's _Repeat); the copies after the first take c2 in
-            if kind != "conv":
-                raise NotImplementedError(f"repeated {kind}-kind module {mname} (row {i})")
-            mod = nn.Sequential(mod, *(cls(c2, *margs) for _ in range(n_rep - 1)))
+        if kind not in HEAD_KINDS:
+            mod = make(c_in)
+        if n_rep > 1:  # a row repeated in sequence (JAX's _Repeat, flax mods_<i>)
+            if kind in HEAD_KINDS:
+                raise NotImplementedError(f"a repeated head {mname} (row {i})")
+            mod = nn.Sequential(mod, *(make(int(c2)) for _ in range(n_rep - 1)))
 
         modules.append(mod)
         specs.append(LayerSpec(i, f, n_rep, mname, args, int(c2), stride))
@@ -425,7 +529,8 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
     variance_scaling(2, fan_out), dense kernels lecun_normal, the packed
     attention projection xavier_uniform, zero biases, unit norms; the
     deformable blocks' own init in
-    models/dcn.py:init_dcn_heads), then its detection-prior biases
+    models/dcn.py:init_dcn_heads; ECA's 1-D conv lecun_normal, the ACON
+    p1 / p2 N(0, 1)), then its detection-prior biases
     (obj log(8/(640/s)^2), cls log(0.6/(nc-0.99999)))."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
@@ -446,6 +551,11 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
             m.bias.zero_()
         elif isinstance(m, H.ImplicitA):  # N(0, 0.02), ImplicitM N(1, 0.02)
             nn.init.normal_(m.implicit, 1.0 if isinstance(m, H.ImplicitM) else 0.0, 0.02, generator=g)
+        elif isinstance(m, nn.Conv1d):  # ECA's flax nn.Conv: lecun_normal
+            _trunc_normal(m.weight, m.weight.shape[1] * m.weight.shape[2], 1.0, g)
+        elif isinstance(m, (A.AconC, A.MetaAconC)):  # flax normal(1.0)
+            nn.init.normal_(m.p1, generator=g)
+            nn.init.normal_(m.p2, generator=g)
         if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
     for m in model.modules():  # after the generic pass, which also reached their children

@@ -1,0 +1,82 @@
+"""The body zoo's graphs: the full-width flagship (configs/models/yolo-somi.yaml,
+nc 10) with rows replaced or inserted, one graph per family of the
+blocks the parser's remaining kinds and layers.py's body zoo bring (no
+shipped config uses them). Each keeps the flagship's four ODConv sites.
+
+An edit names flagship rows: `replace` maps a row to its new rows (the
+first takes its place, the rest follow it), `after` inserts rows after
+one. Absolute `from` indices, in the edits too, are flagship rows; a row
+that read row i reads the last row that now stands for it (i's
+replacement or the last row inserted after it). `-1` reads the row above.
+
+    cfg = zoo_graph("zoo-carafe")          # a YAML dict for build_model
+    Runner(path_of_that_yaml_dump, ...)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+from yolosomi_tpu_torch.utils.config import find_config, load_model_cfg
+
+_UP = [-1, 1, "DySample", [2, 4]]
+ZOO_GRAPHS: Dict[str, dict] = {
+    # CARAFE in place of the three nearest upsamples
+    "zoo-carafe": {"replace": {i: [[-1, 1, "CARAFE", [3, 5]]] for i in (14, 18, 22)}},
+    # sub-pixel upsampling (a 1x1 Conv to 4x the channels and Expand), two
+    # DySamples and Zoom_cat's three-scale merge
+    "zoo-dysample": {"replace": {14: [[-1, 1, "Conv", [1024, 1, 1]], [-1, 1, "Expand", [2]]],
+                                 18: [_UP], 22: [_UP], 19: [[[10, -1, 13], 1, "Zoom_cat", []]]}},
+    # the weighted BiFPN adds, MultiSEAM and the learnable activations on the laterals
+    "zoo-fusion": {"replace": {**{i: [["same", 1, "BiFPN_Add2", [256]]] for i in (15, 19, 23, 33)},
+                               **{i: [["same", 1, "BiFPN_Add3", [256]]] for i in (27, 30)},
+                               **{i: [[-1, 1, "MultiSEAM", [256]]] for i in (16, 20, 24)}},
+                   "after": {10: [[-1, 1, "FReLU", []]], 11: [[-1, 1, "AconC", []]],
+                             12: [[-1, 1, "MetaAconC", []]]}},
+    # SPD-Conv's space-to-depth for the stride-2 Convs, MixConv2d, GSConv, CrossConv
+    "zoo-spd": {"replace": {0: [[-1, 1, "MixConv2d", [64, [3, 5, 7], 2]]],
+                            **{i: [[-1, 1, "SPD", []], [-1, 1, "Conv", [c, 3, 1]]]
+                               for i, c in ((3, 256), (5, 512), (7, 1024))},
+                            **{i: [["same", 1, "GSConv", [256, 1, 1]]] for i in (10, 11)},
+                            **{i: [["same", 1, "CrossConv", [256, 3, 1]]] for i in (12, 13)}}},
+    # the CSP variants in the backbone, SPPCSPC for SPPF, C3SPP in the neck
+    "zoo-csp": {"replace": {2: [["same", "same", "C3x", [128, True]]], 4: [["same", "same", "C3SE", [256, True]]],
+                            6: [["same", "same", "C3ECA", [512, True]]], 8: [["same", "same", "RepC3", [1024]]],
+                            9: [[-1, 1, "SPPCSPC", [1024]]], 17: [[-1, 1, "C3SPP", [256]]]}},
+    # the gates, a repeated plain row and Involution
+    "zoo-attention": {"after": {2: [[-1, 1, "SimAM", []]], 4: [[-1, 1, "eca_block", []]],
+                                6: [[-1, 1, "se_block", []]], 8: [[-1, 1, "CoorAttention", [1024]]],
+                                9: [[-1, 2, "CBAM", [1024]], [-1, 1, "Involution", [1024, 3, 1]]],
+                                25: [[-1, 1, "BAM", [256]]]}},
+}
+
+
+def apply_edits(rows: List[list], edits: dict) -> Tuple[List[list], Dict[int, int]]:
+    """`rows` (backbone + head) with `edits` applied, and the map from each
+    row of `rows` to the last row that stands for it; "same" in an edited
+    row's from or repeats keeps the replaced row's."""
+    new: List[list] = []
+    last = {}  # flagship row -> the index of the last row that stands for it
+    for i, row in enumerate(rows):
+        block = [[row[j] if v == "same" else v for j, v in enumerate(r)] for r in edits.get("replace", {}).get(i, [row])]
+        block += edits.get("after", {}).get(i, [])
+        new += [list(r) for r in block]
+        last[i] = len(new) - 1
+
+    def remap(f):
+        if isinstance(f, list):
+            return [remap(x) for x in f]
+        if f < 0 and f != -1:
+            raise ValueError(f"a relative from {f} other than -1")
+        return f if f == -1 else last[f]
+
+    return [[remap(r[0]), *r[1:]] for r in new], last
+
+
+def zoo_graph(name: str, base: str = "yolo-somi") -> dict:
+    """The YAML dict of graph `name` of ZOO_GRAPHS, built on `base`."""
+    cfg = dict(load_model_cfg(find_config(base)))
+    rows, last = apply_edits(list(cfg["backbone"]) + list(cfg["head"]), ZOO_GRAPHS[name])
+    cut = last[len(cfg["backbone"]) - 1] + 1
+    cfg["backbone"], cfg["head"] = rows[:cut], rows[cut:]
+    return cfg

@@ -44,7 +44,7 @@ from yolosomi_tpu_torch.models import heads as H
 from yolosomi_tpu_torch.models import layers as L
 from yolosomi_tpu_torch.models.rtdetr import DenseGeneral, RTDETRDecoder
 
-_LIST_RE = re.compile(r"^(m|dw|pw|bn_dw|bn_pw|tr)(\d+)$")
+_LIST_RE = re.compile(r"^(m|dw|pw|bn_dw|bn_pw|tr|se|eca)(\d+)$")
 # the YOLOv10 blocks' Sequentials, flattened by flax: CIB's cv1_0-4, PSA's ffn_0-1
 _SEQ_RE = re.compile(r"^(cv1|ffn)_(\d+)$")
 
@@ -100,12 +100,13 @@ def _join(key: str, name: str) -> str:
 
 def _key_candidates(path: List[str], collection: str) -> List[str]:
     """All torch keys a flax path may map to, primary first. ODConv keeps a
-    (K, Cout) bias bank at X.conv.bias where a bare conv has X.bias; SEAM
-    and EMA-CBAM hold their fc pair in a Sequential `fc` (slots 0 and 2)."""
+    (K, Cout) bias bank at X.conv.bias where a bare conv has X.bias, and
+    ECA's flax nn.Conv `conv` is X.conv here; SEAM and EMA-CBAM hold their
+    fc pair in a Sequential `fc` (slots 0 and 2)."""
     primary = _path_to_key(path, collection)
     out = [primary]
-    if path[-1] == "bias" and len(path) >= 2 and path[-2] == "conv":
-        out.append(primary[: -len(".bias")] + ".conv.bias")
+    if path[-1] in ("bias", "kernel") and len(path) >= 2 and path[-2] == "conv":
+        out.append(primary.rsplit(".", 1)[0] + ".conv." + primary.rsplit(".", 1)[1])
     for flax_name, seq_name in ((".fc1.", ".fc.0."), (".fc2.", ".fc.2.")):
         if flax_name in primary:
             out.append(primary.replace(flax_name, seq_name))
@@ -114,8 +115,9 @@ def _key_candidates(path: List[str], collection: str) -> List[str]:
 
 def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...]) -> np.ndarray:
     """Flax layout -> torch layout: ODConv bank (K,kh,kw,I,O) -> (K,O,I,kh,kw),
-    HWIO -> OIHW, a Dense kernel -> a 1x1 Conv2d or a Linear weight; a 3-D
-    DCNv2 weight (P, C, c2) and 1-D leaves pass through."""
+    HWIO -> OIHW, a 1-D conv's WIO -> OIW (ECA), a Dense kernel -> a 1x1
+    Conv2d or a Linear weight; a 3-D DCNv2 weight (P, C, c2) and 1-D leaves
+    pass through."""
     v = np.asarray(v, np.float32)
     if leaf == "implicit":  # (1, 1, 1, C) -> (1, C, 1, 1)
         v = v.reshape(1, -1, 1, 1)
@@ -123,6 +125,8 @@ def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...]) -> 
         v = v.transpose(0, 4, 3, 1, 2)
     elif v.ndim == 4:
         v = v.transpose(3, 2, 0, 1)
+    elif v.ndim == 3 and leaf == "kernel" and v.shape != tuple(torch_shape):  # not RT-DETR's DenseGeneral
+        v = v.transpose(2, 1, 0)
     elif v.ndim == 2 and leaf == "kernel":
         # a Dense kernel always transposes, square ones included; the
         # ODConv (K, Cout) bias bank is not a kernel and passes through
@@ -179,7 +183,7 @@ _INVERSE_RE = (
     (re.compile(r"\.DCovN\.(\d+)\.1$"), lambda m: f".pw{int(m.group(1)) - 3}"),
     (re.compile(r"\.DCovN\.(\d+)\.3$"), lambda m: f".bn_pw{int(m.group(1)) - 3}"),
     (re.compile(r"\.(?:shared_MLP|fc)\.([02])$"), lambda m: f".fc{int(m.group(1)) // 2 + 1}"),
-    (re.compile(r"\.m\.(\d+)"), lambda m: f".m{m.group(1)}"),
+    (re.compile(r"\.(m|se|eca)\.(\d+)"), lambda m: f".{m.group(1)}{m.group(2)}"),
     (re.compile(r"\.tr\.(\d+)"), lambda m: f".tr{m.group(1)}"),
     (re.compile(r"\.(cv1|ffn)\.(\d+)"), lambda m: f".{m.group(1)}_{m.group(2)}"),
 )
@@ -197,13 +201,15 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
     layout = same
     if isinstance(mod, nn.Conv2d):
         parent = model.get_submodule(prefix.rsplit(".", 1)[0]) if "." in prefix else model
-        dense = re.search(r"\.fc[12]$", path) is not None  # EMA-CBAM's fc pair: flax Dense
+        dense = re.search(r"\.fc\.[02]$", prefix) is not None  # EMA-CBAM's fc pair: flax Dense
         if isinstance(parent, L.Conv):
             path = path[: -len(".conv")] + ".cv.conv"
         elif not (dense or isinstance(parent, (D.DCNv2, D.DCNv3, RTDETRDecoder))):
             path += ".conv"
         if name == "weight":
             layout = (lambda t: t[:, :, 0, 0].T) if dense else (lambda t: t.permute(2, 3, 1, 0))
+    elif isinstance(mod, nn.Conv1d) and name == "weight":  # ECA's flax nn.Conv `conv`, no ConvRaw around it
+        layout = lambda t: t.permute(2, 1, 0)  # noqa: E731
     elif isinstance(mod, nn.Linear) and name == "weight":
         layout = lambda t: t.T  # noqa: E731
     elif isinstance(mod, L.ODConv2d) and name == "weight":
@@ -215,7 +221,7 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
         collection, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[name]
     elif isinstance(mod, _NORMS) and name == "weight":
         name = "scale"
-    elif isinstance(mod, (nn.Conv2d, nn.Linear, DenseGeneral)) and name == "weight":
+    elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear, DenseGeneral)) and name == "weight":
         name = "kernel"
     return collection, [p for p in path.split(".") if p] + [name], layout
 
