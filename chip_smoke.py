@@ -258,16 +258,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     Expand, DySample and Zoom_cat; with BiFPN_Add2 / 3, MultiSEAM and the
     learnable activations; with SPD-Conv, MixConv2d, GSConv and CrossConv;
     with the CSP variants and SPPCSPC; with the gates, a repeated CBAM row
-    and Involution), each keeping the four ODConv sites. (a) each serves
+    and Involution; with layers.py's attention gates (zoo-gates2); with
+    its global attentions and SPPF_LSKA (zoo-global); with C3STR, a Swin
+    block, HorBlock and gnconv (zoo-swin); with C3RFEM, RFEM, LVCBlock and
+    ConvMixer (zoo-rfem)), each keeping the four ODConv sites. (a) each serves
     N_REQUESTS b8 bf16 batches through Runner as phase 16(a) serves a head
     (conf 1e-6, every image answered, odconv_s2 4 times a batch with the
     counts set to 0 just before; params, latency, img/s, the model /
     postprocess split and the peak memory printed), its f32 b2 model
     through the kernels no further from f64 than twice the plain f32 model
-    (phase 5's rule). (b) zoo-fusion (head tempered) through ComputeLoss on
-    phase 8's set: ZOO_STEPS timed bf16 b8 steps with 4 + 4 + 4 launches
-    each and the peak memory, then the f32 b2 step against
-    plain_version() (phase 8(b)'s rule)
+    (phase 5's rule); zoo-global, whose MHSA takes the map's size at
+    build, from a weights file built at 640 px. (b) zoo-fusion and
+    zoo-rfem (head tempered) through ComputeLoss on phase 8's set:
+    ZOO_STEPS timed bf16 b8 steps with 4 + 4 + 4 launches each and the
+    peak memory, then the f32 b2 step against plain_version() (phase
+    8(b)'s rule)
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -393,6 +398,7 @@ STEP_LAUNCHES = {
     "yolo-somi": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "yolo-somi+DetectV8": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "zoo-fusion": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
+    "zoo-rfem": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "yolo-somi-dcn": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4, dcnv2_im2col=9, dcnv3_core=1,
                           dcnv2_im2col_bwd=9, dcnv3_core_bwd=1),
 }
@@ -413,7 +419,7 @@ STEP_GRAD_TOL = 1e-6
 # H100 80GB HBM3), so for yolo-somi-dcn each floor is that noise; the
 # flagship keeps the floor it passed with (1e-6)
 STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4), "yolo-somi+DetectV8": (1e-6, 1e-6),
-               "zoo-fusion": (1e-6, 1e-6)}
+               "zoo-fusion": (1e-6, 1e-6), "zoo-rfem": (1e-6, 1e-6)}
 # the per-parameter floor of that comparison, as a share of the largest
 # gradient's norm: STEP_GRAD_TOL for the flagship; for yolo-somi-dcn the
 # bf16 witness's 1e-4, because its f32 step through the kernels put a sum
@@ -423,7 +429,7 @@ STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4), "yolo-s
 # carried into a cancelling sum. For that model the median distance over
 # all parameters is held to STEP_MEDIAN_RATIO times the plain step's too.
 STEP_PARAM_FLOOR = {"yolo-somi": STEP_GRAD_TOL, "yolo-somi-dcn": 1e-4, "yolo-somi+DetectV8": STEP_GRAD_TOL,
-                    "zoo-fusion": STEP_GRAD_TOL}
+                    "zoo-fusion": STEP_GRAD_TOL, "zoo-rfem": STEP_GRAD_TOL}
 STEP_MEDIAN_RATIO = 2.0
 # the configs whose comparison takes a second draw of the rounding noise
 # beside the plain f32 step: the plain step from parameters nudged by one
@@ -3867,7 +3873,7 @@ def postprocess(runner: Runner, preds, conf: float):
     return non_max_suppression(runner.decode(preds), conf_thres=conf)
 
 
-def head_serve(gpu: str, name: str, path: Path, label: str = None) -> dict:
+def head_serve(gpu: str, name: str, path: Path, label: str = None, weights: Path = None) -> dict:
     """Phase 16(a) for one head: N_REQUESTS b8 bf16 batches through Runner
     (conf HUB_CONF: random weights under the priors score below 0.25),
     every image answered, odconv_s2 4 times a batch with the counts set to
@@ -3877,9 +3883,10 @@ def head_serve(gpu: str, name: str, path: Path, label: str = None) -> dict:
     RTDETRDecoder the head's input maps: its top-k query selection turns a
     rounding difference into another query order). Returns the launches
     and the median batch latency (s). Phase 17 serves its graphs through
-    it, `label` naming the graph in the printed lines."""
+    it, `label` naming the graph in the printed lines, from the weights
+    file `weights` where given (else from seed 0)."""
     label = label or f"heads {name} on the flagship's body"
-    runner = Runner(str(path), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    runner = Runner(str(path), weights and str(weights), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
     n_params = sum(p.numel() for p in runner.model.parameters())
     rng = np.random.default_rng(16)
     batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
@@ -3917,7 +3924,7 @@ def head_serve(gpu: str, name: str, path: Path, label: str = None) -> dict:
     del runner
     torch.cuda.empty_cache()
 
-    runner = Runner(str(path), dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
+    runner = Runner(str(path), weights and str(weights), dtype=torch.float32, imgsz=IMGSZ, device="cuda", seed=0)
     images = np.random.default_rng(1).integers(0, 256, (2, IMGSZ, IMGSZ, 3), dtype=np.uint8)
     x = runner.upload(images)
     rtdetr = name == "RTDETRDecoder"
@@ -4075,12 +4082,14 @@ def heads_phase(gpu: str) -> dict:
 # upsamplers, fusion, space-to-depth, CSP variants and gates)
 # ---------------------------------------------------------------------------
 
-ZOO_STEPS = 3  # timed bf16 b8 train steps of zoo-fusion
+ZOO_STEPS = 3  # timed bf16 b8 train steps of each trained graph
+ZOO_TRAINED = ("zoo-fusion", "zoo-rfem")
 
 
-def zoo_training(gpu: str, root: Path) -> dict:
-    """Phase 17(b): zoo-fusion (BiFPN_Add2 / 3, MultiSEAM, FReLU / AconC /
-    MetaAconC; head tempered) through ComputeLoss on phase 8's set:
+def zoo_training(gpu: str, root: Path, name: str) -> dict:
+    """Phase 17(b): graph `name` (zoo-fusion: BiFPN_Add2 / 3, MultiSEAM,
+    FReLU / AconC / MetaAconC; zoo-rfem: C3RFEM, RFEM, LVCBlock,
+    ConvMixer; head tempered) through ComputeLoss on phase 8's set:
     ZOO_STEPS timed bf16 b8 train steps with 4 + 4 + 4 launches each, the
     median step and the peak memory; then the f32 b2 step through the
     kernels against plain_version() (train_step_parity, phase 8(b)'s
@@ -4088,7 +4097,7 @@ def zoo_training(gpu: str, root: Path) -> dict:
     hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
     ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
     batches = list(DataLoader(ds, BATCH, shuffle=True, drop_last=True))[:ZOO_STEPS + 1]
-    model, meta = build_model(zoo_graph("zoo-fusion"), nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
+    model, meta = build_model(zoo_graph(name), nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
     temper_head(model, HEAD_TEMPER)
     opt = make_optimizer(hyp, nb=len(batches), epochs=1, batch_size=BATCH)
     state = create_train_state(model, opt)
@@ -4107,43 +4116,57 @@ def zoo_training(gpu: str, root: Path) -> dict:
         assert bool(m["grads_finite"]) and torch.isfinite(m["loss"]), m
         losses.append([m[k].item() for k in ("loss", "lbox", "lobj", "lcls")])
     launches = launch_counts()
-    assert launches == only(**{k: v * ZOO_STEPS for k, v in STEP_LAUNCHES["zoo-fusion"].items()}), launches
+    assert launches == only(**{k: v * ZOO_STEPS for k, v in STEP_LAUNCHES[name].items()}), launches
     peak = torch.cuda.max_memory_allocated()
-    RECORD["zoo step zoo-fusion"] = statistics.median(times)
-    print(f"zoo train zoo-fusion (ComputeLoss, head tempered by {HEAD_TEMPER}) bf16 b{BATCH} {IMGSZ} px on {gpu}: "
+    RECORD[f"zoo step {name}"] = statistics.median(times)
+    print(f"zoo train {name} (ComputeLoss, head tempered by {HEAD_TEMPER}) bf16 b{BATCH} {IMGSZ} px on {gpu}: "
           f"{ZOO_STEPS} steps median {statistics.median(times) * 1e3:.1f} ms ({BATCH / statistics.median(times):.1f} "
           f"img/s; phase 8's flagship step {RECORD.get('step yolo-somi', float('nan')) * 1e3:.1f} ms), losses "
           f"[loss, box, obj, cls] {[[round(v, 4) for v in row] for row in losses]}, launches per step "
           f"{ {k: v // ZOO_STEPS for k, v in launches.items() if v} }, peak memory {peak / 1e9:.2f} GB")
     del model, state, step
     torch.cuda.empty_cache()
-    train_step_parity(root, "zoo-fusion", cfg=zoo_graph("zoo-fusion"))
+    train_step_parity(root, name, cfg=zoo_graph(name))
     return {k: v // ZOO_STEPS for k, v in launches.items() if v}
+
+
+def map_sized(cfg: dict) -> bool:
+    """Whether a graph has a block that takes the map's size at build
+    (MHSA): a Runner from a seed sizes it for min(imgsz, 256), as the JAX
+    Runner inits, so such a graph serves at IMGSZ from a weights file made
+    at IMGSZ."""
+    return any(row[2] == "MHSA" for row in list(cfg["backbone"]) + list(cfg["head"]))
 
 
 def body_zoo_phase(gpu: str) -> dict:
     """Phase 17: each graph of models/zoo_graphs.py (the full-width
     flagship with the body zoo's rows, nc 10) served and held in f32 (a,
-    through head_serve), zoo-fusion trained (b). Returns the serving
-    launches per batch by graph and the training launches per step."""
+    through head_serve; a graph with MHSA from a weights file built at
+    IMGSZ), each of ZOO_TRAINED trained (b). Returns the serving launches
+    per batch by graph and the training launches per step by graph."""
     t_phase = time.perf_counter()
     OUT.mkdir(exist_ok=True)
     served = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name in ZOO_GRAPHS:
-            path = tmp / f"{name}.yaml"
-            path.write_text(yaml.safe_dump(zoo_graph(name)))
-            served[name] = head_serve(gpu, name, path, label=f"zoo {name}")
+            cfg = zoo_graph(name)
+            path, weights = tmp / f"{name}.yaml", None
+            path.write_text(yaml.safe_dump(cfg))
+            if map_sized(cfg):
+                weights = tmp / f"{name}.msgpack"
+                model, _ = build_model(cfg, nc=10, device="cuda", seed=0, imgsz=IMGSZ)
+                save_variables(weights, export_jax_variables(model))
+                del model
+            served[name] = head_serve(gpu, name, path, label=f"zoo {name}", weights=weights)
             RECORD[f"zoo serve {name}"] = served[name]["latency"]
         t_a = time.perf_counter()
         root = tmp / "shapes"
         write_shapes_split(root, "train", TRAIN_IMAGES, np.random.default_rng(0))  # phase 8's set
-        trained = zoo_training(gpu, root)
+        trained = {name: zoo_training(gpu, root, name) for name in ZOO_TRAINED}
     print(f"body zoo on {gpu}: phase 17 {time.perf_counter() - t_phase:.1f} s (serving and f32 parity "
           f"{t_a - t_phase:.1f} s)")
-    return dict(served={k: v["launches"]["odconv_s2"] // N_REQUESTS for k, v in served.items()},
-                trained={"zoo-fusion": trained})
+    return dict(served={k: v["launches"]["odconv_s2"] // N_REQUESTS for k, v in served.items()}, trained=trained)
 
 
 def build_all() -> None:
@@ -4297,7 +4320,7 @@ def main() -> int:
         per_job = {head: counts[entry["name"]] for head, counts in heads["trained"].items() if counts.get(entry["name"])}
         if per_job:
             entry["heads_launches_per_train_step"] = per_job
-        # phase 17: launches per served batch of each body zoo graph, per train step of zoo-fusion
+        # phase 17: launches per served batch of each body zoo graph, per train step of zoo-fusion and zoo-rfem
         if entry["name"] == "odconv_s2":
             entry["zoo_body_launches_per_batch"] = zoo["served"]
         per_job = {g: counts[entry["name"]] for g, counts in zoo["trained"].items() if counts.get(entry["name"])}

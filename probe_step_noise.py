@@ -1,9 +1,9 @@
 """How far rounding alone moves a full-width f32 train step's gradients, on one GPU.
 
-    python3 probe_step_noise.py
+    python3 probe_step_noise.py [graph ...]
 
-For zoo-fusion (yolosomi_tpu_torch/models/zoo_graphs.py) and the flagship,
-each at 640 px, b2, seed-0 weights with the head tempered, on phase 8's
+For the named graphs of yolosomi_tpu_torch/models/zoo_graphs.py or configs
+(by default zoo-fusion and the flagship, yolo-somi), each at 640 px, b2, seed-0 weights with the head tempered, on phase 8's
 synthetic set (chip_smoke.py's train_step_parity setup): the step through
 the kernels, the plain step (plain_version()), and the plain step from
 parameters nudged by one ulp (x (1 + 2**-23)), each against the plain
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from yolosomi_tpu_torch.models.zoo_graphs import zoo_graph
+from yolosomi_tpu_torch.models.zoo_graphs import ZOO_GRAPHS, zoo_graph
 from yolosomi_tpu_torch.ops.odconv import plain_version
 
 
@@ -49,8 +49,8 @@ def main() -> int:
         cs.write_shapes_split(root, "train", cs.TRAIN_IMAGES, np.random.default_rng(0))
         ds = cs.DetectionDataset(str(root / "train" / "images"), img_size=cs.IMGSZ)
         images, targets, _, _ = next(iter(cs.DataLoader(ds, 2)))
-        for name, cfg in (("zoo-fusion", zoo_graph("zoo-fusion")),
-                          ("yolo-somi", cs.load_model_cfg(cs.find_config("yolo-somi")))):
+        for name in sys.argv[1:] or ("zoo-fusion", "yolo-somi"):
+            cfg = zoo_graph(name) if name in ZOO_GRAPHS else cs.load_model_cfg(cs.find_config(name))
             model, meta = cs.build_model(cfg, nc=10, device="cuda", seed=0)
             cs.temper_head(model, cs.HEAD_TEMPER)
             plain, nudged, f64 = copy.deepcopy(model), copy.deepcopy(model), copy.deepcopy(model).double()

@@ -99,3 +99,27 @@ def jax_random_model(cfg: dict, nc: int = NC, seed: int = 0):
     model, meta = jax_build_model(cfg, nc=nc)
     shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, IMGSZ, IMGSZ, 3)), train=False))
     return model, meta, _to_dict(random_variables(shapes, seed))
+
+
+# the blocks of the JAX registry with no dataclass field but dtype: its
+# parse_model builds a plain row as `cls(c2, dtype=dtype)`, which fills
+# dtype twice and raises TypeError; the port builds them from an empty row
+FIELDLESS = ("LSKblock", "TripletAttention", "NonLocalBlock", "DoubleAttention", "ParallelPolarizedSelfAttention",
+             "S2Attention", "ELA", "MSCAAttention")
+
+
+@pytest.fixture(scope="module")
+def fieldless_rows():
+    """Within a module that uses it, the JAX registry builds the FIELDLESS
+    blocks from an empty row as the port does (`cls(dtype=dtype)`); the
+    registry is restored after the module."""
+    from yolosomi_tpu.models import yolo as jyolo
+
+    def no_field(cls):
+        return lambda *args, dtype: cls(dtype=dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in FIELDLESS:
+            cls, kind = jyolo._REGISTRY[name]
+            mp.setitem(jyolo._REGISTRY, name, (no_field(cls), kind))
+        yield

@@ -222,11 +222,10 @@ def test_plain_row_args_fill_the_flax_fields(case):
     assert j == p == value
 
 
-@pytest.mark.parametrize("module", ["GAMAttention", "LSKblock", "ConvMixer", "C3STR", "SimConv", "Add"])
+@pytest.mark.parametrize("module", ["ASPP", "CPCA", "ConvTranspose", "C3_CBAM", "SimConv", "Add"])
 def test_names_still_outside_the_registry_name_what_remains(module):
-    """The rest of item 8: layers.py's attention family, RFEM / LVC /
-    ConvMixer / Swin, layers_zoo.py and its kinds."""
-    with pytest.raises(KeyError, match=f"'{module}'.*item 8.*attention family.*layers_zoo.py"):
+    """The rest of item 8: layers_zoo.py's blocks and its kinds."""
+    with pytest.raises(KeyError, match=f"'{module}'.*item 8.*layers_zoo.py"):
         pyolo.parse_model(row_cfg([-1, 1, module, [128]]))
 
 

@@ -90,8 +90,9 @@ class Runner:
     inferred from its head unless given; its anchors, when it carries them,
     replace the config's); else from `variables`, the JAX package's flax
     variables as nested dicts of numpy arrays; else, and when the `weights`
-    path does not exist, from `seed`. `imgsz` is taken for the JAX Runner's
-    signature; nothing here depends on it. `spatial_shards` > 1 serves
+    path does not exist, from `seed`. `imgsz` sizes the blocks that take
+    the map's size at build (MHSA) for min(imgsz, 256), as the JAX Runner
+    inits; a weights file's shapes replace that. `spatial_shards` > 1 serves
     H-sharded over the process group, which must be up (torchrun or
     spawn_local; SpatialMesh raises otherwise); `exchange` then holds the
     last batch's all-reduced bytes by kind (a TTA batch's summed over its
@@ -134,7 +135,8 @@ class Runner:
                 LOGGER.info("anchors restored from checkpoint")
         elif weights is not None:
             LOGGER.warning(f"weights {weights} not found; using random weights from seed {seed}")
-        self.model, self.meta = build_model(cfg_dict, nc=nc, device=device, dtype=dtype, seed=seed, anchors=anchors)
+        self.model, self.meta = build_model(cfg_dict, nc=nc, device=device, dtype=dtype, seed=seed, anchors=anchors,
+                                            imgsz=min(imgsz, 256))
         self.device = next(self.model.parameters()).device
         self.dtype = dtype
         if variables is not None:

@@ -1500,3 +1500,1043 @@ def strip_halo(model: nn.Module) -> int:
         elif isinstance(m, ZeroPad2d):
             halo = max(halo, *m.pads[2:])
     return halo
+
+
+# ---------------------------------------------------------------------------
+# layers.py's attention family, LSKA / SPPF_LSKA, the Swin and HorNet blocks
+# and the RFEM / EVC family (yolosomi_tpu/models/layers.py:1310-1406,
+# :1765-1805, :1951-2163, :2186-2760). Several of them work on the NHWC
+# tensor as the JAX package does (a Dense over the channels, reshapes of
+# the NHWC array); these take `x.permute(0, 2, 3, 1)`, which is the
+# channels_last memory itself, and hand back its permute. The f32 islands
+# of the JAX package (softmaxes, some einsums, TridentBlock's convs) run in
+# at least float32 (float64 stays float64) with autocast off. None of them
+# has a strip path: those that reduce over the whole map, attend across
+# it or convolve without a halo refuse a strip.
+# ---------------------------------------------------------------------------
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """`x` in at least float32: float64 stays float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+@contextlib.contextmanager
+def no_autocast(x: torch.Tensor):
+    """Autocast off on `x`'s device: the JAX package's f32 einsums and convs."""
+    with torch.autocast(x.device.type, enabled=False):
+        yield
+
+
+def raw_conv(c1: int, c2: int, k, s: int = 1, g: int = 1, d: int = 1, p=None, bias: bool = True) -> ConvRaw:
+    """A bare ConvRaw with the JAX package's padding: k // 2 of the dilated
+    kernel per axis unless `p` is given (layers.py:91)."""
+    kk = (k, k) if isinstance(k, int) else tuple(k)
+    pad = tuple((d * (x - 1) + 1) // 2 for x in kk) if p is None else p
+    return ConvRaw(c1, c2, kk, s, pad, dilation=d, groups=g, bias=bias)
+
+
+def nhwc_conv(conv: nn.Module, t: torch.Tensor) -> torch.Tensor:
+    """`conv` of an NHWC tensor, as an NHWC tensor."""
+    return conv(t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def _flax_normalize(x: torch.Tensor, dims, eps: float, fast: bool, scale, bias, shape) -> torch.Tensor:
+    """flax.linen's normalization: the statistics over `dims` in at least
+    float32, the variance E[x²] - E[x]² clipped at 0 where `fast` (flax's
+    default) or E[(x - mean)²], then (x - mean) * (rsqrt(var + eps) *
+    scale) + bias, cast back to x's dtype."""
+    xf = wide(x)
+    mean = xf.mean(dims, keepdim=True)
+    if fast:
+        var = (xf.square().mean(dims, keepdim=True) - mean.square()).clamp_min(0)
+    else:
+        var = (xf - mean).square().mean(dims, keepdim=True)
+    mul = torch.rsqrt(var + eps) * scale.to(xf.dtype).view(shape)
+    return ((xf - mean) * mul + bias.to(xf.dtype).view(shape)).to(x.dtype)
+
+
+class FlaxLayerNorm(nn.LayerNorm):
+    """flax.linen.LayerNorm over the channel axis `dim` (eps 1e-6 and the
+    fast variance unless given)."""
+
+    def __init__(self, c: int, eps: float = 1e-6, dim: int = -1):
+        super().__init__(c, eps=eps)
+        self.dim = dim
+
+    def forward(self, x):
+        shape = [1] * x.dim()
+        shape[self.dim] = -1
+        return _flax_normalize(x, [self.dim], self.eps, True, self.weight, self.bias, shape)
+
+
+class FlaxGroupNorm(nn.GroupNorm):
+    """flax.linen.GroupNorm (eps 1e-6 and the fast variance unless given)
+    on an NCHW tensor, or on an NHWC one with `nhwc`: per sample, over the
+    map and each group's channels."""
+
+    def __init__(self, groups: int, c: int, eps: float = 1e-6, fast: bool = True):
+        super().__init__(groups, c, eps=eps)
+        self.fast = fast
+
+    def forward(self, x, nhwc: bool = False):
+        t = x if nhwc else x.movedim(1, -1)
+        shape = t.shape
+        g = t.reshape(shape[0], -1, self.num_groups, shape[-1] // self.num_groups)
+        y = _flax_normalize(g, [1, 3], self.eps, self.fast, self.weight.view(self.num_groups, -1),
+                            self.bias.view(self.num_groups, -1), (1, 1, self.num_groups, -1)).reshape(shape)
+        return y if nhwc else y.movedim(-1, 1)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """The JAX package's `_adaptive_avg_pool` (layers.py:2442) on NCHW: the
+    map itself at its own size, the mean of whole blocks where the size
+    divides, else jax.image.resize's linear resize, which antialiases when
+    it shrinks (F.interpolate's antialiased bilinear, in at least float32)."""
+    b, c, h, w = x.shape
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(b, c, oh, h // oh, ow, w // ow).mean((3, 5))
+    return resize_linear(x, (oh, ow))
+
+
+def resize_linear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(..., "linear") of an NCHW map: half-pixel centres,
+    antialiased when it shrinks, in at least float32, cast back."""
+    y = F.interpolate(wide(x), size=tuple(out_hw), mode="bilinear", align_corners=False, antialias=True)
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+class GAMAttention(nn.Module):
+    """Global attention (layers.py:1310): a Dense pair `fc1` / `fc2` (c / rate)
+    over the channels of every pixel gates x, then two biased 7x7 convs
+    `sp1` / `sp2` each with a BatchNorm `bn1` / `bn2` (eps 1e-3) gate it
+    again. The row's c2 slot does not enter the block."""
+
+    def __init__(self, c1: int, rate: int = 4):
+        super().__init__()
+        mid = max(c1 // rate, 1)
+        self.fc1 = nn.Linear(c1, mid)
+        self.fc2 = nn.Linear(mid, c1)
+        self.sp1 = raw_conv(c1, mid, 7)
+        self.bn1 = FlaxBatchNorm2d(mid, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.sp2 = raw_conv(mid, c1, 7)
+        self.bn2 = FlaxBatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        v = self.fc2(torch.relu(self.fc1(x.permute(0, 2, 3, 1)))).permute(0, 3, 1, 2)
+        x = x * torch.sigmoid(v)
+        s = self.bn2(self.sp2(torch.relu(self.bn1(self.sp1(x)))))
+        return x * torch.sigmoid(s)
+
+
+class SKAttention(nn.Module):
+    """Selective-kernel attention (layers.py:1336): a Conv `k<k>` per kernel
+    size, summed; the whole-map mean through Dense `fc` (max(c / reduction,
+    32)) and one Dense `fc_<k>` per branch; the softmax across the branches
+    weighs them."""
+
+    def __init__(self, c1: int, kernels: Sequence[int] = (1, 3, 5, 7), reduction: int = 16):
+        super().__init__()
+        self.kernels = tuple(kernels)
+        mid = max(c1 // reduction, 32)
+        for k in self.kernels:
+            setattr(self, f"k{k}", Conv(c1, c1, k, 1))
+        self.fc = nn.Linear(c1, mid)
+        for k in self.kernels:
+            setattr(self, f"fc_{k}", nn.Linear(mid, c1))
+
+    def forward(self, x):
+        refuse_strip(self)
+        branches = [getattr(self, f"k{k}")(x) for k in self.kernels]
+        z = self.fc(sum(branches).mean((2, 3)))
+        attn = torch.softmax(torch.stack([getattr(self, f"fc_{k}")(z) for k in self.kernels], 0), 0)
+        return sum(a[:, :, None, None] * b for a, b in zip(attn, branches))
+
+
+class ShuffleAttention(nn.Module):
+    """Shuffle attention (layers.py:1360): the channels in `groups` groups
+    of 2 cg; the first cg of each gated by its whole-map mean, the other cg
+    by its GroupNorm `gn` (eps 1e-5, two-pass variance), each through its
+    (1, 1, 1, g, cg) `cweight` / `cbias` or `sweight` / `sbias`; then the
+    channel shuffle (g, 2) -> (2, g)."""
+
+    flax_shaped = ("cweight", "cbias", "sweight", "sbias")
+
+    def __init__(self, c1: int, groups: int = 8):
+        super().__init__()
+        self.groups = groups
+        cg = c1 // (2 * groups)
+        self.cweight = nn.Parameter(torch.zeros(1, 1, 1, groups, cg))
+        self.cbias = nn.Parameter(torch.ones(1, 1, 1, groups, cg))
+        self.sweight = nn.Parameter(torch.zeros(1, 1, 1, groups, cg))
+        self.sbias = nn.Parameter(torch.ones(1, 1, 1, groups, cg))
+        self.gn = FlaxGroupNorm(groups, groups * cg, eps=1e-5, fast=False)
+
+    def forward(self, x):
+        refuse_strip(self)
+        t = x.permute(0, 2, 3, 1)
+        b, h, w, c = t.shape
+        g = self.groups
+        cg = c // (2 * g)
+        xg = t.reshape(b, h, w, g, 2 * cg)
+        x0, x1 = xg[..., :cg], xg[..., cg:]
+        x0 = x0 * torch.sigmoid(x0.mean((1, 2), keepdim=True) * self.cweight + self.cbias)
+        gn = self.gn(x1.reshape(b, h, w, g * cg), nhwc=True).reshape(b, h, w, g, cg)
+        x1 = x1 * torch.sigmoid(gn * self.sweight + self.sbias)
+        out = torch.cat([x0, x1], -1).reshape(b, h, w, g, 2, cg).transpose(3, 4).reshape(b, h, w, c)
+        return out.permute(0, 3, 1, 2)
+
+
+class NAMAttention(nn.Module):
+    """Normalization-based attention (layers.py:1393): a BatchNorm `bn`
+    without scale or bias (eps 1e-3), then its own `gamma` / `beta`, each
+    channel weighted by |gamma| / sum |gamma| * c, a sigmoid gate."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(c1))
+        self.beta = nn.Parameter(torch.zeros(c1))
+        self.bn = FlaxBatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM, affine=False)
+
+    def forward(self, x):
+        y = self.bn(x) * self.gamma[:, None, None] + self.beta[:, None, None]
+        g = self.gamma.abs()
+        wn = g / (g.sum() + 1e-12) * x.shape[1]
+        return x * torch.sigmoid(y * wn[:, None, None])
+
+
+class EMAAttention(nn.Module):
+    """Efficient multi-scale attention (layers.py:2390). The NHWC array is
+    reshaped to (b * factor, h, w, c / factor) as the JAX package does: its
+    memory cut into bands of h / factor rows (not channel groups), each a
+    map of c / factor channels. On each: the h- and w-profiles through a
+    biased 1x1 `conv1x1`, sigmoid gates, GroupNorm `gn` (one group a
+    channel, eps 1e-6); a biased 3x3 `conv3x3` beside it; the two softmaxed
+    channel means cross-weigh the pixels."""
+
+    def __init__(self, c1: int, factor: int = 8):
+        super().__init__()
+        self.factor = factor
+        cg = c1 // factor
+        self.conv1x1 = raw_conv(cg, cg, 1)
+        self.conv3x3 = raw_conv(cg, cg, 3)
+        self.gn = FlaxGroupNorm(cg, cg)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        g = self.factor
+        cg = c // g
+        xg = x.permute(0, 2, 3, 1).reshape(b * g, h, w, cg)
+        hw = torch.cat([xg.mean(2), xg.mean(1)], 1)[:, :, None, :]  # (bg, h + w, 1, cg)
+        hw = nhwc_conv(self.conv1x1, hw)[:, :, 0]
+        gated = xg * torch.sigmoid(hw[:, :h])[:, :, None, :] * torch.sigmoid(hw[:, h:])[:, None, :, :]
+        x1 = self.gn(gated, nhwc=True)
+        x2 = nhwc_conv(self.conv3x3, xg)
+        a11 = torch.softmax(x1.mean((1, 2)), -1)[:, None, :]
+        a21 = torch.softmax(x2.mean((1, 2)), -1)[:, None, :]
+        weights = (torch.einsum("bkc,bnc->bn", a11, x2.reshape(b * g, h * w, cg))
+                   + torch.einsum("bkc,bnc->bn", a21, x1.reshape(b * g, h * w, cg))).reshape(b * g, h, w, 1)
+        return (xg * torch.sigmoid(weights)).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class LSKblock(nn.Module):
+    """Large-selective-kernel gating (layers.py:2421): a 5x5 depthwise
+    `conv0`, a 7x7 depthwise `conv_spatial` dilated 3 after it, each to c / 2
+    by `conv1` / `conv2`; their channel mean and max through the 7x7
+    `conv_squeeze` weigh them; `conv` back to c gates x. All biased."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.conv0 = raw_conv(c1, c1, 5, g=c1)
+        self.conv_spatial = raw_conv(c1, c1, 7, g=c1, d=3)
+        self.conv1 = raw_conv(c1, c1 // 2, 1)
+        self.conv2 = raw_conv(c1, c1 // 2, 1)
+        self.conv_squeeze = raw_conv(2, 2, 7)
+        self.conv = raw_conv(c1 // 2, c1, 1)
+
+    def forward(self, x):
+        a1 = self.conv0(x)
+        a2 = self.conv_spatial(a1)
+        a1, a2 = self.conv1(a1), self.conv2(a2)
+        attn = torch.cat([a1, a2], 1)
+        sig = torch.sigmoid(self.conv_squeeze(torch.cat([attn.mean(1, keepdim=True), attn.amax(1, keepdim=True)], 1)))
+        return x * self.conv(a1 * sig[:, 0:1] + a2 * sig[:, 1:2])
+
+
+class MLCA(nn.Module):
+    """Mixed local-channel attention (layers.py:2453): the map pooled to
+    local_size x local_size (adaptive_avg_pool: block means where the size
+    divides, the antialiased linear resize otherwise) and its mean; a 1-D
+    conv of k taps (k odd from log2(c), b and gamma) along the channels of
+    each (`conv_local`, `conv`: flax (1, k, 1, 1) kernels, (1, 1, 1, k)
+    here), in at least float32; the sigmoids mixed by local_weight and
+    resized (linear) to the map gate x."""
+
+    hwio = ("conv_local", "conv")
+
+    def __init__(self, c1: int, local_size: int = 5, gamma: int = 2, b: int = 1, local_weight: float = 0.5):
+        super().__init__()
+        self.local_size, self.local_weight = local_size, local_weight
+        t = int(abs(math.log2(c1) + b) / gamma)
+        k = max(t if t % 2 else t + 1, 1)
+        self.conv_local = nn.Parameter(torch.zeros(1, 1, 1, k))
+        self.conv = nn.Parameter(torch.zeros(1, 1, 1, k))
+
+    def _conv1d(self, v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:  # (n, c) -> (n, c)
+        k = kern.shape[-1]
+        with no_autocast(v):
+            return F.conv2d(wide(v)[:, None, None, :], wide(kern), padding=(0, (k - 1) // 2))[:, 0, 0, :]
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        ls = self.local_size
+        local = adaptive_avg_pool(x, (ls, ls))
+        glob = local.mean((2, 3))
+        y_local = self._conv1d(local.permute(0, 2, 3, 1).reshape(-1, c), self.conv_local).reshape(b, ls, ls, c)
+        y_global = self._conv1d(glob, self.conv)
+        att = torch.sigmoid(y_global)[:, None, None, :] * (1 - self.local_weight) \
+            + torch.sigmoid(y_local) * self.local_weight
+        return x * resize_linear(att.permute(0, 3, 1, 2), (h, w)).to(x.dtype)
+
+
+class TripletAttention(nn.Module):
+    """Triplet attention (layers.py:2493): three gates, each the channel
+    max and mean of a view of the NHWC array through a bias-free 7x7 conv
+    and a sigmoid: `cw` on the array, `hc` on its (b, c, w, h) transpose and
+    `wc` on its (b, h, c, w) one (their kernels run over (c, w) and (h, c)),
+    averaged."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.cw = raw_conv(2, 1, 7, bias=False)
+        self.hc = raw_conv(2, 1, 7, bias=False)
+        self.wc = raw_conv(2, 1, 7, bias=False)
+
+    @staticmethod
+    def _gate(t: torch.Tensor, conv: nn.Module) -> torch.Tensor:  # NHWC
+        z = torch.cat([t.amax(-1, keepdim=True), t.mean(-1, keepdim=True)], -1)
+        return t * torch.sigmoid(nhwc_conv(conv, z))
+
+    def forward(self, x):
+        refuse_strip(self)
+        t = x.permute(0, 2, 3, 1)
+        b1 = self._gate(t, self.cw)
+        b2 = self._gate(t.permute(0, 3, 2, 1), self.hc).permute(0, 3, 2, 1)
+        b3 = self._gate(t.permute(0, 1, 3, 2), self.wc).permute(0, 1, 3, 2)
+        return ((b1 + b2 + b3) / 3.0).permute(0, 3, 1, 2)
+
+
+class GlobalContextBlock(nn.Module):
+    """GCNet's context block (layers.py:2516): a biased 1x1 `conv_mask`
+    softmaxed over the map weighs the pixels (in at least float32), then
+    Dense `fc1` (c ratio), LayerNorm `ln` (eps 1e-6), ReLU, Dense `fc2`,
+    added to every pixel."""
+
+    def __init__(self, c1: int, ratio: float = 0.25):
+        super().__init__()
+        hid = max(int(c1 * ratio), 1)
+        self.conv_mask = raw_conv(c1, 1, 1)
+        self.fc1 = nn.Linear(c1, hid)
+        self.ln = FlaxLayerNorm(hid)
+        self.fc2 = nn.Linear(hid, c1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        with no_autocast(x):
+            ctx_w = torch.softmax(wide(self.conv_mask(x)).reshape(b, h * w), 1)
+            ctx = torch.einsum("bn,bnc->bc", ctx_w, wide(x).permute(0, 2, 3, 1).reshape(b, h * w, c))
+        t = self.fc2(torch.relu(self.ln(self.fc1(ctx.to(x.dtype)))))
+        return x + t[:, :, None, None]
+
+
+class SpatialGroupEnhance(nn.Module):
+    """SGE (layers.py:2621). The NHWC array is reshaped to (b * groups, h,
+    w, c / groups) as the JAX package does (bands of rows, not channel
+    groups); each pixel's channel sum of x * its map mean is standardized
+    over the map (population std, + 1e-5), reshaped (b, h, w, groups) across
+    the bands, scaled by `weight` and shifted by `bias` ((1, 1, 1, groups)
+    each), and gates the band."""
+
+    flax_shaped = ("weight", "bias")
+
+    def __init__(self, c1: int, groups: int = 8):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(1, 1, 1, groups))
+        self.bias = nn.Parameter(torch.zeros(1, 1, 1, groups))
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        g = self.groups
+        xg = x.permute(0, 2, 3, 1).reshape(b * g, h, w, c // g)
+        t = (xg * xg.mean((1, 2), keepdim=True)).sum(-1, keepdim=True)
+        t = (t - t.mean((1, 2), keepdim=True)) / (t.std((1, 2), keepdim=True, correction=0) + 1e-5)
+        t = (t.reshape(b, h, w, g) * self.weight + self.bias).reshape(b * g, h, w, 1)
+        return (xg * torch.sigmoid(t)).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class ELA(nn.Module):
+    """Efficient local attention (layers.py:2727): the h-profile (mean over
+    W) through a bias-free depthwise (7, 1) `conv_h` and GroupNorm `gn`, the
+    w-profile through (1, 7) `conv_w` and `gn2` (16 groups where c divides,
+    else 1; eps 1e-6), sigmoid gates along H and W."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        groups = 16 if c1 % 16 == 0 else 1
+        self.conv_h = raw_conv(c1, c1, (7, 1), g=c1, bias=False)
+        self.conv_w = raw_conv(c1, c1, (1, 7), g=c1, bias=False)
+        self.gn = FlaxGroupNorm(groups, c1)
+        self.gn2 = FlaxGroupNorm(groups, c1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        ah = torch.sigmoid(self.gn(self.conv_h(x.mean(3, keepdim=True))))
+        aw = torch.sigmoid(self.gn2(self.conv_w(x.mean(2, keepdim=True))))
+        return x * ah * aw
+
+
+class MSCAAttention(nn.Module):
+    """SegNeXt's multi-scale strip-conv attention (layers.py:2746): a 5x5
+    depthwise `conv0`, then for k in 7, 11, 21 a depthwise (1, k) `conv<i>_1`
+    and (k, 1) `conv<i>_2` added on in turn, a 1x1 `conv3`; it gates x. All
+    biased."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.conv0 = raw_conv(c1, c1, 5, g=c1)
+        for i, k in enumerate((7, 11, 21)):
+            setattr(self, f"conv{i}_1", raw_conv(c1, c1, (1, k), g=c1))
+            setattr(self, f"conv{i}_2", raw_conv(c1, c1, (k, 1), g=c1))
+        self.conv3 = raw_conv(c1, c1, 1)
+
+    def forward(self, x):
+        a = self.conv0(x)
+        for i in range(3):
+            a = a + getattr(self, f"conv{i}_2")(getattr(self, f"conv{i}_1")(a))
+        return x * self.conv3(a)
+
+
+class LSKA(nn.Module):
+    """Large separable kernel attention (layers.py:1765): depthwise (1, k)
+    `dw_h` and (k, 1) `dw_v`, the dilated pair `dwd_h` / `dwd_v`, a 1x1
+    `conv1` (all biased), gating x; (k, dilated k, dilation) from k_size by
+    the JAX package's table."""
+
+    CFG = {7: (3, 3, 2), 11: (3, 5, 2), 23: (5, 7, 3), 35: (5, 11, 3), 41: (5, 13, 3), 53: (5, 17, 3)}
+
+    def __init__(self, c1: int, k_size: int = 11):
+        super().__init__()
+        if k_size not in self.CFG:
+            raise KeyError(f"LSKA k_size {k_size} is not one of {sorted(self.CFG)}")
+        bk, dk, dil = self.CFG[k_size]
+        self.dw_h = raw_conv(c1, c1, (1, bk), g=c1)
+        self.dw_v = raw_conv(c1, c1, (bk, 1), g=c1)
+        self.dwd_h = raw_conv(c1, c1, (1, dk), g=c1, d=dil)
+        self.dwd_v = raw_conv(c1, c1, (dk, 1), g=c1, d=dil)
+        self.conv1 = raw_conv(c1, c1, 1)
+
+    def forward(self, x):
+        return x * self.conv1(self.dwd_v(self.dwd_h(self.dw_v(self.dw_h(x)))))
+
+
+class SPPF_LSKA(nn.Module):
+    """SPPF with LSKA (k_size 11) on the pooled concatenation (layers.py:1788):
+    cv1 to c1 / 2, three chained k x k stride-1 max-pools, `lska`, cv2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = k
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.lska = LSKA(4 * c_, 11)
+        self.cv2 = Conv(4 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = max_pool(x, self.k)
+        y2 = max_pool(y1, self.k)
+        return self.cv2(self.lska(torch.cat([x, y1, y2, max_pool(y2, self.k)], 1)))
+
+
+class NonLocalBlock(nn.Module):
+    """Embedded-Gaussian non-local block (layers.py:2536): biased 1x1
+    `theta`, `phi`, `g` to c / 2, the (hw x hw) affinity softmaxed in at least
+    float32 and cast back, then `out` back to c, with the residual."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        inter = max(c1 // 2, 1)
+        self.theta = raw_conv(c1, inter, 1)
+        self.phi = raw_conv(c1, inter, 1)
+        self.g = raw_conv(c1, inter, 1)
+        self.out = raw_conv(inter, c1, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        flat = lambda t: t.permute(0, 2, 3, 1).reshape(b, h * w, -1)  # noqa: E731
+        logits = flat(self.theta(x)) @ flat(self.phi(x)).transpose(1, 2)
+        attn = torch.softmax(wide(logits), -1).to(x.dtype)
+        y = (attn @ flat(self.g(x))).reshape(b, h, w, -1).permute(0, 3, 1, 2)
+        return x + self.out(y)
+
+
+class CoTAttention(nn.Module):
+    """Contextual transformer attention (layers.py:2555): `key_embed` (a k x k
+    Conv grouped by 4), `value_embed` (a 1x1 Conv, no activation); `att1`
+    (a 1x1 Conv to c / 2) and the biased 1x1 `att2` to k² c channels of
+    [key, x], averaged over the k² of each channel and softmaxed over the
+    channels (in at least float32), weigh the values; plus key."""
+
+    def __init__(self, c1: int, kernel_size: int = 3):
+        super().__init__()
+        k = self.k = kernel_size
+        self.key_embed = Conv(c1, c1, k, 1, g=4)
+        self.value_embed = Conv(c1, c1, 1, act=False)
+        self.att1 = Conv(2 * c1, 2 * c1 // 4, 1)
+        self.att2 = raw_conv(2 * c1 // 4, k * k * c1, 1)
+
+    def forward(self, x):
+        key = self.key_embed(x)
+        val = self.value_embed(x)
+        b, c, h, w = x.shape
+        att = self.att2(self.att1(torch.cat([key, x], 1))).permute(0, 2, 3, 1).reshape(b, h, w, c, -1).mean(-1)
+        k2 = torch.softmax(wide(att), -1).to(x.dtype) * val.permute(0, 2, 3, 1)
+        return key + k2.permute(0, 3, 1, 2)
+
+
+class DoubleAttention(nn.Module):
+    """A²-Nets double attention (layers.py:2575): biased 1x1 `convA`,
+    `convB`, `convV` to c / 2; B softmaxed over the map gathers A into a
+    (c/2 x c/2) descriptor, V softmaxed over the channels reads it out (all
+    in at least float32); `conv_out` back to c, with the residual."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        cm = max(c1 // 2, 1)
+        self.convA = raw_conv(c1, cm, 1)
+        self.convB = raw_conv(c1, cm, 1)
+        self.convV = raw_conv(c1, cm, 1)
+        self.conv_out = raw_conv(cm, c1, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        flat = lambda t: wide(t).permute(0, 2, 3, 1).reshape(b, h * w, -1)  # noqa: E731
+        with no_autocast(x):
+            desc = torch.einsum("bnc,bnd->bcd", torch.softmax(flat(self.convB(x)), 1), flat(self.convA(x)))
+            z = torch.einsum("bnc,bdc->bnd", torch.softmax(flat(self.convV(x)), -1), desc)
+        return x + self.conv_out(z.reshape(b, h, w, -1).to(x.dtype).permute(0, 3, 1, 2))
+
+
+class ParallelPolarizedSelfAttention(nn.Module):
+    """Polarized self-attention, parallel (layers.py:2594). Channel branch:
+    `ch_wv` (c / 2) pooled by the map softmax of `ch_wq` (one channel),
+    `ch_wz` back to c, LayerNorm `ln` (eps 1e-6), a sigmoid gate. Spatial
+    branch: `sp_wv` (c / 2) weighted by the channel softmax of `sp_wq`'s
+    map mean, a sigmoid gate. Softmaxes in at least float32; the sum of
+    the two gated maps."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        ch = c1 // 2
+        self.ch_wv = raw_conv(c1, ch, 1)
+        self.ch_wq = raw_conv(c1, 1, 1)
+        self.ch_wz = raw_conv(ch, c1, 1)
+        self.ln = FlaxLayerNorm(c1)
+        self.sp_wv = raw_conv(c1, ch, 1)
+        self.sp_wq = raw_conv(c1, ch, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        wv = self.ch_wv(x).permute(0, 2, 3, 1).reshape(b, h * w, -1)
+        wq = torch.softmax(wide(self.ch_wq(x)).reshape(b, h * w), 1).to(x.dtype)
+        z = self.ch_wz(torch.einsum("bnc,bn->bc", wv, wq)[:, :, None, None])
+        ch_out = x * torch.sigmoid(self.ln(z[:, :, 0, 0]))[:, :, None, None]
+        sq = torch.softmax(wide(self.sp_wq(x).mean((2, 3))), -1).to(x.dtype)
+        sp = torch.sigmoid(torch.einsum("bchw,bc->bhw", self.sp_wv(x), sq))[:, None]
+        return ch_out + x * sp
+
+
+class MHSA(nn.Module):
+    """2-D multi-head self-attention with learned positions (layers.py:2644):
+    biased 1x1 `query`, `key`, `value`; the logits q k + q pos, softmaxed
+    (in at least float32) after / sqrt(head dim); no output projection.
+    `rel_h` (1, 1, h, 1, hd) and `rel_w` (1, w, 1, 1, hd) take the map's
+    size at build (`hw`; models.yolo.build_model's imgsz, the JAX
+    init_model's), and a weights file's shapes replace it (`refit`); a map
+    of another size raises ValueError, as flax refuses the parameters' shape.
+    pos is rel_h + rel_w broadcast to (w, h) and then flattened as the
+    row-major (h, w) tokens are, as the JAX package does."""
+
+    flax_shaped = ("rel_h", "rel_w")
+
+    def __init__(self, c1: int, num_heads: int = 4, hw: Tuple[int, int] = (8, 8)):
+        super().__init__()
+        self.num_heads = num_heads
+        hd = c1 // num_heads
+        self.query = raw_conv(c1, c1, 1)
+        self.key = raw_conv(c1, c1, 1)
+        self.value = raw_conv(c1, c1, 1)
+        self.rel_h = nn.Parameter(torch.zeros(1, 1, hw[0], 1, hd))
+        self.rel_w = nn.Parameter(torch.zeros(1, hw[1], 1, 1, hd))
+
+    def refit(self, name: str, shape: Tuple[int, ...]) -> None:
+        """`rel_h` or `rel_w` re-made at `shape` (a weights file's map size)."""
+        old = getattr(self, name)
+        setattr(self, name, nn.Parameter(old.new_zeros(shape)))
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        if (h, w) != (self.rel_h.shape[2], self.rel_w.shape[1]):
+            raise ValueError(f"MHSA was built for a {self.rel_h.shape[2]}x{self.rel_w.shape[1]} map (its rel_h / "
+                             f"rel_w), not {h}x{w}: build the model at the image size it serves (build_model's "
+                             "imgsz) or load weights made at that size")
+        nh = self.num_heads
+        hd = c // nh
+        heads = lambda t: t.permute(0, 2, 3, 1).reshape(b, h * w, nh, hd)  # noqa: E731
+        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        pos = (self.rel_h + self.rel_w).reshape(h * w, hd).to(q.dtype)
+        logits = torch.einsum("bnhd,bmhd->bhnm", q, k) + torch.einsum("bnhd,md->bhnm", q, pos)
+        attn = torch.softmax(wide(logits) / math.sqrt(hd), -1).to(x.dtype)
+        return torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class S2Attention(nn.Module):
+    """Spatial-shift attention (layers.py:2674): Dense `mlp1` to 3c over the
+    channels; the first c rolled by +1 and the next c by -1 pixel in four
+    channel quarters (right, left, down, up; the rolls wrap around), the
+    last c as is; their map means through Dense `mlp_a` and a softmax
+    across the three (in at least float32) weigh them; Dense `mlp2`."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.mlp1 = nn.Linear(c1, 3 * c1)
+        self.mlp_a = nn.Linear(3 * c1, 3 * c1)
+        self.mlp2 = nn.Linear(c1, c1)
+
+    @staticmethod
+    def _shift(t: torch.Tensor, part: int) -> torch.Tensor:  # NHWC
+        q = t.shape[-1] // 4
+        segs = (t[..., :q], t[..., q:2 * q], t[..., 2 * q:3 * q], t[..., 3 * q:])
+        return torch.cat([torch.roll(s, (dy * part, dx * part), (1, 2))
+                          for s, (dy, dx) in zip(segs, ((0, 1), (0, -1), (1, 0), (-1, 0)))], -1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c = x.shape[:2]
+        y = self.mlp1(x.permute(0, 2, 3, 1))
+        stacked = torch.stack([self._shift(y[..., :c], 1), self._shift(y[..., c:2 * c], -1), y[..., 2 * c:]], 1)
+        ahat = self.mlp_a(stacked.mean((2, 3)).reshape(b, 3 * c)).reshape(b, 3, c)
+        ahat = torch.softmax(wide(ahat), 1).to(x.dtype)
+        return self.mlp2((stacked * ahat[:, :, None, None, :]).sum(1)).permute(0, 3, 1, 2)
+
+
+class EfficientAttention(nn.Module):
+    """Linear attention (layers.py:2705): biased 1x1 `queries`, `keys`,
+    `values` in heads; keys softmaxed over the map and queries over the
+    head's channels, the (hd x hd) context and its read-out in at least
+    float32; `reproj` with the residual."""
+
+    def __init__(self, c1: int, num_heads: int = 4):
+        super().__init__()
+        self.num_heads = num_heads
+        self.queries = raw_conv(c1, c1, 1)
+        self.keys = raw_conv(c1, c1, 1)
+        self.values = raw_conv(c1, c1, 1)
+        self.reproj = raw_conv(c1, c1, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b, c, h, w = x.shape
+        heads = lambda t: wide(t).permute(0, 2, 3, 1).reshape(b, h * w, self.num_heads, -1)  # noqa: E731
+        with no_autocast(x):
+            k = torch.softmax(heads(self.keys(x)), 1)
+            q = torch.softmax(heads(self.queries(x)), -1)
+            ctx = torch.einsum("bnhd,bnhe->bhde", k, heads(self.values(x)))
+            out = torch.einsum("bnhd,bhde->bnhe", q, ctx).reshape(b, h, w, c)
+        return x + self.reproj(out.to(x.dtype).permute(0, 3, 1, 2))
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B nW, ws, ws, C); H and W multiples of ws."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // ws, ws, w // ws, ws, c).transpose(2, 3).reshape(-1, ws, ws, c)
+
+
+def window_reverse(wins: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
+    """The inverse of window_partition: (B nW, ws, ws, C) -> (B, H, W, C)."""
+    b = wins.shape[0] // (h * w // ws // ws)
+    return wins.reshape(b, h // ws, w // ws, ws, ws, -1).transpose(2, 3).reshape(b, h, w, -1)
+
+
+_MASKS: dict = {}
+
+
+def shifted_window_mask(hp: int, wp: int, ws: int, ss: int, device) -> torch.Tensor:
+    """The (nW, ws², ws²) attention mask of the shifted windows of a padded
+    hp x wp map (layers.py:2029-2044): -100 between tokens of different
+    regions, else 0, float32. Cached per shape and device."""
+    key = (hp, wp, ws, ss, str(device))
+    if key not in _MASKS:
+        img = np.zeros((hp, wp), np.float32)
+        cnt = 0
+        for hs in (slice(0, -ws), slice(-ws, -ss), slice(-ss, None)):
+            for wsl in (slice(0, -ws), slice(-ws, -ss), slice(-ss, None)):
+                img[hs, wsl] = cnt
+                cnt += 1
+        mw = img.reshape(hp // ws, ws, wp // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+        am = mw[:, None, :] - mw[:, :, None]
+        _MASKS[key] = torch.from_numpy(np.where(am != 0, -100.0, 0.0).astype(np.float32)).to(device)
+    return _MASKS[key]
+
+
+class WindowAttention(nn.Module):
+    """Window multi-head attention with a relative position bias
+    (layers.py:1964): `qkv` (no bias here, as the layer asks), the logits
+    q k / sqrt(hd) plus the `relative_position_bias_table` ((2 ws - 1)², nh)
+    entry of each token pair, indexed W-major (the W delta the major term,
+    layers.py:1986-1992), plus the shifted windows' mask; the softmax in at
+    least float32; `proj`."""
+
+    flax_shaped = ("relative_position_bias_table",)
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        ws = self.window_size = window_size
+        self.num_heads = num_heads
+        self.relative_position_bias_table = nn.Parameter(torch.zeros((2 * ws - 1) ** 2, num_heads))
+        coords = torch.stack(torch.meshgrid(torch.arange(ws), torch.arange(ws), indexing="ij"), 0).reshape(2, -1)
+        rel = coords[:, :, None] - coords[:, None, :]
+        self.register_buffer("index", (rel[1] + ws - 1) * (2 * ws - 1) + (rel[0] + ws - 1), persistent=False)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):  # (B nW, N, C)
+        bw, n, c = x.shape
+        nh = self.num_heads
+        hd = c // nh
+        bias = self.relative_position_bias_table[self.index.reshape(-1)].reshape(n, n, nh).permute(2, 0, 1)
+        q, k, v = self.qkv(x).reshape(bw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        attn = (q * hd ** -0.5) @ k.transpose(-1, -2) + bias[None].to(q.dtype)
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = (attn.reshape(bw // nw, nw, nh, n, n) + mask[None, :, None].to(attn.dtype)).reshape(bw, nh, n, n)
+        attn = torch.softmax(wide(attn), -1).to(v.dtype)
+        return self.proj((attn @ v).transpose(1, 2).reshape(bw, n, c))
+
+
+class SwinTransformerLayer(nn.Module):
+    """One (shifted-)window layer on an NHWC map (layers.py:2008): LayerNorm
+    `norm1` (eps 1e-5), zero padding to window multiples (the padded
+    tokens take part in attention), the roll by -shift and the mask of the
+    padded size where shifted, WindowAttention `attn`, the roll back and
+    crop, the residual; LayerNorm `norm2`, Dense `mlp_fc1` (4c), GELU (exact,
+    tanh with `approx_gelu`), Dense `mlp_fc2`, the residual."""
+
+    def __init__(self, c: int, num_heads: int, window_size: int = 7, shift_size: int = 0, mlp_ratio: int = 4,
+                 approx_gelu: bool = False):
+        super().__init__()
+        self.ws, self.ss = window_size, shift_size
+        self.approximate = "tanh" if approx_gelu else "none"
+        self.norm1 = FlaxLayerNorm(c, eps=1e-5)
+        self.attn = WindowAttention(c, window_size, num_heads, qkv_bias=False)
+        self.norm2 = FlaxLayerNorm(c, eps=1e-5)
+        self.mlp_fc1 = nn.Linear(c, c * mlp_ratio)
+        self.mlp_fc2 = nn.Linear(c * mlp_ratio, c)
+
+    def forward(self, x):  # (B, H, W, C)
+        b, h, w, c = x.shape
+        ws, ss = self.ws, self.ss
+        pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
+        y = F.pad(self.norm1(x), (0, 0, 0, pad_r, 0, pad_b))
+        hp, wp = h + pad_b, w + pad_r
+        mask = None
+        if ss > 0:
+            y = torch.roll(y, (-ss, -ss), (1, 2))
+            mask = shifted_window_mask(hp, wp, ws, ss, x.device)
+        wins = self.attn(window_partition(y, ws).reshape(-1, ws * ws, c), mask)
+        y = window_reverse(wins.reshape(-1, ws, ws, c), ws, hp, wp)
+        if ss > 0:
+            y = torch.roll(y, (ss, ss), (1, 2))
+        x = x + y[:, :h, :w]
+        z = F.gelu(self.mlp_fc1(self.norm2(x)), approximate=self.approximate)
+        return x + self.mlp_fc2(z)
+
+
+class SwinTransformerBlock(nn.Module):
+    """A Conv to c2 where c1 != c2, then num_layers Swin layers `tr<i>`,
+    every other one shifted by window_size // 2 (layers.py:2067)."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int, num_layers: int, window_size: int = 8,
+                 approx_gelu: bool = False):
+        super().__init__()
+        self.conv = Conv(c1, c2) if c1 != c2 else nn.Identity()
+        self.tr = nn.ModuleList(
+            SwinTransformerLayer(c2, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2,
+                                 approx_gelu=approx_gelu) for i in range(num_layers))
+
+    def forward(self, x):
+        refuse_strip(self)
+        t = self.conv(x).permute(0, 2, 3, 1)
+        for layer in self.tr:
+            t = layer(t)
+        return t.permute(0, 3, 1, 2)
+
+
+class C3STR(C3):
+    """C3 whose inner branch `m` is a SwinTransformerBlock (max(c_ // 32, 1)
+    heads, n layers, window 8; layers.py:2093)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5,
+                 approx_gelu: bool = False):
+        super().__init__(c1, c2, 0, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = SwinTransformerBlock(c_, c_, max(c_ // 32, 1), n, approx_gelu=approx_gelu)
+
+
+class GnConv(nn.Module):
+    """Recursive gated convolution (layers.py:2117): biased 1x1 `proj_in` to
+    2 dim, a biased 7x7 depthwise `dwconv` over all but the first dims[0]
+    channels (times s), then the first part gated by the first split and
+    each 1x1 `pw<i>` gated by the next; `proj_out`. dims are dim / 2^i,
+    smallest first. The block is channel-preserving in the graph: its dim
+    must be its input's channel count."""
+
+    def __init__(self, c1: int, dim: Optional[int] = None, order: int = 5, s: float = 1.0):
+        super().__init__()
+        dim = c1 if dim is None else dim
+        if dim != c1:
+            raise ValueError(f"gnconv dim {dim} on {c1} input channels: the graph records the row as "
+                             "channel-preserving, so dim must be the input's channels (ROADMAP queue C)")
+        self.dims = [dim // 2 ** i for i in range(order)][::-1]
+        self.s = s
+        self.proj_in = raw_conv(c1, 2 * dim, 1)
+        self.dwconv = raw_conv(sum(self.dims), sum(self.dims), 7, g=sum(self.dims))
+        self.pw = nn.ModuleList(raw_conv(self.dims[i], self.dims[i + 1], 1) for i in range(order - 1))
+        self.proj_out = raw_conv(dim, dim, 1)
+
+    def forward(self, x):
+        fused = self.proj_in(x)
+        pwa, abc = fused[:, :self.dims[0]], fused[:, self.dims[0]:]
+        dw = (self.dwconv(abc) * self.s).split(self.dims, 1)
+        y = pwa * dw[0]
+        for i, pw in enumerate(self.pw):
+            y = pw(y) * dw[i + 1]
+        return self.proj_out(y)
+
+
+class HorBlock(nn.Module):
+    """HorNet block (layers.py:2140): LayerNorm `norm1` over the channels
+    (eps 1e-6), GnConv `gnconv`, layer-scaled by `gamma1`; LayerNorm `norm2`,
+    Dense `pwconv1` (4c), tanh GELU (flax's default, every dtype), Dense
+    `pwconv2`, layer-scaled by `gamma2`; each with the residual."""
+
+    def __init__(self, c1: int, order: int = 5):
+        super().__init__()
+        self.gamma1 = nn.Parameter(torch.full((c1,), 1e-6))
+        self.gamma2 = nn.Parameter(torch.full((c1,), 1e-6))
+        self.norm1 = FlaxLayerNorm(c1, dim=1)
+        self.gnconv = GnConv(c1, order=order)
+        self.norm2 = FlaxLayerNorm(c1)
+        self.pwconv1 = nn.Linear(c1, 4 * c1)
+        self.pwconv2 = nn.Linear(4 * c1, c1)
+
+    def forward(self, x):
+        x = x + self.gamma1[:, None, None] * self.gnconv(self.norm1(x))
+        z = self.pwconv2(F.gelu(self.pwconv1(self.norm2(x.permute(0, 2, 3, 1))), approximate="tanh"))
+        return x + (self.gamma2 * z).permute(0, 3, 1, 2)
+
+
+class TridentBlock(nn.Module):
+    """Weight-shared three-branch dilated residual block (layers.py:2186):
+    the same bias-free 1x1 `share_weightconv1` and 3x3 `share_weightconv2`
+    (bare flax HWIO kernels, OIHW here) at dilations 1, 2, 3, each conv in
+    at least float32 with autocast off, cast back; one BatchNorm `bn1` and
+    one `bn2` (eps 1e-3) shared by the branches, whose running statistics a
+    train-mode forward moves three times, in branch order; SiLU after bn1,
+    and SiLU of bn2 plus the branch's input. Takes a map (three times) or a
+    list of three; returns three maps."""
+
+    hwio = ("share_weightconv1", "share_weightconv2")
+
+    def __init__(self, c1: int, c2: int, stride: int = 1, e: float = 0.5, dilate: Sequence[int] = (1, 2, 3)):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.stride, self.dilate = stride, tuple(dilate)
+        self.share_weightconv1 = nn.Parameter(torch.zeros(c_, c1, 1, 1))
+        self.share_weightconv2 = nn.Parameter(torch.zeros(c2, c_, 3, 3))
+        self.bn1 = FlaxBatchNorm2d(c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn2 = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def _branch(self, inp: torch.Tensor, d: int) -> torch.Tensor:
+        with no_autocast(inp):
+            y = F.conv2d(wide(inp), wide(self.share_weightconv1)).to(inp.dtype)
+        y = F.silu(self.bn1(y))
+        with no_autocast(y):
+            y = F.conv2d(wide(y), wide(self.share_weightconv2), None, self.stride, d, d).to(inp.dtype)
+        return F.silu(self.bn2(y) + inp)
+
+    def forward(self, x):
+        refuse_strip(self)
+        xs = list(x) if isinstance(x, (list, tuple)) else [x, x, x]
+        return [self._branch(xs[i], self.dilate[i]) for i in range(3)]
+
+
+class RFEM(nn.Module):
+    """Receptive-field enhancement (layers.py:2228): TridentBlock `t0`, the
+    sum of its three maps and x, BatchNorm `bn` (eps 1e-3), SiLU. c2 must
+    be c1. n > 1 raises: the JAX package's second TridentBlock takes the
+    first one's list and fails on it, so there is no reference (ROADMAP
+    queue C)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        if n != 1:
+            raise ValueError(f"RFEM n={n}: the JAX package's RFEM runs only n 1 (its TridentBlock t1 takes a list)")
+        self.t0 = TridentBlock(c1, c2, e=e)
+        self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        out = self.t0(x)
+        return F.silu(self.bn(out[0] + out[1] + out[2] + x))
+
+
+class C3RFEM(nn.Module):
+    """C3 with n RFEMs `m<i>` (width c_, e) as its inner branch (layers.py:2249)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(RFEM(c_, c_, 1, e) for _ in range(n)))
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class Encoding(nn.Module):
+    """Learned-codebook soft assignment (layers.py:2268): each pixel's
+    squared distance to each of `num_codes` codes, softmaxed over the codes
+    with per-code (negative) scales, weighs its residuals, summed over the
+    map -> (B, num_codes, C), in at least float32 with autocast off, cast
+    back. The parameters are stored as flax stores them, before the
+    forward's shifts: the codes are `codewords` - 1 / sqrt(num_codes C) and
+    the scales -`scale`."""
+
+    flax_shaped = ("codewords", "scale")  # not a norm's scale
+
+    def __init__(self, c1: int, num_codes: int = 64):
+        super().__init__()
+        self.codewords = nn.Parameter(torch.zeros(num_codes, c1))
+        self.scale = nn.Parameter(torch.zeros(num_codes))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        k = self.codewords.shape[0]
+        with no_autocast(x):
+            flat = wide(x).permute(0, 2, 3, 1).reshape(b, h * w, 1, c)
+            codes = wide(self.codewords) - 1.0 / math.sqrt(k * c)
+            diff = flat - codes[None, None]  # (b, n, k, c)
+            wts = torch.softmax(-wide(self.scale)[None, None] * diff.square().sum(-1), 2)
+            enc = (wts[..., None] * diff).sum(1)
+        return enc.to(x.dtype)
+
+
+class EVCConvBlock(nn.Module):
+    """The EVC neck's bottleneck (layers.py:2290): bias-free 1x1 `conv1` to
+    c2 / 4, 3x3 `conv2`, 1x1 `conv3` to c2, each with a BatchNorm (eps 1e-6)
+    `bn1`-`bn3` (ReLU after the first two); the residual through a bare 1x1
+    `residual_conv` and `residual_bn` where `res_conv`; ReLU of the sum."""
+
+    def __init__(self, c1: int, c2: int, res_conv: bool = False):
+        super().__init__()
+        c = c2 // 4
+        bn = lambda n: FlaxBatchNorm2d(n, eps=1e-6, momentum=BN_MOMENTUM)  # noqa: E731
+        self.conv1 = raw_conv(c1, c, 1, bias=False)
+        self.bn1 = bn(c)
+        self.conv2 = raw_conv(c, c, 3, bias=False)
+        self.bn2 = bn(c)
+        self.conv3 = raw_conv(c, c2, 1, bias=False)
+        self.bn3 = bn(c2)
+        self.res_conv = res_conv
+        if res_conv:
+            self.residual_conv = raw_conv(c1, c2, 1, bias=False)
+            self.residual_bn = bn(c2)
+
+    def forward(self, x):
+        y = torch.relu(self.bn2(self.conv2(torch.relu(self.bn1(self.conv1(x))))))
+        y = self.bn3(self.conv3(y))
+        res = self.residual_bn(self.residual_conv(x)) if self.res_conv else x
+        return torch.relu(y + res)
+
+
+class LVCBlock(nn.Module):
+    """Learned-vector-codebook gating (layers.py:2319): EVCConvBlock
+    `conv_1` (with its residual conv), then the bare 1x1 `lvc_conv`,
+    BatchNorm `lvc_bn`, ReLU, Encoding `encoding` (num_codes), BatchNorm
+    `en_bn` over its (B, codes, C) channels, ReLU and the mean over the
+    codes, Dense `fc` and a sigmoid: relu(x + x * gate). The row's c2 slot
+    does not enter the block."""
+
+    def __init__(self, c1: int, num_codes: int = 64):
+        super().__init__()
+        self.conv_1 = EVCConvBlock(c1, c1, res_conv=True)
+        self.lvc_conv = raw_conv(c1, c1, 1, bias=False)
+        self.lvc_bn = FlaxBatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.encoding = Encoding(c1, num_codes)
+        self.en_bn = FlaxBatchNorm1d(c1, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.fc = nn.Linear(c1, c1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        x = self.conv_1(x)
+        en = self.encoding(torch.relu(self.lvc_bn(self.lvc_conv(x))))
+        en = torch.relu(self.en_bn(en.transpose(1, 2))).mean(2)
+        gam = torch.sigmoid(self.fc(en))
+        return torch.relu(x + x * gam[:, :, None, None])
+
+
+class ConvMixer(nn.Module):
+    """Patch embedding and a depthwise mixer with an exp gate
+    (layers.py:2344); c2 is c1 whatever the row says. A biased patch x
+    patch `patch` conv at stride patch, tanh GELU, BatchNorm `bn_p`; depth
+    times a biased depthwise `dw<i>` (padding 1), GELU, `bn_dw<i>`, plus
+    its input, then a biased 1x1 `pw<i>`, GELU, `bn_pw<i>` (eps 1e-3); the
+    map mean through bias-free Dense `fc1` (c / reduction), ReLU, `fc2`,
+    sigmoid gates x by its exp."""
+
+    def __init__(self, c1: int, c2: int = 0, depth: int = 1, kernel_size: int = 3, patch_size: int = 4,
+                 reduction: int = 16):
+        super().__init__()
+        bn = lambda: FlaxBatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM)  # noqa: E731
+        self.patch = raw_conv(c1, c1, patch_size, s=patch_size, p=0)
+        self.bn_p = bn()
+        self.dw = nn.ModuleList(raw_conv(c1, c1, kernel_size, g=c1, p=1) for _ in range(depth))
+        self.bn_dw = nn.ModuleList(bn() for _ in range(depth))
+        self.pw = nn.ModuleList(raw_conv(c1, c1, 1) for _ in range(depth))
+        self.bn_pw = nn.ModuleList(bn() for _ in range(depth))
+        self.fc1 = nn.Linear(c1, c1 // reduction, bias=False)
+        self.fc2 = nn.Linear(c1 // reduction, c1, bias=False)
+
+    def forward(self, x):
+        refuse_strip(self)
+        gelu = lambda t: F.gelu(t, approximate="tanh")  # noqa: E731
+        y = self.bn_p(gelu(self.patch(x)))
+        for dw, bn_dw, pw, bn_pw in zip(self.dw, self.bn_dw, self.pw, self.bn_pw):
+            y = y + bn_dw(gelu(dw(y)))
+            y = bn_pw(gelu(pw(y)))
+        v = torch.sigmoid(self.fc2(torch.relu(self.fc1(y.mean((2, 3))))))
+        return x * torch.exp(v)[:, :, None, None]

@@ -21,15 +21,22 @@ the parser's own row kinds with layers.py's body zoo (yolo.py:60-170,
 DySample, Involution, Zoom_cat, the learnable activations FReLU / AconC /
 MetaAconC (models/activations.py), the gates SE / se_block, ECA /
 eca_block, SimAM, CoorAttention, BAM and CBAM, MultiSEAM, CrossConv,
-MixConv2d, GSConv, C3SE, C3ECA, C3SPP, C3x, RepC3 and SPPCSPC. A row of any
-kind but the heads may repeat (JAX's _Repeat). One deliberate divergence:
-a Zoom_cat row's stride is its second input's, where its output lies (the
-JAX parser records the first input's). A row outside the registry raises
-KeyError naming ROADMAP queue A item 8, which still lacks layers.py's
-attention family (GAM, SK, Shuffle, NAM, EMA, LSKblock, MLCA, Triplet, GC,
-NonLocal, CoT, DoubleAttention, PPSA, SGE, MHSA, S2, Efficient, ELA, MSCA,
-LSKA / SPPF_LSKA, HorBlock / gnconv), RFEM / C3RFEM, LVCBlock, ConvMixer,
-Swin / C3STR, and layers_zoo.py with its row kinds.
+MixConv2d, GSConv, C3SE, C3ECA, C3SPP, C3x, RepC3 and SPPCSPC; layers.py's
+attention family (GAMAttention, SKAttention, ShuffleAttention,
+NAMAttention, EMA, LSKblock, MLCA, TripletAttention, GlobalContextBlock,
+NonLocalBlock, CoT / CoTAttention, DoubleAttention,
+ParallelPolarizedSelfAttention, SpatialGroupEnhance, MHSA, S2Attention,
+EfficientAttention, ELA, MSCAAttention), LSKA / SPPF_LSKA,
+SwinTransformerBlock / C3STR, HorBlock / HorNet / gnconv, RFEM / C3RFEM,
+LVCBlock and ConvMixer. A row of any kind but the heads may repeat (JAX's
+_Repeat). Deliberate divergences (ROADMAP queue C): a Zoom_cat row's
+stride is its second input's, where its output lies (the JAX parser
+records the first input's); a block with no field but dtype builds from
+an empty row (the JAX parser raises TypeError); gnconv's dim must be its
+input's channels and RFEM's n 1 (the JAX package builds a graph whose
+recorded widths are wrong, or fails, otherwise). A row outside the
+registry raises KeyError naming ROADMAP queue A item 8, which still lacks
+layers_zoo.py with its row kinds.
 """
 
 from __future__ import annotations
@@ -166,13 +173,49 @@ _BODY_ZOO: Dict[str, Tuple[Any, str]] = {
     "FReLU": (A.FReLU, "noarg"),
     "AconC": (A.AconC, "noarg"),
     "MetaAconC": (A.MetaAconC, "noarg"),
+    # layers.py's attention family, LSKA / SPPF_LSKA, Swin / C3STR, HorBlock / gnconv, RFEM / C3RFEM,
+    # LVCBlock and ConvMixer (yolosomi_tpu/models/yolo.py:94-134)
+    "GAMAttention": (L.GAMAttention, "plain"),
+    "SKAttention": (L.SKAttention, "plain"),
+    "ShuffleAttention": (L.ShuffleAttention, "plain"),
+    "NAMAttention": (L.NAMAttention, "plain"),
+    "EMA": (L.EMAAttention, "plain"),
+    "LSKblock": (L.LSKblock, "plain"),
+    "MLCA": (L.MLCA, "plain"),
+    "TripletAttention": (L.TripletAttention, "plain"),
+    "GlobalContextBlock": (L.GlobalContextBlock, "plain"),
+    "NonLocalBlock": (L.NonLocalBlock, "plain"),
+    "CoT": (L.CoTAttention, "plain"),
+    "CoTAttention": (L.CoTAttention, "plain"),
+    "DoubleAttention": (L.DoubleAttention, "plain"),
+    "ParallelPolarizedSelfAttention": (L.ParallelPolarizedSelfAttention, "plain"),
+    "SpatialGroupEnhance": (L.SpatialGroupEnhance, "plain"),
+    "MHSA": (L.MHSA, "plain"),
+    "S2Attention": (L.S2Attention, "plain"),
+    "EfficientAttention": (L.EfficientAttention, "plain"),
+    "ELA": (L.ELA, "plain"),
+    "MSCAAttention": (L.MSCAAttention, "plain"),
+    "LSKA": (L.LSKA, "plain"),
+    "SPPF_LSKA": (L.SPPF_LSKA, "conv"),
+    "SwinTransformerBlock": (L.SwinTransformerBlock, "conv"),
+    "C3STR": (L.C3STR, "csp"),
+    "HorBlock": (L.HorBlock, "plain"),
+    "HorNet": (L.HorBlock, "plain"),
+    "gnconv": (L.GnConv, "plain"),
+    "RFEM": (L.RFEM, "conv"),
+    "C3RFEM": (L.C3RFEM, "csp"),
+    "LVCBlock": (L.LVCBlock, "plain"),
+    "ConvMixer": (L.ConvMixer, "conv"),
 }
 _REGISTRY.update(_BODY_ZOO)
 STRIPLESS = frozenset(_BODY_ZOO)
 # a `plain` row's YAML args fill the JAX module's dataclass fields in
 # order (`cls(*args)`, or `cls(c2)` without args); the torch module takes
 # the input channels first and these fields by name, less the `c2` slot
-# that CBAM, SE and BAM ignore. RepVGGDW's one field is its width.
+# that CBAM, SE, BAM, the attention blocks, HorBlock and LVCBlock ignore.
+# RepVGGDW's one field is its width. A block with no field takes an empty
+# row (the JAX parser's `cls(c2, dtype=dtype)` fills its only field,
+# dtype, twice and raises TypeError: ROADMAP queue C).
 _PLAIN_FIELDS = {
     "CBAM": ("c2", "reduction"),
     "SE": ("c2", "ratio"),
@@ -181,7 +224,35 @@ _PLAIN_FIELDS = {
     "eca_block": ("b", "gamma"),
     "ECA": ("b", "gamma"),
     "BAM": ("c2", "reduction"),
+    "GAMAttention": ("c2", "rate"),
+    "SKAttention": ("c2", "kernels", "reduction"),
+    "ShuffleAttention": ("c2", "groups"),
+    "NAMAttention": ("c2",),
+    "EMA": ("factor",),
+    "LSKblock": (),
+    "MLCA": ("local_size", "gamma", "b", "local_weight"),
+    "TripletAttention": (),
+    "GlobalContextBlock": ("ratio",),
+    "NonLocalBlock": (),
+    "CoT": ("kernel_size",),
+    "CoTAttention": ("kernel_size",),
+    "DoubleAttention": (),
+    "ParallelPolarizedSelfAttention": (),
+    "SpatialGroupEnhance": ("groups",),
+    "MHSA": ("num_heads",),
+    "S2Attention": (),
+    "EfficientAttention": ("num_heads",),
+    "ELA": (),
+    "MSCAAttention": (),
+    "LSKA": ("k_size",),
+    "HorBlock": ("c2", "order"),
+    "HorNet": ("c2", "order"),
+    "gnconv": ("dim", "order", "s"),
+    "LVCBlock": ("c2", "num_codes"),
 }
+# the blocks whose GELU is exact in float32 and the tanh form in bfloat16
+# (the JAX package's `approximate=dtype == bfloat16`)
+_DTYPE_GELU = (L.SEAM, L.SwinTransformerBlock, L.C3STR, H.DetectV11)
 HEAD_KINDS = ("head", "head_v8", "head_rtdetr")
 # the heads that take more input maps than they have detection levels:
 # name -> fn(n_inputs) -> the slice of the inputs that are the levels
@@ -283,8 +354,10 @@ def _resolve_anchors(anchors, nl: int) -> np.ndarray:
     return np.asarray(anchors, np.float32).reshape(nl, -1, 2)
 
 
-def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
-    """Compile YAML rows into (modules, ModelMeta)."""
+def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32, imgsz: int = 256):
+    """Compile YAML rows into (modules, ModelMeta). `imgsz` is the square
+    image the blocks that take the map's size at build (MHSA) are sized
+    for, as the JAX init_model's dummy image sizes them."""
     anchors, nc = cfg["anchors"], cfg["nc"]
     if isinstance(anchors, str):
         anchors = _anchor_preset(anchors)
@@ -306,10 +379,7 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
         mname = str(mname)
         if mname not in _REGISTRY:
             raise KeyError(f"module '{mname}' not in registry (row {i}): not ported yet (ROADMAP queue A item 8: "
-                           "layers.py's attention family GAM, SK, Shuffle, NAM, EMA, LSKblock, MLCA, Triplet, GC, "
-                           "NonLocal, CoT, DoubleAttention, PPSA, SGE, MHSA, S2, Efficient, ELA, MSCA, LSKA / "
-                           "SPPF_LSKA, HorBlock / gnconv; RFEM / C3RFEM, LVCBlock, ConvMixer, Swin / C3STR; "
-                           "layers_zoo.py and its row kinds)")
+                           "layers_zoo.py's blocks and its row kinds)")
         cls, kind = _REGISTRY[mname]
         tokens = {"nc": nc, "anchors": anchors, "None": None, "True": True, "False": False}
         args = [tokens.get(a, a) if isinstance(a, str) else a for a in args]
@@ -323,6 +393,7 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
 
         stride = in_stride(f if isinstance(f, int) else f[0])
         c_in = in_ch(f if isinstance(f, int) else f[0])
+        gelu_kw = {"approx_gelu": dtype == torch.bfloat16} if cls in _DTYPE_GELU else {}
         # make(c) builds the row's module for c input channels: once for the
         # row, then once for each copy of a repeated row, which takes c2 in
         if kind in ("conv", "csp", "seam"):
@@ -331,14 +402,13 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
                 c2 = make_divisible(c2 * gw, 8)
             if kind == "seam":
                 c2 = c_in  # SEAM and MultiSEAM are channel-preserving
-                kw = {"approx_gelu": dtype == torch.bfloat16} if cls is L.SEAM else {}
                 margs = [c2, *args[1:]]
-                make = lambda c: cls(c, *args[1:], **kw)  # noqa: E731
+                make = lambda c: cls(c, *args[1:], **gelu_kw)  # noqa: E731
             else:
                 margs = [c2, n_rep, *args[1:]] if kind == "csp" else [c2, *args[1:]]
                 if kind == "csp":
                     n_rep = 1
-                make = lambda c: cls(c, *margs)  # noqa: E731
+                make = lambda c: cls(c, *margs, **gelu_kw)  # noqa: E731
             spos = _STRIDE_ARG_POS.get(mname)
             if kind == "conv" and spos is not None and len(margs) > spos and isinstance(margs[spos], int) \
                     and not isinstance(margs[spos], bool):
@@ -395,6 +465,8 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
                     raise TypeError(f"{mname} takes at most {len(fields)} args {fields} (row {i})")
                 kw = dict(zip(fields, args or [c2]))
                 kw.pop("c2", None)
+                if cls is L.MHSA:  # its positions take the map's size: the image's at this row's stride
+                    kw["hw"] = (math.ceil(imgsz / stride),) * 2
                 make = lambda c: cls(c, **kw)  # noqa: E731
         elif kind == "pool":
             c2 = c_in
@@ -420,7 +492,7 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32):
                     hkw["nq"] = args[2]
                 mod = cls(nc, ch_in, **hkw)
             elif kind == "head_v8":  # anchor-free: nc only
-                mod = cls(nc, ch_in, approx_gelu=dtype == torch.bfloat16) if cls is H.DetectV11 else cls(nc, ch_in)
+                mod = cls(nc, ch_in, **gelu_kw)
             else:
                 nl = len(f[level_slice(mname, len(f))])
                 na_head = _resolve_anchors(args[1] if len(args) > 1 else anchors, nl).shape[1]
@@ -530,7 +602,10 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
     attention projection xavier_uniform, zero biases, unit norms; the
     deformable blocks' own init in
     models/dcn.py:init_dcn_heads; ECA's 1-D conv lecun_normal, the ACON
-    p1 / p2 N(0, 1)), then its detection-prior biases
+    p1 / p2 N(0, 1), the bare kernels of MLCA and TridentBlock as conv
+    kernels, MHSA's positions N(0, 0.02), Swin's bias table truncated
+    N(0, 0.02), the Encoding's uniform codes and scales; the other bare
+    parameters keep their constructors' flax values), then its detection-prior biases
     (obj log(8/(640/s)^2), cls log(0.6/(nc-0.99999)))."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
@@ -556,6 +631,18 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
         elif isinstance(m, (A.AconC, A.MetaAconC)):  # flax normal(1.0)
             nn.init.normal_(m.p1, generator=g)
             nn.init.normal_(m.p2, generator=g)
+        elif isinstance(m, (L.MLCA, L.TridentBlock)):  # bare conv kernels (OIHW): variance_scaling(2, fan_out)
+            for p in (getattr(m, name) for name in m.hwio):
+                _trunc_normal(p, p.shape[0] * p.shape[2] * p.shape[3], 2.0, g)
+        elif isinstance(m, L.MHSA):  # flax normal(0.02)
+            nn.init.normal_(m.rel_h, 0.0, 0.02, generator=g)
+            nn.init.normal_(m.rel_w, 0.0, 0.02, generator=g)
+        elif isinstance(m, L.WindowAttention):  # flax truncated_normal(0.02)
+            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04, generator=g)
+        elif isinstance(m, L.Encoding):  # flax uniform(2 / sqrt(k c)) and uniform(1), before the forward's shifts
+            k, c = m.codewords.shape
+            m.codewords.copy_(torch.rand(k, c, generator=g) * (2.0 / math.sqrt(k * c)))
+            m.scale.copy_(torch.rand(k, generator=g))
         if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
     for m in model.modules():  # after the generic pass, which also reached their children
@@ -581,14 +668,16 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
 
 
 def build_model(cfg: dict, nc: Optional[int] = None, device=None, dtype: torch.dtype = torch.float32,
-                seed: int = 0, anchors=None, compute_dtype: Optional[torch.dtype] = None):
+                seed: int = 0, anchors=None, compute_dtype: Optional[torch.dtype] = None, imgsz: int = 256):
     """Compile a model YAML dict -> (DetectionModel, ModelMeta), with random
     weights from `seed`, in eval mode, in `dtype` and channels_last on
     `device` (CUDA unless the caller names another). An explicit `nc` or
     `anchors` (per-level pixel lists, as the YAML writes them) overrides the
     YAML's. `compute_dtype` is the dtype the model runs in where it is not
-    `dtype` (bfloat16 under autocast over float32 weights); SEAM takes its
-    GELU form from it."""
+    `dtype` (bfloat16 under autocast over float32 weights); SEAM and Swin
+    take their GELU form from it. `imgsz` sizes the blocks that take the
+    map's size at build (MHSA): the JAX init_model's default 256, and the
+    Runner's min(imgsz, 256), as the JAX Runner inits."""
     device = resolve_device(device)
     cfg = dict(cfg)
     if nc is not None and nc != cfg.get("nc"):
@@ -597,7 +686,7 @@ def build_model(cfg: dict, nc: Optional[int] = None, device=None, dtype: torch.d
     if anchors is not None:
         LOGGER.info(f"Overriding model.yaml anchors with anchors={anchors}")
         cfg["anchors"] = anchors
-    modules, meta = parse_model(cfg, ch=cfg.get("ch", 3), dtype=compute_dtype or dtype)
+    modules, meta = parse_model(cfg, ch=cfg.get("ch", 3), dtype=compute_dtype or dtype, imgsz=imgsz)
     model = DetectionModel(modules, meta)
     init_weights(model, meta, seed)
     model = model.to(device=device, dtype=dtype)

@@ -1,7 +1,10 @@
 """The body zoo's graphs: the full-width flagship (configs/models/yolo-somi.yaml,
 nc 10) with rows replaced or inserted, one graph per family of the
 blocks the parser's remaining kinds and layers.py's body zoo bring (no
-shipped config uses them). Each keeps the flagship's four ODConv sites.
+shipped config uses them): the upsamplers, fusion, space-to-depth, CSP
+variants and first gates, then the attention family, the Swin / HorNet
+blocks and the RFEM / EVC family. Each keeps the flagship's four ODConv
+sites.
 
 An edit names flagship rows: `replace` maps a row to its new rows (the
 first takes its place, the rest follow it), `after` inserts rows after
@@ -48,6 +51,29 @@ ZOO_GRAPHS: Dict[str, dict] = {
                                 6: [[-1, 1, "se_block", []]], 8: [[-1, 1, "CoorAttention", [1024]]],
                                 9: [[-1, 2, "CBAM", [1024]], [-1, 1, "Involution", [1024, 3, 1]]],
                                 25: [[-1, 1, "BAM", [256]]]}},
+    # layers.py's attention family: the gates in the backbone and on the detection paths
+    "zoo-gates2": {"after": {2: [[-1, 1, "GAMAttention", [128]]],
+                             4: [[-1, 1, "SKAttention", [256]], [-1, 1, "ShuffleAttention", [256]]],
+                             6: [[-1, 1, "NAMAttention", []], [-1, 1, "EMA", [8]], [-1, 1, "MLCA", [5]]],
+                             8: [[-1, 1, "LSKblock", []], [-1, 1, "TripletAttention", []],
+                                 [-1, 1, "GlobalContextBlock", [0.25]]],
+                             25: [[-1, 1, "SpatialGroupEnhance", [8]]], 28: [[-1, 1, "ELA", []]],
+                             31: [[-1, 1, "MSCAAttention", []]]}},
+    # the global attentions at P5 and P4 (MHSA takes the map's size at build), SPPF_LSKA for SPPF
+    "zoo-global": {"replace": {9: [[-1, 1, "SPPF_LSKA", [1024, 5]]]},
+                   "after": {8: [[-1, 1, "NonLocalBlock", []], [-1, 1, "MHSA", [4]], [-1, 1, "DoubleAttention", []]],
+                             12: [[-1, 1, "CoT", [3]], [-1, 1, "LSKA", [11]]],
+                             13: [[-1, 1, "EfficientAttention", [4]], [-1, 1, "ParallelPolarizedSelfAttention", []],
+                                  [-1, 1, "S2Attention", []]]}},
+    # C3STR at P5 (20x20 at 640 px: padded to 24, nine 8x8 windows), a Swin block, HorBlock and gnconv
+    "zoo-swin": {"replace": {8: [["same", "same", "C3STR", [1024]]]},
+                 "after": {11: [[-1, 1, "gnconv", []]], 12: [[-1, 1, "HorBlock", [256]]],
+                           13: [[-1, 1, "SwinTransformerBlock", [256, 8, 2]]]}},
+    # C3RFEM for the P4 CSP stage, RFEM, LVCBlock at P5 (its Encoding's (b, hw, codes, c) difference is
+    # 0.84 GB in f32 at b8 there, 3.4 GB at P3) and ConvMixer
+    "zoo-rfem": {"replace": {6: [["same", "same", "C3RFEM", [512]]]},
+                 "after": {4: [[-1, 1, "RFEM", [256]]], 9: [[-1, 1, "LVCBlock", [1024, 64]]],
+                           12: [[-1, 1, "ConvMixer", [256]]]}},
 }
 
 

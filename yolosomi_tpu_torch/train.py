@@ -242,7 +242,7 @@ def train(hyp: dict, opt, callbacks: Callbacks = None) -> float:
         random.setstate(mesh.broadcast_object(random.getstate(), group))
         np.random.set_state(mesh.broadcast_object(np.random.get_state(), group))
     model, meta = build_model(cfg, nc=nc, device=device, dtype=torch.float32, seed=opt.seed, anchors=anchors,
-                              compute_dtype=amp_dtype)
+                              compute_dtype=amp_dtype, imgsz=min(imgsz, 256))  # MHSA's size, as JAX's init_model
     meta.names = names
     anchors_out = np.asarray(meta.anchors_px, np.float32).reshape(meta.nl, -1)
     teacher, hint = None, float(opt.distill_hint or 0.0)

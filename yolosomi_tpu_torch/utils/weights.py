@@ -49,8 +49,36 @@ _LIST_RE = re.compile(r"^(m|dw|pw|bn_dw|bn_pw|tr|se|eca)(\d+)$")
 _SEQ_RE = re.compile(r"^(cv1|ffn)_(\d+)$")
 
 
-def _path_to_key(path: List[str], collection: str) -> str:
-    """One flax path -> its primary torch key."""
+# SEAM's depthwise-residual stack is one Sequential `DCovN`: patch conv
+# [0], its BN [2], then per repeat i at [3+i]: Residual(fn=[conv, GELU,
+# BN]) [0], pointwise conv [1], its BN [3]
+_SEAM_SLOTS = {"dcov_patch": lambda i: "0", "bn_patch": lambda i: "2", "dw": lambda i: f"{3 + i}.0.fn.0",
+               "bn_dw": lambda i: f"{3 + i}.0.fn.2", "pw": lambda i: f"{3 + i}.1", "bn_pw": lambda i: f"{3 + i}.3"}
+_SEAM_RE = re.compile(r"\.(dcov_patch|bn_patch|(?:bn_)?(?:dw|pw)\.\d+)(?=\.|$)")
+
+
+def _submodule(model: nn.Module, name: str):
+    """model's submodule `name`, or None where it has none."""
+    try:
+        return model.get_submodule(name)
+    except AttributeError:
+        return None
+
+
+def _seam_key(model: nn.Module, key: str) -> str:
+    """`key` with a SEAM's flax-named stack members moved into its DCovN;
+    other modules' dw<i> / pw<i> (gnconv's, ConvMixer's) keep their names."""
+    def slot(m):
+        if not isinstance(_submodule(model, m.string[: m.start()]), L.SEAM):
+            return m.group(0)
+        name, _, i = m.group(1).partition(".")
+        return ".DCovN." + _SEAM_SLOTS[name](int(i or 0))
+
+    return _SEAM_RE.sub(slot, key)
+
+
+def _path_to_key(path: List[str], collection: str, model: nn.Module) -> str:
+    """One flax path -> its primary torch key in `model`."""
     parts = []
     for p in path[:-1]:
         if p.startswith("layers_"):
@@ -66,15 +94,7 @@ def _path_to_key(path: List[str], collection: str) -> str:
     # CBAM channel-attention MLP: fc1/fc2 are shared_MLP slots 0 and 2
     key = key.replace(".channel_attention.fc1", ".channel_attention.shared_MLP.0")
     key = key.replace(".channel_attention.fc2", ".channel_attention.shared_MLP.2")
-    # SEAM's depthwise-residual stack is one Sequential `DCovN`: patch conv
-    # [0], its BN [2], then per repeat i at [3+i]: Residual(fn=[conv, GELU,
-    # BN]) [0], pointwise conv [1], its BN [3]
-    key = key.replace(".dcov_patch", ".DCovN.0")
-    key = key.replace(".bn_patch", ".DCovN.2")
-    key = re.sub(r"\.bn_dw\.(\d+)", lambda m: f".DCovN.{3 + int(m.group(1))}.0.fn.2", key)
-    key = re.sub(r"\.bn_pw\.(\d+)", lambda m: f".DCovN.{3 + int(m.group(1))}.3", key)
-    key = re.sub(r"\.dw\.(\d+)", lambda m: f".DCovN.{3 + int(m.group(1))}.0.fn.0", key)
-    key = re.sub(r"\.pw\.(\d+)", lambda m: f".DCovN.{3 + int(m.group(1))}.1", key)
+    key = _seam_key(model, key)
 
     if collection == "batch_stats":
         return _join(key, {"mean": "running_mean", "var": "running_var"}[leaf])
@@ -87,7 +107,7 @@ def _path_to_key(path: List[str], collection: str) -> str:
         if key.endswith(".conv"):
             return key[: -len(".conv")] + f".{name}"
         return _join(key, name)
-    if leaf == "scale":  # norm gamma
+    if leaf == "scale" and leaf not in getattr(_submodule(model, key), "flax_shaped", ()):  # norm gamma
         return _join(key, "weight")
     return _join(key, leaf)
 
@@ -98,12 +118,12 @@ def _join(key: str, name: str) -> str:
     return f"{key}.{name}" if key else name
 
 
-def _key_candidates(path: List[str], collection: str) -> List[str]:
-    """All torch keys a flax path may map to, primary first. ODConv keeps a
-    (K, Cout) bias bank at X.conv.bias where a bare conv has X.bias, and
-    ECA's flax nn.Conv `conv` is X.conv here; SEAM and EMA-CBAM hold their
-    fc pair in a Sequential `fc` (slots 0 and 2)."""
-    primary = _path_to_key(path, collection)
+def _key_candidates(path: List[str], collection: str, model: nn.Module) -> List[str]:
+    """All torch keys a flax path may map to in `model`, primary first.
+    ODConv keeps a (K, Cout) bias bank at X.conv.bias where a bare conv has
+    X.bias, and ECA's flax nn.Conv `conv` is X.conv here; SEAM and EMA-CBAM
+    hold their fc pair in a Sequential `fc` (slots 0 and 2)."""
+    primary = _path_to_key(path, collection, model)
     out = [primary]
     if path[-1] in ("bias", "kernel") and len(path) >= 2 and path[-2] == "conv":
         out.append(primary.rsplit(".", 1)[0] + ".conv." + primary.rsplit(".", 1)[1])
@@ -113,13 +133,15 @@ def _key_candidates(path: List[str], collection: str) -> List[str]:
     return out
 
 
-def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...]) -> np.ndarray:
+def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...], flax_shaped: bool = False) -> np.ndarray:
     """Flax layout -> torch layout: ODConv bank (K,kh,kw,I,O) -> (K,O,I,kh,kw),
     HWIO -> OIHW, a 1-D conv's WIO -> OIW (ECA), a Dense kernel -> a 1x1
-    Conv2d or a Linear weight; a 3-D DCNv2 weight (P, C, c2) and 1-D leaves
-    pass through."""
+    Conv2d or a Linear weight; a 3-D DCNv2 weight (P, C, c2), 1-D leaves and
+    a module's `flax_shaped` parameters pass through."""
     v = np.asarray(v, np.float32)
-    if leaf == "implicit":  # (1, 1, 1, C) -> (1, C, 1, 1)
+    if flax_shaped:
+        pass
+    elif leaf == "implicit":  # (1, 1, 1, C) -> (1, C, 1, 1)
         v = v.reshape(1, -1, 1, 1)
     elif v.ndim == 5:
         v = v.transpose(0, 4, 3, 1, 2)
@@ -136,6 +158,21 @@ def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...]) -> 
     if tuple(v.shape) != tuple(torch_shape):
         raise ValueError(f"shape mismatch {v.shape} vs {tuple(torch_shape)}")
     return v
+
+
+def _holder(model: nn.Module, key: str) -> Tuple[nn.Module, str]:
+    """The module that holds state key `key`, and the key's last name."""
+    prefix, name = key.rsplit(".", 1) if "." in key else ("", key)
+    return model.get_submodule(prefix), name
+
+
+def _flax_shaped(model: nn.Module, key: str) -> bool:
+    """Whether `key` is a parameter its module keeps in its flax shape and
+    layout (the blocks' bare parameters: ShuffleAttention's gates, SGE's,
+    MHSA's positions, Swin's bias table, the Encoding's codes and scales;
+    `flax_shaped` on the module)."""
+    mod, name = _holder(model, key)
+    return name in getattr(mod, "flax_shaped", ())
 
 
 def _leaves(tree: dict, prefix=()) -> Iterator[Tuple[List[str], np.ndarray]]:
@@ -156,12 +193,17 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> Tuple[List[st
     matched: Dict[str, bool] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):
-            key = next((k for k in _key_candidates(path, collection) if k in state), None)
+            key = next((k for k in _key_candidates(path, collection, model) if k in state), None)
             if key is None:
                 unused.append(f"{collection}/{'/'.join(path)}")
                 continue
             dst = state[key]
-            dst.copy_(torch.tensor(_to_torch_layout(value, path[-1], tuple(dst.shape)), dtype=dst.dtype))
+            mod, name = _holder(model, key)
+            shaped = name in getattr(mod, "flax_shaped", ())
+            if shaped and tuple(np.shape(value)) != tuple(dst.shape) and hasattr(mod, "refit"):
+                mod.refit(name, tuple(np.shape(value)))  # a map-sized parameter takes the file's size (MHSA)
+                dst = getattr(mod, name).data
+            dst.copy_(torch.tensor(_to_torch_layout(value, path[-1], tuple(dst.shape), shaped), dtype=dst.dtype))
             matched[key] = True
     unmatched = [k for k in state if k not in matched and not k.endswith("num_batches_tracked")]
     return unmatched, unused
@@ -183,7 +225,7 @@ _INVERSE_RE = (
     (re.compile(r"\.DCovN\.(\d+)\.1$"), lambda m: f".pw{int(m.group(1)) - 3}"),
     (re.compile(r"\.DCovN\.(\d+)\.3$"), lambda m: f".bn_pw{int(m.group(1)) - 3}"),
     (re.compile(r"\.(?:shared_MLP|fc)\.([02])$"), lambda m: f".fc{int(m.group(1)) // 2 + 1}"),
-    (re.compile(r"\.(m|se|eca)\.(\d+)"), lambda m: f".{m.group(1)}{m.group(2)}"),
+    (re.compile(r"\.(m|se|eca|dw|pw|bn_dw|bn_pw)\.(\d+)"), lambda m: f".{m.group(1)}{m.group(2)}"),
     (re.compile(r"\.tr\.(\d+)"), lambda m: f".tr{m.group(1)}"),
     (re.compile(r"\.(cv1|ffn)\.(\d+)"), lambda m: f".{m.group(1)}_{m.group(2)}"),
 )
@@ -216,6 +258,8 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
         layout = lambda t: t.permute(0, 3, 4, 2, 1)  # noqa: E731  (K,O,I,kh,kw) -> (K,kh,kw,I,O)
     elif isinstance(mod, H.ImplicitA):
         layout = lambda t: t.reshape(1, 1, 1, -1)  # noqa: E731
+    elif name in getattr(mod, "hwio", ()):  # a bare conv kernel (TridentBlock's, MLCA's): OIHW -> HWIO
+        layout = lambda t: t.permute(2, 3, 1, 0)  # noqa: E731
     collection = "params"
     if isinstance(mod, _NORMS) and name in ("running_mean", "running_var"):
         collection, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[name]
@@ -267,7 +311,7 @@ def export_jax_variables(model: nn.Module) -> dict:
         if key.endswith("num_batches_tracked"):
             continue
         collection, path, layout = _flax_leaf(model, key)
-        if key not in _key_candidates(path, collection):
+        if key not in _key_candidates(path, collection, model):
             raise ValueError(f"{key} exports to {collection}/{'/'.join(path)}, which does not load back to it")
         node = variables[collection]
         for p in path[:-1]:
@@ -300,7 +344,8 @@ def import_param_tree(model: nn.Module, names: List[str], tree: dict) -> List[to
         node = tree
         for p in path:
             node = node[p]
-        out.append(torch.from_numpy(np.array(_to_torch_layout(node, path[-1], tuple(params[name].shape)))))
+        out.append(torch.from_numpy(np.array(_to_torch_layout(node, path[-1], tuple(params[name].shape),
+                                                              _flax_shaped(model, name)))))
     return out
 
 
@@ -318,7 +363,7 @@ def load_matching_params(model: nn.Module, params: dict) -> Tuple[int, int]:
         if node is None:
             continue
         try:
-            value = _to_torch_layout(node, path[-1], tuple(p.shape))
+            value = _to_torch_layout(node, path[-1], tuple(p.shape), _flax_shaped(model, name))
         except ValueError:  # another shape
             continue
         p.copy_(torch.from_numpy(np.array(value)))
