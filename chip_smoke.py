@@ -5,7 +5,9 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
  1. device: needs CUDA; prints the card's name and power limit; TF32 off
  2. build: compiles every CUDA source of the serving, training and int8
-    paths from csrc/, one nvcc per source, all started together
+    paths from csrc/, one nvcc per source, all started together; phase 3
+    starts when all but conv_int8.cu are built, whose nvcc goes on beside
+    phases 3-11 and is waited for before phase 12 launches it
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the serving paths give it (f32 and bf16), with kernel, plain-version,
     library-call and bound times and the kernel's multiple of its bound:
@@ -178,7 +180,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 13. data and pipeline parallelism (parallel/; one card stands in for
     several, so placement itself is not seen): (a) the full-width flagship
     at 640 px, seed-0 weights, head tempered, on DP_WORLD = 2 gloo ranks
-    sharing cuda:0 (parallel.mesh.spawn_local): first the semantics, one
+    sharing cuda:0 (parallel.mesh.spawn_local; the ranks start while one
+    process makes the references they are held against, and wait for
+    them; the host time of each part printed): first the semantics, one
     optimizer step through make_train_step(group=) in float64 under
     plain_version() on a global b4, the loss, the momentum buffers and the
     parameter updates within 1e-6 relative of one process's (the loss
@@ -261,15 +265,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     and Involution; with layers.py's attention gates (zoo-gates2); with
     its global attentions and SPPF_LSKA (zoo-global); with C3STR, a Swin
     block, HorBlock and gnconv (zoo-swin); with C3RFEM, RFEM, LVCBlock and
-    ConvMixer (zoo-rfem)), each keeping the four ODConv sites. (a) each serves
+    ConvMixer (zoo-rfem); with layers_zoo.py's SimConv, ADown, DownSimper,
+    RepVGGBlock, SPPELAN, CoordConv / CoordConvd, SPPF_improve and ASPP
+    (zoo-down); with CNeB, the RFB blocks, SPPCSPCS, ACmix, Conv_SWS, CSPCM
+    and C3CR (zoo-rfb); with the C3 blocks with attention bottlenecks,
+    CPCA, C2fBAM, C2f_DWR and VoVGSCSPCBAM (zoo-c3att)), each keeping the
+    four ODConv sites. (a) each serves
     N_REQUESTS b8 bf16 batches through Runner as phase 16(a) serves a head
     (conf 1e-6, every image answered, odconv_s2 4 times a batch with the
     counts set to 0 just before; params, latency, img/s, the model /
     postprocess split and the peak memory printed), its f32 b2 model
     through the kernels no further from f64 than twice the plain f32 model
     (phase 5's rule); zoo-global, whose MHSA takes the map's size at
-    build, from a weights file built at 640 px. (b) zoo-fusion and
-    zoo-rfem (head tempered) through ComputeLoss on phase 8's set:
+    build, from a weights file built at 640 px. (b) zoo-fusion, zoo-rfem
+    and zoo-c3att (head tempered) through ComputeLoss on phase 8's set:
     ZOO_STEPS timed bf16 b8 steps with 4 + 4 + 4 launches each and the
     peak memory, then the f32 b2 step against plain_version() (phase
     8(b)'s rule)
@@ -285,6 +294,7 @@ import hashlib
 import json
 import logging
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -399,6 +409,7 @@ STEP_LAUNCHES = {
     "yolo-somi+DetectV8": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "zoo-fusion": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "zoo-rfem": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
+    "zoo-c3att": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "yolo-somi-dcn": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4, dcnv2_im2col=9, dcnv3_core=1,
                           dcnv2_im2col_bwd=9, dcnv3_core_bwd=1),
 }
@@ -419,7 +430,7 @@ STEP_GRAD_TOL = 1e-6
 # H100 80GB HBM3), so for yolo-somi-dcn each floor is that noise; the
 # flagship keeps the floor it passed with (1e-6)
 STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4), "yolo-somi+DetectV8": (1e-6, 1e-6),
-               "zoo-fusion": (1e-6, 1e-6), "zoo-rfem": (1e-6, 1e-6)}
+               "zoo-fusion": (1e-6, 1e-6), "zoo-rfem": (1e-6, 1e-6), "zoo-c3att": (1e-6, 1e-6)}
 # the per-parameter floor of that comparison, as a share of the largest
 # gradient's norm: STEP_GRAD_TOL for the flagship; for yolo-somi-dcn the
 # bf16 witness's 1e-4, because its f32 step through the kernels put a sum
@@ -429,7 +440,7 @@ STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4), "yolo-s
 # carried into a cancelling sum. For that model the median distance over
 # all parameters is held to STEP_MEDIAN_RATIO times the plain step's too.
 STEP_PARAM_FLOOR = {"yolo-somi": STEP_GRAD_TOL, "yolo-somi-dcn": 1e-4, "yolo-somi+DetectV8": STEP_GRAD_TOL,
-                    "zoo-fusion": STEP_GRAD_TOL, "zoo-rfem": STEP_GRAD_TOL}
+                    "zoo-fusion": STEP_GRAD_TOL, "zoo-rfem": STEP_GRAD_TOL, "zoo-c3att": STEP_GRAD_TOL}
 STEP_MEDIAN_RATIO = 2.0
 # the configs whose comparison takes a second draw of the rounding noise
 # beside the plain f32 step: the plain step from parameters nudged by one
@@ -2156,13 +2167,17 @@ def training(gpu: str) -> dict:
         data.write_text(yaml.safe_dump({"path": str(root), "train": "train/images", "val": "val/images", "nc": 10,
                                         "names": [f"class{i}" for i in range(10)]}))
         train_step_parity(root)
+        t_witness = [time.perf_counter()]
         for amp_dtype in (None, torch.bfloat16):
             for seed in WITNESS_SEEDS[amp_dtype or torch.float32]:
                 train_step_witness(root, seed, amp_dtype)
+            t_witness.append(time.perf_counter())
         t_b = time.perf_counter()
         runs["yolo-somi"] = train_run(gpu, tmp, data, "yolo-somi", labels)
         t_8 = time.perf_counter()
-        print(f"training yolo-somi on {gpu}: phase 8 {t_8 - t_phase:.1f} s (8b {t_b - t_phase:.1f} s)")
+        print(f"training yolo-somi on {gpu}: phase 8 {t_8 - t_phase:.1f} s (8b {t_b - t_phase:.1f} s: the f32 step "
+              f"against float64 {t_witness[0] - t_phase:.1f} s, the witnesses f32 {t_witness[1] - t_witness[0]:.1f} s "
+              f"and bf16 {t_witness[2] - t_witness[1]:.1f} s; 8c {t_8 - t_b:.1f} s)")
         for heads in ("random", "zero"):
             train_step_parity(root, "yolo-somi-dcn", heads)
         for amp_dtype in (None, torch.bfloat16):
@@ -2912,9 +2927,10 @@ def dp_model(cfg_name: str, group, amp_dtype=None, dtype=torch.float32):
 
 def rel_distances(got: list, want: list, tol: float, floor_share: float) -> dict:
     """Each pair's relative norm distance; how many exceed tol x |want| +
-    floor_share x the largest |want|."""
-    dist = [(g - w).norm().item() for g, w in zip(got, want)]
-    norm = [w.norm().item() for w in want]
+    floor_share x the largest |want|. The norms come back in one transfer:
+    a rank sharing the card with another waits its turn at every sync."""
+    dist = torch.stack([(g - w).norm() for g, w in zip(got, want)]).tolist()
+    norm = torch.stack([w.norm() for w in want]).tolist()
     floor = floor_share * max(norm)
     rel = sorted((d / n for d, n in zip(dist, norm) if n > 0), reverse=True)
     return dict(over=sum(d > tol * n + floor for d, n in zip(dist, norm)), median=statistics.median(rel),
@@ -2932,6 +2948,7 @@ def dp_step64(group, images: np.ndarray, targets: np.ndarray, ref_path: str) -> 
     theirs against that file's on the card. The counts are set to 0 just
     before the step and returned."""
     rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    secs, t0 = {}, time.perf_counter()
     hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
     model, meta = dp_model("yolo-somi", group, dtype=torch.float64)
     model.register_forward_pre_hook(lambda m, args: (args[0].double(), *args[1:]))  # the step feeds f32
@@ -2939,24 +2956,30 @@ def dp_step64(group, images: np.ndarray, targets: np.ndarray, ref_path: str) -> 
     opt = make_optimizer(hyp, nb=1, epochs=1, batch_size=DP_F64_BATCH)
     state = create_train_state(model, opt)
     step = make_train_step(ComputeLoss(meta, hyp), opt, group=group)
+    torch.cuda.synchronize()
+    secs["build"], t0 = time.perf_counter() - t0, time.perf_counter()
     reset_counts()
     with plain_version():
         m = step(state, mesh.shard_batch(images, rank, world), mesh.shard_batch(targets, rank, world))
     launches = launch_counts()
+    torch.cuda.synchronize()
+    secs["step"], t0 = time.perf_counter() - t0, time.perf_counter()
     assert bool(m["grads_finite"]), "the float64 step was not finite"
     loss = m["loss"].item()
     bufs = list(state.opt_state.momentum_buf)
     updates = [p.detach() - b for p, b in zip(model.parameters(), before)]
     if group is None:
         torch.save(dict(loss=loss, bufs=[b.cpu() for b in bufs], updates=[u.cpu() for u in updates]), ref_path)
-        return dict(loss=loss, launches=launches)
+        secs["held"] = time.perf_counter() - t0
+        return dict(loss=loss, launches=launches, secs=secs)
     ref = torch.load(ref_path, map_location="cuda")
     out = dict(loss=loss, loss_rel=abs(loss / ref["loss"] - 1), launches=launches,
                bufs=rel_distances(bufs, ref["bufs"], DP_F64_TOL, DP_F64_FLOOR),
                updates=rel_distances(updates, ref["updates"], DP_F64_TOL, DP_F64_FLOOR))
     del model, state, step, bufs, updates, ref
     torch.cuda.empty_cache()
-    return out
+    secs["held"] = time.perf_counter() - t0
+    return dict(out, secs=secs)
 
 
 def dp_job(group, cfg_name: str, amp_dtype, steps: int, images: np.ndarray, targets: np.ndarray,
@@ -2969,6 +2992,7 @@ def dp_job(group, cfg_name: str, amp_dtype, steps: int, images: np.ndarray, targ
     distances return. Every count is set to 0 just before the steps and read
     just after."""
     rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    secs, t_job = {}, time.perf_counter()
     hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
     model, meta = dp_model(cfg_name, group, amp_dtype)
     before = [p.detach().clone() for p in model.parameters()]
@@ -2979,6 +3003,7 @@ def dp_job(group, cfg_name: str, amp_dtype, steps: int, images: np.ndarray, targ
     x, t = mesh.shard_batch(images, rank, world), mesh.shard_batch(targets, rank, world)
     losses, times, finite = [], [], []
     torch.cuda.synchronize()
+    secs["build"] = time.perf_counter() - t_job
     reset_counts()
     for i in range(steps):
         t0 = time.perf_counter()
@@ -2993,18 +3018,21 @@ def dp_job(group, cfg_name: str, amp_dtype, steps: int, images: np.ndarray, targ
             moved = [b - b0 for b, b0 in zip(state.bn_buffers, bn_before)]  # (mean, var) of each BatchNorm
             bn_moves = [torch.cat(moved[k:k + 2]) for k in range(0, len(moved), 2)]
     launches = launch_counts()
+    secs["steps"], t0 = sum(times), time.perf_counter()
     params = [p.detach() for p in model.parameters()]
-    out = dict(losses=losses, times=times, finite=finite, launches=launches, batch=len(x))
+    out = dict(losses=losses, times=times, finite=finite, launches=launches, batch=len(x), secs=secs)
     if group is None:
         torch.save(dict(params=[p.cpu() for p in params], grads=[g.cpu() for g in grads],
                         bn_moves=[m.cpu() for m in bn_moves]), ref_path)
+        secs["held"] = time.perf_counter() - t0
         return out
     ref = torch.load(ref_path, map_location="cuda")
-    excess = max(((p - r).abs() - (3e-3 + 5e-3 * r.abs())).max().item() for p, r in zip(params, ref["params"]))
+    excess = torch.stack([((p - r).abs() - (3e-3 + 5e-3 * r.abs())).max() for p, r in zip(params, ref["params"])])
+    excess = excess.max().item()
     digest = hashlib.sha256()
     for p in params:
         digest.update(p.cpu().numpy().tobytes())
-    bn = [((m - r).norm() / r.norm()).item() for m, r in zip(bn_moves, ref["bn_moves"])]
+    bn = torch.stack([(m - r).norm() / r.norm() for m, r in zip(bn_moves, ref["bn_moves"])]).tolist()
     out.update(excess=excess, digest=digest.hexdigest(), bn=bn,
                grads=rel_distances(grads, ref["grads"], WITNESS_TOL[torch.bfloat16], WITNESS_FLOOR[torch.bfloat16]),
                **rel_distances([p - b for p, b in zip(params, before)],
@@ -3012,17 +3040,81 @@ def dp_job(group, cfg_name: str, amp_dtype, steps: int, images: np.ndarray, targ
                                WITNESS_TOL[torch.bfloat16], WITNESS_FLOOR[torch.bfloat16]))
     del model, state, step, ref, params, before, grads
     torch.cuda.empty_cache()
+    secs["held"] = time.perf_counter() - t0
     return out
 
 
-def dp_ranks(group, f64: dict, jobs: list) -> tuple:
-    return dp_step64(group, **f64), [dp_job(group, **job) for job in jobs]
+def await_refs(ready: str, timeout: float = 900) -> float:
+    """Wait until the parent's one-process references are written (beside_ranks);
+    returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not Path(ready).exists():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no one-process references after {timeout} s")
+        time.sleep(0.05)
+    if Path(ready).read_text() != "ok":
+        raise RuntimeError("the one-process references failed")
+    return time.perf_counter() - t0
+
+
+def beside_ranks(world: int, fn, args: tuple, refs, tmp: Path) -> tuple:
+    """spawn_local(world, fn, *args, ready) started before this process runs
+    `refs()`, the one-process references the ranks are held against: the
+    ranks' spawn, chip_smoke's import, the rendezvous and CUDA init overlap
+    it, and `fn` calls await_refs(ready) before its first job. Returns
+    (refs' result, the ranks' results, seconds from the spawn to the ranks'
+    end, seconds of refs)."""
+    ready, box = tmp / "refs_ready", {}
+
+    def run():
+        try:
+            box["ranks"] = mesh.spawn_local(world, fn, *args, str(ready), backend="gloo", timeout=900, threads=4)
+        except BaseException as e:  # re-raised in this thread below
+            box["error"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run)
+    thread.start()
+    state = "failed"
+    try:
+        out = refs()
+        t_refs = time.perf_counter() - t0
+        state = "ok"
+    finally:
+        (tmp / "refs_state").write_text(state)
+        os.replace(tmp / "refs_state", ready)
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+    return out, box["ranks"], time.perf_counter() - t0, t_refs
+
+
+def dp_ranks(group, f64: dict, jobs: list, t_spawn: float, ready: str) -> tuple:
+    """A rank of phase 13(a): the float64 job, then each kernel job, once
+    the one-process references are written. Its start (the process's
+    spawn, chip_smoke's import and the rendezvous, from the parent's clock
+    `t_spawn`), its CUDA init and its wait for the references go with the
+    float64 job's seconds."""
+    started, t0 = time.time() - t_spawn, time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    cuda_init = time.perf_counter() - t0
+    waited = await_refs(ready)
+    f64_out = dp_step64(group, **f64)
+    f64_out["secs"].update(start=started, cuda_init=cuda_init, waited=waited)
+    return f64_out, [dp_job(group, **job) for job in jobs]
+
+
+def host_split(secs: dict) -> str:
+    """A job's seconds by part, for phase 13(a)'s time line."""
+    return "/".join(f"{k} {v:.1f}" for k, v in secs.items())
 
 
 def data_parallel(gpu: str, tmp: Path) -> dict:
     """Phase 13(a): the float64 semantics job (dp_step64) and each DP_JOBS
     entry in one process on the global batch, then on DP_WORLD gloo ranks
-    sharing cuda:0 (spawn_local), each rank on its half: the float64
+    sharing cuda:0 (spawn_local, started beside the one-process jobs:
+    beside_ranks), each rank on its half: the float64
     step's loss, momentum buffers and parameter updates within DP_F64_TOL; for the kernel jobs every rank's launches
     per step, the ranks' parameters and losses the same bits, every step
     finite, and the first step's loss and BatchNorm moves against the one
@@ -3032,20 +3124,30 @@ def data_parallel(gpu: str, tmp: Path) -> dict:
     t_phase = time.perf_counter()
     images, targets = dp_batch()
     f64 = dict(images=images[:DP_F64_BATCH], targets=targets[:DP_F64_BATCH], ref_path=str(tmp / "dp_ref64.pt"))
-    t0 = time.perf_counter()
-    ref64 = dp_step64(None, **f64)
-    t_ref64 = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    jobs, refs = [], []
-    for i, (cfg_name, amp_dtype, steps) in enumerate(DP_JOBS):
-        job = dict(cfg_name=cfg_name, amp_dtype=amp_dtype, steps=steps, images=images, targets=targets,
-                   ref_path=str(tmp / f"dp_ref{i}.pt"))
-        refs.append(dp_job(None, **job))
-        jobs.append(job)
+    jobs = [dict(cfg_name=cfg_name, amp_dtype=amp_dtype, steps=steps, images=images, targets=targets,
+                 ref_path=str(tmp / f"dp_ref{i}.pt")) for i, (cfg_name, amp_dtype, steps) in enumerate(DP_JOBS)]
+    secs = {}
+
+    def one_process():
+        t0 = time.perf_counter()
+        ref64 = dp_step64(None, **f64)
+        secs["f64"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    per_rank = mesh.spawn_local(DP_WORLD, dp_ranks, f64, jobs, backend="gloo", timeout=900, threads=4)
-    t_spawned = time.perf_counter() - t0
+        out = []
+        for job in jobs:
+            out.append(dp_job(None, **job))
+            torch.cuda.empty_cache()
+        secs["jobs"] = time.perf_counter() - t0 - secs["f64"]
+        return ref64, out
+
+    (ref64, refs), per_rank, t_spawned, t_refs = beside_ranks(DP_WORLD, dp_ranks, (f64, jobs, time.time()), one_process,
+                                                              tmp)
+    t_ref64 = secs["f64"]
+    print(f"data parallel host time on {gpu}: ranks {t_spawned:.1f} s from their spawn, beside one process's "
+          f"references {t_refs:.1f} s: float64 {t_ref64:.1f} s ({host_split(ref64['secs'])}), kernel jobs "
+          f"{secs['jobs']:.1f} s ({'; '.join(host_split(r['secs']) for r in refs)}); "
+          + "; ".join(f"rank {i} float64 ({host_split(r[0]['secs'])}), kernel jobs "
+                      f"({'; '.join(host_split(j['secs']) for j in r[1])})" for i, r in enumerate(per_rank)))
     g64 = [r[0] for r in per_rank]
     print(f"data parallel float64 on {gpu}: full-width yolo-somi under plain_version(), global b{DP_F64_BATCH} at "
           f"{IMGSZ} px on {DP_WORLD} gloo ranks on cuda:0 against one process, one optimizer step through "
@@ -3412,7 +3514,9 @@ def sp_job(group, cfg_name: str, dtype, size: int, ref_dir: str) -> dict:
     return res
 
 
-def sp_ranks(group, jobs: list) -> list:
+def sp_ranks(group, jobs: list, ready: str) -> list:
+    torch.zeros(1, device="cuda")  # CUDA's init, while the references are made
+    await_refs(ready)
     return [sp_job(group, **job) for job in jobs]
 
 
@@ -3523,7 +3627,8 @@ def spatial_sharding(gpu: str) -> dict:
     the strips a sharded forward gives it (check_kernel's tolerances); then
     for each config the float64 yardstick
     (sp_ref64) and each SP_JOBS job in one process, then the jobs on
-    SP_WORLD gloo ranks sharing cuda:0 (spawn_local), each rank holding one
+    SP_WORLD gloo ranks sharing cuda:0 (spawn_local, started beside the
+    one-process jobs: beside_ranks), each rank holding one
     H-strip of the batch: every rank's launches per forward PER_BATCH, the
     ranks' rows the same bits, and in f32 and bf16 alike the sharded head
     maps no further from the yardstick than SP_RULE times the unsharded
@@ -3539,17 +3644,15 @@ def spatial_sharding(gpu: str) -> dict:
     for cfg_name, size in dict.fromkeys((c, z) for c, _, z in SP_JOBS):  # the kernel on the strips it is given
         check_kernel(odconv_strip_sites(cfg_name, size), gen, f"{cfg_name} strip of {size} px")
     t_row0 = time.perf_counter() - t_phase
-    jobs, refs = [], []
     with tempfile.TemporaryDirectory() as tmp:
-        for cfg_name, size in dict.fromkeys((c, z) for c, _, z in SP_JOBS):
-            sp_ref64(cfg_name, size, tmp)
-        for cfg_name, dtype, size in SP_JOBS:
-            job = dict(cfg_name=cfg_name, dtype=dtype, size=size, ref_dir=tmp)
-            refs.append(sp_job(None, **job))
-            jobs.append(job)
-        t0 = time.perf_counter()
-        per_rank = mesh.spawn_local(SP_WORLD, sp_ranks, jobs, backend="gloo", timeout=900, threads=4)
-        t_spawned = time.perf_counter() - t0
+        jobs = [dict(cfg_name=cfg_name, dtype=dtype, size=size, ref_dir=tmp) for cfg_name, dtype, size in SP_JOBS]
+
+        def one_process():
+            for cfg_name, size in dict.fromkeys((c, z) for c, _, z in SP_JOBS):
+                sp_ref64(cfg_name, size, tmp)
+            return [sp_job(None, **job) for job in jobs]
+
+        refs, per_rank, t_spawned, t_refs = beside_ranks(SP_WORLD, sp_ranks, (jobs,), one_process, Path(tmp))
     launches, failed = {}, []
     for job, ref, ranks in zip(jobs, refs, zip(*per_rank)):
         cfg_name, dtype, size = job["cfg_name"], job["dtype"], job["size"]
@@ -3588,7 +3691,7 @@ def spatial_sharding(gpu: str) -> dict:
         failed += [f"{title}: {k}" for k, ok in checks.items() if not ok]
         launches[title] = r0["launches"]
     print(f"spatial sharding on {gpu}: phase 14 {time.perf_counter() - t_phase:.1f} s (kernel checks {t_row0:.1f} s, "
-          f"ranks {t_spawned:.1f} s)")
+          f"ranks {t_spawned:.1f} s from their spawn, beside one process's jobs {t_refs:.1f} s)")
     assert not failed, failed
     return dict(launches=launches, row0=row0)
 
@@ -4083,13 +4186,14 @@ def heads_phase(gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 ZOO_STEPS = 3  # timed bf16 b8 train steps of each trained graph
-ZOO_TRAINED = ("zoo-fusion", "zoo-rfem")
+ZOO_TRAINED = ("zoo-fusion", "zoo-rfem", "zoo-c3att")
 
 
 def zoo_training(gpu: str, root: Path, name: str) -> dict:
     """Phase 17(b): graph `name` (zoo-fusion: BiFPN_Add2 / 3, MultiSEAM,
     FReLU / AconC / MetaAconC; zoo-rfem: C3RFEM, RFEM, LVCBlock,
-    ConvMixer; head tempered) through ComputeLoss on phase 8's set:
+    ConvMixer; zoo-c3att: the C3 blocks with attention bottlenecks, CPCA,
+    C2fBAM, C2f_DWR, VoVGSCSPCBAM; head tempered) through ComputeLoss on phase 8's set:
     ZOO_STEPS timed bf16 b8 train steps with 4 + 4 + 4 launches each, the
     median step and the peak memory; then the f32 b2 step through the
     kernels against plain_version() (train_step_parity, phase 8(b)'s
@@ -4169,19 +4273,28 @@ def body_zoo_phase(gpu: str) -> dict:
     return dict(served={k: v["launches"]["odconv_s2"] // N_REQUESTS for k, v in served.items()}, trained=trained)
 
 
-def build_all() -> None:
-    """One nvcc per source, all started together."""
+def build_all(later: tuple = ()):
+    """One nvcc per source, all started together. Waits for every source
+    but those in `later`, which go on building beside the phases that do
+    not launch them; the function returned waits for those."""
     def one(source):
         t0 = time.perf_counter()
         lib = build.build(source)
-        return source, lib, time.perf_counter() - t0
+        return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        for source, lib, secs in pool.map(one, SOURCES):
+    def wait(sources):
+        for source in sources:
+            lib, secs = futures[source].result()
             print(f"build: {lib.name} in {secs:.1f} s")
             for line in build.BUILD_LOG.get(source, "").splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"  ptxas: {line.strip()}")
+
+    pool = ThreadPoolExecutor(len(SOURCES))
+    futures = {source: pool.submit(one, source) for source in SOURCES}
+    pool.shutdown(wait=False)
+    wait([source for source in SOURCES if source not in later])
+    return lambda: wait([source for source in SOURCES if source in later])
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
@@ -4214,8 +4327,8 @@ def main() -> int:
     print("TF32 off for matmul and cuDNN: f32 comparisons run in full f32")
 
     t0 = time.perf_counter()
-    build_all()
-    print(f"build: all sources in {time.perf_counter() - t0:.1f} s")
+    int8_built = build_all(later=("conv_int8.cu",))  # its nvcc (~60 s) runs beside phases 1-11
+    print(f"build: every source but conv_int8.cu in {time.perf_counter() - t0:.1f} s")
 
     _, meta = parse_model(load_model_cfg(find_config("yolo-somi")))
     _, meta_s = parse_model(load_model_cfg(find_config("yolo-somi-s")))
@@ -4256,6 +4369,9 @@ def main() -> int:
         entry_points(gpu)
         trained = training(gpu)
         steps = TRAIN_IMAGES // BATCH * (TRAIN_EPOCHS + 1)
+        t0 = time.perf_counter()
+        int8_built()
+        print(f"build: conv_int8.cu joined {time.perf_counter() - t0:.1f} s into phase 12")
         int8_summary, int8_served = int8_phase(gpu, Path(eval_dir.name), bf16_eval)
         parallel = parallelism(gpu)
         sharded = spatial_sharding(gpu)
@@ -4320,7 +4436,7 @@ def main() -> int:
         per_job = {head: counts[entry["name"]] for head, counts in heads["trained"].items() if counts.get(entry["name"])}
         if per_job:
             entry["heads_launches_per_train_step"] = per_job
-        # phase 17: launches per served batch of each body zoo graph, per train step of zoo-fusion and zoo-rfem
+        # phase 17: launches per served batch of each body zoo graph, per train step of each trained graph
         if entry["name"] == "odconv_s2":
             entry["zoo_body_launches_per_batch"] = zoo["served"]
         per_job = {g: counts[entry["name"]] for g, counts in zoo["trained"].items() if counts.get(entry["name"])}

@@ -222,9 +222,9 @@ def test_plain_row_args_fill_the_flax_fields(case):
     assert j == p == value
 
 
-@pytest.mark.parametrize("module", ["ASPP", "CPCA", "ConvTranspose", "C3_CBAM", "SimConv", "Add"])
+@pytest.mark.parametrize("module", ["Conv2Former", "ContextAggregation", "ConvTranspose", "CAM", "SDI", "Add"])
 def test_names_still_outside_the_registry_name_what_remains(module):
-    """The rest of item 8: layers_zoo.py's blocks and its kinds."""
+    """The rest of item 8, its part (d): layers_zoo.py's fusion blocks and their kinds."""
     with pytest.raises(KeyError, match=f"'{module}'.*item 8.*layers_zoo.py"):
         pyolo.parse_model(row_cfg([-1, 1, module, [128]]))
 

@@ -94,7 +94,7 @@ def test_graph_matches_jax(name):
     assert (pmeta.nl == 0) == (name == "classifier")
 
 
-@pytest.mark.parametrize("module", ["SimConv", "C3_CBAM", "ASPP"])
+@pytest.mark.parametrize("module", ["Conv2Former", "CAM", "SDI"])
 def test_a_row_outside_the_registry_names_the_queue_item(module):
     cfg = dict(load_model_cfg(find_config("yolov5s")))
     cfg["backbone"] = cfg["backbone"][:-1] + [[-1, 1, module, [1024]]]

@@ -196,22 +196,25 @@ class ConvRaw(HaloConv2d):
         return hook(self, x)
 
 
-def autopad(k, p: Optional[int] = None):
-    """'same' padding for an odd kernel size, an int or an (h, w) pair."""
+def autopad(k, p: Optional[int] = None, d: int = 1):
+    """'same' padding for an odd kernel size, an int or an (h, w) pair, at
+    dilation d."""
     if p is not None:
         return p
+    if d > 1:
+        k = d * (k - 1) + 1 if isinstance(k, int) else tuple(d * (x - 1) + 1 for x in k)
     return k // 2 if isinstance(k, int) else tuple(x // 2 for x in k)
 
 
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm(eps 1e-3) + SiLU. `k` is an int or an
     (h, w) pair; `act` True (SiLU), False (none) or an activation module
-    (ASFF's LeakyReLU(0.1))."""
+    (ASFF's LeakyReLU(0.1)); `d` the dilation."""
 
     def __init__(self, c1: int, c2: int, k: Union[int, Tuple[int, int]] = 1, s: int = 1, p: Optional[int] = None,
-                 g: int = 1, act: Union[bool, nn.Module] = True):
+                 g: int = 1, act: Union[bool, nn.Module] = True, d: int = 1):
         super().__init__()
-        self.conv = ConvRaw(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
+        self.conv = ConvRaw(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = FlaxBatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act if isinstance(act, nn.Module) else nn.SiLU() if act else nn.Identity()
 

@@ -28,15 +28,22 @@ NonLocalBlock, CoT / CoTAttention, DoubleAttention,
 ParallelPolarizedSelfAttention, SpatialGroupEnhance, MHSA, S2Attention,
 EfficientAttention, ELA, MSCAAttention), LSKA / SPPF_LSKA,
 SwinTransformerBlock / C3STR, HorBlock / HorNet / gnconv, RFEM / C3RFEM,
-LVCBlock and ConvMixer. A row of any kind but the heads may repeat (JAX's
-_Repeat). Deliberate divergences (ROADMAP queue C): a Zoom_cat row's
-stride is its second input's, where its output lies (the JAX parser
-records the first input's); a block with no field but dtype builds from
-an empty row (the JAX parser raises TypeError); gnconv's dim must be its
-input's channels and RFEM's n 1 (the JAX package builds a graph whose
-recorded widths are wrong, or fails, otherwise). A row outside the
-registry raises KeyError naming ROADMAP queue A item 8, which still lacks
-layers_zoo.py with its row kinds.
+LVCBlock and ConvMixer; layers_zoo.py's conv and csp kinds
+(models/layers_zoo.py: SimConv, CoordConv / CoordConvd, ADown,
+DownSimper, ASPP, SPPELAN, SPPF_improve, BasicRFB / BasicRFB_a,
+RepVGGBlock, ACmix, Conv_SWS, SPPCSPCS, CNeB, CSPCM, C3CR, the
+C3_<attention> blocks, C2fBAM, C2f_DWR, VoVGSCSPCBAM) and CPCA. A row of
+any kind but the heads may repeat (JAX's _Repeat). An nn.Upsample row of
+another mode than nearest upsamples nearest, as the JAX package's
+Upsample does, and the parser logs the mode it dropped. Deliberate
+divergences (ROADMAP queue C): a Zoom_cat row's stride is its second
+input's, where its output lies (the JAX parser records the first
+input's); a block with no field but dtype builds from an empty row (the
+JAX parser raises TypeError); gnconv's dim must be its input's channels
+and RFEM's n 1 (the JAX package builds a graph whose recorded widths are
+wrong, or fails, otherwise). A row outside the registry raises KeyError
+naming ROADMAP queue A item 8(d), layers_zoo.py's fusion blocks and their
+row kinds.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from yolosomi_tpu_torch.models import activations as A
 from yolosomi_tpu_torch.models import dcn as D
 from yolosomi_tpu_torch.models import heads as H
 from yolosomi_tpu_torch.models import layers as L
+from yolosomi_tpu_torch.models import layers_zoo as Z
 from yolosomi_tpu_torch.models.rtdetr import DenseGeneral, RTDETRDecoder
 from yolosomi_tpu_torch.utils.config import find_config
 from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_device
@@ -140,7 +148,7 @@ _REGISTRY: Dict[str, Tuple[Any, str]] = {
     "DetectV11": (H.DetectV11, "head_v8"),
     "RTDETRDecoder": (RTDETRDecoder, "head_rtdetr"),
 }
-# the parser's remaining kinds and the body zoo (yolosomi_tpu/models/yolo.py:60-170); none of these
+# the parser's remaining kinds and the body zoo (yolosomi_tpu/models/yolo.py:60-206); none of these
 # blocks has a strip path, so a graph that names one is not served spatially sharded (engine/runner.py)
 _BODY_ZOO: Dict[str, Tuple[Any, str]] = {
     "MultiSEAM": (L.MultiSEAM, "seam"),
@@ -206,6 +214,37 @@ _BODY_ZOO: Dict[str, Tuple[Any, str]] = {
     "C3RFEM": (L.C3RFEM, "csp"),
     "LVCBlock": (L.LVCBlock, "plain"),
     "ConvMixer": (L.ConvMixer, "conv"),
+    # layers_zoo.py's conv and csp kinds, and CPCA (yolosomi_tpu/models/yolo.py:172-200, :206)
+    "SimConv": (Z.SimConv, "conv"),
+    "CoordConv": (Z.CoordConv, "conv"),
+    "CoordConvd": (Z.CoordConvd, "conv"),
+    "ADown": (Z.ADown, "conv"),
+    "DownSimper": (Z.DownSimper, "conv"),
+    "ASPP": (Z.ASPP, "conv"),
+    "SPPELAN": (Z.SPPELAN, "conv"),
+    "SPPF_improve": (Z.SPPF_improve, "conv"),
+    "BasicRFB": (Z.BasicRFB, "conv"),
+    "BasicRFB_a": (Z.BasicRFB_a, "conv"),
+    "RepVGGBlock": (Z.RepVGGBlock, "conv"),
+    "ACmix": (Z.ACmix, "conv"),
+    "Conv_SWS": (Z.Conv_SWS, "conv"),
+    "SPPCSPCS": (Z.SPPCSPCS, "csp"),
+    "CNeB": (Z.CNeB, "csp"),
+    "CSPCM": (Z.CSPCM, "csp"),
+    "C3CR": (Z.C3CR, "csp"),
+    "C3_CBAM": (Z.C3_CBAM, "csp"),
+    "C3_CBAMS": (Z.C3_CBAMS, "csp"),
+    "C3_CBAM_DWC": (Z.C3_CBAM_DWC, "csp"),
+    "C3_CBAMS_DWC": (Z.C3_CBAMS_DWC, "csp"),
+    "C3CPCA": (Z.C3CPCA, "csp"),
+    "C3GAM": (Z.C3GAM, "csp"),
+    "C3_SCBAM": (Z.C3_SCBAM, "csp"),
+    "C3_BAM": (Z.C3_BAM, "csp"),
+    "C3_CA": (Z.C3_CA, "csp"),
+    "C2fBAM": (Z.C2fBAM, "csp"),
+    "C2f_DWR": (Z.C2f_DWR, "csp"),
+    "VoVGSCSPCBAM": (Z.VoVGSCSPCBAM, "csp"),
+    "CPCA": (Z.CPCA, "noarg"),
 }
 _REGISTRY.update(_BODY_ZOO)
 STRIPLESS = frozenset(_BODY_ZOO)
@@ -271,10 +310,12 @@ def level_slice(head_name: str, n: int) -> slice:
 # positional index of the stride arg (after c2) of conv-kind modules; DCNv2
 # is left out, as in the JAX package, so its stride never reaches the graph
 _STRIDE_ARG_POS = {"Conv": 2, "DWConv": 2, "GhostConv": 2, "GhostBottleneck": 2, "SCDown": 2, "ODConv": 2,
-                   "ODConv_3rd": 2, "CrossConv": 2, "MixConv2d": 2, "GSConv": 2, "Involution": 2}
+                   "ODConv_3rd": 2, "CrossConv": 2, "MixConv2d": 2, "GSConv": 2, "Involution": 2, "SimConv": 2,
+                   "CoordConv": 2, "CoordConvd": 2, "RepVGGBlock": 2, "BasicRFB": 1, "BasicRFB_a": 1, "ACmix": 4,
+                   "Conv_SWS": 5}
 # conv-kind modules whose graph stride is 2 by construction, whatever their
-# stride arg (Focus's space-to-depth)
-_FIXED_STRIDE2 = {"Focus"}
+# stride arg (Focus's space-to-depth, ADown's and DownSimper's halving)
+_FIXED_STRIDE2 = {"Focus", "ADown", "DownSimper"}
 
 # default pixel anchors for `anchors: <int>`: nl=4 is the SOMI VisDrone set,
 # nl=3 the stock YOLOv5 set
@@ -378,8 +419,8 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32, imgs
     for i, (f, n, mname, args) in enumerate(rows):
         mname = str(mname)
         if mname not in _REGISTRY:
-            raise KeyError(f"module '{mname}' not in registry (row {i}): not ported yet (ROADMAP queue A item 8: "
-                           "layers_zoo.py's blocks and its row kinds)")
+            raise KeyError(f"module '{mname}' not in registry (row {i}): not ported yet (ROADMAP queue A item 8(d): "
+                           "layers_zoo.py's fusion blocks and their row kinds)")
         cls, kind = _REGISTRY[mname]
         tokens = {"nc": nc, "anchors": anchors, "None": None, "True": True, "False": False}
         args = [tokens.get(a, a) if isinstance(a, str) else a for a in args]
@@ -418,8 +459,8 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32, imgs
         elif kind == "upsample":
             c2 = c_in
             scale = args[1] if len(args) > 1 else 2
-            if len(args) > 2 and args[2] != "nearest":
-                raise NotImplementedError(f"Upsample mode {args[2]!r} (row {i})")
+            if len(args) > 2 and args[2] != "nearest":  # the JAX package's Upsample repeats whatever the mode
+                LOGGER.info(f"Upsample row {i}: mode {args[2]!r} dropped, upsampling nearest as the JAX package does")
             make = lambda c: cls(scale)  # noqa: E731
             stride /= scale
         elif kind == "fuse":
@@ -604,8 +645,10 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
     models/dcn.py:init_dcn_heads; ECA's 1-D conv lecun_normal, the ACON
     p1 / p2 N(0, 1), the bare kernels of MLCA and TridentBlock as conv
     kernels, MHSA's positions N(0, 0.02), Swin's bias table truncated
-    N(0, 0.02), the Encoding's uniform codes and scales; the other bare
-    parameters keep their constructors' flax values), then its detection-prior biases
+    N(0, 0.02), the Encoding's uniform codes and scales, ACmix's bare
+    (1, 1, 3 heads, kc^2) kernel as a conv kernel and its dep_conv's shift
+    init; the other bare parameters keep their constructors' flax
+    values), then its detection-prior biases
     (obj log(8/(640/s)^2), cls log(0.6/(nc-0.99999)))."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
@@ -643,10 +686,14 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
             k, c = m.codewords.shape
             m.codewords.copy_(torch.rand(k, c, generator=g) * (2.0 / math.sqrt(k * c)))
             m.scale.copy_(torch.rand(k, generator=g))
+        elif isinstance(m, Z.ACmix):  # its bare (1, 1, 3 heads, kc^2) kernel: variance_scaling(2, fan_out)
+            _trunc_normal(m.fc, m.fc.shape[-1], 2.0, g)
         if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
     for m in model.modules():  # after the generic pass, which also reached their children
         D.init_dcn_heads(m, g)
+        if isinstance(m, Z.ACmix):
+            m.shift_init()
     if not meta.nl:  # headless: no detection priors
         return
     # the priors go where the JAX init_model puts them (yolo.py:596-626):

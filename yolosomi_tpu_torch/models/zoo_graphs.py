@@ -3,8 +3,8 @@ nc 10) with rows replaced or inserted, one graph per family of the
 blocks the parser's remaining kinds and layers.py's body zoo bring (no
 shipped config uses them): the upsamplers, fusion, space-to-depth, CSP
 variants and first gates, then the attention family, the Swin / HorNet
-blocks and the RFEM / EVC family. Each keeps the flagship's four ODConv
-sites.
+blocks and the RFEM / EVC family, then layers_zoo.py's conv and csp
+kinds. Each keeps the flagship's four ODConv sites.
 
 An edit names flagship rows: `replace` maps a row to its new rows (the
 first takes its place, the rest follow it), `after` inserts rows after
@@ -74,6 +74,33 @@ ZOO_GRAPHS: Dict[str, dict] = {
     "zoo-rfem": {"replace": {6: [["same", "same", "C3RFEM", [512]]]},
                  "after": {4: [[-1, 1, "RFEM", [256]]], 9: [[-1, 1, "LVCBlock", [1024, 64]]],
                            12: [[-1, 1, "ConvMixer", [256]]]}},
+    # layers_zoo.py's downsamplers and SPP family: SimConv, ADown, DownSimper and a stride-2 RepVGGBlock for the
+    # stride-2 Convs, a RepVGGBlock with its identity branch, SPPELAN for SPPF, CoordConv / CoordConvd,
+    # SPPF_improve and ASPP on the laterals
+    "zoo-down": {"replace": {0: [[-1, 1, "SimConv", [64, 3, 2]]], 3: [[-1, 1, "ADown", [256]]],
+                             5: [[-1, 1, "DownSimper", [512]]], 7: [[-1, 1, "RepVGGBlock", [1024, 3, 2]]],
+                             9: [[-1, 1, "SPPELAN", [1024, 256]]]},
+                 "after": {4: [[-1, 1, "RepVGGBlock", [256]]], 10: [[-1, 1, "CoordConv", [256, 3, 1]]],
+                           11: [[-1, 1, "CoordConvd", [256, 3, 1]]], 12: [[-1, 1, "SPPF_improve", [256, 5]]],
+                           13: [[-1, 1, "ASPP", [256]]]}},
+    # the RFB blocks (BasicRFB's stride is its arg 1), ConvNeXt, SPPCSPCS for SPPF, ACmix and Conv_SWS on the P4
+    # lateral (40x40 at 640 px: 25 tiles of 8x8), the ConvMix and Conv2Former CSP blocks in the neck
+    "zoo-rfb": {"replace": {2: [["same", "same", "CNeB", [128]]], 3: [[-1, 1, "BasicRFB", [256, 2]]],
+                            9: [[-1, 1, "SPPCSPCS", [1024]]], 17: [["same", "same", "CSPCM", [256]]],
+                            21: [["same", "same", "C3CR", [256]]]},
+                "after": {4: [[-1, 1, "BasicRFB", [256, 1]]], 6: [[-1, 1, "BasicRFB_a", [512, 1]]],
+                          12: [[-1, 1, "ACmix", [256, 7, 4, 3, 1]], [-1, 1, "Conv_SWS", [256, 8, 0.0, 1e-4, 1, 1]]]}},
+    # the C3 blocks with attention bottlenecks (CBAM, its depthwise spatial gate, CPCA, summed CBAM, coordinate
+    # attention, GAM, BAM), C2fBAM, C2f_DWR and VoVGSCSPCBAM for the CSP stages, CPCA on a lateral
+    "zoo-c3att": {"replace": {2: [["same", "same", "C3_CBAM", [128, True]]],
+                              4: [["same", "same", "C3_CBAM_DWC", [256, True]]],
+                              6: [["same", "same", "C3CPCA", [512, True]]],
+                              8: [["same", "same", "C3_SCBAM", [1024, True]]],
+                              17: [["same", "same", "C3_CA", [256]]], 21: [["same", "same", "C3GAM", [256]]],
+                              25: [["same", "same", "C3_BAM", [256]]], 28: [["same", "same", "C2fBAM", [256]]],
+                              31: [["same", "same", "C2f_DWR", [512]]], 34: [["same", "same", "VoVGSCSPCBAM", [1024]]]},
+                  "after": {10: [[-1, 1, "C3_CBAMS", [256]]], 11: [[-1, 1, "C3_CBAMS_DWC", [256]]],
+                            12: [[-1, 1, "CPCA", []]]}},
 }
 
 

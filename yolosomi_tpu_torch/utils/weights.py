@@ -25,9 +25,11 @@ nn.Conv, as DCNv3's depthwise conv is.
 flax paths, flax layouts and float32 numpy values, for the checkpoint
 writers (engine/checkpoint.py). Where the forward map is many-to-one, the
 module types decide: L.Conv's Conv2d is the flax `cv/conv`, any other
-Conv2d a bare ConvRaw `<name>/conv`, except DCNv2's `conv_offset_mask` and
-DCNv3's `dw_conv` (flax nn.Conv, no wrapper) and EMA-CBAM's `fc` pair
-(flax Dense kernels held as 1x1 Conv2d).
+Conv2d a bare ConvRaw `<name>/conv`, except DCNv2's `conv_offset_mask`,
+DCNv3's `dw_conv` and the children a module lists in `flax_convs`
+(ACmix's `dep_conv`) (flax nn.Conv, no wrapper) and EMA-CBAM's `fc` pair
+(flax Dense kernels held as 1x1 Conv2d). ACmix's (1, 1, 3 heads, kc^2)
+`fc` is `flax_shaped` and its 0-d `rate1` / `rate2` pass as they are.
 """
 
 from __future__ import annotations
@@ -244,9 +246,10 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
     if isinstance(mod, nn.Conv2d):
         parent = model.get_submodule(prefix.rsplit(".", 1)[0]) if "." in prefix else model
         dense = re.search(r"\.fc\.[02]$", prefix) is not None  # EMA-CBAM's fc pair: flax Dense
+        bare = prefix.rsplit(".", 1)[-1] in getattr(parent, "flax_convs", ())  # a flax nn.Conv (ACmix's dep_conv)
         if isinstance(parent, L.Conv):
             path = path[: -len(".conv")] + ".cv.conv"
-        elif not (dense or isinstance(parent, (D.DCNv2, D.DCNv3, RTDETRDecoder))):
+        elif not (dense or bare or isinstance(parent, (D.DCNv2, D.DCNv3, RTDETRDecoder))):
             path += ".conv"
         if name == "weight":
             layout = (lambda t: t[:, :, 0, 0].T) if dense else (lambda t: t.permute(2, 3, 1, 0))
