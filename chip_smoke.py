@@ -244,7 +244,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     flagship body (rows 0-34, nc 10, 640 px, HEAD_ROWS): DetectV8,
     DetectV11, IDetect, IAuxDetect, ASFF_Detect, CLLADetect,
     TSCODE_Detect, DetectODConv, Segment (nm 32, npr 256) and
-    RTDETRDecoder (hd 256, nq 300). (a) each serves N_REQUESTS b8 bf16
+    RTDETRDecoder (hd 256, nq 300). (a) each serves HEAD_REQUESTS b8 bf16
     batches through Runner (conf 1e-6, every image answered), odconv_s2 4
     times a batch with the counts set to 0 just before, latency, img/s and
     the model / postprocess split printed; its f32 model through the
@@ -269,16 +269,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     RepVGGBlock, SPPELAN, CoordConv / CoordConvd, SPPF_improve and ASPP
     (zoo-down); with CNeB, the RFB blocks, SPPCSPCS, ACmix, Conv_SWS, CSPCM
     and C3CR (zoo-rfb); with the C3 blocks with attention bottlenecks,
-    CPCA, C2fBAM, C2f_DWR and VoVGSCSPCBAM (zoo-c3att)), each keeping the
-    four ODConv sites. (a) each serves
-    N_REQUESTS b8 bf16 batches through Runner as phase 16(a) serves a head
+    CPCA, C2fBAM, C2f_DWR and VoVGSCSPCBAM (zoo-c3att); with layers_zoo.py's
+    transposed-conv upsamplers, n-ary merges, context and HS-FPN gates,
+    Conv2Former, the sliced SimAMs, C3CBAM, ConvMix and a standalone
+    BatchNorm (zoo-tconv); with BiFusion, BiFPNs, SF, SDI, BiFPNSDI, ScalSeq,
+    attention_model and CAM (zoo-asf)), each keeping the four ODConv sites. (a) each serves
+    HEAD_REQUESTS b8 bf16 batches through Runner as phase 16(a) serves a head
     (conf 1e-6, every image answered, odconv_s2 4 times a batch with the
     counts set to 0 just before; params, latency, img/s, the model /
     postprocess split and the peak memory printed), its f32 b2 model
     through the kernels no further from f64 than twice the plain f32 model
     (phase 5's rule); zoo-global, whose MHSA takes the map's size at
-    build, from a weights file built at 640 px. (b) zoo-fusion, zoo-rfem
-    and zoo-c3att (head tempered) through ComputeLoss on phase 8's set:
+    build, from a weights file built at 640 px. (b) zoo-fusion, zoo-rfem,
+    zoo-c3att and zoo-asf (head tempered) through ComputeLoss on phase 8's set:
     ZOO_STEPS timed bf16 b8 steps with 4 + 4 + 4 launches each and the
     peak memory, then the f32 b2 step against plain_version() (phase
     8(b)'s rule)
@@ -291,6 +294,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import hashlib
+import itertools
 import json
 import logging
 import math
@@ -353,6 +357,9 @@ from yolosomi_tpu_torch.utils.weights import conv_raw_paths, export_jax_variable
 IMGSZ = 640
 BATCH = 8
 N_REQUESTS = 10
+HEAD_REQUESTS = 5  # phases 16-17: 25 graphs, each a Runner of its own
+# phase 13(a) and 13(c)'s times share the card with 13(b)'s process
+CONTENDED = "taken while phase 13(b)'s torchrun epoch trains on the same card"
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, f32 without them, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
@@ -410,6 +417,7 @@ STEP_LAUNCHES = {
     "zoo-fusion": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "zoo-rfem": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "zoo-c3att": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
+    "zoo-asf": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4),
     "yolo-somi-dcn": dict(odconv_s2=4, odconv_s2_dx=4, odconv_s2_dwmix=4, dcnv2_im2col=9, dcnv3_core=1,
                           dcnv2_im2col_bwd=9, dcnv3_core_bwd=1),
 }
@@ -430,7 +438,8 @@ STEP_GRAD_TOL = 1e-6
 # H100 80GB HBM3), so for yolo-somi-dcn each floor is that noise; the
 # flagship keeps the floor it passed with (1e-6)
 STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4), "yolo-somi+DetectV8": (1e-6, 1e-6),
-               "zoo-fusion": (1e-6, 1e-6), "zoo-rfem": (1e-6, 1e-6), "zoo-c3att": (1e-6, 1e-6)}
+               "zoo-fusion": (1e-6, 1e-6), "zoo-rfem": (1e-6, 1e-6), "zoo-c3att": (1e-6, 1e-6),
+               "zoo-asf": (1e-6, 1e-6)}
 # the per-parameter floor of that comparison, as a share of the largest
 # gradient's norm: STEP_GRAD_TOL for the flagship; for yolo-somi-dcn the
 # bf16 witness's 1e-4, because its f32 step through the kernels put a sum
@@ -440,7 +449,8 @@ STEP_FLOORS = {"yolo-somi": (1e-6, 1e-6), "yolo-somi-dcn": (2e-5, 5e-4), "yolo-s
 # carried into a cancelling sum. For that model the median distance over
 # all parameters is held to STEP_MEDIAN_RATIO times the plain step's too.
 STEP_PARAM_FLOOR = {"yolo-somi": STEP_GRAD_TOL, "yolo-somi-dcn": 1e-4, "yolo-somi+DetectV8": STEP_GRAD_TOL,
-                    "zoo-fusion": STEP_GRAD_TOL, "zoo-rfem": STEP_GRAD_TOL, "zoo-c3att": STEP_GRAD_TOL}
+                    "zoo-fusion": STEP_GRAD_TOL, "zoo-rfem": STEP_GRAD_TOL, "zoo-c3att": STEP_GRAD_TOL,
+                    "zoo-asf": STEP_GRAD_TOL}
 STEP_MEDIAN_RATIO = 2.0
 # the configs whose comparison takes a second draw of the rounding noise
 # beside the plain f32 step: the plain step from parameters nudged by one
@@ -452,8 +462,12 @@ STEP_MEDIAN_RATIO = 2.0
 # first BatchNorm-fed attention convs and ODConv's fc_w bias), 4 of them
 # among the kernels' 8 (probe_step_noise.py; NVIDIA H100 80GB HBM3,
 # 700.00 W; the flagship's steps: 0.034 plain, 0.011 nudged, 0.018
-# kernels, none over the rule)
-STEP_SECOND_DRAW = {"zoo-fusion"}
+# kernels, none over the rule). zoo-asf's nudged plain step, a median 0.059
+# from f64 (plain 0.039, kernels 0.050), failed the one-draw rule at 2 of 735
+# parameters, the backbone's CBAM spatial gates (model.4.m.5's weight and
+# bias), and the kernels' step at 2 (model.4.m.5's bias, model.6.m.4's
+# weight; probe_step_noise.py zoo-asf, the same card)
+STEP_SECOND_DRAW = {"zoo-fusion", "zoo-asf"}
 # the same step at b8 through the kernels against the plain ODConv backward
 # (in f32, rounded once) behind the same forward kernel (train_step_witness),
 # in f32 for WITNESS_SEEDS[float32] and in bf16 under autocast for
@@ -1629,17 +1643,40 @@ def write_shapes_split(root: Path, split: str, n: int, rng: np.random.Generator)
     return n_labels
 
 
+def dead_rows(model) -> set:
+    """The rows of a DetectionModel whose output no path to its last row
+    reads (zoo-asf's C2fEMACBAM at row 29: the rows inserted after it read
+    around it)."""
+    n = len(model.model)
+    live, todo = set(), [n - 1]
+    while todo:
+        i = todo.pop()
+        if i in live or i < 0:
+            continue
+        live.add(i)
+        f = list(model.head_from) if i == n - 1 and model.head_from else model.froms[i]
+        todo += [i - 1 if j == -1 else i + j if j < 0 else j for j in ([f] if isinstance(f, int) else f)]
+    return set(range(n)) - live
+
+
 def step_grads(model, loss_fn, images: np.ndarray, targets: np.ndarray, amp_dtype=None):
     """(loss, gradients of every parameter) of one train-mode forward and
     backward in the model's dtype, or with the forward under autocast to
     `amp_dtype` as the train step runs it; the BatchNorm statistics move as
-    a train step moves them."""
+    a train step moves them. The parameters of dead_rows get zeros, as
+    jax.grad gives them; any other parameter the loss does not reach
+    fails."""
     model.train()
     dtype = next(model.parameters()).dtype
     with torch.autocast("cuda", dtype=amp_dtype) if amp_dtype else contextlib.nullcontext():
         preds = model(upload_images(images, torch.device("cuda")).to(dtype))
     loss, _ = loss_fn(preds, torch.as_tensor(targets, device="cuda"))
-    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    dead = {str(i) for i in dead_rows(model)}
+    unused = {n for (n, _), g in zip(named, grads) if g is None}
+    assert unused == {n for n, _ in named if n.split(".")[1] in dead}, sorted(unused)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
 
 
 def bn_stats(model) -> list:
@@ -2050,7 +2087,7 @@ def profile_train_step(gpu: str, root: Path, cfg_name: str = "yolo-somi") -> Non
     model, meta = build_model(cfg, nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
     randomize_offset_heads(model, seed=0)
     ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
-    batches = list(DataLoader(ds, BATCH, shuffle=True, drop_last=True))[:3]
+    batches = list(itertools.islice(DataLoader(ds, BATCH, shuffle=True, drop_last=True), 3))
     opt = make_optimizer(hyp, nb=len(batches), epochs=1, batch_size=BATCH)
     state = create_train_state(model, opt)
     step = make_train_step(ComputeLoss(meta, hyp), opt, amp_dtype=torch.bfloat16)
@@ -3188,7 +3225,8 @@ def data_parallel(gpu: str, tmp: Path) -> dict:
               f"excess over 5e-3 x |p| + 3e-3: {r0['excess']:.2e}; step times rank 0 "
               f"{['%.1f ms' % (v * 1e3) for v in r0['times']]}, rank 1 "
               f"{['%.1f ms' % (v * 1e3) for v in ranks[1]['times']]}"
-              f", one process {['%.1f ms' % (v * 1e3) for v in ref['times']]}; launches per rank {r0['launches']}")
+              f", one process {['%.1f ms' % (v * 1e3) for v in ref['times']]} ({CONTENDED}); launches per rank "
+              f"{r0['launches']}")
         assert first_rel <= DP_LOSS[dtype], first_rel
         assert all(max(r["bn"]) <= DP_BN_TOL for r in ranks), [r["bn"] for r in ranks]
         launches[f"{cfg_name} {'bf16' if amp_dtype else 'f32'}"] = r0["launches"]
@@ -3196,13 +3234,13 @@ def data_parallel(gpu: str, tmp: Path) -> dict:
     return launches
 
 
-def torchrun_epoch(gpu: str, tmp: Path) -> None:
-    """Phase 13(b): torchrun --standalone --nproc_per_node 1 -m
-    yolosomi_tpu_torch.train over NCCL, one epoch of the full-width
-    flagship on phase 8's set (hyp.visdrone, b8, bf16, autoanchor on):
-    one run directory with one last.ckpt, and the epoch's kernel launches
-    (train_log.jsonl) STEP_LAUNCHES per step plus odconv_s2 per val
-    forward."""
+def torchrun_start(tmp: Path):
+    """Phase 13(b)'s process, started: torchrun --standalone
+    --nproc_per_node 1 -m yolosomi_tpu_torch.train over NCCL, one epoch of
+    the full-width flagship on phase 8's set (hyp.visdrone, b8, bf16,
+    autoanchor on), its output to chiprun_out/chip_smoke_torchrun.log. It
+    runs beside 13(a) and 13(c) (its launches count in its own process);
+    torchrun_epoch waits for it. Returns (process, log file, start time)."""
     t0 = time.perf_counter()
     root = tmp / "shapes"
     rng = np.random.default_rng(0)
@@ -3215,10 +3253,29 @@ def torchrun_epoch(gpu: str, tmp: Path) -> None:
            "yolosomi_tpu_torch.train", "--cfg", "yolo-somi", "--data", str(data), "--hyp", "hyp.visdrone",
            "--epochs", "1", "--batch-size", str(BATCH), "--imgsz", str(IMGSZ), "--workers", "8",
            "--project", str(tmp / "runs"), "--name", "ddp"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
-    (OUT / "chip_smoke_torchrun.log").write_text(proc.stdout + proc.stderr)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "1 data-parallel ranks of 8 images" in proc.stderr, proc.stderr[-2000:]
+    OUT.mkdir(exist_ok=True)
+    log = open(OUT / "chip_smoke_torchrun.log", "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True, cwd=Path(__file__).resolve().parent)
+    return proc, log, t0
+
+
+def torchrun_epoch(gpu: str, tmp: Path, started) -> None:
+    """Phase 13(b), checked: torchrun_start's process ended with code 0;
+    one run directory with one last.ckpt, and the epoch's kernel launches
+    (train_log.jsonl) STEP_LAUNCHES per step plus odconv_s2 per val
+    forward."""
+    proc, log, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    out = (OUT / "chip_smoke_torchrun.log").read_text()
+    assert proc.returncode == 0, out[-4000:]
+    assert "1 data-parallel ranks of 8 images" in out, out[-2000:]
     run = tmp / "runs" / "ddp"
     assert sorted(p.name for p in (tmp / "runs").iterdir()) == ["ddp"]
     assert sorted(p.name for p in (run / "weights").glob("*.ckpt")) == ["best.ckpt", "last.ckpt"]
@@ -3234,8 +3291,9 @@ def torchrun_epoch(gpu: str, tmp: Path) -> None:
     print(f"torchrun on {gpu}: --standalone --nproc_per_node 1 -m yolosomi_tpu_torch.train over NCCL, full-width "
           f"yolo-somi, hyp.visdrone, b{BATCH}, {IMGSZ} px, bf16, autoanchor on, {TRAIN_IMAGES} images: 1 epoch, "
           f"{r['steps']} steps in {r['train_s']:.2f} s ({r['train_s'] / r['steps'] * 1e3:.1f} ms/step), val "
-          f"{r['val_s']:.2f} s; kernel launches {got} ({nb} steps, {val_forwards} val forwards); "
-          f"last.ckpt written once; process {time.perf_counter() - t0:.1f} s; log in chip_smoke_torchrun.log")
+          f"{r['val_s']:.2f} s (timed while 13(a) and 13(c) ran on the same card); kernel launches {got} ({nb} steps, {val_forwards} val forwards); "
+          f"last.ckpt written once; process {time.perf_counter() - t0:.1f} s, of which waited for after 13(a) and 13(c) "
+          f"{time.perf_counter() - t_wait:.1f} s; log in chip_smoke_torchrun.log")
 
 
 def pipeline(gpu: str) -> None:
@@ -3317,7 +3375,8 @@ def pipeline(gpu: str) -> None:
           f"{IMGSZ} px: at microbatch {BATCH} loss {loss:.7f} / one process {ref_loss.item():.7f} (relative "
           f"{loss_rel:.2e}), gradients' relative norm distance median {statistics.median(rel):.2e}, max {rel[0]:.2e} "
           f"({len(over)} over {WITNESS_TOL[torch.float32]:.0e} plus {floor:.2e}), step {t_pipe * 1e3:.1f} ms (again "
-          f"{t_pipe2 * 1e3:.1f} ms) against {t_ref * 1e3:.1f} ms (forward and backward, one process), launches "
+          f"{t_pipe2 * 1e3:.1f} ms) against {t_ref * 1e3:.1f} ms (forward and backward, one process; all "
+          f"{CONTENDED}), launches "
           f"{launches}; at microbatch "
           f"{PIPE_MICRO} ({n_micro} microbatches, optimizer on) loss {loss_micro:.7f}, step {t_micro * 1e3:.1f} ms, "
           f"launches {launches_micro}, parameter bytes per stage {per_stage}; pipeline_infer at microbatch "
@@ -3334,13 +3393,20 @@ def pipeline(gpu: str) -> None:
 
 
 def parallelism(gpu: str) -> dict:
-    """Phase 13: (a) data_parallel, (b) torchrun_epoch, (c) pipeline.
-    Returns (a)'s launches per rank by job."""
+    """Phase 13: (a) data_parallel, (b) torchrun_epoch, its process beside
+    (a) and (c), (c) pipeline. Returns (a)'s launches per rank by job."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launches = data_parallel(gpu, Path(tmp))
-        torchrun_epoch(gpu, Path(tmp))
-    pipeline(gpu)
+        started = torchrun_start(Path(tmp))
+        try:
+            launches = data_parallel(gpu, Path(tmp))
+            pipeline(gpu)
+        except BaseException:
+            started[0].kill()
+            started[0].wait()
+            started[1].close()
+            raise
+        torchrun_epoch(gpu, Path(tmp), started)
     print(f"data and pipeline parallelism on {gpu}: phase 13 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -3977,7 +4043,7 @@ def postprocess(runner: Runner, preds, conf: float):
 
 
 def head_serve(gpu: str, name: str, path: Path, label: str = None, weights: Path = None) -> dict:
-    """Phase 16(a) for one head: N_REQUESTS b8 bf16 batches through Runner
+    """Phase 16(a) for one head: HEAD_REQUESTS b8 bf16 batches through Runner
     (conf HUB_CONF: random weights under the priors score below 0.25),
     every image answered, odconv_s2 4 times a batch with the counts set to
     0 just before; the model / postprocess split and the peak memory of
@@ -3989,10 +4055,12 @@ def head_serve(gpu: str, name: str, path: Path, label: str = None, weights: Path
     it, `label` naming the graph in the printed lines, from the weights
     file `weights` where given (else from seed 0)."""
     label = label or f"heads {name} on the flagship's body"
+    t0 = time.perf_counter()
     runner = Runner(str(path), weights and str(weights), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda", seed=0)
+    t_build = time.perf_counter() - t0
     n_params = sum(p.numel() for p in runner.model.parameters())
     rng = np.random.default_rng(16)
-    batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
+    batches = [rng.integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8) for _ in range(HEAD_REQUESTS + 1)]
     runner(batches[0], conf_thres=HUB_CONF)
     torch.cuda.synchronize()
     reset_counts()
@@ -4006,7 +4074,7 @@ def head_serve(gpu: str, name: str, path: Path, label: str = None, weights: Path
         assert (out[..., 4] > 0).any(1).all(), f"{name}: an image without detections"
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    assert launches == only(odconv_s2=4 * N_REQUESTS), (name, launches)
+    assert launches == only(odconv_s2=4 * HEAD_REQUESTS), (name, launches)
     fwd, post = [], []
     for images in batches[1:]:
         torch.cuda.synchronize()
@@ -4019,11 +4087,11 @@ def head_serve(gpu: str, name: str, path: Path, label: str = None, weights: Path
         post.append(time.perf_counter() - t1)
     med = statistics.median(lat)
     print(f"{label} (width 1.0, {n_params / 1e6:.2f} M params, nc 10, strides "
-          f"{[int(s) for s in runner.meta.strides]}) 640 px bf16 conf {HUB_CONF:g} b{BATCH}, {N_REQUESTS} requests on "
-          f"{gpu}: latency median {med * 1e3:.2f} ms/batch (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), "
+          f"{[int(s) for s in runner.meta.strides]}) 640 px bf16 conf {HUB_CONF:g} b{BATCH}, {HEAD_REQUESTS} requests "
+          f"on {gpu}: latency median {med * 1e3:.2f} ms/batch (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), "
           f"{BATCH / med:.1f} img/s; upload+model median {statistics.median(fwd) * 1e3:.2f} ms, postprocess median "
           f"{statistics.median(post) * 1e3:.2f} ms; peak memory {peak / 1e9:.2f} GB; odconv_s2 "
-          f"{launches['odconv_s2'] // N_REQUESTS}/batch")
+          f"{launches['odconv_s2'] // HEAD_REQUESTS}/batch; the Runner built in {t_build:.1f} s")
     del runner
     torch.cuda.empty_cache()
 
@@ -4079,7 +4147,7 @@ def heads_training(gpu: str, root: Path) -> dict:
     launches. Returns the per-step launches by graph."""
     hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
     ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
-    batches = list(DataLoader(ds, BATCH, shuffle=True, drop_last=True))[:HEAD_STEPS + 1]
+    batches = list(itertools.islice(DataLoader(ds, BATCH, shuffle=True, drop_last=True), HEAD_STEPS + 1))
     runs = {}
     for name in ("DetectV8", "IAuxDetect"):
         model, meta = build_model(head_cfg(name), nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
@@ -4177,7 +4245,7 @@ def heads_phase(gpu: str) -> dict:
         trained = heads_training(gpu, root)
     print(f"heads on {gpu}: phase 16 {time.perf_counter() - t_phase:.1f} s (serving and f32 parity "
           f"{t_a - t_phase:.1f} s)")
-    return dict(served={k: v["launches"]["odconv_s2"] // N_REQUESTS for k, v in served.items()}, trained=trained)
+    return dict(served={k: v["launches"]["odconv_s2"] // HEAD_REQUESTS for k, v in served.items()}, trained=trained)
 
 
 # ---------------------------------------------------------------------------
@@ -4186,21 +4254,22 @@ def heads_phase(gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 ZOO_STEPS = 3  # timed bf16 b8 train steps of each trained graph
-ZOO_TRAINED = ("zoo-fusion", "zoo-rfem", "zoo-c3att")
+ZOO_TRAINED = ("zoo-fusion", "zoo-rfem", "zoo-c3att", "zoo-asf")
 
 
 def zoo_training(gpu: str, root: Path, name: str) -> dict:
     """Phase 17(b): graph `name` (zoo-fusion: BiFPN_Add2 / 3, MultiSEAM,
     FReLU / AconC / MetaAconC; zoo-rfem: C3RFEM, RFEM, LVCBlock,
     ConvMixer; zoo-c3att: the C3 blocks with attention bottlenecks, CPCA,
-    C2fBAM, C2f_DWR, VoVGSCSPCBAM; head tempered) through ComputeLoss on phase 8's set:
+    C2fBAM, C2f_DWR, VoVGSCSPCBAM; zoo-asf: BiFusion, BiFPNs, SF, SDI,
+    BiFPNSDI, ScalSeq, attention_model, CAM; head tempered) through ComputeLoss on phase 8's set:
     ZOO_STEPS timed bf16 b8 train steps with 4 + 4 + 4 launches each, the
     median step and the peak memory; then the f32 b2 step through the
     kernels against plain_version() (train_step_parity, phase 8(b)'s
     rule). Returns the launches per step."""
     hyp = load_hyp(find_config("hyp.visdrone", "hyps"))
     ds = DetectionDataset(str(root / "train" / "images"), img_size=IMGSZ, augment=True, hyp=hyp)
-    batches = list(DataLoader(ds, BATCH, shuffle=True, drop_last=True))[:ZOO_STEPS + 1]
+    batches = list(itertools.islice(DataLoader(ds, BATCH, shuffle=True, drop_last=True), ZOO_STEPS + 1))
     model, meta = build_model(zoo_graph(name), nc=10, device="cuda", seed=0, compute_dtype=torch.bfloat16)
     temper_head(model, HEAD_TEMPER)
     opt = make_optimizer(hyp, nb=len(batches), epochs=1, batch_size=BATCH)
@@ -4270,7 +4339,7 @@ def body_zoo_phase(gpu: str) -> dict:
         trained = {name: zoo_training(gpu, root, name) for name in ZOO_TRAINED}
     print(f"body zoo on {gpu}: phase 17 {time.perf_counter() - t_phase:.1f} s (serving and f32 parity "
           f"{t_a - t_phase:.1f} s)")
-    return dict(served={k: v["launches"]["odconv_s2"] // N_REQUESTS for k, v in served.items()}, trained=trained)
+    return dict(served={k: v["launches"]["odconv_s2"] // HEAD_REQUESTS for k, v in served.items()}, trained=trained)
 
 
 def build_all(later: tuple = ()):

@@ -224,9 +224,15 @@ def test_plain_row_args_fill_the_flax_fields(case):
 
 @pytest.mark.parametrize("module", ["Conv2Former", "ContextAggregation", "ConvTranspose", "CAM", "SDI", "Add"])
 def test_names_still_outside_the_registry_name_what_remains(module):
-    """The rest of item 8, its part (d): layers_zoo.py's fusion blocks and their kinds."""
-    with pytest.raises(KeyError, match=f"'{module}'.*item 8.*layers_zoo.py"):
-        pyolo.parse_model(row_cfg([-1, 1, module, [128]]))
+    """The names that stood outside the registry until its part (d) of item
+    8 (layers_zoo.py's fusion blocks and their kinds) parse with the JAX
+    parser's specs and build; SDI and Add read two maps."""
+    row = [[-1, 2], 1, module, []] if module in ("SDI", "Add") else [-1, 1, module, [128]]
+    _, jmeta, _ = jyolo.parse_model(row_cfg(row))
+    _, pmeta = pyolo.parse_model(row_cfg(row))
+    assert specs(pmeta) == specs(jmeta) and pmeta.specs[len(BASE)].name == module
+    model, _ = pyolo.build_model(row_cfg(row), device="cpu")
+    assert type(model.model[len(BASE)]).__name__ in (module, "ConvTransposeLayer")
 
 
 # one instance of each block with a whole-map reduction, an unbounded reach

@@ -1360,3 +1360,32 @@ def test_conv_zoo_graph_forward_on_cuda_matches_the_plain_version(cuda, name):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zoo-tconv", "zoo-asf"])
+def test_fusion_zoo_graph_forward_on_cuda_matches_the_plain_version(cuda, name):
+    """The small graph of layers_zoo.py's fusion kinds (the transposed-conv
+    upsamplers, n-ary merges, context and HS-FPN gates, or the multi-scale
+    fusions; models/zoo_graphs.py at width 0.25, depth 0.33, seed-0
+    weights, nc 3), f32 b2 at 64 px on the card with odconv_s2 at its four
+    sites, against the same model under plain_version() (no launch), within
+    the whole-model f32 tolerance of
+    test_runner_from_a_weights_file_reaches_the_kernels."""
+    from yolosomi_tpu_torch.models.zoo_graphs import zoo_graph
+
+    cfg = zoo_graph(name)
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    model, _ = build_model(cfg, nc=3, device="cuda", seed=0)
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 3, 64, 64), np.float32)).cuda()
+    before = odconv_s2.launches
+    with torch.no_grad():
+        got = model(x)
+        torch.cuda.synchronize()
+        assert odconv_s2.launches - before == 4
+        with plain_version():
+            want = model(x)
+    assert odconv_s2.launches - before == 4
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)

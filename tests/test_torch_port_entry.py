@@ -467,9 +467,9 @@ def test_hub_loaders(files, monkeypatch):
 @pytest.mark.parametrize("fn", ["yolov5s", "yolov5l", "yolov3-tiny"])
 def test_yolov5_hub_loaders_name_the_queue_item(fn):
     """The yolov5 loaders, and hubconf.custom on yolov3-tiny (its
-    nn.MaxPool2d and nn.ZeroPad2d rows ported since; the rows outside the
-    registry raise KeyError naming ROADMAP queue A item 8,
-    tests/test_torch_port_zoo.py), build their YAML's model (nc 80, its
+    nn.MaxPool2d and nn.ZeroPad2d rows ported since; a row outside the
+    registry raises KeyError naming it and its row, as the JAX parser
+    does, tests/test_torch_port_zoo.py), build their YAML's model (nc 80, its
     anchors, the coupled Detect head) and answer an AutoShape call on the
     CPU."""
     model = hubconf.custom(fn, device="cpu", imgsz=64) if fn == "yolov3-tiny" else getattr(hubconf, fn)(device="cpu",

@@ -63,8 +63,8 @@ def test_numerical_conventions_are_pinned(flagship):
 
 def test_unknown_module_row_raises():
     cfg = small_flagship_cfg()
-    cfg["backbone"] = [[-1, 1, "Conv2Former", [64, 3]]] + list(cfg["backbone"][1:])
-    with pytest.raises(KeyError, match="Conv2Former"):
+    cfg["backbone"] = [[-1, 1, "Conv2Former2", [64, 3]]] + list(cfg["backbone"][1:])  # in neither registry
+    with pytest.raises(KeyError, match="'Conv2Former2' not in registry"):
         build_model(cfg, device="cpu")
 
 

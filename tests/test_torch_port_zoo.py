@@ -96,10 +96,14 @@ def test_graph_matches_jax(name):
 
 @pytest.mark.parametrize("module", ["Conv2Former", "CAM", "SDI"])
 def test_a_row_outside_the_registry_names_the_queue_item(module):
+    """Every name of the JAX registry parses now; a name neither registry
+    holds (the case's name with a 2 after it) raises KeyError naming it and
+    its row in the port's parser and in the JAX parser alike."""
     cfg = dict(load_model_cfg(find_config("yolov5s")))
-    cfg["backbone"] = cfg["backbone"][:-1] + [[-1, 1, module, [1024]]]
-    with pytest.raises(KeyError, match=f"'{module}'.*item 8"):
-        parse_model(cfg)
+    cfg["backbone"] = cfg["backbone"][:-1] + [[-1, 1, f"{module}2", [1024]]]
+    for parse in (parse_model, jax_parse_model):
+        with pytest.raises(KeyError, match=f"'{module}2' not in registry \\(row {len(cfg['backbone']) - 1}\\)"):
+            parse(cfg)
 
 
 # ---------------------------------------------------------------------------

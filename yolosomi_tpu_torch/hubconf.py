@@ -15,18 +15,15 @@ yolov3 / yolov3-spp / yolov3-tiny, yolov5s-ghost, yolov5s-transformer and
 yolov10, and any graph that ends in one of the JAX package's heads
 (IDetect, IAuxDetect, ASFF_Detect, CLLADetect, TSCODE_Detect,
 DetectODConv, Segment, the DFL heads DetectV8 / DetectV11 and their
-aliases, RTDETRDecoder), and any graph of the parser's own row kinds and
-layers.py's body zoo (SPD, Expand, BiFPN_Add2 / 3, CARAFE, DySample,
-Involution, Zoom_cat, FReLU / AconC / MetaAconC, SE, ECA, SimAM,
-CoorAttention, BAM, CBAM, MultiSEAM, CrossConv, MixConv2d, GSConv, C3SE,
-C3ECA, C3SPP, C3x, RepC3, SPPCSPC; models/zoo_graphs.py builds six).
-`AutoShape(..., augment=True)` calls serve with TTA. A config with a row
-outside the registry raises KeyError naming ROADMAP queue A item 8, which
-still lacks layers.py's attention family (GAM, SK, Shuffle, NAM, EMA,
-LSKblock, MLCA, Triplet, GC, NonLocal, CoT, DoubleAttention, PPSA, SGE,
-MHSA, S2, Efficient, ELA, MSCA, LSKA / SPPF_LSKA, HorBlock / gnconv),
-RFEM / C3RFEM, LVCBlock, ConvMixer, Swin / C3STR, and layers_zoo.py with
-its row kinds.
+aliases, RTDETRDecoder), and any graph of the JAX registry's other
+names: the parser's own row kinds and layers.py's body zoo (SPD, Expand,
+BiFPN_Add2 / 3, CARAFE, DySample, Involution, Zoom_cat, FReLU / AconC /
+MetaAconC, the gates, MultiSEAM, the CSP variants), layers.py's attention
+family, LSKA / SPPF_LSKA, Swin / C3STR, HorBlock / gnconv, RFEM / C3RFEM,
+LVCBlock and ConvMixer, and layers_zoo.py's conv, csp and fusion kinds
+(models/zoo_graphs.py builds fifteen such graphs). `AutoShape(...,
+augment=True)` calls serve with TTA. A config with a row outside the
+registry raises KeyError naming the row, as the JAX package's parser does.
 """
 
 from __future__ import annotations

@@ -1,16 +1,23 @@
-"""layers_zoo.py's conv and CSP blocks (counterparts of
-yolosomi_tpu/models/layers_zoo.py:56-1348): SimConv, CoordConv /
-CoordConvd, ADown, DownSimper, the SPP family (ASPP, SPPELAN, SPPCSPCS,
-SPPF_improve), the RFB blocks, RepVGGBlock in its train form, the ConvNeXt,
-Conv2Former and ConvMix CSP blocks (CNeB, C3CR, CSPCM), Conv_SWS's sliced
-SimAM, ACmix, CPCA and the C3 / C2f blocks with attention bottlenecks.
+"""layers_zoo.py's blocks (counterparts of
+yolosomi_tpu/models/layers_zoo.py): SimConv, CoordConv / CoordConvd, ADown,
+DownSimper, the SPP family (ASPP, SPPELAN, SPPCSPCS, SPPF_improve), the RFB
+blocks, RepVGGBlock in its train form, the ConvNeXt, Conv2Former and
+ConvMix CSP blocks (CNeB, C3CR, CSPCM), Conv_SWS's sliced SimAM, ACmix,
+CPCA and the C3 / C2f blocks with attention bottlenecks; then the fusion
+kinds: the transposed convs and the standalone BatchNorm, the n-ary merges
+(Add, Multiply, CShortcut), the single-map blocks (ContextAggregation,
+PSContextAggregation, ChannelAttentionHSFPN, CAM, SimAMWithSlicing,
+C3CBAM, Conv2Former) and the multi-scale fusions (SDI, BiFPNSDI, BiFPNs,
+BiFusion, SF, ScalSeq, AttentionModel).
 
 Modules are NCHW in `torch.channels_last`, as models/layers.py's, and take
-the input channels first, then the flax module's fields after `c2` in
-their declaration order (a YAML row's args fill them so). Submodule and
-parameter names are the flax names, which the weight bridge
-(utils/weights.py) maps by name; ACmix's `fc` keeps its flax shape and
-`dep_conv` is a bare flax nn.Conv.
+the input channels first (a list of them for a block of several inputs),
+then the flax module's fields after `c2` in their declaration order (a
+YAML row's args fill them so). Submodule and parameter names are the flax
+names, which the weight bridge (utils/weights.py) maps by name; ACmix's
+`fc` keeps its flax shape, and ACmix's `dep_conv` and ContextAggregation's
+`m` are bare flax nn.Conv. A transposed conv converts its flax kernel
+itself (`from_flax` / `to_flax`).
 
 Numerical conventions kept from the JAX package:
 - every GELU here is exact (`approximate=False`) in every dtype;
@@ -22,16 +29,28 @@ Numerical conventions kept from the JAX package:
 - Conv_SWS leaves the pixels no tile covers at zero and divides each tile
   by the coverage count at the time of its add;
 - ACmix's reflect padding reflects again where the pad reaches past the
-  map (jnp.pad's "reflect"; F.pad refuses it), through gathered indices.
+  map (jnp.pad's "reflect"; F.pad refuses it), through gathered indices;
+- flax's nn.ConvTranspose (transpose_kernel False) convolves the dilated
+  input with its kernel as stored, where torch's flips it;
+- the fusions' growth is bilinear with aligned corners at positions
+  arange * (in - 1) / (out - 1) in float32, their shrink an average pool
+  where the ratio is whole and jax.image.resize's antialiased linear
+  resize where it is not; ScalSeq's nearest resize has half-pixel centres
+  (floor((i + 0.5) * in / out) in float32);
+- BiFPNSDI divides its raw weights by the sum of their swish, as the JAX
+  package does.
 
 None of them has a strip path: the Runner refuses to shard a graph that
 names one (models.yolo.STRIPLESS), and those that reduce over the map,
-read its coordinates or pad at its edges refuse a strip themselves.
+read its coordinates, resize it or pad at its edges refuse a strip
+themselves.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import List, Sequence, Tuple, Union
+
+import math
 
 import numpy as np
 import torch
@@ -521,11 +540,12 @@ def _simam(t: torch.Tensor, e_lambda: float) -> torch.Tensor:
 
 class SimAMWithFlexibleSlicing(nn.Module):
     """SimAM on target_size tiles at a stride of target_size (1 -
-    overlap_ratio) (layers_zoo.py:839): tiles start where a whole one fits,
+    overlap_ratio) (layers_zoo.py:839; c1 is the row's input channels, which
+    it ignores): tiles start where a whole one fits,
     in row-major order; each adds its SimAM divided by the coverage count
     its pixels have once it is counted; pixels no tile covers stay zero."""
 
-    def __init__(self, target_size: int = 8, overlap_ratio: float = 0.0, e_lambda: float = 1e-4):
+    def __init__(self, c1: int = 0, target_size: int = 8, overlap_ratio: float = 0.0, e_lambda: float = 1e-4):
         super().__init__()
         self.t, self.e_lambda = target_size, e_lambda
         self.stride = target_size if overlap_ratio == 0.0 else max(int(target_size * (1 - overlap_ratio)), 1)
@@ -553,7 +573,7 @@ class Conv_SWS(nn.Module):
     def __init__(self, c1: int, c2: int, target_size: int = 8, overlap_ratio: float = 0.0, e_lambda: float = 1e-4,
                  k: int = 1, s: int = 1, g: int = 1):
         super().__init__()
-        self.att = SimAMWithFlexibleSlicing(target_size, overlap_ratio, e_lambda)
+        self.att = SimAMWithFlexibleSlicing(c1, target_size, overlap_ratio, e_lambda)
         self.conv = ConvRaw(c1, c2, k, s, L.autopad(k), groups=g, bias=False)
         self.bn = _bn(c2)
 
@@ -949,3 +969,516 @@ class VoVGSCSPCBAM(nn.Module):
             x1 = getattr(self, f"gsb{i}")(x1)
         return self.cv3(torch.cat([self.cv2(x), x1], 1))
 
+
+
+# ---------------------------------------------------------------------------
+# the fusion kinds: resizing
+# ---------------------------------------------------------------------------
+
+
+def bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """F.interpolate(mode="bilinear", align_corners=True) as the JAX package
+    computes it (layers_zoo.py:73): each axis gathers its two neighbours at
+    the float32 positions arange(out) * (in - 1) / (out - 1) and lerps by
+    the fraction in x's dtype; an axis of one pixel, in or out, reads pixel 0."""
+    h, w = x.shape[2:]
+    if (h, w) == tuple(out_hw):
+        return x
+
+    def lerp_axis(v, size_in, size_out, dim):
+        if size_out == 1 or size_in == 1:
+            return v.index_select(dim, torch.zeros(size_out, dtype=torch.long, device=v.device))
+        pos = torch.arange(size_out, dtype=torch.float32, device=v.device) * (size_in - 1) / (size_out - 1)
+        lo = pos.floor().long()
+        hi = (lo + 1).clamp(max=size_in - 1)
+        shape = [1] * v.ndim
+        shape[dim] = size_out
+        t = (pos - lo.float()).to(v.dtype).view(shape)
+        return v.index_select(dim, lo) * (1 - t) + v.index_select(dim, hi) * t
+
+    return lerp_axis(lerp_axis(x, h, out_hw[0], 2), w, out_hw[1], 3)
+
+
+def resize_to(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """SDI's recipe (layers_zoo.py:120), decided by the height alone: shrink
+    by adaptive_avg_pool (models/layers.py), grow bilinearly with the
+    corners aligned, or pass x on."""
+    h = x.shape[2]
+    if h > out_hw[0]:
+        return L.adaptive_avg_pool(x, out_hw)
+    if h < out_hw[0]:
+        return bilinear_align_corners(x, out_hw)
+    return x
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(..., "nearest"): output pixel i of an axis reads
+    floor((i + 0.5) * in / out), computed in float32 (torch's
+    "nearest-exact" scales by a rounded in / out and can floor apart)."""
+    for dim, n in ((2, out_hw[0]), (3, out_hw[1])):
+        m = x.shape[dim]
+        if m != n:
+            idx = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n).floor().long()
+            x = x.index_select(dim, idx)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the transposed convs and the standalone BatchNorm
+# ---------------------------------------------------------------------------
+
+
+def _dilated_conv(x: torch.Tensor, w: torch.Tensor, s: int, lo: int, hi: int, groups: int) -> torch.Tensor:
+    """x with s - 1 zeros between its pixels, padded lo / hi (a negative pad
+    crops), convolved with the OIHW kernel w: a transposed conv as the
+    JAX package writes it, for the cases conv_transpose2d refuses."""
+    b, c, h, wd = x.shape
+    d = x.new_zeros(b, c, (h - 1) * s + 1, (wd - 1) * s + 1)
+    d[:, :, ::s, ::s] = x
+    return F.conv2d(F.pad(d, (lo, hi, lo, hi)), w, groups=groups)
+
+
+class FlaxConvTranspose(nn.ConvTranspose2d):
+    """flax nn.ConvTranspose (transpose_kernel False; stride s, padding k - 1
+    - p each side): the dilated input convolved with the flax HWIO kernel
+    as stored, which is torch's transposed conv with that kernel flipped
+    and its in / out swapped. The weight is torch's (I, O, k, k)."""
+
+    def __init__(self, c1: int, c2: int, k: int, s: int, p: int, bias: bool):
+        super().__init__(c1, c2, k, s, p, bias=bias)
+
+    @staticmethod
+    def from_flax(v: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(v[::-1, ::-1].transpose(2, 3, 0, 1))
+
+    @staticmethod
+    def to_flax(t: torch.Tensor) -> torch.Tensor:
+        return t.permute(2, 3, 0, 1).flip((0, 1))
+
+
+class ConvTransposeLayer(nn.Module):
+    """Transposed conv `conv` (k, stride s, padding p: output (H - 1) s - 2 p
+    + k; biased where there is no BatchNorm), BatchNorm `bn` where `bn`,
+    SiLU where `act` (layers_zoo.py:244)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0, bn: bool = True, act: bool = True):
+        super().__init__()
+        self.conv = FlaxConvTranspose(c1, c2, k, s, p, bias=not bn)
+        self.bn = _bn(c2) if bn else None
+        self.act = act
+
+    def forward(self, x):
+        refuse_strip(self)
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.silu(x) if self.act else x
+
+
+class ConvTranspose2dRaw(ConvTransposeLayer):
+    """The bare nn.ConvTranspose2d row: biased, no BatchNorm, no activation
+    (layers_zoo.py:1551)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int = 0, bn: bool = False, act: bool = False):
+        super().__init__(c1, c2, k, s, p, bn, act)
+
+
+class DWConvTranspose2d(nn.ConvTranspose2d):
+    """Grouped transposed conv, g = gcd(c1, c2), biased (layers_zoo.py:278):
+    the JAX package flips its (k, k, c1 / g, c2) kernel into a conv of the
+    dilated input padded k - 1 - p1 and k - 1 - p1 + p2, which is torch's
+    transposed conv with padding p1 and output_padding p2 on that kernel
+    unflipped. Where p2 >= s, which conv_transpose2d refuses, it runs that
+    conv of the dilated input itself."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p1: int = 0, p2: int = 0):
+        super().__init__(c1, c2, k, s, p1, groups=math.gcd(c1, c2), bias=True)
+        self.p2 = p2
+
+    def from_flax(self, v: np.ndarray) -> np.ndarray:
+        k, g = self.kernel_size[0], self.groups
+        ci, co = v.shape[2], v.shape[3]
+        return np.ascontiguousarray(v.reshape(k, k, ci, g, co // g).transpose(3, 2, 4, 0, 1).reshape(g * ci, co // g,
+                                                                                                       k, k))
+
+    def to_flax(self, t: torch.Tensor) -> torch.Tensor:
+        k, g = self.kernel_size[0], self.groups
+        c1, co_g = t.shape[:2]
+        return t.reshape(g, c1 // g, co_g, k, k).permute(3, 4, 1, 0, 2).reshape(k, k, c1 // g, g * co_g)
+
+    def forward(self, x):
+        refuse_strip(self)
+        s, p1, k, g = self.stride[0], self.padding[0], self.kernel_size[0], self.groups
+        w = self.weight.to(x.dtype)
+        if self.p2 < s:
+            y = F.conv_transpose2d(x, w, None, s, p1, self.p2, g)
+        else:  # the OIHW kernel of the dilated conv: each group's (c2 / g, c1 / g) block, flipped
+            c1, co_g = w.shape[:2]
+            wc = w.reshape(g, c1 // g, co_g, k, k).transpose(1, 2).reshape(g * co_g, c1 // g, k, k).flip((2, 3))
+            y = _dilated_conv(x, wc, s, k - 1 - p1, k - 1 - p1 + self.p2, g)
+        return y + self.bias.to(y.dtype)[:, None, None]
+
+
+class BatchNorm2d(nn.Module):
+    """The standalone BatchNorm row `bn` (layers_zoo.py:313)."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.bn = _bn(c1)
+
+    def forward(self, x):
+        return self.bn(x)
+
+
+# ---------------------------------------------------------------------------
+# the n-ary merges
+# ---------------------------------------------------------------------------
+
+
+class Add(nn.Module):
+    """The sum of all inputs (layers_zoo.py:1356)."""
+
+    def forward(self, xs: List[torch.Tensor]):
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+
+
+class Multiply(nn.Module):
+    """The product of the first two inputs (layers_zoo.py:1368)."""
+
+    def forward(self, xs: List[torch.Tensor]):
+        return xs[0] * xs[1]
+
+
+class CShortcut(nn.Module):
+    """The sum of the first two inputs (layers_zoo.py:1377)."""
+
+    def forward(self, xs: List[torch.Tensor]):
+        return xs[0] + xs[1]
+
+
+# ---------------------------------------------------------------------------
+# the single-map blocks
+# ---------------------------------------------------------------------------
+
+
+class ContextAggregation(nn.Module):
+    """Global context aggregation (layers_zoo.py:726): the biased 1x1 `k`'s
+    softmax over the map weights the biased 1x1 `v` (c / reduction) into one
+    vector, which the bare flax nn.Conv `m` (zero at init) projects back to
+    c; x plus that times the sigmoid of the biased 1x1 `a`."""
+
+    flax_convs = ("m",)
+
+    def __init__(self, c1: int, reduction: int = 1):
+        super().__init__()
+        ic = max(c1 // reduction, 1)
+        self.a = ConvRaw(c1, 1, 1)
+        self.k = ConvRaw(c1, 1, 1)
+        self.v = ConvRaw(c1, ic, 1)
+        self.m = nn.Conv2d(ic, c1, 1)
+
+    def forward(self, x):
+        refuse_strip(self)
+        b = x.shape[0]
+        a = torch.sigmoid(self.a(x))
+        k = torch.softmax(self.k(x).reshape(b, -1), 1)
+        y = torch.einsum("bcn,bn->bc", self.v(x).reshape(b, -1, k.shape[1]), k)[:, :, None, None]
+        return x + self.m(y) * a
+
+
+class PSContextAggregation(nn.Module):
+    """PSA-style split (layers_zoo.py:747), c = c1 e: Conv `cv1` to 2c; the
+    second half plus its ContextAggregation `attn` (itself plus the
+    context), plus Conv `ffn0` (2c) and Conv `ffn1` (c, no activation) of
+    that; Conv `cv2` of both halves back to c1."""
+
+    def __init__(self, c1: int, c2: int = 0, e: float = 0.5):
+        super().__init__()
+        c = int(c1 * e)
+        self.c = c
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        self.attn = ContextAggregation(c)
+        self.ffn0 = Conv(c, 2 * c, 1)
+        self.ffn1 = Conv(2 * c, c, 1, act=False)
+        self.cv2 = Conv(2 * c, c1, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split(self.c, 1)
+        b = b + self.attn(b)
+        b = b + self.ffn1(self.ffn0(b))
+        return self.cv2(torch.cat([a, b], 1))
+
+
+class ChannelAttentionHSFPN(nn.Module):
+    """HS-FPN's channel gate (layers_zoo.py:768): the map's mean and its
+    maximum each through the bias-free 1x1 `fc1` (c / ratio), ReLU and
+    `fc2`, summed into a sigmoid; x times it where `flag`, else the
+    (B, C, 1, 1) gate itself."""
+
+    def __init__(self, c1: int, ratio: int = 4, flag: bool = True):
+        super().__init__()
+        self.flag = flag
+        self.fc1 = ConvRaw(c1, max(c1 // ratio, 1), 1, bias=False)
+        self.fc2 = ConvRaw(max(c1 // ratio, 1), c1, 1, bias=False)
+
+    def forward(self, x):
+        refuse_strip(self)
+        avg = self.fc2(torch.relu(self.fc1(x.mean((2, 3), keepdim=True))))
+        mx = self.fc2(torch.relu(self.fc1(x.amax((2, 3), keepdim=True))))
+        gate = torch.sigmoid(avg + mx)
+        return gate * x if self.flag else gate
+
+
+class CAM(nn.Module):
+    """Context augmentation (layers_zoo.py:787): 3x3 Convs `conv1` / `conv2`
+    / `conv3` dilated 1, 3 and 5, each through a 1x1 Conv `fusion_<i>`;
+    "weight" sums the three, "adaptive" weighs the dilated convs' maps by
+    the channel softmax of Conv `fusion_4` (3) of the three, anything else
+    concatenates them (3 c1 channels for "concat")."""
+
+    def __init__(self, c1: int, fusion: str = "weight"):
+        super().__init__()
+        self.fusion = fusion
+        for i, d in enumerate((1, 3, 5), 1):
+            setattr(self, f"conv{i}", Conv(c1, c1, 3, 1, d=d))
+            setattr(self, f"fusion_{i}", Conv(c1, c1, 1))
+        if fusion == "adaptive":
+            self.fusion_4 = Conv(3 * c1, 3, 1)
+
+    def forward(self, x):
+        xs = [getattr(self, f"conv{i}")(x) for i in (1, 2, 3)]
+        fs = [getattr(self, f"fusion_{i}")(t) for i, t in enumerate(xs, 1)]
+        if self.fusion == "weight":
+            return fs[0] + fs[1] + fs[2]
+        if self.fusion == "adaptive":
+            w = torch.softmax(self.fusion_4(torch.cat(fs, 1)), 1)
+            return xs[0] * w[:, 0:1] + xs[1] * w[:, 1:2] + xs[2] * w[:, 2:3]
+        return torch.cat(fs, 1)
+
+
+class SimAMWithSlicing(nn.Module):
+    """SimAM on each of the four blocks the map's halves cut (h // 2 and
+    w // 2 rows and columns first; layers_zoo.py:815): a block of h w / 4
+    pixels divides by h w / 4 - 1, so a 2x2 map gives 0 / 0."""
+
+    def __init__(self, c1: int = 0, e_lambda: float = 1e-4):
+        super().__init__()
+        self.e_lambda = e_lambda
+
+    def forward(self, x):
+        refuse_strip(self)
+        bh, bw = x.shape[2] // 2, x.shape[3] // 2
+        rows = [torch.cat([_simam(r[:, :, :, :bw], self.e_lambda), _simam(r[:, :, :, bw:], self.e_lambda)], 3)
+                for r in (x[:, :, :bh], x[:, :, bh:])]
+        return torch.cat(rows, 2)
+
+
+class C3CBAM(nn.Module):
+    """Plain CBAM, whatever the name and the row's args (layers_zoo.py:669):
+    the channel gate `channel_attention` (ratio 16), then the 7x7 spatial
+    gate `spatial_attention`. Channel-preserving."""
+
+    def __init__(self, c1: int, c2: int = 0):
+        super().__init__()
+        self.channel_attention = L.ChannelAttentionModule(c1, 16)
+        self.spatial_attention = L.SpatialAttentionModule(7)
+
+    def forward(self, x):
+        x = self.channel_attention(x) * x
+        return self.spatial_attention(x) * x
+
+
+class Conv2Former(nn.Module):
+    """n ConvBlock2F `blk<i>` with MLP width `mid` (the row's c2, scaled);
+    channel-preserving (layers_zoo.py:592)."""
+
+    def __init__(self, c1: int, mid: int = 0, n: int = 1):
+        super().__init__()
+        self.n = n
+        for i in range(n):
+            setattr(self, f"blk{i}", ConvBlock2F(c1, mid))
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = getattr(self, f"blk{i}")(x)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# the multi-scale fusions (chs: the channels of each input)
+# ---------------------------------------------------------------------------
+
+
+class SDI(nn.Module):
+    """Scale-wise decoupled interaction (layers_zoo.py:1388): each input
+    resized to the first's size (resize_to), through its biased 3x3
+    `conv<i>` to c2, all multiplied together."""
+
+    def __init__(self, chs: Sequence[int], c2: int):
+        super().__init__()
+        self.n = len(chs)
+        for i, c in enumerate(chs):
+            setattr(self, f"conv{i}", ConvRaw(c, c2, 3, 1, 1))
+
+    def forward(self, xs: List[torch.Tensor]):
+        refuse_strip(self)
+        hw = tuple(xs[0].shape[2:])
+        out = None
+        for i, x in enumerate(xs):
+            y = getattr(self, f"conv{i}")(resize_to(x, hw))
+            out = y if out is None else out * y
+        return out
+
+
+class BiFPNSDI(nn.Module):
+    """Weighted fusion at the least height among the inputs
+    (layers_zoo.py:1408): each input resized there (resize_to), through its
+    biased 3x3 `conv<i>` to c2, weighted by `w` / (sum(swish(w)) + 1e-4)
+    (`w` ones at init; raw over swish, as in the JAX package; float32, cast
+    to the maps' dtype)."""
+
+    def __init__(self, chs: Sequence[int], c2: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(len(chs)))
+        for i, c in enumerate(chs):
+            setattr(self, f"conv{i}", ConvRaw(c, c2, 3, 1, 1))
+
+    def forward(self, xs: List[torch.Tensor]):
+        refuse_strip(self)
+        hw = tuple(min((tuple(x.shape[2:]) for x in xs), key=lambda s: s[0]))
+        w = self.w.float()
+        norm = w / (F.silu(w).sum() + 1e-4)
+        out = None
+        for i, x in enumerate(xs):
+            y = getattr(self, f"conv{i}")(resize_to(x, hw))
+            y = norm[i].to(y.dtype) * y
+            out = y if out is None else out + y
+        return out
+
+
+class BiFPNs(nn.Module):
+    """Swish-normalised weighted sum (layers_zoo.py:1431): each input
+    through its bias-free 1x1 `conv<i>` to c2, weighted by swish(w) /
+    (sum(swish(w)) + 1e-4) (`w` normal(1.0) at init; float32, cast to the
+    maps' dtype)."""
+
+    def __init__(self, chs: Sequence[int], c2: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(len(chs)))
+        for i, c in enumerate(chs):
+            setattr(self, f"conv{i}", ConvRaw(c, c2, 1, bias=False))
+
+    def forward(self, xs: List[torch.Tensor]):
+        sw = F.silu(self.w.float())
+        norm = sw / (sw.sum() + 1e-4)
+        out = None
+        for i, x in enumerate(xs):
+            y = getattr(self, f"conv{i}")(x)
+            y = norm[i].to(y.dtype) * y
+            out = y if out is None else out + y
+        return out
+
+
+class BiFusion(nn.Module):
+    """YOLOv6's BiFusion of [coarse, mid, fine] (layers_zoo.py:1452): Conv
+    `cv1` of the coarse map and ConvTransposeLayer `upsample` (2x2, stride
+    2), Conv `cv2` of the mid map, Conv `cv3` of the fine map and Conv
+    `downsample` (3x3, stride 2), all to c2, concatenated into Conv
+    `cv_out`. The output lies at the mid map's scale."""
+
+    def __init__(self, chs: Sequence[int], c2: int):
+        super().__init__()
+        self.cv1 = Conv(chs[0], c2, 1, 1)
+        self.upsample = ConvTransposeLayer(c2, c2, 2, 2)
+        self.cv2 = Conv(chs[1], c2, 1, 1)
+        self.cv3 = Conv(chs[2], c2, 1, 1)
+        self.downsample = Conv(c2, c2, 3, 2)
+        self.cv_out = Conv(3 * c2, c2, 1, 1)
+
+    def forward(self, xs: List[torch.Tensor]):
+        x0 = self.upsample(self.cv1(xs[0]))
+        x2 = self.downsample(self.cv3(xs[2]))
+        return self.cv_out(torch.cat([x0, self.cv2(xs[1]), x2], 1))
+
+
+class SF(nn.Module):
+    """Simplified fusion (layers_zoo.py:1472): the first map through
+    ConvTransposeLayer `upsample` (2x2, stride 2) and Conv `cv1` (3x3), the
+    second as it is, the third through the depthwise 1x1 Conv `cv3` and
+    Conv `downsample` (3x3, stride 2); concatenated (c2 the sum of the
+    inputs' channels)."""
+
+    def __init__(self, chs: Sequence[int]):
+        super().__init__()
+        c0, c2in = chs[0], chs[2]
+        self.upsample = ConvTransposeLayer(c0, c0, 2, 2)
+        self.cv1 = Conv(c0, c0, 3, 1)
+        self.cv3 = Conv(c2in, c2in, 1, 1, g=c2in)
+        self.downsample = Conv(c2in, c2in, 3, 2)
+
+    def forward(self, xs: List[torch.Tensor]):
+        x0 = self.cv1(self.upsample(xs[0]))
+        x2 = self.downsample(self.cv3(xs[2]))
+        return torch.cat([x0, xs[1], x2], 1)
+
+
+class ScalSeq(nn.Module):
+    """Scale-sequence fusion of [P3, P4, P5] (layers_zoo.py:1489): Conv
+    `conv1` / `conv2` (1x1 to c2) of P4 and P5, each resized nearest to
+    P3's size (resize_nearest); the three stacked on a scale axis, the
+    Dense `conv3d` over the channels, one BatchNorm `bn` over every scale,
+    LeakyReLU 0.1, the maximum over the scales. P3 must have c2 channels."""
+
+    def __init__(self, chs: Sequence[int], c2: int):
+        super().__init__()
+        self.conv1 = Conv(chs[1], c2, 1)
+        self.conv2 = Conv(chs[2], c2, 1)
+        self.conv3d = nn.Linear(c2, c2)
+        self.bn = _bn(c2)
+
+    def forward(self, xs: List[torch.Tensor]):
+        refuse_strip(self)
+        p3 = xs[0]
+        b, c, h, w = p3.shape
+        p4 = resize_nearest(self.conv1(xs[1]), (h, w))
+        p5 = resize_nearest(self.conv2(xs[2]), (h, w))
+        t = self.conv3d(torch.stack([p3, p4, p5], 1).permute(0, 1, 3, 4, 2))  # (B, 3, H, W, C)
+        t = self.bn(t.reshape(b * 3, h, w, -1).permute(0, 3, 1, 2))
+        t = F.leaky_relu(t, 0.1)
+        return t.reshape(b, 3, *t.shape[1:]).amax(1)
+
+
+class AttentionModel(nn.Module):
+    """ASF-YOLO's attention_model of [x0, x1] (layers_zoo.py:1516): x0 gated
+    by ECA (the bias-free 1-D flax nn.Conv `ca_conv`, k the odd of (log2(c)
+    + 1) / 2, 'same' padding, over its channel means), plus x1; then
+    coordinate attention: the means over W and over H as one (H + W)-long
+    strip through the bias-free 1x1 `la_conv1` (c / reduction), BatchNorm
+    `la_bn`, ReLU, and the bias-free 1x1 `la_fh` / `la_fw` sigmoid gates
+    along H and W."""
+
+    def __init__(self, chs: Sequence[int], reduction: int = 16):
+        super().__init__()
+        c = chs[0]
+        mid = max(c // reduction, 1)
+        k = L.eca_kernel_size(c)
+        self.ca_conv = nn.Conv1d(1, 1, k, padding=k // 2, bias=False)
+        self.la_conv1 = ConvRaw(c, mid, 1, bias=False)
+        self.la_bn = _bn(mid)
+        self.la_fh = ConvRaw(mid, c, 1, bias=False)
+        self.la_fw = ConvRaw(mid, c, 1, bias=False)
+
+    def forward(self, xs: List[torch.Tensor]):
+        refuse_strip(self)
+        x0, x1 = xs[0], xs[1]
+        v = self.ca_conv(x0.mean((2, 3))[:, None, :])  # (B, 1, C)
+        x = x0 * torch.sigmoid(v)[:, 0, :, None, None] + x1
+        h = x.shape[2]
+        t = torch.cat([x.mean(3, keepdim=True), x.mean(2, keepdim=True).transpose(2, 3)], 2)  # (B, C, H + W, 1)
+        t = torch.relu(self.la_bn(self.la_conv1(t)))
+        sh = torch.sigmoid(self.la_fh(t[:, :, :h]))
+        sw = torch.sigmoid(self.la_fw(t[:, :, h:]))
+        return x * sh * sw.transpose(2, 3)

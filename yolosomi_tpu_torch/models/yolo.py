@@ -32,23 +32,29 @@ LVCBlock and ConvMixer; layers_zoo.py's conv and csp kinds
 (models/layers_zoo.py: SimConv, CoordConv / CoordConvd, ADown,
 DownSimper, ASPP, SPPELAN, SPPF_improve, BasicRFB / BasicRFB_a,
 RepVGGBlock, ACmix, Conv_SWS, SPPCSPCS, CNeB, CSPCM, C3CR, the
-C3_<attention> blocks, C2fBAM, C2f_DWR, VoVGSCSPCBAM) and CPCA. A row of
-any kind but the heads may repeat (JAX's _Repeat). An nn.Upsample row of
-another mode than nearest upsamples nearest, as the JAX package's
-Upsample does, and the parser logs the mode it dropped. Deliberate
-divergences (ROADMAP queue C): a Zoom_cat row's stride is its second
-input's, where its output lies (the JAX parser records the first
-input's); a block with no field but dtype builds from an empty row (the
-JAX parser raises TypeError); gnconv's dim must be its input's channels
-and RFEM's n 1 (the JAX package builds a graph whose recorded widths are
-wrong, or fails, otherwise). A row outside the registry raises KeyError
-naming ROADMAP queue A item 8(d), layers_zoo.py's fusion blocks and their
-row kinds.
+C3_<attention> blocks, C2fBAM, C2f_DWR, VoVGSCSPCBAM) and CPCA; and its
+fusion kinds (the transposed convs ConvTranspose / nn.ConvTranspose2d /
+DWConvTranspose2d, nn.BatchNorm2d, Add / Multiply / CShortcut,
+ContextAggregation / PSContextAggregation, ChannelAttention_HSFPN, CAM,
+SimAMWithSlicing / SimAMWithFlexibleSlicing, C3CBAM, ConvMix,
+Conv2Former, SDI, BiFPNSDI, BiFPNs, BiFusion, SF, ScalSeq,
+attention_model): every name of the JAX registry. A row of any kind but
+the heads may repeat (JAX's _Repeat). An nn.Upsample row of another mode
+than nearest upsamples nearest, as the JAX package's Upsample does, and
+the parser logs the mode it dropped. Deliberate divergences (ROADMAP
+queue C): a Zoom_cat row's stride is its second input's, where its
+output lies (the JAX parser records the first input's); a block with no
+field but dtype builds from an empty row (the JAX parser raises
+TypeError); gnconv's dim must be its input's channels and RFEM's n 1 (the
+JAX package builds a graph whose recorded widths are wrong, or fails,
+otherwise). A row outside the registry raises KeyError, as the JAX
+parser does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -85,6 +91,19 @@ from yolosomi_tpu_torch.utils.general import LOGGER, make_divisible, resolve_dev
 #   plain   : channel-preserving; the args fill the JAX module's fields
 #             (_PLAIN_FIELDS), or cls(*args) / cls(c2) (RepVGGDW)
 #   noarg   : channel-preserving, cls(c1) (the learnable activations)
+#   c2former: channel-preserving; args[0] (scaled) is the MLP width, n the blocks
+#   preserve_args1: channel-preserving, cls(c1, *args[1:]) (args[0] is an ignored c2)
+#   hsfpn   : channel-preserving, cls(c1, *args)
+#   cam     : cls(c1, fusion=args[0]); c2 = 3 c1 for "concat", else c1
+#   nary    : elementwise merge; c2 = the first input's channels
+#   sdi     : cls(chs, c2); c2 = the first input's channels, at its size
+#   bifpnsdi: cls(chs, args[0]), c2 unscaled, at the largest input stride
+#   bifpns  : cls(chs, args[1] or args[0]), c2 unscaled
+#   bifusion: cls(chs, args[3] or args[-1]), c2 unscaled, at the second input's stride
+#   sf      : cls(chs); c2 = the sum of the inputs' channels, at the second input's stride
+#   scalseq : cls(chs, args[0]), c2 unscaled, at the first input's stride
+#   attmodel: cls(chs); c2 = the first input's channels, at its stride
+#   convtranspose: conv's args, c2 scaled; stride / args[2] (else the class's s)
 #   pool    : nn.MaxPool2d [k, s, p]; stride * s
 #   zeropad : nn.ZeroPad2d [(left, right, top, bottom)]
 #   classify: c2 = args[0], the class count, never width-scaled
@@ -245,6 +264,30 @@ _BODY_ZOO: Dict[str, Tuple[Any, str]] = {
     "C2f_DWR": (Z.C2f_DWR, "csp"),
     "VoVGSCSPCBAM": (Z.VoVGSCSPCBAM, "csp"),
     "CPCA": (Z.CPCA, "noarg"),
+    # layers_zoo.py's fusion kinds and the rest of its names (yolosomi_tpu/models/yolo.py:201-224)
+    "Conv2Former": (Z.Conv2Former, "c2former"),
+    "ConvMix": (Z.ConvMix, "preserve_args1"),
+    "SimAMWithSlicing": (Z.SimAMWithSlicing, "preserve_args1"),
+    "SimAMWithFlexibleSlicing": (Z.SimAMWithFlexibleSlicing, "preserve_args1"),
+    "C3CBAM": (Z.C3CBAM, "preserve_args1"),
+    "ContextAggregation": (Z.ContextAggregation, "noarg"),
+    "PSContextAggregation": (Z.PSContextAggregation, "noarg"),
+    "ChannelAttention_HSFPN": (Z.ChannelAttentionHSFPN, "hsfpn"),
+    "CAM": (Z.CAM, "cam"),
+    "Add": (Z.Add, "nary"),
+    "Multiply": (Z.Multiply, "nary"),
+    "CShortcut": (Z.CShortcut, "nary"),
+    "SDI": (Z.SDI, "sdi"),
+    "BiFPNSDI": (Z.BiFPNSDI, "bifpnsdi"),
+    "BiFPNs": (Z.BiFPNs, "bifpns"),
+    "BiFusion": (Z.BiFusion, "bifusion"),
+    "SF": (Z.SF, "sf"),
+    "ScalSeq": (Z.ScalSeq, "scalseq"),
+    "attention_model": (Z.AttentionModel, "attmodel"),
+    "ConvTranspose": (Z.ConvTransposeLayer, "convtranspose"),
+    "nn.ConvTranspose2d": (Z.ConvTranspose2dRaw, "convtranspose"),
+    "DWConvTranspose2d": (Z.DWConvTranspose2d, "convtranspose"),
+    "nn.BatchNorm2d": (Z.BatchNorm2d, "noarg"),
 }
 _REGISTRY.update(_BODY_ZOO)
 STRIPLESS = frozenset(_BODY_ZOO)
@@ -419,8 +462,7 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32, imgs
     for i, (f, n, mname, args) in enumerate(rows):
         mname = str(mname)
         if mname not in _REGISTRY:
-            raise KeyError(f"module '{mname}' not in registry (row {i}): not ported yet (ROADMAP queue A item 8(d): "
-                           "layers_zoo.py's fusion blocks and their row kinds)")
+            raise KeyError(f"module '{mname}' not in registry (row {i}); the registry holds the JAX package's names")
         cls, kind = _REGISTRY[mname]
         tokens = {"nc": nc, "anchors": anchors, "None": None, "True": True, "False": False}
         args = [tokens.get(a, a) if isinstance(a, str) else a for a in args]
@@ -434,6 +476,7 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32, imgs
 
         stride = in_stride(f if isinstance(f, int) else f[0])
         c_in = in_ch(f if isinstance(f, int) else f[0])
+        chs = [in_ch(x) for x in f] if isinstance(f, list) else [c_in]
         gelu_kw = {"approx_gelu": dtype == torch.bfloat16} if cls in _DTYPE_GELU else {}
         # make(c) builds the row's module for c input channels: once for the
         # row, then once for each copy of a repeated row, which takes c2 in
@@ -496,6 +539,38 @@ def parse_model(cfg: dict, ch: int = 3, dtype: torch.dtype = torch.float32, imgs
         elif kind == "noarg":  # the JAX module takes none of the row's args
             c2 = c_in
             make = cls
+        elif kind == "c2former":  # channel-preserving whatever its c2, the blocks' MLP width
+            c2 = c_in
+            mid = args[0] if args[0] == no else make_divisible(args[0] * gw, 8)
+            make = lambda c, reps=n_rep: cls(c, mid, reps)  # noqa: E731
+            n_rep = 1
+        elif kind in ("preserve_args1", "hsfpn"):  # channel-preserving; preserve_args1's args[0] is an ignored c2
+            c2 = c_in
+            margs = args[1:] if kind == "preserve_args1" else args
+            make = lambda c: cls(c, *margs)  # noqa: E731
+        elif kind == "cam":
+            fusion = args[0] if args else "weight"
+            c2 = 3 * c_in if fusion == "concat" else c_in
+            make = lambda c: cls(c, fusion)  # noqa: E731
+        elif kind in ("nary", "sdi", "attmodel"):  # at the first input's channels and stride
+            c2 = c_in
+            make = {"nary": lambda c: cls(), "sdi": lambda c: cls(chs, c2), "attmodel": lambda c: cls(chs)}[kind]
+        elif kind in ("bifpnsdi", "bifpns", "bifusion", "scalseq"):  # c2 raw, never width-scaled
+            c2 = {"bifpnsdi": args[0], "scalseq": args[0], "bifpns": args[1] if len(args) > 1 else args[0],
+                  "bifusion": args[3] if len(args) > 3 else args[-1]}[kind]
+            make = lambda c: cls(chs, c2)  # noqa: E731
+            if kind == "bifpnsdi":
+                stride = max(in_stride(x) for x in f)
+            elif kind == "bifusion":
+                stride = in_stride(f[1])
+        elif kind == "sf":
+            c2 = sum(chs)
+            make = lambda c: cls(chs)  # noqa: E731
+            stride = in_stride(f[1])
+        elif kind == "convtranspose":
+            c2 = args[0] if args[0] == no else make_divisible(args[0] * gw, 8)
+            make = lambda c: cls(c, c2, *args[1:])  # noqa: E731
+            stride /= args[2] if len(args) > 2 else inspect.signature(cls).parameters["s"].default
         elif kind == "plain":
             c2 = c_in
             fields = _PLAIN_FIELDS.get(mname)
@@ -647,8 +722,9 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
     kernels, MHSA's positions N(0, 0.02), Swin's bias table truncated
     N(0, 0.02), the Encoding's uniform codes and scales, ACmix's bare
     (1, 1, 3 heads, kc^2) kernel as a conv kernel and its dep_conv's shift
-    init; the other bare parameters keep their constructors' flax
-    values), then its detection-prior biases
+    init, the transposed convs' kernels as conv kernels, ContextAggregation's
+    `m` zero, BiFPNs' `w` N(0, 1); the other bare parameters keep their
+    constructors' flax values, BiFPNSDI's `w` ones), then its detection-prior biases
     (obj log(8/(640/s)^2), cls log(0.6/(nc-0.99999)))."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
@@ -688,12 +764,18 @@ def init_weights(model: DetectionModel, meta: ModelMeta, seed: int = 0) -> None:
             m.scale.copy_(torch.rand(k, generator=g))
         elif isinstance(m, Z.ACmix):  # its bare (1, 1, 3 heads, kc^2) kernel: variance_scaling(2, fan_out)
             _trunc_normal(m.fc, m.fc.shape[-1], 2.0, g)
-        if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
+        elif isinstance(m, nn.ConvTranspose2d):  # the flax kernel (k, k, c1 / g, c2): variance_scaling(2, fan_out)
+            _trunc_normal(m.weight, m.weight.shape[1] * m.groups * m.weight.shape[2] * m.weight.shape[3], 2.0, g)
+        elif isinstance(m, Z.BiFPNs):  # flax normal(1.0)
+            nn.init.normal_(m.w, generator=g)
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)) and m.bias is not None:
             m.bias.zero_()
     for m in model.modules():  # after the generic pass, which also reached their children
         D.init_dcn_heads(m, g)
         if isinstance(m, Z.ACmix):
             m.shift_init()
+        elif isinstance(m, Z.ContextAggregation):  # its bare flax nn.Conv `m`: zeros
+            m.m.weight.zero_()
     if not meta.nl:  # headless: no detection priors
         return
     # the priors go where the JAX init_model puts them (yolo.py:596-626):

@@ -4,7 +4,7 @@ blocks the parser's remaining kinds and layers.py's body zoo bring (no
 shipped config uses them): the upsamplers, fusion, space-to-depth, CSP
 variants and first gates, then the attention family, the Swin / HorNet
 blocks and the RFEM / EVC family, then layers_zoo.py's conv and csp
-kinds. Each keeps the flagship's four ODConv sites.
+kinds, then its fusion kinds. Each keeps the flagship's four ODConv sites.
 
 An edit names flagship rows: `replace` maps a row to its new rows (the
 first takes its place, the rest follow it), `after` inserts rows after
@@ -101,6 +101,29 @@ ZOO_GRAPHS: Dict[str, dict] = {
                               31: [["same", "same", "C2f_DWR", [512]]], 34: [["same", "same", "VoVGSCSPCBAM", [1024]]]},
                   "after": {10: [[-1, 1, "C3_CBAMS", [256]]], 11: [[-1, 1, "C3_CBAMS_DWC", [256]]],
                             12: [[-1, 1, "CPCA", []]]}},
+    # layers_zoo.py's fusion kinds: the transposed-conv upsamplers, the n-ary merges, the context / HS-FPN gates,
+    # Conv2Former, the sliced SimAMs (SimAMWithFlexibleSlicing's 16x16 tiles on the P2 lateral: 1 at 64 px, 100 at
+    # 640 px), C3CBAM, ConvMix and a standalone BatchNorm
+    "zoo-tconv": {"replace": {14: [[-1, 1, "ConvTranspose", [256, 2, 2]]],
+                              18: [[-1, 1, "nn.ConvTranspose2d", [256, 2, 2]]],
+                              22: [[-1, 1, "DWConvTranspose2d", [256, 2, 2]]],
+                              15: [[[-1, 12], 1, "Add", []]], 19: [[[-1, 11], 1, "CShortcut", []]],
+                              23: [[[-1, 10], 1, "Multiply", []]],
+                              16: [[-1, 1, "ContextAggregation", []]], 20: [[-1, 1, "PSContextAggregation", []]],
+                              24: [[-1, 1, "ChannelAttention_HSFPN", [4]]], 17: [[-1, 3, "Conv2Former", [256]]]},
+                  "after": {9: [[-1, 1, "nn.BatchNorm2d", []]],
+                            10: [[-1, 1, "SimAMWithSlicing", [256]], [-1, 1, "SimAMWithFlexibleSlicing", [256, 16]]],
+                            11: [[-1, 1, "C3CBAM", [256]]], 12: [[-1, 1, "ConvMix", [256]]]}},
+    # the multi-scale fusions: YOLOv6's BiFusion and SF, BiFPNs, U-Net v2's SDI (growing with aligned corners and
+    # passing its first input on), BiFPNSDI (P2 pooled to P3), ASF-YOLO's ScalSeq and attention_model (fed from
+    # BiFPNSDI's unscaled output, so it builds at any width), CAM on the P5 lateral
+    "zoo-asf": {"replace": {14: [[[13, 12, 11], 1, "BiFusion", [0, 0, 0, 256]]],
+                            15: [[[-1, 12], 1, "BiFPNs", [256, 256]]],
+                            18: [[[17, 11, 10], 1, "SF", []]], 19: [[-1, 1, "Conv", [256, 1, 1]]],
+                            22: [[[10, 21, 17], 1, "SDI", []]],
+                            27: [[[25, -1, 21], 1, "BiFPNSDI", [256]]]},
+                "after": {13: [[-1, 1, "CAM", ["adaptive"]]],
+                          28: [[[27, 12, 13], 1, "ScalSeq", [256]], [[-1, 27], 1, "attention_model", []]]}},
 }
 
 

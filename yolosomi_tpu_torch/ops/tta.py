@@ -20,6 +20,8 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 
+from yolosomi_tpu_torch.models.layers import resize_linear
+
 TTA_SCALES = (1.0, 0.83, 0.67)
 TTA_FLIPS = (None, "lr", None)
 
@@ -32,11 +34,9 @@ def scale_img(img: torch.Tensor, ratio: float, gs: int = 32, pad_value: float = 
         return img
     h, w = img.shape[2:]
     nh, nw = int(h * ratio), int(w * ratio)
-    out = F.interpolate(img.to(torch.promote_types(img.dtype, torch.float32)), size=(nh, nw), mode="bilinear",
-                        align_corners=False, antialias=True)
     ph = math.ceil(h * ratio / gs) * gs - nh
     pw = math.ceil(w * ratio / gs) * gs - nw
-    return F.pad(out.to(img.dtype), (0, pw, 0, ph), value=pad_value)
+    return F.pad(resize_linear(img, (nh, nw)), (0, pw, 0, ph), value=pad_value)
 
 
 def descale_pred(pred: torch.Tensor, flip: Optional[str], scale: float, img_w: int) -> torch.Tensor:

@@ -29,7 +29,10 @@ Conv2d a bare ConvRaw `<name>/conv`, except DCNv2's `conv_offset_mask`,
 DCNv3's `dw_conv` and the children a module lists in `flax_convs`
 (ACmix's `dep_conv`) (flax nn.Conv, no wrapper) and EMA-CBAM's `fc` pair
 (flax Dense kernels held as 1x1 Conv2d). ACmix's (1, 1, 3 heads, kc^2)
-`fc` is `flax_shaped` and its 0-d `rate1` / `rate2` pass as they are.
+`fc` is `flax_shaped` and its 0-d `rate1` / `rate2` pass as they are. A
+transposed conv (nn.ConvTranspose2d: models/layers_zoo.py's
+FlaxConvTranspose, flipped, and DWConvTranspose2d, regrouped) converts
+its kernel by its own `from_flax` / `to_flax`.
 """
 
 from __future__ import annotations
@@ -135,13 +138,17 @@ def _key_candidates(path: List[str], collection: str, model: nn.Module) -> List[
     return out
 
 
-def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...], flax_shaped: bool = False) -> np.ndarray:
+def _to_torch_layout(v: np.ndarray, leaf: str, torch_shape: Tuple[int, ...], flax_shaped: bool = False,
+                     module: nn.Module = None) -> np.ndarray:
     """Flax layout -> torch layout: ODConv bank (K,kh,kw,I,O) -> (K,O,I,kh,kw),
     HWIO -> OIHW, a 1-D conv's WIO -> OIW (ECA), a Dense kernel -> a 1x1
-    Conv2d or a Linear weight; a 3-D DCNv2 weight (P, C, c2), 1-D leaves and
-    a module's `flax_shaped` parameters pass through."""
+    Conv2d or a Linear weight, a transposed conv's kernel by its module's
+    `from_flax`; a 3-D DCNv2 weight (P, C, c2), 1-D leaves and a module's
+    `flax_shaped` parameters pass through."""
     v = np.asarray(v, np.float32)
-    if flax_shaped:
+    if leaf == "kernel" and hasattr(module, "from_flax"):
+        v = module.from_flax(v)
+    elif flax_shaped:
         pass
     elif leaf == "implicit":  # (1, 1, 1, C) -> (1, C, 1, 1)
         v = v.reshape(1, -1, 1, 1)
@@ -205,7 +212,7 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> Tuple[List[st
             if shaped and tuple(np.shape(value)) != tuple(dst.shape) and hasattr(mod, "refit"):
                 mod.refit(name, tuple(np.shape(value)))  # a map-sized parameter takes the file's size (MHSA)
                 dst = getattr(mod, name).data
-            dst.copy_(torch.tensor(_to_torch_layout(value, path[-1], tuple(dst.shape), shaped), dtype=dst.dtype))
+            dst.copy_(torch.tensor(_to_torch_layout(value, path[-1], tuple(dst.shape), shaped, mod), dtype=dst.dtype))
             matched[key] = True
     unmatched = [k for k in state if k not in matched and not k.endswith("num_batches_tracked")]
     return unmatched, unused
@@ -216,7 +223,8 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> Tuple[List[st
 # ---------------------------------------------------------------------------
 
 # torch module path -> flax path, applied in order to the dotted path of the
-# module that holds a leaf (the inverse of _path_to_key's rewrites)
+# module that holds a leaf (the inverse of _path_to_key's rewrites; a block
+# exported on its own has its lists at the path's start)
 _INVERSE_RE = (
     (re.compile(r"^model\.(\d+)"), lambda m: f"layers_{m.group(1)}"),
     (re.compile(r"^(layers_\d+)\.(\d+)"), lambda m: f"{m.group(1)}.mods_{m.group(2)}"),
@@ -227,9 +235,8 @@ _INVERSE_RE = (
     (re.compile(r"\.DCovN\.(\d+)\.1$"), lambda m: f".pw{int(m.group(1)) - 3}"),
     (re.compile(r"\.DCovN\.(\d+)\.3$"), lambda m: f".bn_pw{int(m.group(1)) - 3}"),
     (re.compile(r"\.(?:shared_MLP|fc)\.([02])$"), lambda m: f".fc{int(m.group(1)) // 2 + 1}"),
-    (re.compile(r"\.(m|se|eca|dw|pw|bn_dw|bn_pw)\.(\d+)"), lambda m: f".{m.group(1)}{m.group(2)}"),
-    (re.compile(r"\.tr\.(\d+)"), lambda m: f".tr{m.group(1)}"),
-    (re.compile(r"\.(cv1|ffn)\.(\d+)"), lambda m: f".{m.group(1)}_{m.group(2)}"),
+    (re.compile(r"(^|\.)(m|se|eca|dw|pw|bn_dw|bn_pw|tr)\.(\d+)"), lambda m: f"{m.group(1)}{m.group(2)}{m.group(3)}"),
+    (re.compile(r"(^|\.)(cv1|ffn)\.(\d+)"), lambda m: f"{m.group(1)}{m.group(2)}_{m.group(3)}"),
 )
 _NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
 
@@ -261,6 +268,8 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
         layout = lambda t: t.permute(0, 3, 4, 2, 1)  # noqa: E731  (K,O,I,kh,kw) -> (K,kh,kw,I,O)
     elif isinstance(mod, H.ImplicitA):
         layout = lambda t: t.reshape(1, 1, 1, -1)  # noqa: E731
+    elif isinstance(mod, nn.ConvTranspose2d) and name == "weight":  # the module's own flax kernel layout
+        layout = mod.to_flax
     elif name in getattr(mod, "hwio", ()):  # a bare conv kernel (TridentBlock's, MLCA's): OIHW -> HWIO
         layout = lambda t: t.permute(2, 3, 1, 0)  # noqa: E731
     collection = "params"
@@ -268,7 +277,7 @@ def _flax_leaf(model: nn.Module, key: str) -> Tuple[str, List[str], Callable[[to
         collection, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[name]
     elif isinstance(mod, _NORMS) and name == "weight":
         name = "scale"
-    elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear, DenseGeneral)) and name == "weight":
+    elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear, DenseGeneral)) and name == "weight":
         name = "kernel"
     return collection, [p for p in path.split(".") if p] + [name], layout
 
@@ -348,7 +357,7 @@ def import_param_tree(model: nn.Module, names: List[str], tree: dict) -> List[to
         for p in path:
             node = node[p]
         out.append(torch.from_numpy(np.array(_to_torch_layout(node, path[-1], tuple(params[name].shape),
-                                                              _flax_shaped(model, name)))))
+                                                              _flax_shaped(model, name), _holder(model, name)[0]))))
     return out
 
 
@@ -366,7 +375,7 @@ def load_matching_params(model: nn.Module, params: dict) -> Tuple[int, int]:
         if node is None:
             continue
         try:
-            value = _to_torch_layout(node, path[-1], tuple(p.shape), _flax_shaped(model, name))
+            value = _to_torch_layout(node, path[-1], tuple(p.shape), _flax_shaped(model, name), _holder(model, name)[0])
         except ValueError:  # another shape
             continue
         p.copy_(torch.from_numpy(np.array(value)))
