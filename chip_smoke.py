@@ -59,7 +59,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     plain_version() and a split of a bf16 batch into model and NMS
  7. checkpoints and entry points, at full width (640 px, nc 10, bf16):
     the flagship from seed 0 (f32) is exported through the inverse weight
-    bridge to a weights file with anchors 1.25 x the config's (~268 MB)
+    bridge to a weights file with anchors 1.25 x the config's (~268 MB;
+    kept for phase 18)
     and stripped to a bf16 copy; Runner(weights=...) must carry those
     anchors, answer a b8 batch with the bits of a seed-0 Runner built with
     them in its config (and other rows than with the config's anchors),
@@ -285,6 +286,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ZOO_STEPS timed bf16 b8 steps with 4 + 4 + 4 launches each and the
     peak memory, then the f32 b2 step against plain_version() (phase
     8(b)'s rule)
+18. interchange, on phase 7's flagship weights file (f32, seed 0, nc 10,
+    anchors 1.25 x the config's): its reference state dict
+    (utils/torch_convert.reference_state_dict, the head's anchors buffer
+    in grid units) written as a `.pt` and converted by `python -m
+    yolosomi_tpu_torch.convert_torch`; every leaf of the converted file
+    bitwise equal to phase 7's; Runner(converted) serves phase 7's b8 bf16
+    batch with phase 7's rows bitwise, its anchors from the `.json`, and
+    odconv_s2 4 launches with the counts set to 0 just before. Then
+    TorchScript and ONNX of the f32 flagship at b1 640 px
+    (utils/onnx_export.py), each step's seconds and MB: the TorchScript
+    artifact, loaded back on the card, gives the bits of the same model's
+    plain forward and decode with no kernel launched, and the kernel path
+    (4 odconv_s2) is no further from the float64 plain model than twice
+    the artifact is (phase 5's rule); a trace outside plain_version()
+    raises at the first odconv_s2 launch; the ONNX file's opset, node and
+    initializer counts and op histogram (no onnxruntime on the card:
+    structure only)
 The last three lines are the card, the kernel summary and the device JSON.
 Longer tables (the profilers' kernel breakdowns) go to chiprun_out/.
 """
@@ -317,9 +335,9 @@ import torch
 import torch.nn.functional as F
 import yaml
 
-from yolosomi_tpu_torch import detect, hubconf, train, val
+from yolosomi_tpu_torch import convert_torch, detect, hubconf, train, val
 from yolosomi_tpu_torch.data.datasets import DataLoader, DetectionDataset, LoadImages, pad_targets
-from yolosomi_tpu_torch.engine.checkpoint import save_variables, strip_checkpoint
+from yolosomi_tpu_torch.engine.checkpoint import load_checkpoint, save_variables, strip_checkpoint
 from yolosomi_tpu_torch.engine.distill import plant_adapters, wrap_loss_with_distillation
 from yolosomi_tpu_torch.engine.evolve import META
 from yolosomi_tpu_torch.engine.optim import make_optimizer
@@ -352,6 +370,8 @@ from yolosomi_tpu_torch.utils.boxes import scale_coords, xyxy2xywhn
 from yolosomi_tpu_torch.utils.config import find_config, load_hyp, load_model_cfg
 from yolosomi_tpu_torch.utils.general import LOGGER
 from yolosomi_tpu_torch.utils.msgpack import msgpack_restore
+from yolosomi_tpu_torch.utils.onnx_export import DecodedModel, export_onnx, export_torchscript, onnx_summary
+from yolosomi_tpu_torch.utils.torch_convert import reference_state_dict
 from yolosomi_tpu_torch.utils.weights import conv_raw_paths, export_jax_variables
 
 IMGSZ = 640
@@ -1357,14 +1377,16 @@ def multipart(payload: bytes, boundary: bytes = b"somi-smoke-boundary"):
     return body, "multipart/form-data; boundary=" + boundary.decode()
 
 
-def entry_points(gpu: str) -> None:
+def entry_points(gpu: str, workdir: Path) -> dict:
     """Phase 7: weights files, Runner(weights=...), detect, the ensemble and
-    the REST server, at full width."""
+    the REST server, at full width. The flagship's f32 weights file stays
+    in `workdir` for phase 18, which gets it with its anchors, the b8
+    batch and the rows Runner(weights=...) gave for it."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         # -- the flagship's round trip through a weights file ---------------
-        f32_path, bf16_path = tmp / "somi-f32.msgpack", tmp / "somi-bf16.msgpack"
+        f32_path, bf16_path = workdir / "somi-f32.msgpack", tmp / "somi-bf16.msgpack"
         anchors, t_build, t_save = save_model(f32_path, "yolo-somi", seed=0, anchor_scale=ANCHOR_SCALE)
         t0 = time.perf_counter()
         strip_checkpoint(f32_path, bf16_path)
@@ -1392,6 +1414,7 @@ def entry_points(gpu: str) -> None:
         got = runner(batch)
         assert got.shape == (BATCH, 300, 6) and np.isfinite(got).all()
         assert np.array_equal(got, direct(batch)), "Runner(weights=...) and the seed-0 Runner disagree"
+        handed = dict(weights=f32_path, anchors=anchors, batch=batch, rows=got)
         with torch.device("meta"):  # the config's anchors; nothing is allocated
             config_meta = parse_model(load_model_cfg(find_config("yolo-somi")))[1]
         config_anchors = fused_postprocess(direct.forward(batch), config_meta.anchors_px,
@@ -1560,6 +1583,7 @@ def entry_points(gpu: str) -> None:
         print(f"checkpoint: yolo-somi-t (coupled Detect) through export_jax_variables loads {len(state)} tensors "
               f"bitwise equal to the seed-0 model; b{BATCH} rows bitwise equal; no kernel launched")
     print(f"checkpoints and entry points on {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return handed
 
 
 # ---------------------------------------------------------------------------
@@ -4342,6 +4366,121 @@ def body_zoo_phase(gpu: str) -> dict:
     return dict(served={k: v["launches"]["odconv_s2"] // HEAD_REQUESTS for k, v in served.items()}, trained=trained)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: weights in and out -- the reference's state dicts, TorchScript and ONNX
+# ---------------------------------------------------------------------------
+
+
+def file_leaves(tree: dict, prefix: str = ""):
+    """(slash-joined path, array) of every leaf of a weights file's tree."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from file_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def interchange_phase(gpu: str, handed: dict, tmp: Path) -> dict:
+    """Phase 18 on phase 7's flagship weights file (f32, seed 0, nc 10,
+    anchors ANCHOR_SCALE x the config's): its reference state dict
+    (reference_state_dict) as a `.pt`, converted by `python -m
+    yolosomi_tpu_torch.convert_torch`; the converted file holds phase 7's
+    weights bitwise, and Runner(converted) serves phase 7's b8 bf16 batch
+    with phase 7's rows bitwise, odconv_s2 4 launches with the counts set
+    to 0 just before. Then TorchScript and ONNX of the f32 flagship at b1
+    640 px (utils/onnx_export.py, as export.py calls it), each step's
+    seconds and MB; the TorchScript artifact loaded back on the card
+    against the same model's plain forward (bitwise expected) and, with the
+    kernel path, against the float64 plain model by phase 5's rule (the
+    kernels' rows no further from f64 than twice the artifact's); a trace
+    outside plain_version() raises at the first odconv_s2 launch; the ONNX
+    file's structure (no onnxruntime on the card). Returns odconv_s2's
+    launches per served batch."""
+    t_phase = time.perf_counter()
+    f32 = Runner("yolo-somi", str(handed["weights"]), dtype=torch.float32, imgsz=IMGSZ, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt = tmp / "somi-reference.pt"
+    torch.save({k: torch.from_numpy(v) for k, v in reference_state_dict(f32.model, f32.meta).items()}, pt)
+    t1 = time.perf_counter()
+    converted = convert_torch.main(convert_torch.parse_opt(["--pt", str(pt), "--cfg", "yolo-somi", "--nc", "10",
+                                                            "--out", str(tmp / "somi-converted.msgpack")]))
+    t2 = time.perf_counter()
+    pt_mb = pt.stat().st_size / 1e6
+    pt.unlink()
+    mine, theirs = dict(file_leaves(load_checkpoint(converted))), dict(file_leaves(load_checkpoint(handed["weights"])))
+    theirs.pop("anchors")  # phase 7's file carries its anchors; the converted one has them in its .json
+    assert sorted(mine) == sorted(theirs), sorted(set(mine) ^ set(theirs))[:5]
+    bad = [k for k in mine if mine[k].dtype != theirs[k].dtype or not np.array_equal(mine[k], theirs[k])]
+    assert not bad, bad[:5]
+    n_leaves = len(mine)
+    del mine, theirs
+    t3 = time.perf_counter()
+    served = Runner("yolo-somi", str(converted), dtype=torch.bfloat16, imgsz=IMGSZ, device="cuda")
+    assert np.array_equal(served.meta.anchors_px, handed["anchors"]), served.meta.anchors_px
+    reset_counts()
+    rows = served(handed["batch"])
+    launches = launch_counts()
+    assert launches == only(odconv_s2=PER_BATCH["yolo-somi"]["odconv_s2"]), launches
+    assert np.array_equal(rows, handed["rows"]), "rows served from the converted state dict differ from phase 7's"
+    t4 = time.perf_counter()
+    del served
+    print(f"interchange on {gpu}: yolo-somi reference state dict {pt_mb:.1f} MB written in {t1 - t0:.2f} s, "
+          f"convert_torch {t2 - t1:.2f} s ({converted.stat().st_size / 1e6:.1f} MB), its {n_leaves} leaves "
+          f"bitwise equal to phase 7's file ({t3 - t2:.2f} s); Runner(converted) b{BATCH} bf16 rows bitwise equal "
+          f"to phase 7's, anchors from the .json, odconv_s2 {launches['odconv_s2']} launches a batch ({t4 - t3:.2f} s)")
+
+    x = torch.from_numpy(handed["batch"][:1]).cuda().permute(0, 3, 1, 2).float() / 255.0
+    wrapped = DecodedModel(f32.model, f32.meta)
+    reset_counts()
+    with torch.no_grad():
+        try:
+            torch.jit.trace(wrapped, x, check_trace=False)
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("a trace through odconv_s2 outside plain_version() did not raise")
+    assert "plain_version" in refused and not any(launch_counts().values()), (refused, launch_counts())
+    steps = {}
+    for fmt, fn in (("torchscript", export_torchscript), ("onnx", export_onnx)):
+        path = tmp / f"model.{fmt}"
+        t0 = time.perf_counter()
+        fn(f32.model, f32.meta, path, imgsz=IMGSZ, batch=1)
+        steps[fmt] = (path, time.perf_counter() - t0, path.stat().st_size / 1e6)
+    summary = onnx_summary(steps["onnx"][0])
+    assert summary["inputs"] == ["images"] and summary["outputs"] == ["output"] and summary["opset"] == 12
+    assert {"Conv", "Softmax", "Exp", "Sigmoid"} <= set(summary["ops"]), summary["ops"]
+    steps["onnx"][0].unlink()
+    t0 = time.perf_counter()
+    loaded = torch.jit.load(str(steps["torchscript"][0]), map_location="cuda")
+    t_load = time.perf_counter() - t0
+    reset_counts()
+    with torch.no_grad():
+        art = loaded(x)
+        assert not any(launch_counts().values()), launch_counts()  # the artifact runs the plain version
+        with plain_version():
+            plain = wrapped(x)
+            ref64 = decode64(copy.deepcopy(f32.model).double()(x.double()), f32.meta)
+        kernel = wrapped(x)
+    torch.cuda.synchronize()
+    assert launch_counts() == only(odconv_s2=PER_BATCH["yolo-somi"]["odconv_s2"]), launch_counts()
+    assert art.shape == plain.shape == (1, ref64.shape[1], 5 + f32.meta.nc) and torch.isfinite(art).all()
+    same = torch.equal(art, plain)
+    assert same, f"the artifact and the plain forward differ by {(art - plain).abs().max().item():.3e}"
+    a_err, k_err = ((t.double() - ref64).abs().max().item() for t in (art, kernel))
+    assert k_err <= 2 * a_err + 1e-6, (k_err, a_err)
+    print(f"interchange export on {gpu}: yolo-somi f32 b1 {IMGSZ} px, TorchScript {steps['torchscript'][2]:.1f} MB in "
+          f"{steps['torchscript'][1]:.2f} s (loaded on the card in {t_load:.2f} s), ONNX {steps['onnx'][2]:.1f} MB in "
+          f"{steps['onnx'][1]:.2f} s; the artifact's rows bitwise equal to the plain forward's, no kernel launched; "
+          f"vs float64: artifact {a_err:.3e}, kernels (4 odconv_s2) {k_err:.3e}; a trace outside plain_version() "
+          f"raised: {refused.split(';')[0]}")
+    print(f"interchange onnx on {gpu}: opset {summary['opset']}, {summary['n_nodes']} nodes, "
+          f"{summary['n_initializers']} initializers, ops {json.dumps(dict(sorted(summary['ops'].items())))}")
+    steps["torchscript"][0].unlink()
+    print(f"interchange on {gpu}: phase 18 {time.perf_counter() - t_phase:.1f} s")
+    return {"odconv_s2": launches["odconv_s2"]}
+
+
 def build_all(later: tuple = ()):
     """One nvcc per source, all started together. Waits for every source
     but those in `later`, which go on building beside the phases that do
@@ -4431,11 +4570,12 @@ def main() -> int:
     for name in PARITY:
         parity(name)
     eval_dir = tempfile.TemporaryDirectory()  # phase 6's flagship set, evaluated again by phases 12 and 15
+    interchange_dir = tempfile.TemporaryDirectory()  # phase 7's flagship weights file, read again by phase 18
     try:
         bf16_eval = evaluate(gpu, workdir=Path(eval_dir.name))
         evaluate(gpu, "yolo-somi-dcn")
         evaluate(gpu, "yolo-somi-dcn", offsets="zero")  # where the random offsets' mAP@.5:.95 gap comes from
-        entry_points(gpu)
+        handed = entry_points(gpu, Path(interchange_dir.name))
         trained = training(gpu)
         steps = TRAIN_IMAGES // BATCH * (TRAIN_EPOCHS + 1)
         t0 = time.perf_counter()
@@ -4447,8 +4587,10 @@ def main() -> int:
         tta = tta_phase(gpu, meta, Path(eval_dir.name))
         heads = heads_phase(gpu)
         zoo = body_zoo_phase(gpu)
+        interchange = interchange_phase(gpu, handed, Path(interchange_dir.name))
     finally:
         eval_dir.cleanup()
+        interchange_dir.cleanup()
 
     kernels = [
         dict(kernel_entry("odconv_s2", "odconv_s2.cu", "yolosomi_tpu/ops/odconv_pallas.py:111",
@@ -4508,6 +4650,8 @@ def main() -> int:
         # phase 17: launches per served batch of each body zoo graph, per train step of each trained graph
         if entry["name"] == "odconv_s2":
             entry["zoo_body_launches_per_batch"] = zoo["served"]
+            # phase 18: launches per batch served from the converted reference state dict
+            entry["interchange_launches_per_batch"] = interchange["odconv_s2"]
         per_job = {g: counts[entry["name"]] for g, counts in zoo["trained"].items() if counts.get(entry["name"])}
         if per_job:
             entry["zoo_body_launches_per_train_step"] = per_job

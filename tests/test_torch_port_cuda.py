@@ -1389,3 +1389,35 @@ def test_fusion_zoo_graph_forward_on_cuda_matches_the_plain_version(cuda, name):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_traced_flagship_on_cuda_runs_the_plain_version(cuda, tmp_path):
+    """A trace of the small flagship on the card (width 0.25, depth 0.33,
+    seed-0 weights, nc 3, f32 b2 at 64 px) outside plain_version() raises
+    at its first odconv_s2 launch, which the tracer cannot see; inside it,
+    the TorchScript artifact, saved and loaded back, gives the bits of the
+    model's plain forward and decode, and its kernel path within the
+    whole-model f32 tolerance of
+    test_runner_from_a_weights_file_reaches_the_kernels."""
+    from yolosomi_tpu_torch.utils.onnx_export import DecodedModel, export_torchscript
+
+    cfg = dict(load_model_cfg(find_config("yolo-somi")))
+    cfg["width_multiple"], cfg["depth_multiple"] = 0.25, 0.33
+    model, meta = build_model(cfg, nc=3, device="cuda", seed=0)
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 3, 64, 64), np.float32)).cuda()
+    wrapped = DecodedModel(model, meta)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="plain_version"):
+        torch.jit.trace(wrapped, x, check_trace=False)
+    before = odconv_s2.launches
+    export_torchscript(model, meta, tmp_path / "m.torchscript", imgsz=64, batch=2)
+    loaded = torch.jit.load(str(tmp_path / "m.torchscript"))
+    with torch.no_grad():
+        got = loaded(x)
+        with plain_version():
+            want = wrapped(x)
+        kernels = wrapped(x)
+    torch.cuda.synchronize()
+    assert odconv_s2.launches - before == 4  # the kernel path's forward only
+    assert got.device == x.device and torch.equal(got, want)
+    torch.testing.assert_close(kernels, want, atol=1e-3, rtol=1e-3)

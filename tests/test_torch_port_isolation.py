@@ -1,7 +1,9 @@
 """yolosomi_tpu_torch and chip_smoke.py stand alone: no jax, jaxlib, flax,
 msgpack (the card has no such package; the port has its own codec),
-yolosomi_tpu or root-CLI import (the JAX package's detect.py, serve.py,
-...), checked in the source and in a fresh interpreter."""
+yolosomi_tpu, tools/ or root-CLI import (the JAX package's detect.py,
+serve.py, export.py, ...), checked in the source and in a fresh
+interpreter, for every module of the port and for its `-m` entry points
+run as scripts."""
 
 import ast
 import subprocess
@@ -9,8 +11,12 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "yolosomi_tpu", "detect", "serve", "hubconf", "wbf", "val", "train",
-             "export", "bench")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "yolosomi_tpu", "tools", "detect", "serve", "hubconf", "wbf", "val",
+             "train", "export", "bench")
+# the port's CLIs that a user runs as `python -m <module>`
+ENTRY_POINTS = ("yolosomi_tpu_torch.convert_torch", "yolosomi_tpu_torch.export", "yolosomi_tpu_torch.detect",
+                "yolosomi_tpu_torch.val", "yolosomi_tpu_torch.train", "yolosomi_tpu_torch.serve",
+                "yolosomi_tpu_torch.wbf")
 
 
 def _port_sources():
@@ -52,3 +58,23 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_entry_points_run_as_scripts_load_no_jax():
+    """Each `python -m` entry point, run as __main__ with --help, imports
+    nothing forbidden (a module run as a script is a fresh import of it)."""
+    code = (
+        "import runpy, sys\n"
+        f"for m in {ENTRY_POINTS!r}:\n"
+        "    sys.argv = [m, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module(m, run_name='__main__', alter_sys=True)\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (m, e.code)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("ok")

@@ -22,7 +22,7 @@ classifier from a headless config (classifier.yaml's Classify tail; random
 weights from seed 0 without a weights file) as a Runner at 224 px, bf16,
 on the same device, and keeps the detections whose crop it classifies
 alike; `run` also takes any callable classifier. Feature maps
-(`--visualize`, ROADMAP queue A item 9) raise NotImplementedError.
+(`--visualize`, ROADMAP queue A item 9(b)) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def run(
 ):
     """Detect on every image and frame of `source`; returns the run directory."""
     if visualize:
-        raise NotImplementedError("feature-map plots (visualize; ROADMAP queue A item 9) are not ported yet")
+        raise NotImplementedError("feature-map plots (visualize; ROADMAP queue A item 9(b)) are not ported yet")
     if names is None and data:
         names = load_data_cfg(find_config(data, "data")).get("names")
     save_img = not nosave

@@ -49,9 +49,16 @@ def checkpoint_variables(ckpt: dict, ema: bool = True) -> dict:
 
 def load_artifact(path):
     """(flax variables, anchors (nl, na, 2) float32 or None) of a weights
-    file or a full checkpoint (whose EMA weights are taken)."""
+    file or a full checkpoint (whose EMA weights are taken). A file without
+    anchors takes the `anchors_px` of the `.json` beside it, where there is
+    one: a converted reference state dict's (convert_torch.py writes them
+    there, as the JAX package's tools/convert_torch.py does, whose Runner
+    reads no such file and serves with the config's anchors)."""
     obj = load_checkpoint(path)
     anchors = obj.get("anchors")
+    side = Path(path).with_suffix(".json")
+    if anchors is None and side.is_file():
+        anchors = json.loads(side.read_text()).get("anchors_px")
     anchors = np.asarray(anchors, np.float32) if anchors is not None else None
     if "ema_params" in obj:
         return checkpoint_variables(obj), anchors

@@ -24,6 +24,12 @@ LVCBlock and ConvMixer, and layers_zoo.py's conv, csp and fusion kinds
 (models/zoo_graphs.py builds fifteen such graphs). `AutoShape(...,
 augment=True)` calls serve with TTA. A config with a row outside the
 registry raises KeyError naming the row, as the JAX package's parser does.
+`weights` is a `.msgpack` / `.ckpt` of either package: a reference PyTorch
+state dict converts first (`python -m yolosomi_tpu_torch.convert_torch`;
+a whole-module pickle of the reference unpickles only beside its `models`
+package), and `python -m yolosomi_tpu_torch.export` writes TorchScript and
+ONNX; the JAX package's other export formats are not ported (ROADMAP
+queue A item 9(c)).
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from yolosomi_tpu_torch.ops import build, plain_active
+from yolosomi_tpu_torch.ops import build, plain_active, refuse_trace
 
 _SOURCE = "dcn.cu"
 _BWD_SOURCE = "dcn_bwd.cu"
@@ -99,6 +99,7 @@ def _check_cuda(name: str, tensors) -> None:
 
 
 def _launch(name: str, fn, ptrs, ints, extra=()) -> None:
+    refuse_trace(name)
     with torch.cuda.device(ptrs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(None if t is None else t.data_ptr() for t in ptrs), *ints, *extra, stream)

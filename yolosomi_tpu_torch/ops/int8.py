@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from yolosomi_tpu_torch.ops import build, plain_active
+from yolosomi_tpu_torch.ops import build, plain_active, refuse_trace
 
 _SOURCE = "conv_int8.cu"
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -365,6 +365,7 @@ def gemm_plan(x_shape, w_shape, stride, padding, dilation, bn: int) -> Plan:
 
 def _launch(x: torch.Tensor, s_a, w_q: torch.Tensor, scale, bias, stride, padding, dilation, groups: int,
             out_dtype: torch.dtype, packed, name: str, plan: Optional[Plan] = None) -> torch.Tensor:
+    refuse_trace(name)
     tensors = [t for t in (x, s_a, w_q, scale, bias, packed) if t is not None]
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):

@@ -26,7 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from yolosomi_tpu_torch.ops import build, plain_active, plain_version  # noqa: F401  (plain_version re-exported)
+from yolosomi_tpu_torch.ops import (build, plain_active, plain_version,  # noqa: F401  (plain_version re-exported)
+                                    refuse_trace)
 
 _SOURCE = "odconv_s2.cu"
 _BWD_SOURCE = "odconv_s2_bwd.cu"
@@ -206,6 +207,7 @@ def _check_cuda(tensors, cin: int, cout: int) -> None:
 
 
 def _launch(fn, args, x: torch.Tensor, what: str) -> None:
+    refuse_trace(what)
     with torch.cuda.device(x.device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -27,7 +27,7 @@ Rounding follows the JAX package: x / s_a, round half to even, clip to
 +-127; w / w_scale the same; s_a = max(a_scale, 1e-8) / 127; the output
 float(acc) * (s_a * w_scale) + bias in float32, cast to the input's dtype.
 The fold compose of that branch (layers.py:227-237) applies only under
-FOLD_W_MODE, which the port leaves out by choice (ROADMAP queue A item 9).
+FOLD_W_MODE, which the port leaves out by choice (ROADMAP queue A item 9(b)).
 """
 
 from __future__ import annotations

@@ -543,7 +543,7 @@ def _main(opt, group):
             if group is None or group.is_main:
                 log_generation(evolve_csv, hyp_g, fi)
             best = max(best, fi)
-        LOGGER.warning("plot_evolve is not ported (utils/plots.py, ROADMAP queue A item 9): no evolve.png")
+        LOGGER.warning("plot_evolve is not ported (utils/plots.py, ROADMAP queue A item 9(b)): no evolve.png")
         LOGGER.info(f"evolution complete: best fitness {best:.4f} ({evolve_csv})")
         return best
     return train(hyp, opt)

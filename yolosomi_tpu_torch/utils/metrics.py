@@ -6,7 +6,7 @@ confidence grid for the PR curves, 101-point interpolated AP, P and R at
 the F1-argmax operating point, fitness weights [0.1, 0.1, 0.1, 0.7] over
 (P, R, mAP@.5, mAP@.5:.95), greedy unique IoU matching at the 10
 thresholds 0.5:0.95 and its alpha-IoU variant. The plots (matplotlib) are
-ROADMAP queue A item 9.
+ROADMAP queue A item 9(b).
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ uses the spatial mesh. `augment` / `--augment` evaluates with test-time
 augmentation (the Runner's TTA under the same protocol, as the JAX
 package's val.py:126; sharded too); with `int8` it is not applied, as the
 JAX package's quantized_infer_fn has none, and a log line says so. Plots
-(matplotlib, ROADMAP queue A item 9) raise NotImplementedError.
+(matplotlib, ROADMAP queue A item 9(b)) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -133,7 +133,7 @@ def run(
     image); the losses are 0 without `compute_loss`. `half` builds the
     Runner in bf16, else f32; a given `runner` keeps its own."""
     if plots:
-        raise NotImplementedError("plots (matplotlib; ROADMAP queue A item 9) are not ported yet")
+        raise NotImplementedError("plots (matplotlib; ROADMAP queue A item 9(b)) are not ported yet")
     t_start = time.time()
     data_dict = load_data_cfg(find_config(data, "data")) if isinstance(data, str) else data
     nc = 1 if single_cls else int(data_dict["nc"])
